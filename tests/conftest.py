@@ -34,6 +34,10 @@ import pytest  # noqa: E402
 def pytest_configure(config):
     config.addinivalue_line(
         "markers",
+        "gpu: needs a CUDA device (the PyTorch port's kernels have no CPU "
+        "mode); skips without one")
+    config.addinivalue_line(
+        "markers",
         "multiprocess: spawns loopback multi-worker processes (slower)")
     config.addinivalue_line(
         "markers",
