@@ -6,7 +6,9 @@ GPU machine that has no JAX installed, without the JAX conftest:
     python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
 
 Each kernel is held against its plain PyTorch version on the card; the
-serving test shows the engine's prefills went through the kernel.
+serving test shows the engine's prefills went through the forward kernel,
+the training test that a train step went through the forward, backward
+and fused Adam kernels.
 """
 
 import numpy as np
@@ -15,6 +17,9 @@ import torch
 
 from tpu_dist_torch.models.transformer import build_transformer_lm
 from tpu_dist_torch.ops import flash_attention as fa
+from tpu_dist_torch.ops import fused
+from tpu_dist_torch.ops.losses import SparseCategoricalCrossentropy
+from tpu_dist_torch.ops.optimizers import Adam
 from tpu_dist_torch.serve.engine import ServeEngine
 
 
@@ -96,3 +101,153 @@ def test_cuda_model_raises_on_a_head_dim_the_kernel_does_not_take(
                                                 match="kernel takes"):
         model(tokens)
     assert fa.flash_attention_fwd.launches == before
+
+
+def _bwd_inputs(shape, dtype, causal, scale, device, seed):
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn(shape, generator=gen).to(device, dtype)
+                   for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+    return q, k, v, o, lse, do
+
+
+def assert_grads_close(got, want, dtype):
+    """fp32: both sides sum fp32 products in another order (atol = rtol =
+    1e-4). bf16: either side may round an output to the neighbouring bf16
+    value (one ulp, at most 2**-7 of it), and a P or dS value that lies
+    within the fp32 difference of a bf16 rounding boundary may round the
+    other way on one side (2**-8 of one term, at most of the largest)."""
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    else:
+        want = want.float()
+        torch.testing.assert_close(
+            got.float(), want, rtol=2.0 ** -7,
+            atol=2.0 ** -8 * float(want.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("ln,d,dtype", [
+    (128, 64, torch.float32), (512, 64, torch.float32),
+    (200, 64, torch.float32), (77, 32, torch.float32),
+    (96, 128, torch.float32), (1, 64, torch.float32),
+    (256, 64, torch.bfloat16), (130, 128, torch.bfloat16),
+])
+def test_flash_bwd_kernels_match_plain(cuda_device, causal, ln, d, dtype):
+    q, k, v, o, lse, do = _bwd_inputs((2, 4, ln, d), dtype, causal, 0.125,
+                                      cuda_device, seed=ln * d)
+    before = fa.flash_attention_bwd.launches
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                 scale=0.125)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.launches == before + 1
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                        scale=0.125)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == q.shape
+        assert_grads_close(g, w, dtype)
+
+
+@pytest.mark.gpu
+def test_flash_bwd_raises_on_a_head_dim_the_kernels_do_not_take(
+        cuda_device):
+    q = torch.zeros(1, 2, 64, 48, device=cuda_device)  # no D=48 build
+    lse = torch.zeros(1, 2, 64, 1, device=cuda_device)
+    before = fa.flash_attention_bwd.launches
+    with pytest.raises(ValueError, match="kernel takes"):
+        fa.flash_attention_bwd(q, q, q, q, lse, q, causal=True, scale=0.1)
+    assert fa.flash_attention_bwd.launches == before
+
+
+def _adam_leaves(device, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    shapes = [(4097,), (1,), (33, 65), (3, 4096), (8192 + 5,)]
+    return [[torch.randn(s, generator=gen).to(device) for s in shapes]
+            for _ in range(3)]
+
+
+@pytest.mark.gpu
+def test_fused_adam_matches_plain(cuda_device):
+    # Same arithmetic in the same order with round-to-nearest on both
+    # sides: expected bit for bit; rtol 1e-6 allows a division or square
+    # root that rounds the other way.
+    params, grads, mu = _adam_leaves(cuda_device)
+    mu = [m.abs() * 0.1 for m in mu]
+    nu = [m * m for m in mu]
+    ref = [[t.clone() for t in ts] for ts in (params, mu, nu)]
+    before = fused.fused_adam_apply.launches
+    for t in range(1, 4):
+        scale = torch.tensor(1e-3 * (1 - 0.999 ** t) ** 0.5 / (1 - 0.9 ** t),
+                             device=cuda_device)
+        fused.fused_adam_apply(params, grads, mu, nu, scale=scale)
+        fused.fused_adam_plain(*ref[:1], grads, *ref[1:], scale=scale)
+    torch.cuda.synchronize()
+    assert fused.fused_adam_apply.launches == before + 3
+    for got, want in zip((params, mu, nu), ref):
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-6, atol=0)
+
+
+@pytest.mark.gpu
+def test_fused_adam_follows_fresh_grads_and_skips_empty_leaves(cuda_device):
+    # New grad tensors every step (as backward allocates them) and an empty
+    # leaf among the others: the leaf table is built per call, so each step
+    # reads that step's grads. Tolerance as in the test above.
+    params, _, mu = _adam_leaves(cuda_device)
+    params.insert(2, torch.empty(0, device=cuda_device))
+    mu = [torch.zeros_like(p) for p in params]
+    nu = [torch.zeros_like(p) for p in params]
+    ref = [[t.clone() for t in ts] for ts in (params, mu, nu)]
+    for t in range(1, 4):
+        grads = [torch.randn_like(p) for p in params]
+        scale = torch.tensor(1e-3 * (1 - 0.999 ** t) ** 0.5 / (1 - 0.9 ** t),
+                             device=cuda_device)
+        fused.fused_adam_apply(params, grads, mu, nu, scale=scale)
+        fused.fused_adam_plain(*ref[:1], grads, *ref[1:], scale=scale)
+        del grads
+    torch.cuda.synchronize()
+    for got, want in zip((params, mu, nu), ref):
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-6, atol=0)
+
+
+@pytest.mark.gpu
+def test_fused_adam_raises_on_what_the_kernel_does_not_take(cuda_device):
+    p = torch.zeros(10, device=cuda_device, dtype=torch.bfloat16)
+    scale = torch.ones((), device=cuda_device)
+    with pytest.raises(ValueError, match="fp32"):
+        fused.fused_adam_apply([p], [p], [p], [p], scale=scale)
+    p = torch.zeros(10, device=cuda_device)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        fused.fused_adam_apply([p], [p], [p], [p], scale=scale.cpu())
+
+
+@pytest.mark.gpu
+def test_cuda_train_step_launches_each_kernel(cuda_device):
+    # depth 2, key_dim 32; the CPU twin takes the plain versions. Losses
+    # agree to 1e-4: fp32 on both sides, sums in another order.
+    def make(device):
+        model = build_transformer_lm(64, 64, d_model=64, depth=2, num_heads=2,
+                                     seed=3)
+        model.compile(optimizer=Adam(learning_rate=1e-3, fused=True),
+                      loss=SparseCategoricalCrossentropy(from_logits=True),
+                      device=device)
+        return model
+
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, 64, size=(4, 64))
+    y = np.roll(x, -1, axis=1)
+    losses = {}
+    for device in ("cpu", cuda_device):
+        model = make(device)
+        fn, state = model.make_train_function(), model.train_state()
+        fa.flash_attention_fwd.launches = 0
+        fa.flash_attention_bwd.launches = 0
+        fused.fused_adam_apply.launches = 0
+        losses[str(device)] = [float(fn(*state, x, y)) for _ in range(3)]
+        launches = (fa.flash_attention_fwd.launches,
+                    fa.flash_attention_bwd.launches,
+                    fused.fused_adam_apply.launches)
+        assert launches == ((0, 0, 0) if device == "cpu" else (6, 6, 3))
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], atol=1e-4)

@@ -1,9 +1,12 @@
-"""Model container: ``Sequential`` — init from a seed and the forward pass.
+"""Model container: ``Sequential`` — init, forward and the training surface.
 
-Counterpart of ``tpu_dist/models/model.py`` (``Sequential``). The training
-surface (``compile``/``fit``/``save``) comes with the training slice of the
-port. Children are registered under the reference's layer names, so the
-dotted names of :meth:`state_dict` are the reference's params-tree paths.
+Counterpart of ``tpu_dist/models/model.py`` (``Sequential``): init from a
+seed, the forward pass, and the Keras-style ``compile`` / ``fit`` /
+``evaluate`` / ``make_train_function`` / ``train_state`` surface over
+``training/trainer.py``. ``save``/``load_weights`` come with the port's
+checkpoint work. Children are registered under the reference's layer
+names, so the dotted names of :meth:`state_dict` are the reference's
+params-tree paths.
 """
 
 from __future__ import annotations
@@ -16,6 +19,10 @@ from torch import nn
 from tpu_dist_torch.models.layers import (Layer, apply_chain, init_chain,
                                           unique_layer_names)
 from tpu_dist_torch.models.policy import compute_dtype
+from tpu_dist_torch.ops import losses as losses_lib
+from tpu_dist_torch.ops import metrics as metrics_lib
+from tpu_dist_torch.ops import optimizers as optimizers_lib
+from tpu_dist_torch.utils.device import DeviceLike, resolve_device
 
 
 class Sequential(nn.Module):
@@ -34,6 +41,12 @@ class Sequential(nn.Module):
         self.input_shape = input_shape
         self.name = name
         self.output_shape = None
+        # Set by compile():
+        self.optimizer = None
+        self.loss = None
+        self.metrics: list = []
+        self.steps_per_execution = 1
+        self._trainer = None
         if input_shape is not None:
             self.init(seed)
 
@@ -86,3 +99,94 @@ class Sequential(nn.Module):
         from tpu_dist_torch.models.bridge import params_from_jax
 
         self.load_state_dict(params_from_jax(tree), strict=True)
+
+    # -- Keras-style training surface -----------------------------------------
+
+    def compile(self, optimizer="sgd", loss=None, metrics=(),
+                steps_per_execution: int = 1, gradient_bucket_bytes: int = 0,
+                prefetch_to_device: int = 0, *, device: DeviceLike = None,
+                strategy=None) -> None:
+        """Record loss/optimizer/metrics and move the model to ``device``:
+        the CUDA device unless the caller asks for the CPU
+        (``device="cpu"``, as the CPU tests do); without a GPU the default
+        raises. The model trains where its parameters are. Recompiling
+        keeps the weights and rebuilds the optimizer state.
+
+        ``steps_per_execution > 1``, ``gradient_bucket_bytes``,
+        ``prefetch_to_device`` and a ``strategy`` are the JAX package's
+        knobs that come with the port's MNIST-CNN training slice; each
+        raises ``NotImplementedError`` until then."""
+        from tpu_dist_torch.training.trainer import unported
+
+        if steps_per_execution < 1:
+            raise ValueError(
+                f"steps_per_execution must be >= 1, got {steps_per_execution}")
+        if gradient_bucket_bytes < 0:
+            raise ValueError(
+                f"gradient_bucket_bytes must be >= 0, got "
+                f"{gradient_bucket_bytes}")
+        if prefetch_to_device < 0:
+            raise ValueError(
+                f"prefetch_to_device must be >= 0, got {prefetch_to_device}")
+        if steps_per_execution > 1:
+            raise unported("compile(steps_per_execution > 1)")
+        if gradient_bucket_bytes:
+            raise unported("compile(gradient_bucket_bytes=)")
+        if prefetch_to_device:
+            raise unported("compile(prefetch_to_device=)")
+        if strategy is not None:
+            raise unported("a distribution strategy")
+        self.to(resolve_device(device))
+        self.optimizer = optimizers_lib.get(optimizer)
+        self.loss = losses_lib.get(loss) if loss is not None else None
+        self.metrics = [metrics_lib.get(m) for m in metrics]
+        self.steps_per_execution = int(steps_per_execution)
+        self._trainer = None
+
+    def _get_trainer(self, needs: str):
+        from tpu_dist_torch.training.trainer import Trainer
+
+        missing = [n for n in needs.split() if getattr(self, n) is None]
+        if missing:
+            raise RuntimeError(
+                f"{self.name} must be compile()d with a "
+                f"{' and '.join(missing)} first")
+        if self._trainer is None:
+            self._trainer = Trainer(self)
+        return self._trainer
+
+    def fit(self, x, epochs: int = 1, steps_per_epoch: Optional[int] = None,
+            verbose: int = 1, callbacks: Sequence = (), initial_epoch: int = 0,
+            seed: int = 0, profile_dir: Optional[str] = None,
+            validation_data=None, validation_steps: Optional[int] = None,
+            checkpoint_dir: Optional[str] = None,
+            class_weight: Optional[dict] = None):
+        """Run the epoch/step loop over ``(x, y)`` arrays (batches of 32 in
+        order); returns the ``History``. ``validation_data`` runs a
+        validation pass each epoch, reported as ``val_``-prefixed logs;
+        ``class_weight`` scales each sample's loss by its class's weight.
+        ``profile_dir`` and ``checkpoint_dir`` raise
+        ``NotImplementedError`` until their slice (``ROADMAP.md``)."""
+        return self._get_trainer("loss optimizer").fit(
+            x, epochs=epochs, steps_per_epoch=steps_per_epoch,
+            verbose=verbose, callbacks=callbacks, initial_epoch=initial_epoch,
+            seed=seed, profile_dir=profile_dir,
+            validation_data=validation_data,
+            validation_steps=validation_steps,
+            checkpoint_dir=checkpoint_dir, class_weight=class_weight)
+
+    def evaluate(self, x, steps: Optional[int] = None, verbose: int = 1):
+        """Loss and metrics over ``(x, y)`` arrays, as a dict of floats."""
+        return self._get_trainer("loss").evaluate(x, steps=steps,
+                                                  verbose=verbose)
+
+    def make_train_function(self, steps_per_execution: Optional[int] = None):
+        """The train step — see ``Trainer.make_train_function`` for the
+        callable's contract and how it differs from the JAX package's."""
+        return self._get_trainer("loss optimizer").make_train_function(
+            steps_per_execution)
+
+    def train_state(self) -> tuple:
+        """The ``(params, state, opt, metrics, loss_acc)`` the
+        ``make_train_function`` callable takes."""
+        return self._get_trainer("loss optimizer").train_state()

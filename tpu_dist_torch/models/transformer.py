@@ -1,11 +1,12 @@
-"""Transformer layers and the causal LM — the subset serving needs.
+"""Transformer layers and the causal LM — the subset serving and training need.
 
 Counterpart of ``tpu_dist/models/transformer.py``: token and positional
 embeddings, LayerNorm, multi-head attention behind the
 :func:`_default_attention` dispatch, the pre-LN block and
 :func:`build_transformer_lm`. The dispatch sends every CUDA tensor to the
-hand-written Hopper kernel of ``ops/flash_attention.py``, which raises on
-what it does not take; CPU tensors get its plain PyTorch version. Single
+hand-written Hopper kernels of ``ops/flash_attention.py`` (the forward,
+and under autograd the backward pair), which raise on what they do not
+take; CPU tensors get their plain PyTorch versions. Single
 device only: the reference's mesh-mapped flash, ring attention hooks,
 pipeline stages and mixture-of-experts blocks come with the parallel-axes
 slice of the port.
@@ -97,20 +98,23 @@ def _dense_attention(q, k, v, *, causal: bool, scale: float):
 
 def _default_attention(q, k, v, *, causal: bool, scale: float):
     """Attention dispatch: :func:`fa.flash_attention`, which launches the
-    flash kernel on CUDA tensors (and raises on a shape or dtype the kernel
-    does not take) and computes the plain version on CPU tensors."""
+    flash kernels on CUDA tensors (and raises on a shape or dtype they do
+    not take) and computes the plain versions on CPU tensors."""
     return fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                               causal=causal, scale=scale)
 
 
 class MultiHeadAttention(Layer):
     """Multi-head self-attention on a ``[.., L, D]`` stream; ``causal``
-    applies the autoregressive mask."""
+    applies the autoregressive mask. ``attention_fn`` (default
+    :func:`_default_attention`) may be set to another function of the same
+    signature, e.g. :func:`_dense_attention` for a plain-attention twin."""
 
     def __init__(self, num_heads: int, key_dim: int, causal: bool = False,
                  use_bias: bool = True,
                  kernel_initializer: str = "glorot_uniform"):
         super().__init__()
+        self.attention_fn = _default_attention
         self.num_heads = num_heads
         self.key_dim = key_dim
         self.causal = causal
@@ -156,8 +160,8 @@ class MultiHeadAttention(Layer):
 
     def forward(self, x):
         q, k, v = self.qkv(x)
-        o = _default_attention(q, k, v, causal=self.causal,
-                               scale=1.0 / math.sqrt(self.key_dim))
+        o = self.attention_fn(q, k, v, causal=self.causal,
+                              scale=1.0 / math.sqrt(self.key_dim))
         return self.out(o)
 
 
@@ -193,7 +197,8 @@ def build_transformer_lm(vocab_size: int, seq_len: int, *, d_model: int = 128,
     """A causal (GPT-style) LM: token + position embeddings, ``depth``
     pre-LN blocks, final LN, vocab head. Int token ids ``[B, L]`` ->
     logits ``[B, L, vocab]``. Parameters are initialized from ``seed`` on
-    the CPU."""
+    the CPU; ``compile`` (or a ``ServeEngine``) moves the model to the
+    CUDA device unless the caller asks for the CPU."""
     if pipeline_stages:
         raise NotImplementedError(
             "pipeline_stages: pipelined blocks come with the port's "

@@ -5,6 +5,7 @@ is compiled, at its first use in a process, into a shared library under
 ``tpu_dist_torch/_build/`` (listed in ``.gitignore``), named by a hash of
 the source and the flags: an edited source builds anew, an unchanged one
 loads the library already built. Nothing here runs at import time.
+:func:`build` compiles several sources at once, one ``nvcc`` process each.
 """
 
 from __future__ import annotations
@@ -45,31 +46,49 @@ def _nvcc() -> str:
         "PATH): the port's CUDA kernels are built from source at first use")
 
 
-def load(source: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<source>``, building it if needed."""
+def _library(source: str) -> tuple[Path, Path]:
+    """``csrc/<source>`` and the path of its library for these flags."""
     src = CSRC / source
     digest = hashlib.sha256(
         src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"{src.stem}-{digest}.so"
+    return src, BUILD_DIR / f"{src.stem}-{digest}.so"
+
+
+def build(sources) -> None:
+    """Compile every source whose library is missing: one ``nvcc`` process
+    each, all started together, then wait for all of them."""
     with _lock:
-        lib = _loaded.get(source)
-        if lib is not None:
-            return lib
-        if not out.exists():
+        jobs = []
+        for source in sources:
+            src, out = _library(source)
+            if out.exists():
+                continue
             BUILD_DIR.mkdir(exist_ok=True)
-            tmp = BUILD_DIR / f"{src.stem}-{digest}.{os.getpid()}.tmp.so"
-            t0 = time.monotonic()
-            proc = subprocess.run(
+            tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
+            proc = subprocess.Popen(
                 [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                capture_output=True, text=True)
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            jobs.append((source, src, out, tmp, proc, time.monotonic()))
+        failed = []
+        for source, src, out, tmp, proc, t0 in jobs:
+            _, stderr = proc.communicate()
             if proc.returncode != 0:
                 tmp.unlink(missing_ok=True)
-                raise RuntimeError(
-                    f"nvcc failed on {src} (exit {proc.returncode}):\n"
-                    f"{proc.stderr}")
+                failed.append(f"nvcc failed on {src} (exit {proc.returncode}):"
+                              f"\n{stderr}")
+                continue
             os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
             build_info[source] = {"seconds": time.monotonic() - t0,
-                                  "log": proc.stderr}
-        lib = ctypes.CDLL(str(out))
-        _loaded[source] = lib
+                                  "log": stderr}
+        if failed:
+            raise RuntimeError("\n".join(failed))
+
+
+def load(source: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<source>``, building it if needed."""
+    build([source])
+    with _lock:
+        lib = _loaded.get(source)
+        if lib is None:
+            lib = _loaded[source] = ctypes.CDLL(str(_library(source)[1]))
         return lib

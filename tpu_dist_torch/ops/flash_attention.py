@@ -1,21 +1,31 @@
-"""Flash-attention forward: a hand-written Hopper kernel and its plain version.
+"""Flash attention: hand-written Hopper kernels and their plain versions.
 
-Counterpart of ``tpu_dist/ops/flash_attention.py``. The TPU kernel it
-replaces is ``_fwd_kernel`` (``flash_attention.py:148``, launched by
-``_fwd`` at ``:210``); the port's kernel is ``csrc/flash_fwd.cu`` (CUDA C++
-for ``sm_90a``, built by ``ops/_build.py`` at first use and called through
-``ctypes``). Its design and what bounds it on the card are in the source.
+Counterpart of ``tpu_dist/ops/flash_attention.py``. The TPU kernels it
+replaces, each a CUDA C++ kernel for ``sm_90a`` built by ``ops/_build.py``
+at first use and called through ``ctypes`` (design and bound in the
+sources):
+
+* ``_fwd_kernel`` (``flash_attention.py:148``, launched by ``_fwd`` at
+  ``:210``) -> ``csrc/flash_fwd.cu``;
+* ``_dq_kernel`` (``:245``), ``_dkv_kernel`` (``:285``) and
+  ``_dqkv_single_kernel`` (``:332``, the one-tile case) ->
+  ``csrc/flash_bwd.cu``, a dK/dV kernel and a dQ kernel (the one-tile case
+  is the same two kernels at that L).
+
+Functions:
 
 * :func:`flash_attention_fwd` — ``(O, lse)``; a CUDA tensor launches the
   kernel (or the call raises), a CPU tensor takes the plain version;
+* :func:`flash_attention_bwd` — ``(dq, dk, dv)`` from the forward's
+  residuals, the same device rule;
 * :func:`flash_attention` — ``O`` only, the attention dispatch's call;
-* :func:`flash_attention_plain` — the dense softmax math in PyTorch;
-* :func:`supported` — the kernel's envelope, which the wrapper enforces;
+  differentiable through :class:`FlashAttention`, the counterpart of
+  ``_flash`` with its ``jax.custom_vjp`` (``:431-450``);
+* :func:`flash_attention_plain` / :func:`flash_attention_bwd_plain` — the
+  same math written out in PyTorch;
+* :func:`supported` — the kernels' envelope, which the wrappers enforce;
 * :func:`use_flash` — whether ``models/transformer.py::_default_attention``
-  launches the kernel for a tensor (every CUDA tensor).
-
-The backward kernels (``_dq_kernel``, ``_dkv_kernel``,
-``_dqkv_single_kernel``) come with the training slice of the port.
+  launches the kernels for a tensor (every CUDA tensor).
 """
 
 from __future__ import annotations
@@ -28,10 +38,11 @@ import torch
 from tpu_dist_torch.ops import _build
 
 _SOURCE = "flash_fwd.cu"
-#: Head dims the kernel is instantiated for (a template parameter).
+_BWD_SOURCE = "flash_bwd.cu"
+#: Head dims the kernels are instantiated for (a template parameter).
 HEAD_DIMS = (32, 64, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
-#: The kernel's grid puts the 64-row query tiles on grid.y (<= 65535).
+#: The kernels' grids put the 64-row tiles on grid.y (<= 65535).
 MAX_LEN = 64 * 65535
 
 
@@ -49,18 +60,43 @@ def flash_attention_plain(q, k, v, *, causal: bool = False, scale: float):
     return o.to(q.dtype), lse
 
 
+def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = False,
+                              scale: float):
+    """The backward of :func:`flash_attention_plain` written out in fp32,
+    as ``_bwd`` computes it (``tpu_dist/ops/flash_attention.py:356-425``):
+    P recomputed from the saved ``lse``, δ = rowsum(dO∘O), dS = P∘(dP − δ)
+    ·scale. For bf16 inputs P and dS are rounded to bf16 before their
+    products, as the TPU kernels cast them. Returns ``(dq, dk, dv)`` in the
+    inputs' dtypes."""
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    s = torch.einsum("...qd,...kd->...qk", qf, kf) * scale
+    if causal:
+        lq, lk = s.shape[-2], s.shape[-1]
+        keep = torch.ones(lq, lk, dtype=torch.bool, device=s.device).tril()
+        s = s.masked_fill(~keep, float("-inf"))
+    p = torch.exp(s - lse)
+    delta = (dof * o.float()).sum(dim=-1, keepdim=True)
+    dp = torch.einsum("...qd,...kd->...qk", dof, vf)
+    ds = p * (dp - delta) * scale
+    p, ds = p.to(q.dtype).float(), ds.to(q.dtype).float()
+    dv = torch.einsum("...qk,...qd->...kd", p, dof)
+    dk = torch.einsum("...qk,...qd->...kd", ds, qf)
+    dq = torch.einsum("...qk,...kd->...qd", ds, kf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def supported(q) -> bool:
-    """Whether the kernel takes this shape and dtype: ``[B, H, L, D]`` with
+    """Whether the kernels take this shape and dtype: ``[B, H, L, D]`` with
     ``D`` in :data:`HEAD_DIMS`, fp32 or bf16, any ``1 <= L <= MAX_LEN``
-    (the kernel masks the ragged last tile itself)."""
+    (the kernels mask the ragged last tile themselves)."""
     return (q.dim() == 4 and q.dtype in _DTYPES
             and q.shape[-1] in HEAD_DIMS and 1 <= q.shape[-2] <= MAX_LEN
             and q.shape[0] * q.shape[1] >= 1)
 
 
 def use_flash(q) -> bool:
-    """Whether the default attention path launches the kernel for ``q``:
-    every CUDA tensor does (one the kernel does not take raises)."""
+    """Whether the default attention path launches the kernels for ``q``:
+    every CUDA tensor does (one the kernels do not take raises)."""
     return q.is_cuda
 
 
@@ -69,6 +105,15 @@ def _kernel():
     fn = _build.load(_SOURCE).tpu_dist_flash_fwd
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_kernel():
+    fn = _build.load(_BWD_SOURCE).tpu_dist_flash_bwd
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -90,18 +135,26 @@ def _check(q, k, v) -> None:
             raise ValueError(f"flash_attention: {name} must be contiguous")
 
 
+def _on_cuda(*tensors) -> bool:
+    """True for all-CUDA tensors (the kernels), False for all-CPU ones
+    (the plain versions); raises on anything else."""
+    devices = {t.device.type for t in tensors}
+    if devices == {"cpu"}:
+        return False
+    if devices != {"cuda"}:
+        raise ValueError(
+            f"flash_attention: the tensors must all be on CUDA (kernel) or "
+            f"all on the CPU (plain version); got {sorted(devices)}")
+    return True
+
+
 def flash_attention_fwd(q, k, v, *, causal: bool = False, scale: float):
     """Fused attention forward, ``[B, H, L, D] -> (O [B, H, L, D],
     lse [B, H, L, 1] fp32)``. CUDA tensors launch the kernel (and raise on
     anything it does not take); CPU tensors take
     :func:`flash_attention_plain`."""
-    devices = {q.device.type, k.device.type, v.device.type}
-    if devices == {"cpu"}:
+    if not _on_cuda(q, k, v):
         return flash_attention_plain(q, k, v, causal=causal, scale=scale)
-    if devices != {"cuda"}:
-        raise ValueError(
-            f"flash_attention: q, k, v must all be on CUDA (kernel) or all "
-            f"on the CPU (plain version); got {sorted(devices)}")
     _check(q, k, v)
     b, h, ln, d = q.shape
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -125,6 +178,87 @@ def flash_attention_fwd(q, k, v, *, causal: bool = False, scale: float):
 flash_attention_fwd.launches = 0
 
 
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = False,
+                        scale: float):
+    """Fused attention backward: the forward's residuals ``q, k, v, o``
+    ``[B, H, L, D]`` and ``lse [B, H, L, 1]`` fp32, and the output's
+    gradient ``do`` -> ``(dq, dk, dv)``. CUDA tensors launch the two
+    kernels of ``csrc/flash_bwd.cu`` (and raise on anything they do not
+    take); CPU tensors take :func:`flash_attention_bwd_plain`. δ =
+    rowsum(dO∘O) is one plain elementwise-reduce here, as ``_bwd`` computes
+    it outside Pallas."""
+    if not _on_cuda(q, k, v, o, lse, do):
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                         scale=scale)
+    do = do.contiguous()
+    _check(q, k, v)
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(
+                f"flash_attention: {name} {tuple(t.shape)} {t.dtype} does "
+                f"not match q {tuple(q.shape)} {q.dtype} on {q.device}")
+    b, h, ln, d = q.shape
+    if (lse.shape != (b, h, ln, 1) or lse.dtype != torch.float32
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(
+            f"flash_attention: lse must be the forward's contiguous fp32 "
+            f"[{b}, {h}, {ln}, 1]; got {tuple(lse.shape)} {lse.dtype}")
+    delta = (do.float() * o.float()).sum(dim=-1)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    _launch_bwd(q, k, v, do, lse, delta, dq, dk, dv, causal=causal,
+                scale=scale, parts=3)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+def _launch_bwd(q, k, v, do, lse, delta, dq, dk, dv, *, causal, scale,
+                parts):
+    """Launch the dK/dV kernel (``parts`` bit 1) and the dQ kernel (bit 2)
+    on checked tensors; a benchmark may time one of them alone."""
+    b, h, ln, d = q.shape
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _bwd_kernel()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b * h, ln, d, int(q.dtype == torch.bfloat16),
+            int(bool(causal)), float(scale), int(parts), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attention: backward kernel launch failed with CUDA error "
+            f"{err} for {tuple(q.shape)} {q.dtype}")
+
+
+#: Backward calls that launched the kernels since the last reset: one per
+#: call, and each call launches the dK/dV kernel and the dQ kernel once.
+#: CPU calls (the plain version) never count.
+flash_attention_bwd.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable fused attention over ``[B, H, L, D]`` — the
+    counterpart of ``_flash`` and its ``jax.custom_vjp``
+    (``tpu_dist/ops/flash_attention.py:431-450``). The forward saves the
+    JAX package's residuals ``(q, k, v, o, lse)``; the backward recomputes
+    P from ``lse`` in :func:`flash_attention_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do,
+                                         causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = False, scale: float):
-    """Fused attention, ``[B, H, L, D] -> [B, H, L, D]``."""
-    return flash_attention_fwd(q, k, v, causal=causal, scale=scale)[0]
+    """Fused attention, ``[B, H, L, D] -> [B, H, L, D]``, differentiable
+    through :class:`FlashAttention`. Under ``torch.inference_mode`` (or with
+    no input requiring a gradient) only the forward kernel runs."""
+    return FlashAttention.apply(q, k, v, causal, scale)

@@ -1,0 +1,353 @@
+"""The training engine: the train step and the Keras-2-style fit loop.
+
+Subset of ``tpu_dist/training/trainer.py`` for one device. The JAX package
+compiles the whole step (forward, loss, backward, update, metrics) into
+one XLA program whose variables are donated and returned; PyTorch runs the
+same step eagerly and keeps its variables in place:
+
+JAX package                           | here
+--------------------------------------|-----------------------------------
+``jax.value_and_grad`` of the loss    | ``loss.backward()``; the flash
+                                      | attention's backward is the
+                                      | hand-written kernel pair
+``optimizer.update`` returns new      | ``optimizer.update`` changes params
+params and state                      | and state in place (``no_grad``)
+metric / loss-accumulator pytrees     | 0-d device tensors added to in place
+returned by the step                  |
+the step returns a 7-tuple of loss,   | the step returns the loss tensor;
+new variables and the health vector   | no host sync until someone reads it
+
+The model trains on the device its parameters are on (``compile`` puts
+them there). There is no strategy yet: ``steps_per_execution > 1``,
+``gradient_bucket_bytes``, ``prefetch_to_device``, ``checkpoint_dir``,
+``profile_dir``, a ``Dataset`` input and a strategy come with the port's
+MNIST-CNN training slice, the integrity ``health`` vector with the
+resilience slice (``ROADMAP.md``); each raises ``NotImplementedError``.
+
+Epoch semantics are the JAX package's: one persistent iterator across
+epochs when ``steps_per_epoch`` is set, re-created on exhaustion; the epoch
+``loss`` is the mean of the steps' losses, each metric the ratio of its
+totals over the epoch.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from tpu_dist_torch.training.callbacks import (CallbackList, History,
+                                               StopTraining)
+from tpu_dist_torch.utils.progbar import ProgressBar
+
+logger = logging.getLogger("tpu_dist_torch.trainer")
+
+#: ``fit``/``evaluate`` batch ``(x, y)`` arrays by this many rows, in
+#: order, as the JAX package's ``_distribute`` does.
+ARRAY_BATCH = 32
+
+
+def unported(what: str, slice_name: str = "MNIST-CNN training"):
+    """The error for a knob of the JAX trainer that the port lacks yet."""
+    return NotImplementedError(
+        f"{what} is not ported yet: it comes with the port's {slice_name} "
+        f"slice (ROADMAP.md, 'Slices of the port')")
+
+
+class ArrayBatches:
+    """``(x, y)`` arrays cut into batches of :data:`ARRAY_BATCH` rows in
+    order, the last one ragged — ``Dataset.from_tensor_slices((x, y))
+    .batch(32)``. Iterating yields numpy pairs."""
+
+    def __init__(self, x, y, batch_size: int = ARRAY_BATCH):
+        self.x, self.y = np.asarray(x), np.asarray(y)
+        if len(self.x) != len(self.y):
+            raise ValueError(
+                f"x and y disagree on the number of rows: {len(self.x)} vs "
+                f"{len(self.y)}")
+        self.batch_size = batch_size
+
+    def cardinality(self) -> int:
+        return -(-len(self.x) // self.batch_size)
+
+    def __iter__(self):
+        for i in range(0, len(self.x), self.batch_size):
+            yield (self.x[i:i + self.batch_size],
+                   self.y[i:i + self.batch_size])
+
+
+def _to_device(a, device) -> torch.Tensor:
+    """A batch array as a tensor on ``device``: integers as int64 (token
+    ids and labels index with it), floats as float32."""
+    t = torch.as_tensor(a)
+    if t.is_floating_point():
+        t = t.to(torch.float32)
+    elif t.dtype != torch.bool:
+        t = t.to(torch.int64)
+    return t.to(device, non_blocking=True)
+
+
+class Trainer:
+    """Owns the training variables of one model and its train step."""
+
+    def __init__(self, model):
+        self.model = model
+        self.variables: Optional[dict] = None  # params/state/opt/metrics
+        self._iterator = None
+        self._iterator_source = None
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.model.parameters()).device
+
+    # -- variables -----------------------------------------------------------
+
+    def ensure_variables(self, seed: int = 0) -> None:
+        """Build the optimizer state for the model's parameters. Unlike the
+        JAX package, whose model holds no parameters until this call
+        initializes them from ``seed``, the port's model owns parameters
+        from its construction (or a weights load); they are used as they
+        are, and ``seed`` is accepted for the signature's sake."""
+        if self.variables is not None:
+            return
+        params = list(self.model.parameters())
+        optimizer = self.model.optimizer
+        self.variables = {
+            "params": params,
+            "state": {},
+            "opt": optimizer.init(params) if optimizer else (),
+            "metrics": self._init_metric_states(),
+        }
+        logger.info("%s: %d parameters on %s", self.model.name,
+                    sum(p.numel() for p in params), self.device)
+
+    def _init_metric_states(self) -> tuple:
+        return tuple(m.init(self.device) for m in self.model.metrics)
+
+    def _init_loss_acc(self) -> torch.Tensor:
+        """``[sum of step losses, step count]`` fp32 on the device."""
+        return torch.zeros(2, dtype=torch.float32, device=self.device)
+
+    # -- the train step --------------------------------------------------------
+
+    def _loss(self, logits, y, class_weight):
+        loss_obj = self.model.loss
+        if class_weight is None:
+            return loss_obj(logits, y)
+        # Keras class_weight semantics: scale each sample's loss by its
+        # class's weight (default 1.0) before the batch-size mean.
+        if y.is_floating_point():
+            raise ValueError(
+                "class_weight requires sparse integer labels; got labels of "
+                f"dtype {y.dtype}")
+        per = loss_obj.per_example(logits, y)
+        if per.shape != y.shape:
+            raise ValueError(
+                "class_weight requires per-example labels matching the loss "
+                f"(labels {tuple(y.shape)} vs per-example loss "
+                f"{tuple(per.shape)})")
+        w = torch.ones_like(per)
+        for c, wt in class_weight.items():
+            w = torch.where(y == c, torch.full_like(w, wt), w)
+        return (per * w).mean()
+
+    def _step(self, class_weight: Optional[dict] = None):
+        """The train step: ``(params, state, opt, metrics, loss_acc, x, y,
+        rng=None) -> loss``. Forward, loss, backward (the flash backward
+        kernels on CUDA), optimizer update, metric update and the
+        device-side loss accumulator, all in place on the passed
+        variables; returns the step's loss as a 0-d device tensor without
+        reading it. ``params`` must be the model's own parameters (as
+        :meth:`train_state` gives them); ``rng`` is accepted for the JAX
+        signature's sake (the port's layers draw no random numbers)."""
+        model, optimizer = self.model, self.model.optimizer
+        metrics = tuple(model.metrics)
+        device = self.device
+
+        def step(params, state, opt_state, metric_states, loss_acc, x, y,
+                 rng=None):
+            x, y = _to_device(x, device), _to_device(y, device)
+            for p in params:
+                p.grad = None
+            logits = model(x)
+            loss = self._loss(logits, y, class_weight)
+            loss.backward()
+            optimizer.update([p.grad for p in params], opt_state, params)
+            loss = loss.detach()
+            with torch.no_grad():
+                for m, ms in zip(metrics, metric_states):
+                    m.update(ms, logits, y)
+                loss_acc[0] += loss
+                loss_acc[1] += 1.0
+            return loss
+
+        return step
+
+    def make_train_function(self, steps_per_execution: Optional[int] = None):
+        """The train step — public surface for benchmarks and custom loops
+        (the JAX package's ``make_train_function``)::
+
+            fn(params, state, opt, metrics, loss_acc, x, y, rng=None) -> loss
+
+        Where the JAX step returns ``(loss, params, state, opt, metrics,
+        loss_acc, health)`` for the caller to thread into the next call,
+        this one updates the variables it is given in place and returns
+        the loss alone; call it again with the same :meth:`train_state`.
+        Always the unweighted loss (``class_weight`` is a fit feature)."""
+        k = (steps_per_execution if steps_per_execution is not None
+             else self.model.steps_per_execution)
+        if k > 1:
+            raise unported("steps_per_execution > 1")
+        self.ensure_variables()
+        return self._step()
+
+    def train_state(self) -> tuple:
+        """The live ``(params, state, opt, metrics, loss_acc)`` tuple, in
+        the positional order the :meth:`make_train_function` callable
+        takes; ``loss_acc`` is fresh."""
+        self.ensure_variables()
+        v = self.variables
+        return (v["params"], v["state"], v["opt"], v["metrics"],
+                self._init_loss_acc())
+
+    # -- data --------------------------------------------------------------------
+
+    @staticmethod
+    def _batches(x) -> ArrayBatches:
+        if isinstance(x, (tuple, list)) and len(x) == 2:
+            return ArrayBatches(*x)
+        raise unported(
+            f"fit/evaluate input of type {type(x).__name__} (the port takes "
+            f"(x, y) arrays; a Dataset comes with the data/ port)")
+
+    def _next_batch(self, batches: ArrayBatches):
+        """Persistent-iterator semantics across epochs (Keras 2): re-create
+        on exhaustion."""
+        if self._iterator is None or self._iterator_source is not batches:
+            self._iterator = iter(batches)
+            self._iterator_source = batches
+        try:
+            return next(self._iterator)
+        except StopIteration:
+            self._iterator = iter(batches)
+            batch = next(self._iterator, None)
+            if batch is None:
+                raise RuntimeError("dataset yielded no batches") from None
+            return batch
+
+    # -- fit / evaluate ------------------------------------------------------
+
+    def fit(self, x, *, epochs: int, steps_per_epoch: Optional[int],
+            verbose: int, callbacks: Sequence, initial_epoch: int,
+            seed: int, profile_dir: Optional[str] = None,
+            validation_data=None, validation_steps: Optional[int] = None,
+            checkpoint_dir: Optional[str] = None,
+            class_weight: Optional[dict] = None) -> History:
+        if profile_dir is not None:
+            raise unported("fit(profile_dir=) (utils/profiler.py on "
+                           "torch.profiler)")
+        if checkpoint_dir is not None:
+            raise unported("fit(checkpoint_dir=) (the v1 checkpoint path)")
+        if self.model.steps_per_execution > 1:
+            raise unported("steps_per_execution > 1")
+        self.ensure_variables(seed)
+        if class_weight is not None:
+            class_weight = {int(c): float(w) for c, w in class_weight.items()}
+            if any(c < 0 for c in class_weight):
+                raise ValueError(f"negative class index in {class_weight}")
+            class_weight = class_weight or None  # {} means no weighting
+        step = self._step(class_weight)
+        batches = self._batches(x)
+        if steps_per_epoch is None:
+            steps_per_epoch = batches.cardinality()
+        val_batches = val_steps = None
+        if validation_data is not None:
+            val_batches = self._batches(validation_data)
+            val_steps = validation_steps
+
+        history = History()
+        cbs = CallbackList([history, *callbacks], model=self.model)
+        cbs.on_train_begin()
+        try:
+            self._run_epochs(step, batches, cbs, initial_epoch, epochs,
+                             steps_per_epoch, bool(verbose), val_batches,
+                             val_steps)
+        except StopTraining as e:
+            logger.info("training stopped early: %s", e)
+        finally:
+            cbs.on_train_end()
+        return history
+
+    def _run_epochs(self, step, batches, cbs, initial_epoch, epochs,
+                    steps_per_epoch, show, val_batches, val_steps):
+        v = self.variables
+        for epoch in range(initial_epoch, epochs):
+            cbs.on_epoch_begin(epoch)
+            if show:
+                print(f"Epoch {epoch + 1}/{epochs}")
+            bar = ProgressBar(steps_per_epoch, enabled=show)
+            v["metrics"] = self._init_metric_states()  # reset per epoch
+            loss_acc = self._init_loss_acc()
+            # The per-step host read of the loss is paid only when something
+            # consumes it; otherwise the host runs ahead of the device.
+            eager_loss = show or cbs.has_batch_hooks
+            loss_running = 0.0
+            t_epoch = time.perf_counter()
+            for step_i in range(steps_per_epoch):
+                xb, yb = self._next_batch(batches)
+                loss = step(v["params"], v["state"], v["opt"], v["metrics"],
+                            loss_acc, xb, yb)
+                if eager_loss:
+                    loss_val = float(loss)
+                    loss_running += loss_val
+                    bar.update(step_i + 1, loss=loss_running / (step_i + 1))
+                    cbs.on_batch_end(step_i, {"loss": loss_val})
+            logs = {"epoch_time": time.perf_counter() - t_epoch,
+                    **self._results(loss_acc, v["metrics"])}
+            if val_batches is not None:
+                val_logs = self._evaluate_on(val_batches, val_steps)
+                logs.update({f"val_{k}": x for k, x in val_logs.items()})
+            bar.finish(logs)
+            cbs.on_epoch_end(epoch, logs)
+
+    def _results(self, loss_acc, metric_states) -> dict:
+        """The epoch's (or pass's) logs, read once each with ``.item()``."""
+        logs = {"loss": (loss_acc[0] / torch.clamp(loss_acc[1], min=1.0))
+                .item()}
+        for metric, mstate in zip(self.model.metrics, metric_states):
+            logs[metric.name] = metric.result(mstate).item()
+        return logs
+
+    def evaluate(self, x, *, steps: Optional[int], verbose: int) -> dict:
+        self.ensure_variables()
+        logs = self._evaluate_on(self._batches(x), steps)
+        if verbose:
+            print(" - ".join(f"{k}: {v_:.4f}" for k, v_ in logs.items()))
+        return logs
+
+    def _evaluate_on(self, batches: ArrayBatches,
+                     steps: Optional[int]) -> dict:
+        """One evaluation pass (all batches, or the first ``steps``): the
+        mean of the batches' losses and each metric's ratio."""
+        model, loss_obj = self.model, self.model.loss
+        metric_states = self._init_metric_states()
+        loss_acc = self._init_loss_acc()
+        count = 0
+        with torch.no_grad():
+            for xb, yb in batches:
+                if steps is not None and count >= steps:
+                    break
+                xb, yb = _to_device(xb, self.device), _to_device(
+                    yb, self.device)
+                logits = model(xb)
+                for m, ms in zip(model.metrics, metric_states):
+                    m.update(ms, logits, yb)
+                loss_acc[0] += loss_obj(logits, yb)
+                loss_acc[1] += 1.0
+                count += 1
+        if count == 0:
+            raise RuntimeError("evaluate: dataset yielded no batches")
+        return self._results(loss_acc, metric_states)
