@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py          # from the root of a checkout
 
-Drives the port's serving and training paths end to end on the card and
-holds every kernel on them against its plain PyTorch version. Phases:
+Drives the port's serving and training paths and the reference's MNIST
+program end to end on the card and holds every kernel on them against its
+plain PyTorch version. Phases:
 
 1. device: require CUDA; print the card's name and power limit
    (``nvidia-smi``); turn TF32 off for matmuls and cuDNN;
-2. build: compile the kernels from the checkout's sources (one ``nvcc``
+2. build: compile the five kernel sources of the checkout (one ``nvcc``
    per source, all at once), printing ptxas registers and spills;
 3. kernel vs plain version on the card, fp32 and bf16 inputs, causal and
    not: O and lse against the plain version in fp32 at atol = rtol = 1e-4
@@ -52,7 +53,33 @@ holds every kernel on them against its plain PyTorch version. Phases:
     parameters (kernel, plain version,
     ``torch.optim.Adam(fused=True).step()``), and the full training step
     in ms and tokens/s. Library calls are yardsticks only, never used by
-    the port.
+    the port;
+12. fused cross-entropy kernels vs their plain version: loss, lse and
+    dlogits at [64, 10], [37, 10] (ragged, some labels out of range),
+    [2, 16, 64] (rank 3), [1000, 1000] and the LM's [32768, 8192], fp32
+    and bf16: loss and lse within ``CE_TOL``, dlogits bit for bit;
+13. fused SGD vs its plain version, plain / momentum 0.9 / Nesterov, over
+    the full-width LM's 70 leaves and the CNN's 8, 3 steps (a float
+    learning rate, then a schedule's values on the card): bit for bit;
+14. the reference program, ``tpu_dist_torch.examples.tpu_dist_example`` as
+    it stands (one worker, plain CE and SGD, 10 epochs x 20 steps at batch
+    64): the loss must fall;
+15. the same chain with the CNN compiled with
+    ``SparseCategoricalCrossentropy(from_logits=True, fused=True)`` and
+    ``SGD(learning_rate=0.001, fused=True)`` — this slice's main path: 200
+    launches each of CE forward, CE backward and SGD, and per-epoch losses
+    within ``CNN_LOSS_ATOL`` of a twin compiled without ``fused`` from the
+    same weights and batches; then 2 x 20 steps with ``SGD(momentum=0.9,
+    fused=True)`` against its twin, which launch the momentum kernel, and
+    2 x 20 with an ``ExponentialDecay`` rate, which launch the kernel too;
+16. the benchmark LM at full width through ``make_train_function`` with
+    the fused CE and ``SGD(fused=True)``, 3 steps: 3 launches of each new
+    kernel plus the flash launches, losses and per-leaf parameters against
+    phase 9's plain twin under phase 9's rules;
+17. times of the new kernels at the LM's and the CNN's shapes (kernel,
+    plain version, library yardstick, bound), the LM train step with the
+    fused CE + SGD beside phase 11's, and the CNN train step, fused and
+    unfused in turns, in ms, images/s and device ms (``torch.profiler``).
 
 Prints one JSON line of kernel records, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
@@ -64,6 +91,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import runpy
 import statistics
 import subprocess
 import sys
@@ -73,6 +101,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tpu_dist_torch import data as td_data
+from tpu_dist_torch.models.cnn import build_cnn_model
 from tpu_dist_torch.models.transformer import (MultiHeadAttention,
                                                _dense_attention,
                                                build_transformer_lm)
@@ -83,6 +113,8 @@ from tpu_dist_torch.ops import fused
 from tpu_dist_torch.ops.losses import SparseCategoricalCrossentropy
 from tpu_dist_torch.ops.metrics import SparseCategoricalAccuracy
 from tpu_dist_torch.ops.optimizers import SGD, Adam
+from tpu_dist_torch.ops.schedules import ExponentialDecay
+from tpu_dist_torch.parallel import MultiWorkerMirroredStrategy
 from tpu_dist_torch.serve import cli, kv_cache
 from tpu_dist_torch.serve.engine import ServeEngine, _pad_to_pow2
 from tpu_dist_torch.serve.scheduler import DONE
@@ -92,7 +124,11 @@ LM = dict(vocab_size=8192, seq_len=512, d_model=512, depth=4, num_heads=8)
 #: bench.py:63's transformer_lm global batch.
 TRAIN_BATCH = 64
 TRAIN_STEPS = 3
-SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "fused_adam.cu")
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "fused_adam.cu", "fused_ce.cu",
+           "fused_sgd.cu")
+#: The reference program (tf_dist_example.py): batch 64 per worker, 10
+#: epochs x 20 steps, shuffle buffer 10000.
+CNN_BATCH, CNN_EPOCHS, CNN_STEPS = 64, 10, 20
 
 #: NVIDIA H100 SXM data sheet: HBM3 bandwidth and dense fp32 (CUDA-core,
 #: no tensor cores) peak, both at the 700 W power limit. The kernel does
@@ -120,6 +156,19 @@ LOSS_ATOL = 1e-5
 #: was: a gap of its whole step.
 PARAM_RTOL = 0.05
 PARAM_ATOL = 1e-8
+#: CE kernel vs plain version, fp32 loss and lse: the same fp32 math, but
+#: the kernel sums exp(x - max) with an online rescale in its own order (the
+#: plain version: max first, then one sum), so lse differs by a few ulps of
+#: its ~10 (1e-6). The backward is held bit for bit instead: both sides get
+#: the kernel's own lse and do the same fp32 operations (accurate expf, one
+#: subtraction, one product) and, for bf16 logits, the same round to nearest.
+CE_TOL = 1e-5
+#: CNN per-epoch losses (~2.3) vs the unfused twin after 10 x 20 steps at
+#: lr 0.001: each step's gradients differ by the CE kernel's ~1e-7 relative
+#: rounding, which moves the weights by ~lr x 1e-7 per step; 1e-5 is some
+#: fifty fp32 ulps of the loss. cuDNN is set deterministic for the pair, so
+#: the convolutions add no run-to-run noise.
+CNN_LOSS_ATOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -490,9 +539,11 @@ def _bench_tokens(global_batch: int):
     return torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
 
 
-def _compiled_lm(optimizer, *, plain_attention: bool = False):
+def _compiled_lm(optimizer, *, plain_attention: bool = False,
+                 fused_ce: bool = False):
     """bench.py:101-106's compile of the full-width LM, on the card; the
-    twin's attention is the plain version."""
+    twin's attention is the plain version; ``fused_ce`` takes the fused
+    cross-entropy kernels."""
     model = build_transformer_lm(LM["vocab_size"], LM["seq_len"],
                                  d_model=LM["d_model"], depth=LM["depth"],
                                  num_heads=LM["num_heads"], seed=0)
@@ -501,26 +552,67 @@ def _compiled_lm(optimizer, *, plain_attention: bool = False):
             if isinstance(m, MultiHeadAttention):
                 m.attention_fn = _dense_attention
     model.compile(optimizer=optimizer,
-                  loss=SparseCategoricalCrossentropy(from_logits=True),
+                  loss=SparseCategoricalCrossentropy(from_logits=True,
+                                                     fused=fused_ce),
                   metrics=[SparseCategoricalAccuracy()])
     return model
 
 
+_COUNTED = ((fa, "flash_attention_fwd"), (fa, "flash_attention_bwd"),
+            (fused, "fused_adam_apply"), (fused, "fused_ce_fwd"),
+            (fused, "fused_ce_bwd"), (fused, "fused_sgd_apply"))
+
+
 def _reset_counts() -> None:
-    fa.flash_attention_fwd.launches = 0
-    fa.flash_attention_bwd.launches = 0
-    fused.fused_adam_apply.launches = 0
+    for mod, name in _COUNTED:
+        getattr(mod, name).launches = 0
+    fused.fused_sgd_apply.momentum_launches = 0
 
 
-def _counts() -> tuple[int, int, int]:
-    return (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches,
-            fused.fused_adam_apply.launches)
+def _counts() -> tuple[int, ...]:
+    """Launches of (flash fwd, flash bwd, Adam, CE fwd, CE bwd, SGD)."""
+    return tuple(getattr(mod, name).launches for mod, name in _COUNTED)
 
 
 def _train_steps(model, x, y) -> list[float]:
     fn, state = model.make_train_function(), model.train_state()
     losses = [fn(*state, x, y) for _ in range(TRAIN_STEPS)]
     return [float(v) for v in losses]
+
+
+def _twin_param_check(name, model, twin, before, *, sgd: bool):
+    """The parameters moved, and (SGD) each leaf lies within PARAM_RTOL of
+    its step plus PARAM_ATOL of the twin's; returns (largest move, largest
+    gap to the twin, a note on the leaf nearest its limit)."""
+    moved = max(float((p.detach() - b).abs().max())
+                for p, b in zip(model.parameters(), before))
+    if not moved > 0:
+        raise AssertionError(f"{name}: the parameters did not move")
+    # (|params - twin's|, the twin's own step, name) per leaf.
+    leaves = [(float((p - q).detach().abs().max()),
+               float((q.detach() - b).abs().max()), n)
+              for (n, p), q, b in zip(model.named_parameters(),
+                                      twin.parameters(), before)]
+    param_diff = max(gap for gap, _, _ in leaves)
+    if not sgd:
+        return moved, param_diff, ""
+    gap, step, leaf = max(
+        leaves, key=lambda r: r[0] / (PARAM_RTOL * r[1] + PARAM_ATOL))
+    qkv_step = min(step for _, step, n in leaves
+                   if n.rsplit(".", 1)[-1] in ("wq", "wk", "wv"))
+    # SGD is linear in the gradients: the two models' parameters differ by
+    # lr x the gradients' differences.
+    over = [f"{n}: {gap:.3e} (step {step:.3e})" for gap, step, n in leaves
+            if gap > PARAM_RTOL * step + PARAM_ATOL]
+    if over:
+        raise AssertionError(
+            f"{name}: parameters differ from the twin's by more than "
+            f"{PARAM_RTOL:g} x their step + {PARAM_ATOL:g}: "
+            f"{'; '.join(over[:8])}")
+    return moved, param_diff, (
+        f" (per leaf <= {PARAM_RTOL:g} x step + {PARAM_ATOL:g}; nearest its "
+        f"limit {leaf}: {gap:.3e} for a step of {step:.3e}; least wq/wk/wv "
+        f"step {qkv_step:.3e})")
 
 
 def train_phase() -> dict:
@@ -543,50 +635,24 @@ def train_phase() -> dict:
         wall = time.monotonic() - t0
         counts = _counts()
         want = (depth * TRAIN_STEPS, depth * TRAIN_STEPS,
-                TRAIN_STEPS if fused_adam else 0)
+                TRAIN_STEPS if fused_adam else 0, 0, 0, 0)
         if counts != want:
             raise AssertionError(
-                f"{name}: launches (flash fwd, flash bwd, fused Adam) "
+                f"{name}: launches (flash fwd, flash bwd, Adam, CE fwd, CE "
+                f"bwd, SGD) "
                 f"{counts}; expected {want}")
-        totals = [a + b for a, b in zip(totals, counts)]
+        totals = [a + b for a, b in zip(totals, counts[:3])]
         twin = _compiled_lm(make(False), plain_attention=True)
         _reset_counts()
         twin_losses = _train_steps(twin, x, y)
-        if _counts() != (0, 0, 0):
+        if any(_counts()):
             raise AssertionError(f"the plain twin launched {_counts()}")
         if not all(np.isfinite(losses)):
             raise AssertionError(f"{name}: non-finite losses {losses}")
         np.testing.assert_allclose(losses, twin_losses, atol=LOSS_ATOL,
                                    rtol=0, err_msg=name)
-        moved = max(float((p.detach() - b).abs().max())
-                    for p, b in zip(model.parameters(), before))
-        if not moved > 0:
-            raise AssertionError(f"{name}: the parameters did not move")
-        # (|params - twin's|, the twin's own step, name) per leaf.
-        leaves = [(float((p - q).detach().abs().max()),
-                   float((q.detach() - b).abs().max()), n)
-                  for (n, p), q, b in zip(model.named_parameters(),
-                                          twin.parameters(), before)]
-        param_diff = max(gap for gap, _, _ in leaves)
-        gap, step, leaf = max(
-            leaves, key=lambda r: r[0] / (PARAM_RTOL * r[1] + PARAM_ATOL))
-        qkv_step = min(step for _, step, n in leaves
-                       if n.rsplit(".", 1)[-1] in ("wq", "wk", "wv"))
-        limit = ("" if fused_adam else
-                 f" (per leaf <= {PARAM_RTOL:g} x step + {PARAM_ATOL:g}; "
-                 f"nearest its limit {leaf}: {gap:.3e} for a step of "
-                 f"{step:.3e}; least wq/wk/wv step {qkv_step:.3e})")
-        if not fused_adam:
-            # SGD is linear in the gradients: the two models' parameters
-            # differ by lr x the gradients' differences.
-            over = [f"{n}: {gap:.3e} (step {step:.3e})"
-                    for gap, step, n in leaves
-                    if gap > PARAM_RTOL * step + PARAM_ATOL]
-            if over:
-                raise AssertionError(
-                    f"{name}: parameters differ from the twin's by more than "
-                    f"{PARAM_RTOL:g} x their step + {PARAM_ATOL:g}: "
-                    f"{'; '.join(over[:8])}")
+        moved, param_diff, limit = _twin_param_check(
+            name, model, twin, before, sgd=not fused_adam)
         log(f"[9 train] {name}, batch {TRAIN_BATCH} x L {LM['seq_len']}, "
             f"{TRAIN_STEPS} steps in {wall:.3f} s: losses "
             f"{[round(v, 6) for v in losses]}; plain-attention twin "
@@ -615,9 +681,9 @@ def fit_phase() -> None:
     loss = history.history["loss"]
     if len(loss) != 1 or not np.isfinite(loss[0]):
         raise AssertionError(f"fit: History loss {loss}")
-    if counts != (LM["depth"] * 4, LM["depth"] * 4, 0):
-        raise AssertionError(f"fit: launches {counts}; expected "
-                             f"({LM['depth'] * 4}, {LM['depth'] * 4}, 0)")
+    want = (LM["depth"] * 4, LM["depth"] * 4, 0, 0, 0, 0)
+    if counts != want:
+        raise AssertionError(f"fit: launches {counts}; expected {want}")
     log(f"[10 fit] Model.fit((x, y), epochs=1, steps_per_epoch=4) at full "
         f"width (batches of 32) in {wall:.3f} s: loss {loss[0]:.6f}, "
         f"accuracy {history.history['accuracy'][0]:.6f}; launches fwd "
@@ -655,9 +721,11 @@ def train_shape_check(args, scale) -> tuple[float, float]:
 
 
 def bwd_timing_phase(launches: int,
-                     check_err: float) -> tuple[dict, float]:
-    """Checks and times the backward at the training shape; returns its
-    kernel record and the forward's error at that shape."""
+                     check_err: float) -> tuple[list, float]:
+    """Checks and times the backward at the training shape; returns the
+    records of its two kernels and of the whole backward call (the TPU's
+    one-tile kernel, which both compute at L = 512), and the forward's
+    error at that shape."""
     b, h, ln, d = TRAIN_BATCH, LM["num_heads"], LM["seq_len"], 64
     bh = b * h
     args, scale = _bwd_inputs((b, h, ln, d), torch.float32, True, seed=2)
@@ -707,16 +775,23 @@ def bwd_timing_phase(launches: int,
         f"{fwd_bwd_ms:.4f} - fwd {fwd_ms:.4f}), bound {bound_ms:.4f} ms "
         f"({bound_by}: {nbytes} B at 3.35 TB/s, {flops} FLOP at 67 TFLOP/s "
         f"fp32); the forward kernel at this shape {kernel_fwd_ms:.4f} ms")
-    return {"name": "flash_bwd", "route": "cuda",
-            "source": "tpu_dist_torch/csrc/flash_bwd.cu",
-            "replaces": "tpu_dist/ops/flash_attention.py:245",
-            "also_replaces": ["tpu_dist/ops/flash_attention.py:285",
-                              "tpu_dist/ops/flash_attention.py:332"],
-            "launches": launches, "max_abs_err": bwd_err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "dkv_ms": part_ms["dkv"],
-            "dq_ms": part_ms["dq"],
-            "max_abs_err_check_cases": check_err}, fwd_err
+    common = {"route": "cuda", "source": "tpu_dist_torch/csrc/flash_bwd.cu",
+              "launches": launches, "max_abs_err": bwd_err,
+              "max_abs_err_check_cases": check_err}
+    # A kernel alone has no plain version or library call of its own: its
+    # plain_ms is the whole backward's plain version.
+    parts = [{"name": f"flash_bwd_{part}", **common,
+              "replaces": f"tpu_dist/ops/flash_attention.py:{line}",
+              "ms": part_ms[part], "plain_ms": plain_ms,
+              "plain_is_whole_backward": True,
+              "bound_ms": part_bound[part][0],
+              "bound_by": part_bound[part][1], "library_ms": None}
+             for part, line in (("dq", 245), ("dkv", 285))]
+    whole = {"name": "flash_bwd", **common,
+             "replaces": "tpu_dist/ops/flash_attention.py:332",
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": library_ms}
+    return [*parts, whole], fwd_err
 
 
 def adam_timing_phase(launches: int, max_abs_err: float) -> dict:
@@ -730,10 +805,12 @@ def adam_timing_phase(launches: int, max_abs_err: float) -> dict:
     # The kernel alone, on a table built once: the wrapper's time also
     # holds its per-call checks and table, which bound it whenever the host
     # takes longer than the card.
-    rows, chunks = fused._leaf_table(0, list(zip(params, grads, mu, nu)))
+    rows, chunks = fused._leaf_table(
+        0, list(zip(params, grads, mu, nu)), caller="chip_smoke",
+        names=("param", "grad", "mu", "nu"), width=4)
     table = torch.tensor(rows, dtype=torch.int64).cuda()
     stream = torch.cuda.current_stream().cuda_stream
-    kernel_ms = _time_ms(lambda: fused._kernel()(
+    kernel_ms = _time_ms(lambda: fused._adam_kernel()(
         table.data_ptr(), len(rows), chunks, scale.data_ptr(), 0.9, 1 - 0.9,
         0.999, 1 - 0.999, 1e-7, stream))
     plain_ms = _time_ms(lambda: fused.fused_adam_plain(params, grads, mu, nu,
@@ -760,19 +837,526 @@ def adam_timing_phase(launches: int, max_abs_err: float) -> dict:
             "library_ms": library_ms, "kernel_alone_ms": kernel_ms}
 
 
-def step_timing_phase() -> None:
+def _lm_step_ms(name: str, model, phase: str) -> float:
     x, y = _bench_tokens(TRAIN_BATCH)
+    fn, state = model.make_train_function(), model.train_state()
+    ms = _time_ms(lambda: fn(*state, x, y), runs=5, per_run=4)
+    tokens = TRAIN_BATCH * LM["seq_len"]
+    log(f"[{phase} times] full train step, {name}, batch {TRAIN_BATCH} x L "
+        f"{LM['seq_len']} fp32, median of 5 windows x 4 steps: "
+        f"{ms:.3f} ms = {tokens / ms * 1e3:.1f} tokens/s")
+    return ms
+
+
+def step_timing_phase() -> float:
+    """Times the train step with SGD and with Adam(fused=True); returns the
+    SGD step's ms."""
+    times = {}
     for name, optimizer in (("SGD", SGD(learning_rate=0.001)),
                             ("Adam(fused=True)", Adam(fused=True))):
         model = _compiled_lm(optimizer)
-        fn, state = model.make_train_function(), model.train_state()
-        ms = _time_ms(lambda: fn(*state, x, y), runs=5, per_run=4)
-        tokens = TRAIN_BATCH * LM["seq_len"]
-        log(f"[11 times] full train step, {name}, batch {TRAIN_BATCH} x L "
-            f"{LM['seq_len']} fp32, median of 5 windows x 4 steps: "
-            f"{ms:.3f} ms = {tokens / ms * 1e3:.1f} tokens/s")
-        del model, fn, state
+        times[name] = _lm_step_ms(name, model, "11")
+        del model
         torch.cuda.empty_cache()
+    return times["SGD"]
+
+
+# -- slice 3: the fused CE and SGD kernels and the reference program --------
+
+#: Phase 12's shapes: the CNN's batch, a ragged batch, a rank-3 input, a
+#: square case, and the LM's B x L by vocab.
+CE_SHAPES = ((64, 10), (37, 10), (2, 16, 64), (1000, 1000), (32768, 8192))
+
+
+def _ce_inputs(shape, dtype, seed):
+    """Logits (3 x N(0, 1)), int64 labels and a cotangent in [0.5, 1.5) on
+    the card; some labels of the ragged case lie outside [0, C)."""
+    gen = torch.Generator("cuda").manual_seed(seed)
+    x = (3 * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
+    y = torch.randint(0, shape[-1], shape[:-1], generator=gen, device="cuda")
+    if shape == (37, 10):   # no column matches: loss = lse, no one-hot
+        y.view(-1)[::5] = -1
+        y.view(-1)[1::7] = shape[-1]
+    g = torch.rand(shape[:-1], generator=gen, device="cuda") + 0.5
+    return x, y, g
+
+
+def ce_check_phase() -> tuple[float, float]:
+    """CE kernels vs their plain version on the same inputs (the backward
+    on the kernel's lse); returns the largest fp32 |difference| of the
+    forward (loss, lse) and of the backward."""
+    worst = [0.0, 0.0]
+    for shape in CE_SHAPES:
+        errs = []
+        for dtype in (torch.float32, torch.bfloat16):
+            x, y, g = _ce_inputs(shape, dtype, seed=shape[-1] + len(shape))
+            c = shape[-1]
+            x2, y2, g2 = x.reshape(-1, c), y.reshape(-1), g.reshape(-1)
+            loss, lse = fused.fused_ce_fwd(x2, y2)
+            dx = fused.fused_ce_bwd(x2, y2, lse, g2)
+            # The rank-general autograd path launches the same kernels.
+            xr = x.detach().clone().requires_grad_()
+            per = fused.fused_sparse_cross_entropy(xr, y)
+            per.backward(g)
+            torch.cuda.synchronize()
+            want_loss, want_lse = fused.fused_ce_fwd_plain(x2, y2)
+            want_dx = fused.fused_ce_bwd_plain(x2, y2, lse, g2)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(loss, want_loss, atol=CE_TOL,
+                                       rtol=CE_TOL)
+            torch.testing.assert_close(lse, want_lse, atol=CE_TOL,
+                                       rtol=CE_TOL)
+            if not torch.equal(dx, want_dx):
+                raise AssertionError(
+                    f"CE {shape} {dtype}: dlogits differ from the plain "
+                    f"version by up to "
+                    f"{float((dx.float() - want_dx.float()).abs().max()):.3e}")
+            if not (torch.equal(per.detach().reshape(-1), loss)
+                    and torch.equal(xr.grad.reshape(-1, c), dx)):
+                raise AssertionError(f"CE {shape}: the autograd path differs "
+                                     f"from the kernels called directly")
+            f_err = max(float((loss - want_loss).abs().max()),
+                        float((lse - want_lse).abs().max()))
+            b_err = float((dx.float() - want_dx.float()).abs().max())
+            errs.append(f"{str(dtype)[6:]} fwd {f_err:.2e} bwd {b_err:.2e}")
+            if dtype == torch.float32:
+                worst = [max(worst[0], f_err), max(worst[1], b_err)]
+            del x, x2, xr, per, dx, want_dx
+            torch.cuda.empty_cache()
+        log(f"[12 ce] {list(shape)}: max |kernel - plain| {'; '.join(errs)}")
+    log(f"[12 ce] 10 cases: loss and lse within atol = rtol = {CE_TOL:g}, "
+        f"dlogits bit for bit; worst fp32 forward {worst[0]:.3e}, "
+        f"backward {worst[1]:.3e}")
+    return worst[0], worst[1]
+
+
+def _cnn_params_and_grads():
+    """The CNN's parameters on the card and seeded gradients, fp32."""
+    params = [p.detach().to("cuda") for p in build_cnn_model().parameters()]
+    gen = torch.Generator().manual_seed(2)
+    grads = [1e-2 * torch.randn(p.shape, generator=gen).to("cuda")
+             for p in params]
+    return params, grads
+
+
+SGD_MODES = (("plain", 0.0, False), ("momentum", 0.9, False),
+             ("nesterov", 0.9, True))
+
+
+def _sgd_rates():
+    """Phase 13's learning rate per step: a float, then a schedule's 0-d
+    value on the card at steps 1 and 2."""
+    decay = ExponentialDecay(0.002, decay_steps=1, decay_rate=0.5)
+    return [0.001] + [decay(torch.tensor(k, dtype=torch.int32, device="cuda"))
+                      for k in (1, 2)]
+
+
+def sgd_check_phase() -> dict:
+    """Fused SGD vs its plain version over the LM's and the CNN's leaves for
+    3 steps, each mode, the first at a float learning rate and the next two
+    at a schedule's device value: bit for bit (the same fp32 operations in
+    the same order, rounded to nearest, no contraction). Returns the
+    largest |difference| of the plain mode and of the momentum modes."""
+    worst = {"plain": 0.0, "momentum": 0.0}
+    for label, (params, grads) in (("LM", _lm_params_and_grads()),
+                                   ("CNN", _cnn_params_and_grads())):
+        n = sum(p.numel() for p in params)
+        done = []
+        for mode, m, nesterov in SGD_MODES:
+            kp, pp = ([p.clone() for p in params] for _ in range(2))
+            kv, pv = (([torch.zeros_like(p) for p in params] if m else None)
+                      for _ in range(2))
+            for lr in _sgd_rates():
+                fused.fused_sgd_apply(kp, grads, kv, learning_rate=lr,
+                                      momentum=m, nesterov=nesterov)
+                fused.fused_sgd_plain(pp, grads, pv, learning_rate=lr,
+                                      momentum=m, nesterov=nesterov)
+            torch.cuda.synchronize()
+            got, want = kp + (kv or []), pp + (pv or [])
+            diff = max(float((a - b).abs().max()) for a, b in zip(got, want))
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"fused SGD ({label}, {mode}) differs "
+                                     f"from its plain version by {diff:.3e}")
+            key = "plain" if m == 0.0 else "momentum"
+            worst[key] = max(worst[key], diff)
+            if not all(not torch.equal(a, b) for a, b in zip(kp, params)):
+                raise AssertionError(f"fused SGD ({label}, {mode}) left a "
+                                     f"leaf unchanged")
+            done.append(mode)
+        log(f"[13 sgd] {label}: {len(params)} leaves, {n} parameters, 3 "
+            f"steps (lr 0.001, then ExponentialDecay's device values) of "
+            f"{', '.join(done)}: bit for bit with the plain version")
+    return worst
+
+
+def program_phase() -> None:
+    """The reference program as it stands, in this process."""
+    argv, out = sys.argv, io.StringIO()
+    _reset_counts()
+    t0 = time.monotonic()
+    try:
+        sys.argv = ["tpu_dist_example"]
+        with contextlib.redirect_stdout(out):
+            g = runpy.run_module("tpu_dist_torch.examples.tpu_dist_example",
+                                 run_name="__main__")
+    finally:
+        sys.argv = argv
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    history = g["history"].history
+    loss = history["loss"]
+    device = next(g["multi_worker_model"].parameters()).device
+    if device.type != "cuda":
+        raise AssertionError(f"the reference program trained on {device}")
+    if len(loss) != CNN_EPOCHS or not np.all(np.isfinite(loss)) or not (
+            loss[-1] < loss[0]):
+        raise AssertionError(f"reference program: epoch losses {loss}")
+    if any(_counts()):
+        raise AssertionError(f"the unfused program launched {_counts()}")
+    log(f"[14 program] python -m tpu_dist_torch.examples.tpu_dist_example "
+        f"(1 worker on {device}, {CNN_EPOCHS} x {CNN_STEPS} steps of "
+        f"{CNN_BATCH}) in {wall:.3f} s: loss {loss[0]:.6f} -> {loss[-1]:.6f}, "
+        f"accuracy {history['accuracy'][0]:.4f} -> "
+        f"{history['accuracy'][-1]:.4f}")
+
+
+def _program_chain(seed: int):
+    """The reference program's chain (load -> map(scale) -> cache ->
+    shuffle -> batch, OFF), with a seeded shuffle so that two runs see the
+    same batches."""
+    def scale(image, label):
+        return np.asarray(image, np.float32) / 255.0, label
+
+    ds = (td_data.load("mnist", split="train").map(scale).cache()
+          .shuffle(10000, seed=seed).batch(CNN_BATCH))
+    options = td_data.Options()
+    options.experimental_distribute.auto_shard_policy = \
+        td_data.AutoShardPolicy.OFF
+    return ds.with_options(options)
+
+
+def _cnn_fit(optimizer, fused_ce: bool, epochs: int, seed: int):
+    """The reference program's strategy, model and fit, with this compile."""
+    strategy = MultiWorkerMirroredStrategy()
+    with strategy.scope():
+        model = build_cnn_model()
+        model.compile(optimizer=optimizer,
+                      loss=SparseCategoricalCrossentropy(from_logits=True,
+                                                         fused=fused_ce),
+                      metrics=[SparseCategoricalAccuracy()])
+    history = model.fit(_program_chain(seed), epochs=epochs,
+                        steps_per_epoch=CNN_STEPS, verbose=0)
+    return model, history.history
+
+
+def cnn_fused_phase() -> dict:
+    """This slice's main path: the program with the fused CE and SGD,
+    against its unfused twin; then momentum SGD. Returns launch counts."""
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        _reset_counts()
+        t0 = time.monotonic()
+        _, h = _cnn_fit(SGD(learning_rate=0.001, fused=True), True,
+                        CNN_EPOCHS, seed=0)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        counts = _counts()
+        steps = CNN_EPOCHS * CNN_STEPS
+        want = (0, 0, 0, steps, steps, steps)
+        if counts != want or fused.fused_sgd_apply.momentum_launches:
+            raise AssertionError(f"fused CNN program: launches {counts}; "
+                                 f"expected {want}")
+        _reset_counts()
+        _, th = _cnn_fit(SGD(learning_rate=0.001), False, CNN_EPOCHS, seed=0)
+        if any(_counts()):
+            raise AssertionError(f"the unfused twin launched {_counts()}")
+        np.testing.assert_allclose(h["loss"], th["loss"], atol=CNN_LOSS_ATOL,
+                                   rtol=0, err_msg="fused CNN vs twin")
+        if not h["loss"][-1] < h["loss"][0]:
+            raise AssertionError(f"fused CNN program: losses {h['loss']}")
+        log(f"[15 cnn] the program with fused CE + SGD(fused=True), "
+            f"{CNN_EPOCHS} x {CNN_STEPS} steps of {CNN_BATCH} in {wall:.3f} "
+            f"s: losses {[round(v, 6) for v in h['loss']]}; unfused twin max "
+            f"|diff| {max(abs(a - b) for a, b in zip(h['loss'], th['loss'])):.2e}"
+            f" (atol {CNN_LOSS_ATOL:g}); launches CE fwd {counts[3]}, CE bwd "
+            f"{counts[4]}, SGD {counts[5]}")
+        _reset_counts()
+        _, mh = _cnn_fit(SGD(learning_rate=0.001, momentum=0.9, fused=True),
+                         True, 2, seed=1)
+        momentum = fused.fused_sgd_apply.momentum_launches
+        if momentum != 2 * CNN_STEPS or _counts()[5] != 2 * CNN_STEPS:
+            raise AssertionError(f"momentum CNN: {momentum} momentum launches "
+                                 f"of {_counts()}; expected {2 * CNN_STEPS}")
+        _, mth = _cnn_fit(SGD(learning_rate=0.001, momentum=0.9), False, 2,
+                          seed=1)
+        np.testing.assert_allclose(mh["loss"], mth["loss"],
+                                   atol=CNN_LOSS_ATOL, rtol=0,
+                                   err_msg="momentum CNN vs twin")
+        log(f"[15 cnn] SGD(momentum=0.9, fused=True), 2 x {CNN_STEPS} steps: "
+            f"losses {[round(v, 6) for v in mh['loss']]}, twin "
+            f"{[round(v, 6) for v in mth['loss']]}; momentum launches "
+            f"{momentum}")
+        # A scheduled rate launches the kernel too: it reads the schedule's
+        # value on the card.
+        decay = lambda: ExponentialDecay(0.002, CNN_STEPS, 0.5)
+        _reset_counts()
+        _, sh = _cnn_fit(SGD(learning_rate=decay(), fused=True), True, 2,
+                         seed=2)
+        scheduled = _counts()[5]
+        if scheduled != 2 * CNN_STEPS:
+            raise AssertionError(f"scheduled CNN: {_counts()}; expected "
+                                 f"{2 * CNN_STEPS} SGD launches")
+        _, sth = _cnn_fit(SGD(learning_rate=decay()), False, 2, seed=2)
+        np.testing.assert_allclose(sh["loss"], sth["loss"],
+                                   atol=CNN_LOSS_ATOL, rtol=0,
+                                   err_msg="scheduled CNN vs twin")
+        log(f"[15 cnn] SGD(ExponentialDecay(0.002, {CNN_STEPS}, 0.5), "
+            f"fused=True), 2 x {CNN_STEPS} steps: losses "
+            f"{[round(v, 6) for v in sh['loss']]}, twin "
+            f"{[round(v, 6) for v in sth['loss']]}; SGD launches {scheduled}")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            flags
+    return {"ce_fwd": counts[3], "ce_bwd": counts[4], "sgd": counts[5],
+            "sgd_momentum": momentum, "sgd_scheduled": scheduled}
+
+
+def lm_fused_phase() -> dict:
+    """The full-width LM with the fused CE and SGD(fused=True) against phase
+    9's plain twin (plain attention, unfused loss and SGD)."""
+    x, y = _bench_tokens(TRAIN_BATCH)
+    depth, name = LM["depth"], "fused CE + SGD(fused=True)"
+    model = _compiled_lm(SGD(learning_rate=0.001, fused=True), fused_ce=True)
+    before = [p.detach().clone() for p in model.parameters()]
+    _reset_counts()
+    t0 = time.monotonic()
+    losses = _train_steps(model, x, y)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = _counts()
+    want = (depth * TRAIN_STEPS, depth * TRAIN_STEPS, 0, TRAIN_STEPS,
+            TRAIN_STEPS, TRAIN_STEPS)
+    if counts != want:
+        raise AssertionError(f"{name}: launches {counts}; expected {want}")
+    twin = _compiled_lm(SGD(learning_rate=0.001), plain_attention=True)
+    _reset_counts()
+    twin_losses = _train_steps(twin, x, y)
+    if any(_counts()):
+        raise AssertionError(f"the plain twin launched {_counts()}")
+    np.testing.assert_allclose(losses, twin_losses, atol=LOSS_ATOL, rtol=0,
+                               err_msg=name)
+    moved, param_diff, limit = _twin_param_check(name, model, twin, before,
+                                                 sgd=True)
+    log(f"[16 lm] {name}, batch {TRAIN_BATCH} x L {LM['seq_len']}, "
+        f"{TRAIN_STEPS} steps in {wall:.3f} s: losses "
+        f"{[round(v, 6) for v in losses]}; plain twin "
+        f"{[round(v, 6) for v in twin_losses]} (max |diff| "
+        f"{max(abs(a - b) for a, b in zip(losses, twin_losses)):.2e}, atol "
+        f"{LOSS_ATOL:g}); params moved by up to {moved:.3e}, max |params - "
+        f"twin's| {param_diff:.3e}{limit}; launches (flash fwd, flash bwd, "
+        f"Adam, CE fwd, CE bwd, SGD) {counts}")
+    del model, twin
+    torch.cuda.empty_cache()
+    return {"ce_fwd": counts[3], "ce_bwd": counts[4], "sgd": counts[5]}
+
+
+def _ce_times(shape) -> dict:
+    """Kernel, plain and library times of the CE pair at ``shape`` fp32."""
+    rows, cols = shape
+    x, y, g = _ce_inputs(shape, torch.float32, seed=rows)
+    big = rows * cols > 1e6
+    slow = dict(runs=11, per_run=2) if big else {}
+    loss, lse = fused.fused_ce_fwd(x, y)
+    xg = x.detach().clone().requires_grad_()
+
+    def lib_fwd():
+        return F.cross_entropy(xg, y, reduction="none")
+
+    def lib_fwd_bwd():
+        xg.grad = None
+        lib_fwd().backward(g)
+
+    fwd_lib = _time_ms(lib_fwd)
+    t = {"fwd": {"ms": _time_ms(lambda: fused.fused_ce_fwd(x, y)),
+                 "plain_ms": _time_ms(lambda: fused.fused_ce_fwd_plain(x, y),
+                                      **slow),
+                 "library_ms": fwd_lib},
+         "bwd": {"ms": _time_ms(lambda: fused.fused_ce_bwd(x, y, lse, g)),
+                 "plain_ms": _time_ms(lambda: fused.fused_ce_bwd_plain(
+                     x, y, lse, g), **slow),
+                 "library_ms": _time_ms(lib_fwd_bwd) - fwd_lib}}
+    # fp32 logits, int64 labels, fp32 loss + lse / lse + g in, dlogits out.
+    t["fwd"]["bound"] = _bound(rows * cols * 4 + rows * (8 + 8),
+                               5 * rows * cols)
+    t["bwd"]["bound"] = _bound(2 * rows * cols * 4 + rows * (8 + 4 + 4),
+                               4 * rows * cols)
+    return t
+
+
+def _sgd_times(params, grads) -> dict:
+    """Wrapper, kernel-alone, plain and library times of fused SGD, plain
+    and momentum, over these leaves."""
+    n = sum(p.numel() for p in params)
+    out = {}
+    for mode, m in (("plain", 0.0), ("momentum", 0.9)):
+        vel = [torch.zeros_like(p) for p in params] if m else None
+        kw = dict(learning_rate=0.001, momentum=m)
+        rows, chunks = fused._leaf_table(
+            0, list(zip(params, grads, *([vel] if vel else []))),
+            caller="chip_smoke", names=("param", "grad", "velocity"),
+            width=3)
+        table = torch.tensor(rows, dtype=torch.int64).cuda()
+        lr = torch.full((), 0.001, dtype=torch.float32, device="cuda")
+        stream = torch.cuda.current_stream().cuda_stream
+        leaves = [p.clone().requires_grad_() for p in params]
+        for p, g in zip(leaves, grads):
+            p.grad = g
+        torch_sgd = torch.optim.SGD(leaves, lr=0.001, momentum=m,
+                                    foreach=True)
+        out[mode] = {
+            "ms": _time_ms(lambda: fused.fused_sgd_apply(params, grads, vel,
+                                                         **kw)),
+            "kernel_alone_ms": _time_ms(lambda: fused._sgd_kernel()(
+                table.data_ptr(), len(rows), chunks,
+                fused._sgd_mode(m, False), lr.data_ptr(), m, stream)),
+            "plain_ms": _time_ms(lambda: fused.fused_sgd_plain(
+                params, grads, vel, **kw)),
+            "library_ms": _time_ms(torch_sgd.step),
+            # p, g read and p written (plus v read and written), fp32.
+            "bound": _bound((12 if not m else 20) * n, (2 if not m else 4) * n),
+        }
+    return out
+
+
+def _device_ms(fn, steps: int) -> float | None:
+    """Device time per call of ``fn`` (the sum of its CUDA kernels and
+    copies in a ``torch.profiler`` trace of ``steps`` calls), or None when
+    the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(getattr(e, "self_device_time_total", 0)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    return total_us / 1e3 / steps if total_us else None
+
+
+def _cnn_step_times(batch, fused_on: bool):
+    """(ms per CNN train step, device ms per step or None)."""
+    model = build_cnn_model()
+    model.compile(optimizer=SGD(learning_rate=0.001, fused=fused_on),
+                  loss=SparseCategoricalCrossentropy(from_logits=True,
+                                                     fused=fused_on),
+                  metrics=[SparseCategoricalAccuracy()])
+    fn, state = model.make_train_function(), model.train_state()
+    step = lambda: fn(*state, *batch)
+    return _time_ms(step, runs=11, per_run=20), _device_ms(step, 20)
+
+
+def slice3_timing_phase(launches: dict, ce_errs: tuple, sgd_errs: dict,
+                        sgd_step_ms: float) -> list:
+    """Times of the four new kernels at the LM's and the CNN's shapes, the
+    LM step with them beside phase 11's, and the CNN step; returns their
+    kernel records (rows 1-4 of the TPU kernel table)."""
+    ce = {"lm": _ce_times((TRAIN_BATCH * LM["seq_len"], LM["vocab_size"])),
+          "cnn": _ce_times((CNN_BATCH, 10))}
+    for part in ("fwd", "bwd"):
+        for where, shape in (("lm", f"[{TRAIN_BATCH * LM['seq_len']}, "
+                                    f"{LM['vocab_size']}]"),
+                             ("cnn", f"[{CNN_BATCH}, 10]")):
+            t = ce[where][part]
+            log(f"[17 times] CE {part} {shape} fp32: kernel {t['ms']:.4f} "
+                f"ms, plain {t['plain_ms']:.4f} ms, F.cross_entropy "
+                f"{t['library_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms "
+                f"({t['bound'][1]})")
+    lm_p, lm_g = _lm_params_and_grads()
+    cnn_p, cnn_g = _cnn_params_and_grads()
+    sgd = {"lm": _sgd_times(lm_p, lm_g), "cnn": _sgd_times(cnn_p, cnn_g)}
+    for where in ("lm", "cnn"):
+        for mode, t in sgd[where].items():
+            n = sum(p.numel() for p in (lm_p if where == "lm" else cnn_p))
+            log(f"[17 times] fused SGD {mode} over {n} {where.upper()} "
+                f"parameters: wrapper {t['ms']:.4f} ms (kernel alone "
+                f"{t['kernel_alone_ms']:.4f} ms), plain {t['plain_ms']:.4f} "
+                f"ms, torch.optim.SGD(foreach=True).step() "
+                f"{t['library_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms "
+                f"({t['bound'][1]})")
+    del lm_p, lm_g
+    model = _compiled_lm(SGD(learning_rate=0.001, fused=True), fused_ce=True)
+    fused_ms = _lm_step_ms("fused CE + SGD(fused=True)", model, "17")
+    log(f"[17 times] LM step with the fused CE + SGD {fused_ms:.3f} ms "
+        f"beside phase 11's SGD step {sgd_step_ms:.3f} ms "
+        f"({(fused_ms / sgd_step_ms - 1) * 100:+.2f} %)")
+    del model
+    torch.cuda.empty_cache()
+    x, y = next(iter(_program_chain(0)))
+    batch = (torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
+    # The main path's step and its unfused twin, in turns. The step is
+    # host-bound and its wall time drifts between calls; the device time is
+    # the number to compare.
+    for fused_on in (True, False):
+        ms, dev = _cnn_step_times(batch, fused_on)
+        busy = ("not measured" if dev is None else
+                f"device {dev:.4f} ms/step ({dev / ms * 100:.1f} % busy)")
+        log(f"[17 times] CNN train step, batch {CNN_BATCH}, CE and SGD "
+            f"{'fused' if fused_on else 'unfused'}, median of 11 windows x "
+            f"20 steps: {ms:.4f} ms = {CNN_BATCH / ms * 1e3:.1f} images/s; "
+            f"{busy} (torch.profiler, 20 steps)")
+    records = []
+    for name, row, part, err, key in (
+            ("fused_ce_fwd", 73, "fwd", ce_errs[0], "ce_fwd"),
+            ("fused_ce_bwd", 123, "bwd", ce_errs[1], "ce_bwd")):
+        lm, cnn_t = ce["lm"][part], ce["cnn"][part]
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "tpu_dist_torch/csrc/fused_ce.cu",
+            "replaces": f"tpu_dist/ops/pallas_kernels.py:{row}",
+            "launches": launches["cnn"][key],
+            "launches_by_path": {"cnn_program": launches["cnn"][key],
+                                 "lm_train": launches["lm"][key]},
+            "max_abs_err": err, "ms": lm["ms"], "plain_ms": lm["plain_ms"],
+            "bound_ms": lm["bound"][0], "bound_by": lm["bound"][1],
+            "library_ms": lm["library_ms"],
+            "shape": [TRAIN_BATCH * LM["seq_len"], LM["vocab_size"]],
+            "cnn_shape": {"shape": [CNN_BATCH, 10], "ms": cnn_t["ms"],
+                          "plain_ms": cnn_t["plain_ms"],
+                          "library_ms": cnn_t["library_ms"],
+                          "bound_ms": cnn_t["bound"][0]}})
+    for name, row, mode, count in (
+            ("fused_sgd", 237, "plain", launches["cnn"]["sgd"]),
+            ("fused_sgd_momentum", 241, "momentum",
+             launches["cnn"]["sgd_momentum"])):
+        lm, cnn_t = sgd["lm"][mode], sgd["cnn"][mode]
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "tpu_dist_torch/csrc/fused_sgd.cu",
+            "replaces": f"tpu_dist/ops/pallas_kernels.py:{row}",
+            "launches": count,
+            "launches_by_path": ({"cnn_program": count,
+                                  "cnn_scheduled":
+                                      launches["cnn"]["sgd_scheduled"],
+                                  "lm_train": launches["lm"]["sgd"]}
+                                 if mode == "plain"
+                                 else {"cnn_momentum": count}),
+            "max_abs_err": sgd_errs[mode], "ms": lm["ms"],
+            "plain_ms": lm["plain_ms"],
+            "bound_ms": lm["bound"][0], "bound_by": lm["bound"][1],
+            "library_ms": lm["library_ms"],
+            "kernel_alone_ms": lm["kernel_alone_ms"],
+            "cnn_shape": {"ms": cnn_t["ms"], "plain_ms": cnn_t["plain_ms"],
+                          "library_ms": cnn_t["library_ms"],
+                          "kernel_alone_ms": cnn_t["kernel_alone_ms"],
+                          "bound_ms": cnn_t["bound"][0]}})
+    return records
 
 
 def main() -> int:
@@ -789,14 +1373,21 @@ def main() -> int:
     record["launches_by_path"] = {"serve": launches,
                                   "train": train_launches["fwd"]}
     fit_phase()
-    bwd_record, fwd_train_err = bwd_timing_phase(train_launches["bwd"],
-                                                 bwd_err)
+    bwd_records, fwd_train_err = bwd_timing_phase(train_launches["bwd"],
+                                                  bwd_err)
     # The forward runs at the serving shapes (phase 3) and the training
     # shape: its error is the larger of the two.
     record["max_abs_err"] = max(record["max_abs_err"], fwd_train_err)
-    records = [record, bwd_record,
-               adam_timing_phase(train_launches["adam"], adam_err)]
-    step_timing_phase()
+    adam_record = adam_timing_phase(train_launches["adam"], adam_err)
+    sgd_step_ms = step_timing_phase()
+    ce_errs = ce_check_phase()
+    sgd_errs = sgd_check_phase()
+    program_phase()
+    slice3 = {"cnn": cnn_fused_phase(), "lm": lm_fused_phase()}
+    new_records = slice3_timing_phase(slice3, ce_errs, sgd_errs,
+                                      sgd_step_ms)
+    # In the order of the TPU kernel table (PERF.md): rows 1-9.
+    records = [*new_records, adam_record, record, *bwd_records]
     log(f"done in {time.monotonic() - t0:.1f} s")
     print(json.dumps({"kernels": records}))
     print(card)

@@ -8,18 +8,22 @@ GPU machine that has no JAX installed, without the JAX conftest:
 Each kernel is held against its plain PyTorch version on the card; the
 serving test shows the engine's prefills went through the forward kernel,
 the training test that a train step went through the forward, backward
-and fused Adam kernels.
+and fused Adam kernels, and the CNN test that a fused ``fit`` went through
+the fused cross-entropy and SGD kernels.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from tpu_dist_torch.data import Dataset, load_arrays
+from tpu_dist_torch.models.cnn import build_cnn_model
 from tpu_dist_torch.models.transformer import build_transformer_lm
 from tpu_dist_torch.ops import flash_attention as fa
 from tpu_dist_torch.ops import fused
 from tpu_dist_torch.ops.losses import SparseCategoricalCrossentropy
-from tpu_dist_torch.ops.optimizers import Adam
+from tpu_dist_torch.ops.optimizers import SGD, Adam
+from tpu_dist_torch.ops.schedules import ExponentialDecay
 from tpu_dist_torch.serve.engine import ServeEngine
 
 
@@ -251,3 +255,137 @@ def test_cuda_train_step_launches_each_kernel(cuda_device):
                     fused.fused_adam_apply.launches)
         assert launches == ((0, 0, 0) if device == "cpu" else (6, 6, 3))
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(64, 10), (37, 10), (2, 16, 64),
+                                   (300, 1000), (8, 8192), (5, 7)], ids=str)
+def test_fused_ce_kernels_match_plain(cuda_device, shape, dtype):
+    # The same fp32 math; the kernel sums exp(x - max) with an online
+    # rescale (atol = rtol = 1e-5 on loss and lse). The backward gets the
+    # kernel's lse on both sides: fp32 equal to 1e-5, a bf16 gradient
+    # equal or one bf16 ulp apart (rtol 2**-7).
+    gen = torch.Generator().manual_seed(shape[-1] + len(shape))
+    x = (3 * torch.randn(shape, generator=gen)).to(cuda_device, dtype)
+    y = torch.randint(-1, shape[-1] + 1, shape[:-1], generator=gen).to(
+        cuda_device)                     # some labels out of range
+    g = (torch.rand(shape[:-1], generator=gen) + 0.5).to(cuda_device)
+    x2, y2 = x.reshape(-1, shape[-1]), y.reshape(-1)
+    before = (fused.fused_ce_fwd.launches, fused.fused_ce_bwd.launches)
+    loss, lse = fused.fused_ce_fwd(x2, y2)
+    dx = fused.fused_ce_bwd(x2, y2, lse, g.reshape(-1))
+    torch.cuda.synchronize()
+    assert (fused.fused_ce_fwd.launches,
+            fused.fused_ce_bwd.launches) == (before[0] + 1, before[1] + 1)
+    want_loss, want_lse = fused.fused_ce_fwd_plain(x2, y2)
+    want_dx = fused.fused_ce_bwd_plain(x2, y2, lse, g.reshape(-1))
+    torch.testing.assert_close(loss, want_loss, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
+    assert dx.dtype == dtype
+    # Both sides start from the kernel's lse and do the same fp32
+    # operations and the same round to nearest: bit for bit.
+    assert torch.equal(dx, want_dx)
+
+
+@pytest.mark.gpu
+def test_fused_ce_raises_on_what_the_kernels_do_not_take(cuda_device):
+    y = torch.zeros(4, dtype=torch.long, device=cuda_device)
+    before = fused.fused_ce_fwd.launches
+    for x, lab, match in (
+            (torch.zeros(4, 10, dtype=torch.float16, device=cuda_device), y,
+             "fp32 or bf16"),
+            (torch.zeros(10, 4, device=cuda_device).t(), y, "contiguous"),
+            (torch.zeros(4, 10, device=cuda_device), y.cpu(),
+             "one CUDA device")):
+        with pytest.raises(ValueError, match=match):
+            fused.fused_ce_fwd(x, lab)
+    assert fused.fused_ce_fwd.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("momentum,nesterov", [(0.0, False), (0.9, False),
+                                               (0.9, True)])
+def test_fused_sgd_matches_plain_bit_for_bit(cuda_device, momentum,
+                                             nesterov):
+    # The same fp32 operations in the same order, rounded to nearest with
+    # no contraction; an empty leaf among the others is skipped.
+    params, grads, vel = _adam_leaves(cuda_device, seed=1)
+    params.insert(1, torch.empty(0, device=cuda_device))
+    grads.insert(1, torch.empty(0, device=cuda_device))
+    vel = [torch.zeros_like(p) for p in params] if momentum else None
+    ref_p = [p.clone() for p in params]
+    ref_v = [v.clone() for v in vel] if momentum else None
+    before = fused.fused_sgd_apply.launches
+    for _ in range(3):
+        fused.fused_sgd_apply(params, grads, vel, learning_rate=0.01,
+                              momentum=momentum, nesterov=nesterov)
+        fused.fused_sgd_plain(ref_p, grads, ref_v, learning_rate=0.01,
+                              momentum=momentum, nesterov=nesterov)
+    torch.cuda.synchronize()
+    assert fused.fused_sgd_apply.launches == before + 3
+    for got, want in zip(params + (vel or []), ref_p + (ref_v or [])):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_fused_sgd_raises_on_what_the_kernel_does_not_take(cuda_device):
+    p = torch.zeros(10, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="fp32"):
+        fused.fused_sgd_apply([p], [p], learning_rate=0.1)
+    p = torch.zeros(10, device=cuda_device)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        fused.fused_sgd_apply([p], [torch.zeros(10)], learning_rate=0.1)
+    with pytest.raises(ValueError, match="one value"):
+        fused.fused_sgd_apply([p], [p], learning_rate=torch.ones(2))
+
+
+@pytest.mark.gpu
+def test_scheduled_fused_sgd_launches_the_kernel(cuda_device):
+    # A schedule's rate stays on the card and the kernel reads it there:
+    # SGD(fused=True) launches once per step and matches the plain update
+    # bit for bit.
+    params, _, _ = _adam_leaves(cuda_device, seed=2)
+    ref = [p.clone() for p in params]
+    decay = lambda: ExponentialDecay(0.01, decay_steps=1, decay_rate=0.5)
+    fused_opt = SGD(learning_rate=decay(), momentum=0.9, fused=True)
+    plain_opt = SGD(learning_rate=decay(), momentum=0.9)
+    fs, ps = fused_opt.init(params), plain_opt.init(ref)
+    before = fused.fused_sgd_apply.launches
+    gen = torch.Generator().manual_seed(3)
+    for _ in range(3):
+        grads = [torch.randn(p.shape, generator=gen).to(cuda_device)
+                 for p in params]
+        fs = fused_opt.update(grads, fs, params)
+        ps = plain_opt.update(grads, ps, ref)
+    torch.cuda.synchronize()
+    assert fused.fused_sgd_apply.launches == before + 3
+    assert int(fs.step) == 3
+    for got, want in zip(params + fs.velocity, ref + ps.velocity):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_cnn_fused_fit_launches_the_kernels(cuda_device):
+    # The CNN's fit with the fused CE and SGD on the card against the same
+    # fit on the CPU (plain versions): losses agree to 1e-4 (fp32, cuDNN's
+    # convolutions sum in another order than the CPU's, over 6 steps).
+    images, labels = load_arrays("mnist", synthetic_size=256)
+    x, y = images.astype(np.float32) / 255.0, labels
+    histories = {}
+    for device in ("cpu", cuda_device):
+        model = build_cnn_model(seed=1)
+        model.compile(optimizer=SGD(learning_rate=0.01, fused=True),
+                      loss=SparseCategoricalCrossentropy(from_logits=True,
+                                                         fused=True),
+                      device=device)
+        fused.fused_ce_fwd.launches = fused.fused_ce_bwd.launches = 0
+        fused.fused_sgd_apply.launches = 0
+        histories[str(device)] = model.fit(
+            Dataset.from_tensor_slices((x, y)).batch(32), epochs=2,
+            steps_per_epoch=3, verbose=0).history["loss"]
+        launches = (fused.fused_ce_fwd.launches, fused.fused_ce_bwd.launches,
+                    fused.fused_sgd_apply.launches)
+        assert launches == ((0, 0, 0) if device == "cpu" else (6, 6, 6))
+    np.testing.assert_allclose(histories["cuda"], histories["cpu"],
+                               atol=1e-4)

@@ -77,8 +77,11 @@ def test_loss_get_resolves_like_reference(name):
 
 
 def test_loss_errors():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        losses.SparseCategoricalCrossentropy(from_logits=True, fused=True)
+    # The fused CE operates on logits, as the reference's does.
+    with pytest.raises(ValueError, match="from_logits=True"):
+        losses.SparseCategoricalCrossentropy(fused=True)
+    with pytest.raises(ValueError, match="from_logits=True"):
+        jlosses.SparseCategoricalCrossentropy(fused=True)
     with pytest.raises(ValueError, match="shapes disagree"):
         losses.mean_squared_error(torch.zeros(4, 3), torch.zeros(5))
     with pytest.raises(ValueError, match="unknown loss"):

@@ -7,7 +7,8 @@ tree's leaves in ``jax.tree_util.tree_leaves`` order) for several steps.
 Both do the same fp32 arithmetic elementwise; params and state agree at
 1e-6 (XLA may contract a multiply-add into one rounding where PyTorch
 rounds twice). The fused Adam kernel's plain version is held to the
-reference's Pallas ``_adam_kernel`` in interpret mode.
+reference's Pallas ``_adam_kernel`` in interpret mode (fused SGD's to its
+kernels in ``test_torch_fused_sgd.py``).
 """
 
 import jax
@@ -73,6 +74,9 @@ CASES = {
     "sgd_clipvalue": lambda m: m.SGD(learning_rate=0.05, clipvalue=0.5),
     "sgd_global_clipnorm": lambda m: m.SGD(learning_rate=0.05,
                                            global_clipnorm=2.0),
+    "sgd_fused": lambda m: m.SGD(learning_rate=0.05, fused=True),
+    "sgd_fused_nesterov": lambda m: m.SGD(learning_rate=0.05, momentum=0.9,
+                                          nesterov=True, fused=True),
     "sgd_schedule": lambda m: m.SGD(
         learning_rate=(jsched if m is jopt else sched).ExponentialDecay(
             0.1, decay_steps=2, decay_rate=0.5),
@@ -130,8 +134,13 @@ def test_fused_adam_plain_matches_reference_kernel_interpret():
 
 
 def test_sgd_fused_raises_naming_the_roadmap_slice():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        opt.SGD(learning_rate=0.1, fused=True)
+    # SGD(fused=True) is ported now: on CPU parameters it takes the fused
+    # kernel's plain version and matches the reference's SGD(fused=True).
+    tparams, tstate, jparams, jstate = _run_both(
+        lambda m: m.SGD(learning_rate=0.05, momentum=0.9, fused=True))
+    assert opt.SGD(fused=True).fused
+    _assert_tree_close(tparams, jparams)
+    _assert_tree_close(tstate, jstate)
 
 
 def test_optimizer_arguments_are_checked_as_in_the_reference():

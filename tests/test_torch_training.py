@@ -24,12 +24,14 @@ from tpu_dist.models import transformer as jtr
 from tpu_dist.ops import losses as jlosses
 from tpu_dist.ops import metrics as jmetrics
 from tpu_dist.ops import optimizers as jopt
+from tpu_dist_torch.data import Dataset
 from tpu_dist_torch.models import transformer as tr
 from tpu_dist_torch.models.bridge import params_from_jax
 from tpu_dist_torch.ops import flash_attention as fa
 from tpu_dist_torch.ops import fused
 from tpu_dist_torch.ops import losses, metrics
 from tpu_dist_torch.ops import optimizers as opt
+from tpu_dist_torch.parallel import MirroredStrategy
 from tpu_dist_torch.training.callbacks import Callback, StopTraining
 
 VOCAB, SEQ = 64, 16
@@ -172,18 +174,39 @@ def test_callbacks_see_batches_and_can_stop_training(capsys):
         device="cpu")),
     ("prefetch_to_device", lambda m: m.compile(
         optimizer="sgd", loss="mse", prefetch_to_device=2, device="cpu")),
-    ("strategy", lambda m: m.compile(optimizer="sgd", loss="mse",
-                                     device="cpu", strategy=object())),
+    ("strategy", lambda m: MirroredStrategy(axis_shapes={"data": 1},
+                                            device="cpu")),
     ("profile_dir", lambda m: m.fit(_tokens(32, 0), profile_dir="p")),
     ("checkpoint_dir", lambda m: m.fit(_tokens(32, 0), checkpoint_dir="c")),
     ("steps_per_execution", lambda m: m.make_train_function(
         steps_per_execution=4)),
-    ("Dataset input", lambda m: m.fit(iter([_tokens(32, 0)]))),
+    ("Dataset input", lambda m: m.fit(
+        Dataset.from_tensor_slices(_tokens(32, 0)).batch(8),
+        profile_dir="p")),
 ])
 def test_unported_knobs_raise_naming_the_roadmap(knob, call):
     _, model = _compiled_pair(OPTIMIZERS["sgd"])
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         call(model)
+
+
+def test_fit_refuses_an_iterator_with_type_error():
+    # The reference's _distribute takes a Dataset, a DistributedDataset or
+    # (x, y) arrays, and raises TypeError on anything else.
+    _, model = _compiled_pair(OPTIMIZERS["sgd"])
+    with pytest.raises(TypeError, match="Dataset"):
+        model.fit(iter([_tokens(32, 0)]))
+
+
+def test_fit_on_a_dataset_matches_fit_on_arrays():
+    x, y = _tokens(96, seed=15)
+    histories, params = [], []
+    for data in ((x, y), Dataset.from_tensor_slices((x, y)).batch(32)):
+        _, model = _compiled_pair(OPTIMIZERS["sgd"])
+        histories.append(model.fit(data, epochs=2, verbose=0).history)
+        params.append([p.detach().clone() for p in model.parameters()])
+    assert histories[0]["loss"] == histories[1]["loss"]
+    assert all(torch.equal(a, b) for a, b in zip(*params))
 
 
 def test_uncompiled_model_refuses_to_train():

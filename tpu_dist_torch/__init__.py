@@ -11,4 +11,34 @@ tpu_dist_torch.serve``, ``Sequential.compile`` before ``fit`` /
 ``utils/device.py``). Every kernel that ``tpu_dist`` wrote in Pallas for the
 TPU is a hand-written Hopper kernel here, under ``csrc/``, beside a plain
 PyTorch version of the same function that CPU tensors take.
+
+The reference program ports line for line
+(``python -m tpu_dist_torch.examples.tpu_dist_example [--device cpu]``)::
+
+    import tpu_dist_torch as td
+
+    strategy = td.MultiWorkerMirroredStrategy(td.CollectiveCommunication.AUTO)
+    dataset = (td.data.load("mnist", split="train")
+               .map(scale).cache().shuffle(10000).batch(GLOBAL_BATCH_SIZE))
+    options = td.data.Options()
+    options.experimental_distribute.auto_shard_policy = td.AutoShardPolicy.OFF
+    with strategy.scope():
+        model = td.models.build_and_compile_cnn_model(learning_rate=0.001)
+    model.fit(dataset.with_options(options), epochs=10, steps_per_epoch=20)
 """
+
+from tpu_dist_torch import cluster, data, models, parallel
+from tpu_dist_torch.data import AutoShardPolicy, Dataset, Options
+from tpu_dist_torch.models import Sequential, build_and_compile_cnn_model
+from tpu_dist_torch.parallel import (CollectiveCommunication,
+                                     MirroredStrategy,
+                                     MultiWorkerMirroredStrategy, ReduceOp,
+                                     Strategy, get_strategy)
+
+__all__ = [
+    "cluster", "data", "models", "parallel",
+    "AutoShardPolicy", "Dataset", "Options",
+    "Sequential", "build_and_compile_cnn_model",
+    "CollectiveCommunication", "MirroredStrategy",
+    "MultiWorkerMirroredStrategy", "ReduceOp", "Strategy", "get_strategy",
+]

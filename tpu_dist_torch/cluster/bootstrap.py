@@ -1,0 +1,149 @@
+"""Runtime bootstrap: cluster bring-up on ``torch.distributed``.
+
+Counterpart of the bring-up part of ``tpu_dist/cluster/bootstrap.py``
+(``initialize``, ``process_index``, ``process_count``, ``is_chief``,
+``barrier``, ``cluster_config``). The JAX package dials the JAX
+coordination service; here :func:`initialize` parses the same TF_CONFIG
+and calls ``torch.distributed.init_process_group``:
+
+* the rendezvous is process 0's declared address
+  (``init_method="tcp://host:port"``), the rank is the task's global
+  process id, the world size the number of tasks;
+* the backend is NCCL when the process trains on CUDA and gloo when it
+  trains on the CPU (``device="cpu"``), never switched silently;
+* on CUDA a process takes the local device whose index is the number of
+  tasks declared before it on its host; NCCL cannot place two ranks on one
+  device, so more ranks on a host than it has cards raises;
+* one process without a cluster (no TF_CONFIG, or a single task) creates no
+  process group: the one-worker local mode, where every collective is the
+  identity.
+
+The call blocks until every process has joined, the reference's "training
+begins when all servers are ready".
+"""
+
+from __future__ import annotations
+
+import atexit
+import logging
+import threading
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+from tpu_dist_torch.cluster.config import ClusterConfig
+from tpu_dist_torch.utils.device import DeviceLike, resolve_device
+
+logger = logging.getLogger("tpu_dist_torch")
+
+_STATE_LOCK = threading.Lock()
+_CONFIG: Optional[ClusterConfig] = None
+#: The device this process trains on once a process group is up.
+_DEVICE: Optional[torch.device] = None
+
+
+def local_device_index(config: ClusterConfig) -> int:
+    """The CUDA device index of this task on its host: the number of tasks
+    declared before it (in global process order) at the same host."""
+    mine = config.task_address.rsplit(":", 1)[0]
+    addrs = config.cluster.all_addresses()
+    return sum(1 for a in addrs[:config.process_id]
+               if a.rsplit(":", 1)[0] == mine)
+
+
+def _cuda_device(config: ClusterConfig) -> torch.device:
+    index = local_device_index(config)
+    count = torch.cuda.device_count()
+    if index >= count:
+        raise RuntimeError(
+            f"task ({config.task.type}, {config.task.index}) is rank "
+            f"{index + 1} on host {config.task_address.rsplit(':', 1)[0]}, "
+            f"which has {count} CUDA device(s): NCCL cannot run two ranks on "
+            f"one device. Declare at most one worker per card on each host, "
+            f"or train on the CPU (device='cpu', the gloo backend)")
+    return torch.device("cuda", index)
+
+
+def initialize(config: ClusterConfig | None = None, *,
+               device: DeviceLike = None) -> torch.device:
+    """Bring up the cluster runtime and return the device this process
+    trains on. ``config`` defaults to ``TF_CONFIG``; ``device`` is the
+    entry points' rule (CUDA unless ``"cpu"``). With more than one task a
+    process group is created once (later calls return its device); with
+    one task or none, nothing is brought up."""
+    global _CONFIG, _DEVICE
+    with _STATE_LOCK:
+        if dist.is_available() and dist.is_initialized():
+            want = resolve_device(device)
+            if want.type != _DEVICE.type:
+                raise ValueError(
+                    f"the process group is up on {_DEVICE}; cannot train on "
+                    f"{want} in the same process")
+            return _DEVICE
+        if config is None:
+            config = ClusterConfig.from_env()
+        dev = resolve_device(device)
+        _CONFIG = config
+        if config is None or config.num_processes < 2:
+            logger.info("tpu_dist_torch: single-process local mode on %s",
+                        dev)
+            return dev
+        if dev.type == "cuda":
+            dev = _cuda_device(config)
+            torch.cuda.set_device(dev)
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        logger.info(
+            "tpu_dist_torch: initializing %d-process cluster from TF_CONFIG; "
+            "task=(%s, %d) rank=%d chief=%s rendezvous=%s backend=%s "
+            "device=%s", config.num_processes, config.task.type,
+            config.task.index, config.process_id, config.is_chief,
+            config.coordinator_address, backend, dev)
+        dist.init_process_group(
+            backend, init_method=f"tcp://{config.coordinator_address}",
+            world_size=config.num_processes, rank=config.process_id)
+        _DEVICE = dev
+        atexit.register(_shutdown)
+        logger.info("tpu_dist_torch: cluster up — process %d/%d on %s",
+                    dist.get_rank(), dist.get_world_size(), dev)
+        return dev
+
+
+def _shutdown() -> None:
+    """Leave the process group at exit: the servers shut down when training
+    ends."""
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def is_initialized() -> bool:
+    """True once a process group is up."""
+    return dist.is_available() and dist.is_initialized()
+
+
+def cluster_config() -> Optional[ClusterConfig]:
+    """The parsed TF_CONFIG for this process, if any."""
+    return _CONFIG
+
+
+def process_index() -> int:
+    return dist.get_rank() if is_initialized() else 0
+
+
+def process_count() -> int:
+    return dist.get_world_size() if is_initialized() else 1
+
+
+def is_chief() -> bool:
+    """Chief duty holder: explicit TF_CONFIG chief, else process 0."""
+    if _CONFIG is not None:
+        return _CONFIG.is_chief
+    return process_index() == 0
+
+
+def barrier(name: str = "tpu_dist_barrier") -> None:
+    """Cluster-wide rendezvous (a no-op for one process): the reference's
+    startup barrier."""
+    if process_count() > 1:
+        logger.debug("tpu_dist_torch: barrier %s", name)
+        dist.barrier()

@@ -2,10 +2,11 @@
 
 The only place where parameter names or layouts are translated. The port's
 layers register their children under the reference's layer names and keep
-its layouts (Dense kernels ``[in, out]``, embedding tables ``[vocab, dim]``,
-attention projections ``[d, heads * key_dim]``), so for the transformer
-family the translation is the identity on layouts and a join of the params
-tree's path with ``.`` on names. Reads numpy only.
+its layouts (Dense kernels ``[in, out]``, Conv2D kernels HWIO ``[kh, kw,
+in, out]``, embedding tables ``[vocab, dim]``, attention projections
+``[d, heads * key_dim]``), so for the transformer and the CNN the
+translation is the identity on layouts and a join of the params tree's path
+with ``.`` on names. Reads numpy only.
 """
 
 from __future__ import annotations

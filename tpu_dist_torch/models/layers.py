@@ -1,4 +1,5 @@
-"""Neural-net layers as ``nn.Module``s — the subset the transformer LM needs.
+"""Neural-net layers as ``nn.Module``s — the subset the transformer LM and
+the MNIST CNN need.
 
 Counterpart of ``tpu_dist/models/layers.py``. The reference's layers are
 immutable descriptions whose ``init(key, in_shape)`` returns a params tree;
@@ -7,12 +8,16 @@ own parameters (shapes inferred from the input shape, as in the reference)
 and returns the output shape. Containers register their children under the
 reference's :func:`unique_layer_names`, so a parameter's dotted name in the
 port's ``state_dict`` is the path of the same leaf in the reference's params
-tree (``block.residual.main.multiheadattention.wq``), and Dense kernels keep
-the reference's ``[in, out]`` layout, used as ``x @ W``.
+tree (``block.residual.main.multiheadattention.wq``), and kernels keep the
+reference's layouts: Dense ``[in, out]``, used as ``x @ W``, and Conv2D
+HWIO over NHWC activations (``F.conv2d`` sees them through permuted views;
+the JAX package leaves convolutions and pooling to XLA, so the port leaves
+them to PyTorch's own operators).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Iterable, Optional, Sequence
 
 import torch
@@ -87,6 +92,113 @@ class Dense(Layer):
         if self.use_bias:
             y = y + self.bias.to(y.dtype)
         return _activation(self.activation)(y)
+
+
+def _pair(v) -> tuple[int, int]:
+    if isinstance(v, int):
+        return (v, v)
+    a, b = v
+    return (int(a), int(b))
+
+
+def _out_size(n: int, window: int, stride: int, padding: str) -> int:
+    """The reference's output-size rule (``layers.py:107-112, 215-223``)."""
+    if padding.upper() == "SAME":
+        return -(-n // stride)
+    return (n - window) // stride + 1
+
+
+def _same_pads(n: int, window: int, stride: int) -> tuple[int, int]:
+    """XLA's / TF's SAME padding of one axis: the odd element at the end."""
+    total = max((-(-n // stride) - 1) * stride + window - n, 0)
+    return total // 2, total - total // 2
+
+
+def _pad_same(x, window, strides, value: float = 0.0):
+    """NCHW ``x`` padded for a SAME window of ``window`` at ``strides``."""
+    (top, bottom), (left, right) = (
+        _same_pads(x.shape[2], window[0], strides[0]),
+        _same_pads(x.shape[3], window[1], strides[1]))
+    return F.pad(x, (left, right, top, bottom), value=value)
+
+
+def _check_padding(padding: str) -> str:
+    if padding.upper() not in ("SAME", "VALID"):
+        raise ValueError(f"padding must be 'valid' or 'same', got {padding!r}")
+    return padding.upper()
+
+
+class Conv2D(Layer):
+    """2-D convolution over NHWC inputs with an HWIO kernel ``[kh, kw, in,
+    out]``, the reference's layouts; ``valid`` or ``same`` padding."""
+
+    def __init__(self, filters: int, kernel_size, strides=1,
+                 padding: str = "valid", activation: Optional[str] = None,
+                 use_bias: bool = True,
+                 kernel_initializer: str = "glorot_uniform"):
+        super().__init__()
+        self.filters = filters
+        self.kernel_size = _pair(kernel_size)
+        self.strides = _pair(strides)
+        self.padding = _check_padding(padding)
+        self.activation = activation
+        self.use_bias = use_bias
+        self.kernel_initializer = kernel_initializer
+
+    def init(self, gen, in_shape):
+        h, w, cin = in_shape
+        kh, kw = self.kernel_size
+        self._set_params(kernel=initializers.get(self.kernel_initializer)(
+            gen, (kh, kw, cin, self.filters)))
+        if self.use_bias:
+            self._set_params(bias=torch.zeros(self.filters))
+        sh, sw = self.strides
+        return (_out_size(h, kh, sh, self.padding),
+                _out_size(w, kw, sw, self.padding), self.filters)
+
+    def forward(self, x):
+        xc = x.permute(0, 3, 1, 2)               # NCHW view of NHWC memory
+        if self.padding == "SAME":
+            xc = _pad_same(xc, self.kernel_size, self.strides)
+        y = F.conv2d(xc, self.kernel.to(x.dtype).permute(3, 2, 0, 1),
+                     self.bias.to(x.dtype) if self.use_bias else None,
+                     stride=self.strides)
+        return _activation(self.activation)(y.permute(0, 2, 3, 1))
+
+
+class MaxPooling2D(Layer):
+    """Max pool over NHWC inputs; ``strides`` default to ``pool_size``, the
+    reference's default ``pool_size=2``."""
+
+    def __init__(self, pool_size=2, strides=None, padding: str = "valid"):
+        super().__init__()
+        self.pool_size = _pair(pool_size)
+        self.strides = _pair(strides) if strides is not None else self.pool_size
+        self.padding = _check_padding(padding)
+
+    def init(self, gen, in_shape):
+        h, w, c = in_shape
+        (ph, pw), (sh, sw) = self.pool_size, self.strides
+        return (_out_size(h, ph, sh, self.padding),
+                _out_size(w, pw, sw, self.padding), c)
+
+    def forward(self, x):
+        xc = x.permute(0, 3, 1, 2)
+        if self.padding == "SAME":
+            xc = _pad_same(xc, self.pool_size, self.strides, -math.inf)
+        y = F.max_pool2d(xc, self.pool_size, self.strides)
+        return y.permute(0, 2, 3, 1)
+
+
+class Flatten(Layer):
+    """``[B, ...] -> [B, prod(...)]`` in the NHWC order of the activations,
+    so the next Dense kernel's rows line up with the reference's."""
+
+    def init(self, gen, in_shape):
+        return (math.prod(in_shape),)
+
+    def forward(self, x):
+        return x.reshape(x.shape[0], -1)
 
 
 def unique_layer_names(layers: Sequence[Layer]) -> list[str]:

@@ -23,6 +23,7 @@ from tpu_dist_torch.ops import losses as losses_lib
 from tpu_dist_torch.ops import metrics as metrics_lib
 from tpu_dist_torch.ops import optimizers as optimizers_lib
 from tpu_dist_torch.utils.device import DeviceLike, resolve_device
+from tpu_dist_torch.utils.errors import unported
 
 
 class Sequential(nn.Module):
@@ -46,6 +47,7 @@ class Sequential(nn.Module):
         self.loss = None
         self.metrics: list = []
         self.steps_per_execution = 1
+        self.strategy = None
         self._trainer = None
         if input_shape is not None:
             self.init(seed)
@@ -104,19 +106,21 @@ class Sequential(nn.Module):
 
     def compile(self, optimizer="sgd", loss=None, metrics=(),
                 steps_per_execution: int = 1, gradient_bucket_bytes: int = 0,
-                prefetch_to_device: int = 0, *, device: DeviceLike = None,
-                strategy=None) -> None:
-        """Record loss/optimizer/metrics and move the model to ``device``:
-        the CUDA device unless the caller asks for the CPU
-        (``device="cpu"``, as the CPU tests do); without a GPU the default
-        raises. The model trains where its parameters are. Recompiling
-        keeps the weights and rebuilds the optimizer state.
+                prefetch_to_device: int = 0, *,
+                device: DeviceLike = None) -> None:
+        """Record loss/optimizer/metrics, capture the scoped strategy
+        (``get_strategy()``, as the JAX package does) and move the model to
+        ``device``: by default the strategy's device, else the CUDA device
+        unless the caller asks for the CPU (``device="cpu"``, as the CPU
+        tests do); without a GPU the default raises. The model trains where
+        its parameters are. Recompiling keeps the weights and rebuilds the
+        optimizer state.
 
-        ``steps_per_execution > 1``, ``gradient_bucket_bytes``,
-        ``prefetch_to_device`` and a ``strategy`` are the JAX package's
-        knobs that come with the port's MNIST-CNN training slice; each
-        raises ``NotImplementedError`` until then."""
-        from tpu_dist_torch.training.trainer import unported
+        ``steps_per_execution > 1``, ``gradient_bucket_bytes`` and
+        ``prefetch_to_device`` are the JAX package's knobs that come with
+        slice 3b of the port; each raises ``NotImplementedError`` until
+        then."""
+        from tpu_dist_torch.parallel.strategy import get_strategy
 
         if steps_per_execution < 1:
             raise ValueError(
@@ -134,9 +138,17 @@ class Sequential(nn.Module):
             raise unported("compile(gradient_bucket_bytes=)")
         if prefetch_to_device:
             raise unported("compile(prefetch_to_device=)")
-        if strategy is not None:
-            raise unported("a distribution strategy")
-        self.to(resolve_device(device))
+        strategy = get_strategy()
+        target = resolve_device(device if device is not None
+                                else strategy.device)
+        if strategy.device is not None:
+            if target.type != strategy.device.type:
+                raise ValueError(
+                    f"compile(device={target}) under {strategy!r}, whose "
+                    f"replica trains on {strategy.device}")
+            target = strategy.device
+        self.to(target)
+        self.strategy = strategy
         self.optimizer = optimizers_lib.get(optimizer)
         self.loss = losses_lib.get(loss) if loss is not None else None
         self.metrics = [metrics_lib.get(m) for m in metrics]
@@ -161,7 +173,8 @@ class Sequential(nn.Module):
             validation_data=None, validation_steps: Optional[int] = None,
             checkpoint_dir: Optional[str] = None,
             class_weight: Optional[dict] = None):
-        """Run the epoch/step loop over ``(x, y)`` arrays (batches of 32 in
+        """Run the epoch/step loop over a ``Dataset``, a
+        ``DistributedDataset`` or ``(x, y)`` arrays (batches of 32 in
         order); returns the ``History``. ``validation_data`` runs a
         validation pass each epoch, reported as ``val_``-prefixed logs;
         ``class_weight`` scales each sample's loss by its class's weight.
@@ -176,7 +189,8 @@ class Sequential(nn.Module):
             checkpoint_dir=checkpoint_dir, class_weight=class_weight)
 
     def evaluate(self, x, steps: Optional[int] = None, verbose: int = 1):
-        """Loss and metrics over ``(x, y)`` arrays, as a dict of floats."""
+        """Loss and metrics over a dataset or ``(x, y)`` arrays, as a dict
+        of floats."""
         return self._get_trainer("loss").evaluate(x, steps=steps,
                                                   verbose=verbose)
 

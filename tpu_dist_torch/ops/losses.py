@@ -4,13 +4,15 @@ Counterpart of ``tpu_dist/ops/losses.py`` in PyTorch: pure functions
 returning per-example losses, and :class:`Loss` objects whose call is the
 mean over the batch. Integer labels index as int64 (PyTorch's gather);
 every loss is computed in the logits' dtype, as the JAX package does.
-``SparseCategoricalCrossentropy(fused=True)`` (kernels 1-2 of
-``ROADMAP.md``) is not ported yet and raises.
+``SparseCategoricalCrossentropy(from_logits=True, fused=True)`` computes
+the loss with the fused cross-entropy kernels (``ops/fused.py``).
 """
 
 from __future__ import annotations
 
 import torch
+
+from tpu_dist_torch.ops.fused import fused_sparse_cross_entropy
 
 
 def sparse_categorical_crossentropy(logits, labels, *,
@@ -103,21 +105,26 @@ class Loss:
 
 
 class SparseCategoricalCrossentropy(Loss):
-    """tf.keras.losses.SparseCategoricalCrossentropy analog."""
+    """tf.keras.losses.SparseCategoricalCrossentropy analog.
+
+    ``fused=True`` computes the per-example loss with
+    :func:`~tpu_dist_torch.ops.fused.fused_sparse_cross_entropy`: on CUDA
+    logits the forward and backward are one launch each of
+    ``csrc/fused_ce.cu`` (or the call raises), on CPU logits their plain
+    versions. Requires ``from_logits=True``, as the reference does."""
 
     def __init__(self, from_logits: bool = False, fused: bool = False):
+        if fused and not from_logits:
+            raise ValueError("fused CE operates on logits; "
+                             "pass from_logits=True")
         if fused:
-            raise NotImplementedError(
-                "SparseCategoricalCrossentropy(fused=True): the fused "
-                "cross-entropy kernels (pallas_kernels.py _ce_fwd_kernel, "
-                "_ce_bwd_kernel) come with the port's MNIST-CNN training "
-                "slice (ROADMAP.md, 'Slices of the port')")
-        super().__init__(
-            lambda logits, labels: sparse_categorical_crossentropy(
-                logits, labels, from_logits=from_logits),
-            "sparse_categorical_crossentropy")
+            fn = fused_sparse_cross_entropy
+        else:
+            fn = lambda logits, labels: sparse_categorical_crossentropy(
+                logits, labels, from_logits=from_logits)
+        super().__init__(fn, "sparse_categorical_crossentropy")
         self.from_logits = from_logits
-        self.fused = False
+        self.fused = bool(fused)
 
 
 class CategoricalCrossentropy(Loss):

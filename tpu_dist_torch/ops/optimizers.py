@@ -21,7 +21,8 @@ from typing import Any, NamedTuple
 import torch
 
 from tpu_dist_torch.ops import schedules
-from tpu_dist_torch.ops.fused import fused_adam_apply, fused_adam_plain
+from tpu_dist_torch.ops.fused import (fused_adam_apply, fused_adam_plain,
+                                      fused_sgd_apply, fused_sgd_plain)
 
 
 class Optimizer:
@@ -102,20 +103,20 @@ class SGD(Optimizer):
     """SGD with optional momentum/Nesterov — tf.keras SGD analog.
     ``learning_rate`` accepts a float or a schedule (evaluated on the
     device per step; TF semantics: first update sees schedule(0)).
-    ``fused=True`` (kernels 3-4 of ``ROADMAP.md``) is not ported yet."""
+    ``fused=True`` updates every parameter in one launch of the fused SGD
+    kernel (``ops/fused.py``), a constant or a scheduled learning rate
+    alike: the kernel reads the rate on the device. (The JAX package keeps
+    a schedule on its jnp path because its TPU kernel bakes the rate in as
+    a constant; both give the same update.) Otherwise the same math runs
+    leaf by leaf (:func:`~tpu_dist_torch.ops.fused.fused_sgd_plain`)."""
 
     def __init__(self, learning_rate=0.01, momentum: float = 0.0,
                  nesterov: bool = False, clipnorm=None, clipvalue=None,
                  global_clipnorm=None, fused: bool = False):
-        if fused:
-            raise NotImplementedError(
-                "SGD(fused=True): the fused SGD kernels (pallas_kernels.py "
-                "_sgd_kernel, _sgd_momentum_kernel) come with the port's "
-                "MNIST-CNN training slice (ROADMAP.md, 'Slices of the port')")
         self.learning_rate, self._scheduled = schedules.resolve(learning_rate)
         self.momentum = float(momentum)
         self.nesterov = bool(nesterov)
-        self.fused = False
+        self.fused = bool(fused)
         self._set_clipping(clipnorm, clipvalue, global_clipnorm)
 
     def init(self, params):
@@ -134,17 +135,10 @@ class SGD(Optimizer):
             else:
                 lr = self.learning_rate
                 vel = state
-            if self.momentum == 0.0:
-                for p, g in zip(params, grads, strict=True):
-                    p.sub_(lr * g)
-            else:
-                m = self.momentum
-                for p, v, g in zip(params, vel, grads, strict=True):
-                    v.copy_(m * v - lr * g)
-                    if self.nesterov:
-                        p.copy_(p + m * v - lr * g)
-                    else:
-                        p.add_(v)
+            apply = fused_sgd_apply if self.fused else fused_sgd_plain
+            apply(params, grads, vel if self.momentum != 0.0 else None,
+                  learning_rate=lr, momentum=self.momentum,
+                  nesterov=self.nesterov)
             if self._scheduled:
                 state.step.add_(1)
         return state

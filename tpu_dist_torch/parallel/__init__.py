@@ -1,0 +1,16 @@
+"""Parallelism layer: collectives and distribution strategies."""
+
+from tpu_dist_torch.parallel.collectives import (CollectiveCommunication,
+                                                 ReduceOp, all_reduce,
+                                                 broadcast)
+from tpu_dist_torch.parallel.strategy import (DefaultStrategy,
+                                              MirroredStrategy,
+                                              MultiWorkerMirroredStrategy,
+                                              Strategy, get_strategy,
+                                              has_strategy)
+
+__all__ = [
+    "CollectiveCommunication", "ReduceOp", "all_reduce", "broadcast",
+    "DefaultStrategy", "MirroredStrategy", "MultiWorkerMirroredStrategy",
+    "Strategy", "get_strategy", "has_strategy",
+]

@@ -1,7 +1,7 @@
 """The training engine: the train step and the Keras-2-style fit loop.
 
-Subset of ``tpu_dist/training/trainer.py`` for one device. The JAX package
-compiles the whole step (forward, loss, backward, update, metrics) into
+Subset of ``tpu_dist/training/trainer.py``, one device per process. The
+JAX package compiles the whole step (forward, loss, backward, update, metrics) into
 one XLA program whose variables are donated and returned; PyTorch runs the
 same step eagerly and keeps its variables in place:
 
@@ -18,11 +18,25 @@ the step returns a 7-tuple of loss,   | the step returns the loss tensor;
 new variables and the health vector   | no host sync until someone reads it
 
 The model trains on the device its parameters are on (``compile`` puts
-them there). There is no strategy yet: ``steps_per_execution > 1``,
-``gradient_bucket_bytes``, ``prefetch_to_device``, ``checkpoint_dir``,
-``profile_dir``, a ``Dataset`` input and a strategy come with the port's
-MNIST-CNN training slice, the integrity ``health`` vector with the
-resilience slice (``ROADMAP.md``); each raises ``NotImplementedError``.
+them there, on the scoped strategy's device). Under a strategy with more
+than one replica (``MultiWorkerMirroredStrategy`` over several processes)
+the trainer broadcasts process 0's initial parameters, and each step
+all-reduces the gradients and the loss as one flat buffer (the mean over
+the processes, the reference's single end-of-step all-reduce) before the
+optimizer update; the epoch's loss and metric totals are reduced before
+they are read, so the History is the same on every process and is the
+global batch's. A mean of per-process means is the global batch's mean
+only for equal shards: DATA sharding slices every global batch into equal
+parts (and raises on a batch the process count does not divide); under
+OFF every process brings its own equally sized local batch.
+
+``fit``/``evaluate`` take a ``Dataset``, a ``DistributedDataset`` or
+``(x, y)`` arrays (batches of 32 in order), wrapped as the JAX package's
+``_distribute`` wraps them; anything else raises ``TypeError``.
+``steps_per_execution > 1``, ``gradient_bucket_bytes``,
+``prefetch_to_device``, ``checkpoint_dir`` and ``profile_dir`` come with
+slice 3b of the port, the integrity ``health`` vector with the resilience
+slice (``ROADMAP.md``); each raises ``NotImplementedError``.
 
 Epoch semantics are the JAX package's: one persistent iterator across
 epochs when ``steps_per_epoch`` is set, re-created on exhaustion; the epoch
@@ -39,8 +53,12 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from tpu_dist_torch.data.distribute import DistributedDataset
+from tpu_dist_torch.data.pipeline import Dataset
+from tpu_dist_torch.parallel import collectives
 from tpu_dist_torch.training.callbacks import (CallbackList, History,
                                                StopTraining)
+from tpu_dist_torch.utils.errors import unported
 from tpu_dist_torch.utils.progbar import ProgressBar
 
 logger = logging.getLogger("tpu_dist_torch.trainer")
@@ -50,33 +68,20 @@ logger = logging.getLogger("tpu_dist_torch.trainer")
 ARRAY_BATCH = 32
 
 
-def unported(what: str, slice_name: str = "MNIST-CNN training"):
-    """The error for a knob of the JAX trainer that the port lacks yet."""
-    return NotImplementedError(
-        f"{what} is not ported yet: it comes with the port's {slice_name} "
-        f"slice (ROADMAP.md, 'Slices of the port')")
+def array_batches(x, y, batch_size: int = ARRAY_BATCH) -> Dataset:
+    """``(x, y)`` arrays cut into batches of ``batch_size`` rows in order,
+    the last one ragged: the batches of ``Dataset.from_tensor_slices((x,
+    y)).batch(32)``, sliced instead of stacked row by row."""
+    x, y = np.asarray(x), np.asarray(y)
+    if len(x) != len(y):
+        raise ValueError(f"x and y disagree on the number of rows: {len(x)} "
+                         f"vs {len(y)}")
 
+    def factory():
+        for i in range(0, len(x), batch_size):
+            yield x[i:i + batch_size], y[i:i + batch_size]
 
-class ArrayBatches:
-    """``(x, y)`` arrays cut into batches of :data:`ARRAY_BATCH` rows in
-    order, the last one ragged — ``Dataset.from_tensor_slices((x, y))
-    .batch(32)``. Iterating yields numpy pairs."""
-
-    def __init__(self, x, y, batch_size: int = ARRAY_BATCH):
-        self.x, self.y = np.asarray(x), np.asarray(y)
-        if len(self.x) != len(self.y):
-            raise ValueError(
-                f"x and y disagree on the number of rows: {len(self.x)} vs "
-                f"{len(self.y)}")
-        self.batch_size = batch_size
-
-    def cardinality(self) -> int:
-        return -(-len(self.x) // self.batch_size)
-
-    def __iter__(self):
-        for i in range(0, len(self.x), self.batch_size):
-            yield (self.x[i:i + self.batch_size],
-                   self.y[i:i + self.batch_size])
+    return Dataset(factory, cardinality=-(-len(x) // batch_size))
 
 
 def _to_device(a, device) -> torch.Tensor:
@@ -94,7 +99,10 @@ class Trainer:
     """Owns the training variables of one model and its train step."""
 
     def __init__(self, model):
+        from tpu_dist_torch.parallel.strategy import get_strategy
+
         self.model = model
+        self.strategy = model.strategy or get_strategy()
         self.variables: Optional[dict] = None  # params/state/opt/metrics
         self._iterator = None
         self._iterator_source = None
@@ -102,6 +110,11 @@ class Trainer:
     @property
     def device(self) -> torch.device:
         return next(self.model.parameters()).device
+
+    @property
+    def distributed(self) -> bool:
+        """True when the step all-reduces across processes."""
+        return self.strategy.num_replicas_in_sync > 1
 
     # -- variables -----------------------------------------------------------
 
@@ -114,6 +127,9 @@ class Trainer:
         if self.variables is not None:
             return
         params = list(self.model.parameters())
+        if self.distributed:
+            # Mirrored variables start equal: process 0's values everywhere.
+            collectives.broadcast(params, src=0)
         optimizer = self.model.optimizer
         self.variables = {
             "params": params,
@@ -166,6 +182,7 @@ class Trainer:
         model, optimizer = self.model, self.model.optimizer
         metrics = tuple(model.metrics)
         device = self.device
+        distributed = self.distributed
 
         def step(params, state, opt_state, metric_states, loss_acc, x, y,
                  rng=None):
@@ -175,8 +192,14 @@ class Trainer:
             logits = model(x)
             loss = self._loss(logits, y, class_weight)
             loss.backward()
-            optimizer.update([p.grad for p in params], opt_state, params)
+            grads = [p.grad for p in params]
             loss = loss.detach()
+            if distributed:
+                # One flat all-reduce of the gradients and the loss: the
+                # mean over the processes is the global batch's.
+                collectives.all_reduce([*grads, loss],
+                                       collectives.ReduceOp.MEAN)
+            optimizer.update(grads, opt_state, params)
             with torch.no_grad():
                 for m, ms in zip(metrics, metric_states):
                     m.update(ms, logits, y)
@@ -215,15 +238,21 @@ class Trainer:
 
     # -- data --------------------------------------------------------------------
 
-    @staticmethod
-    def _batches(x) -> ArrayBatches:
+    def _distribute(self, x) -> DistributedDataset:
+        """The JAX package's ``_distribute``: a DistributedDataset as it
+        is, a Dataset wrapped under its auto-shard policy, ``(x, y)``
+        arrays as batches of 32 in order."""
+        if isinstance(x, DistributedDataset):
+            return x
+        if isinstance(x, Dataset):
+            return DistributedDataset(x, self.strategy)
         if isinstance(x, (tuple, list)) and len(x) == 2:
-            return ArrayBatches(*x)
-        raise unported(
-            f"fit/evaluate input of type {type(x).__name__} (the port takes "
-            f"(x, y) arrays; a Dataset comes with the data/ port)")
+            return DistributedDataset(array_batches(*x), self.strategy)
+        raise TypeError(
+            f"fit/evaluate expects a Dataset, DistributedDataset or (x, y) "
+            f"arrays; got {type(x).__name__}")
 
-    def _next_batch(self, batches: ArrayBatches):
+    def _next_batch(self, batches: DistributedDataset):
         """Persistent-iterator semantics across epochs (Keras 2): re-create
         on exhaustion."""
         if self._iterator is None or self._iterator_source is not batches:
@@ -260,12 +289,15 @@ class Trainer:
                 raise ValueError(f"negative class index in {class_weight}")
             class_weight = class_weight or None  # {} means no weighting
         step = self._step(class_weight)
-        batches = self._batches(x)
+        batches = self._distribute(x)
         if steps_per_epoch is None:
             steps_per_epoch = batches.cardinality()
+            if steps_per_epoch is None:
+                raise ValueError("the dataset's cardinality is unknown; "
+                                 "pass steps_per_epoch")
         val_batches = val_steps = None
         if validation_data is not None:
-            val_batches = self._batches(validation_data)
+            val_batches = self._distribute(validation_data)
             val_steps = validation_steps
 
         history = History()
@@ -314,7 +346,13 @@ class Trainer:
             cbs.on_epoch_end(epoch, logs)
 
     def _results(self, loss_acc, metric_states) -> dict:
-        """The epoch's (or pass's) logs, read once each with ``.item()``."""
+        """The epoch's (or pass's) logs, read once each with ``.item()``.
+        Across processes, the loss accumulator is averaged (its step losses
+        are per-process means) and the metric totals summed first."""
+        if self.distributed:
+            collectives.all_reduce([loss_acc], collectives.ReduceOp.MEAN)
+            states = [t for ms in metric_states for t in ms.values()]
+            collectives.all_reduce(states, collectives.ReduceOp.SUM)
         logs = {"loss": (loss_acc[0] / torch.clamp(loss_acc[1], min=1.0))
                 .item()}
         for metric, mstate in zip(self.model.metrics, metric_states):
@@ -323,12 +361,12 @@ class Trainer:
 
     def evaluate(self, x, *, steps: Optional[int], verbose: int) -> dict:
         self.ensure_variables()
-        logs = self._evaluate_on(self._batches(x), steps)
+        logs = self._evaluate_on(self._distribute(x), steps)
         if verbose:
             print(" - ".join(f"{k}: {v_:.4f}" for k, v_ in logs.items()))
         return logs
 
-    def _evaluate_on(self, batches: ArrayBatches,
+    def _evaluate_on(self, batches: DistributedDataset,
                      steps: Optional[int]) -> dict:
         """One evaluation pass (all batches, or the first ``steps``): the
         mean of the batches' losses and each metric's ratio."""
