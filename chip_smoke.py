@@ -26,7 +26,9 @@ plain PyTorch version. Phases:
    its flash launches must be ``depth x`` the prefills it counted;
 6. times at the serving shape [8, 512, 64] fp32 causal: kernel, plain
    version and ``F.scaled_dot_product_attention`` (a yardstick only, never
-   used by the port), beside the kernel's lower bound;
+   used by the port), beside the kernel's lower bound on the card's
+   fastest fp32-accurate route (3xTF32 on the tensor cores, 165 TFLOP/s)
+   and on the CUDA cores (67 TFLOP/s);
 7. backward kernels vs their plain version: dQ, dK, dV for L in {77, 128,
    200, 512, 1024} (512 is the TPU's one-tile case), D in {32, 64, 128},
    fp32 and bf16, causal and not (tolerances at ``assert_grads_close``);
@@ -47,10 +49,14 @@ plain PyTorch version. Phases:
     kernel;
 11. at the training shape [64, 8, 512, 64] fp32 causal, the forward and
     backward kernels against their plain versions on the same inputs (the
-    errors the kernel line reports); then times at the training shapes,
-    each beside its bound: the backward there (kernels, plain version,
-    SDPA's backward as fwd+bwd minus fwd), fused Adam over the 21.3 M
-    parameters (kernel, plain version,
+    errors the kernel line reports), and a second backward call that must
+    give the same bits; then times at the training shapes, each beside its
+    bound: the backward there (kernels, each kernel alone, the delta
+    kernel, plain version, SDPA's backward as fwd+bwd minus fwd, the
+    kernels SDPA ran from one ``torch.profiler`` pass; bounds on the
+    tensor cores, 3xTF32 at 165 TFLOP/s, and on the CUDA cores), the same
+    backward in bf16 beside SDPA's bf16 backward (bound at 989 TFLOP/s),
+    fused Adam over the 21.3 M parameters (kernel, plain version,
     ``torch.optim.Adam(fused=True).step()``), and the full training step
     in ms and tokens/s. Library calls are yardsticks only, never used by
     the port;
@@ -130,11 +136,17 @@ SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "fused_adam.cu", "fused_ce.cu",
 #: epochs x 20 steps, shuffle buffer 10000.
 CNN_BATCH, CNN_EPOCHS, CNN_STEPS = 64, 10, 20
 
-#: NVIDIA H100 SXM data sheet: HBM3 bandwidth and dense fp32 (CUDA-core,
-#: no tensor cores) peak, both at the 700 W power limit. The kernel does
-#: its arithmetic in fp32 on the CUDA cores, so fp32 is its peak.
+#: NVIDIA H100 SXM data sheet, dense, at the 700 W power limit: HBM3
+#: bandwidth; fp32 on the CUDA cores; TF32 and bf16 on the tensor cores.
+#: An fp32-accurate product on the tensor cores is three TF32 products
+#: (3xTF32), so the card's fastest fp32 route runs at a third of the TF32
+#: peak. The attention kernels' bounds (rows 6-9) take the fastest route for
+#: their precision and keep the CUDA-core figure beside it; the elementwise
+#: kernels are bound by bytes either way and keep the CUDA-core figure.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+TF32X3_FLOPS_PER_S = 495e12 / 3
+BF16_FLOPS_PER_S = 989e12
 
 TIE_GAP = 1e-4
 #: Kernel vs plain version: fp32 arithmetic on both sides, different
@@ -206,6 +218,36 @@ def build_phase() -> None:
         for line in info.get("log", "").splitlines():
             if "registers" in line or "spill" in line:
                 log(f"    ptxas: {line.strip()}")
+    for name, (total, hmma) in _sass_mix("flash_bwd.cu").items():
+        log(f"[2 build] flash_bwd.cu SASS {name}: {total} instructions, "
+            f"{hmma} HMMA ({hmma / max(total, 1) * 100:.1f} %)")
+
+
+def _sass_mix(source: str) -> dict:
+    """Instructions and tensor-core MMAs (HMMA) in each kernel of a built
+    source, from ``cuobjdump -sass``; empty when the tool is missing."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        sass = subprocess.run([tool, "-sass", str(_build._library(source)[1])],
+                              capture_output=True, text=True, check=True,
+                              timeout=120).stdout
+    except (OSError, subprocess.SubprocessError):
+        return {}
+    mix, name = {}, None
+    for line in sass.splitlines():
+        fn = re.search(r"Function : \S*?(flash_bwd_(?:dkv|dq)_kernel)I(\w+?)Li(\d+)",
+                       line)
+        if fn:
+            dtype = "bf16" if "bfloat16" in fn.group(2) else "fp32"
+            name = f"{fn.group(1)} {dtype} D={fn.group(3)}"
+            mix[name] = [0, 0]
+        elif name and re.search(r"/\*[0-9a-f]{4,}\*/\s+[@A-Z]", line):
+            mix[name][0] += 1
+            mix[name][1] += " HMMA." in line
+    return {k: tuple(v) for k, v in mix.items()}
 
 
 def _qkv(shape, dtype, seed):
@@ -397,8 +439,8 @@ def timing_phase(launches: int, max_abs_err: float) -> dict:
         q, k, v, is_causal=True, scale=scale))
     nbytes = 4 * bh * ln * d * 4 + bh * ln * 4   # q, k, v, O + lse, fp32
     flops = 4 * bh * d * ln * (ln + 1) // 2      # QK^T and PV, causal pairs
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    bound_ms, bound_by = _bound(nbytes, flops, TF32X3_FLOPS_PER_S)
+    cuda_cores_ms, _ = _bound(nbytes, flops)
     record = {
         "name": "flash_fwd",
         "route": "cuda",
@@ -408,15 +450,16 @@ def timing_phase(launches: int, max_abs_err: float) -> dict:
         "max_abs_err": max_abs_err,
         "ms": ms,
         "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "bound_ms_cuda_cores": cuda_cores_ms,
         "library_ms": library_ms,
     }
     log(f"[6 times] [{bh}, {ln}, {d}] fp32 causal, median of 21 windows x 10 "
         f"calls: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
-        f"{library_ms:.4f} ms, bound {record['bound_ms']:.4f} ms "
-        f"({record['bound_by']}: {nbytes} B at 3.35 TB/s, {flops} FLOP at "
-        f"67 TFLOP/s fp32)")
+        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {nbytes} "
+        f"B at 3.35 TB/s, {flops} FLOP at 165 TFLOP/s 3xTF32; "
+        f"{cuda_cores_ms:.4f} ms at 67 TFLOP/s on the CUDA cores)")
     return record
 
 
@@ -690,10 +733,32 @@ def fit_phase() -> None:
         f"{counts[0]}, bwd {counts[1]} (= depth {LM['depth']} x 4)")
 
 
-def _bound(nbytes: float, flops: float) -> tuple[float, str]:
+def _bound(nbytes: float, flops: float,
+           flops_per_s: float = FP32_FLOPS_PER_S) -> tuple[float, str]:
+    """The least time in ms for ``nbytes`` of HBM traffic and ``flops`` at
+    ``flops_per_s``, and which of the two bounds it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _kernel_times(fn, calls: int = 1) -> list:
+    """The CUDA kernels and copies of ``calls`` calls of ``fn`` in a
+    ``torch.profiler`` trace, most device time first: ``[(name, us), ...]``,
+    empty when the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [(e.key, getattr(e, "self_device_time_total", 0))
+              for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sorted((e for e in events if e[1] > 0), key=lambda e: -e[1])
 
 
 def train_shape_check(args, scale) -> tuple[float, float]:
@@ -713,33 +778,26 @@ def train_shape_check(args, scale) -> tuple[float, float]:
     want = fa.flash_attention_bwd_plain(*args, causal=True, scale=scale)
     bwd_err = max(assert_grads_close(g, w, torch.float32)
                   for g, w in zip(got, want))
+    del want
+    # Each block writes only the rows it owns, summing in a fixed order (no
+    # atomics): a second call gives the same bits.
+    again = fa.flash_attention_bwd(*args, causal=True, scale=scale)
+    for name, a, b in zip(("dq", "dk", "dv"), got, again):
+        if not torch.equal(a, b):
+            raise AssertionError(
+                f"flash backward is not deterministic: two calls' {name} "
+                f"differ by {float((a - b).abs().max()):.3e}")
     log(f"[11 times] training shape {list(q.shape)} fp32 causal, kernel vs "
         f"plain on the same inputs: forward O and lse {fwd_err:.3e} (atol = "
         f"rtol = {FP32_TOL:g}), backward dq, dk, dv {bwd_err:.3e} (atol = "
-        f"rtol = 1e-4)")
+        f"rtol = 1e-4); a second backward call gives the same bits")
     return fwd_err, bwd_err
 
 
-def bwd_timing_phase(launches: int,
-                     check_err: float) -> tuple[list, float]:
-    """Checks and times the backward at the training shape; returns the
-    records of its two kernels and of the whole backward call (the TPU's
-    one-tile kernel, which both compute at L = 512), and the forward's
-    error at that shape."""
-    b, h, ln, d = TRAIN_BATCH, LM["num_heads"], LM["seq_len"], 64
-    bh = b * h
-    args, scale = _bwd_inputs((b, h, ln, d), torch.float32, True, seed=2)
-    fwd_err, bwd_err = train_shape_check(args, scale)
-    q, k, v, o, lse, do = args
-    ms = _time_ms(lambda: fa.flash_attention_bwd(*args, causal=True,
-                                                 scale=scale))
-    delta = (do * o).sum(-1)
-    outs = [torch.empty_like(q) for _ in range(3)]
-    part_ms = {name: _time_ms(lambda parts=parts: fa._launch_bwd(
-        q, k, v, do, lse, delta, *outs, causal=True, scale=scale,
-        parts=parts)) for name, parts in (("dkv", 1), ("dq", 2))}
-    plain_ms = _time_ms(lambda: fa.flash_attention_bwd_plain(
-        *args, causal=True, scale=scale), runs=11, per_run=2)
+def _sdpa_bwd_ms(q, k, v, do, scale) -> tuple[float, float, list]:
+    """SDPA's backward at these inputs as fwd+bwd minus fwd (a yardstick,
+    never used by the port): (backward ms, fwd+bwd ms, the kernels one
+    profiler pass over fwd+bwd ran)."""
     qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
 
     def sdpa():
@@ -752,29 +810,72 @@ def bwd_timing_phase(launches: int,
 
     fwd_bwd_ms = _time_ms(sdpa_fwd_bwd)
     fwd_ms = _time_ms(sdpa)
-    library_ms = fwd_bwd_ms - fwd_ms
+    return fwd_bwd_ms - fwd_ms, fwd_bwd_ms, _kernel_times(sdpa_fwd_bwd)[:3]
+
+
+def bwd_timing_phase(launches: int,
+                     check_err: float) -> tuple[list, float]:
+    """Checks and times the backward at the training shape; returns the
+    records of its two kernels and of the whole backward call (the TPU's
+    one-tile kernel, which both compute at L = 512), and the forward's
+    error at that shape.
+
+    Bounds (rows 6-9 of the kernel table): the larger of the bytes over
+    3.35 TB/s and the products' operations over the card's fastest route
+    for the precision, 165 TFLOP/s for fp32-accurate products (3xTF32 on
+    the tensor cores, 495 / 3) and 989 TFLOP/s for bf16; the CUDA-core
+    bound (67 TFLOP/s fp32) is kept beside it as ``bound_ms_cuda_cores``.
+    The bf16 time at the same shape (the mixed-bf16 policy's) is logged
+    beside SDPA's bf16 backward, with no target."""
+    b, h, ln, d = TRAIN_BATCH, LM["num_heads"], LM["seq_len"], 64
+    bh = b * h
+    args, scale = _bwd_inputs((b, h, ln, d), torch.float32, True, seed=2)
+    fwd_err, bwd_err = train_shape_check(args, scale)
+    q, k, v, o, lse, do = args
+    ms = _time_ms(lambda: fa.flash_attention_bwd(*args, causal=True,
+                                                 scale=scale))
+    delta = (do * o).sum(-1)
+    outs = [torch.empty_like(q) for _ in range(3)]
+    part_ms = {name: _time_ms(lambda parts=parts: fa._launch_bwd(
+        q, k, v, do, lse, delta, *outs, causal=True, scale=scale,
+        parts=parts)) for name, parts in (("dkv", 1), ("dq", 2))}
+    delta_ms = _time_ms(lambda: fa._launch_delta(do, o, delta))
+    plain_ms = _time_ms(lambda: fa.flash_attention_bwd_plain(
+        *args, causal=True, scale=scale), runs=11, per_run=2)
+    library_ms, fwd_bwd_ms, sdpa_kernels = _sdpa_bwd_ms(q, k, v, do, scale)
     kernel_fwd_ms = _time_ms(lambda: fa.flash_attention_fwd(
         q, k, v, causal=True, scale=scale))
     pairs = bh * ln * (ln + 1) // 2              # causal (query, key) pairs
     # q, k, v, o, dO read and dq, dk, dv written, fp32; lse read.
     nbytes = 8 * bh * ln * d * 4 + bh * ln * 4
     flops = 5 * 2 * d * pairs                    # S, dP, dV, dK, dQ products
-    bound_ms, bound_by = _bound(nbytes, flops)
+    bound_ms, bound_by = _bound(nbytes, flops, TF32X3_FLOPS_PER_S)
+    cuda_cores_ms, _ = _bound(nbytes, flops)
     # Each kernel alone: dK/dV reads q, k, v, dO, lse, delta and writes dk,
     # dv (products S, dP, dV, dK); dQ writes dq (products S, dP, dQ).
-    part_bound = {
-        "dkv": _bound(6 * bh * ln * d * 4 + 2 * bh * ln * 4, 8 * d * pairs),
-        "dq": _bound(5 * bh * ln * d * 4 + 2 * bh * ln * 4, 6 * d * pairs)}
+    part_io = {"dkv": (6 * bh * ln * d * 4 + 2 * bh * ln * 4, 8 * d * pairs),
+               "dq": (5 * bh * ln * d * 4 + 2 * bh * ln * 4, 6 * d * pairs)}
+    part_bound = {part: (_bound(*io, TF32X3_FLOPS_PER_S), _bound(*io))
+                  for part, io in part_io.items()}
     log(f"[11 times] flash backward kernels alone: dK/dV bound "
-        f"{part_bound['dkv'][0]:.4f} ms ({part_bound['dkv'][1]}), dQ bound "
-        f"{part_bound['dq'][0]:.4f} ms ({part_bound['dq'][1]})")
+        f"{part_bound['dkv'][0][0]:.4f} ms ({part_bound['dkv'][0][1]}; "
+        f"CUDA cores {part_bound['dkv'][1][0]:.4f}), dQ bound "
+        f"{part_bound['dq'][0][0]:.4f} ms ({part_bound['dq'][0][1]}; CUDA "
+        f"cores {part_bound['dq'][1][0]:.4f})")
+    names = ", ".join(f"{name} ({us:.0f} us)" for name, us in sdpa_kernels)
     log(f"[11 times] flash backward [{bh}, {ln}, {d}] fp32 causal, median "
         f"of CUDA-event windows: kernels {ms:.4f} ms (dK/dV kernel "
-        f"{part_ms['dkv']:.4f} ms, dQ kernel {part_ms['dq']:.4f} ms), plain "
-        f"{plain_ms:.4f} ms, SDPA backward {library_ms:.4f} ms (fwd+bwd "
-        f"{fwd_bwd_ms:.4f} - fwd {fwd_ms:.4f}), bound {bound_ms:.4f} ms "
-        f"({bound_by}: {nbytes} B at 3.35 TB/s, {flops} FLOP at 67 TFLOP/s "
-        f"fp32); the forward kernel at this shape {kernel_fwd_ms:.4f} ms")
+        f"{part_ms['dkv']:.4f} ms, dQ kernel {part_ms['dq']:.4f} ms, delta "
+        f"kernel {delta_ms:.4f} ms), plain {plain_ms:.4f} ms, SDPA backward "
+        f"{library_ms:.4f} ms (fwd+bwd {fwd_bwd_ms:.4f} - fwd "
+        f"{fwd_bwd_ms - library_ms:.4f}), bound {bound_ms:.4f} ms "
+        f"({bound_by}: {nbytes} B at 3.35 TB/s, {flops} FLOP at 165 TFLOP/s "
+        f"3xTF32; {cuda_cores_ms:.4f} ms at 67 TFLOP/s on the CUDA cores); "
+        f"the forward kernel at this shape {kernel_fwd_ms:.4f} ms; SDPA ran "
+        f"{names or 'not measured (no device time in the trace)'}")
+    bf16 = bf16_timing(args, scale, pairs)
+    del args, q, k, v, o, lse, do, delta, outs
+    torch.cuda.empty_cache()
     common = {"route": "cuda", "source": "tpu_dist_torch/csrc/flash_bwd.cu",
               "launches": launches, "max_abs_err": bwd_err,
               "max_abs_err_check_cases": check_err}
@@ -784,14 +885,41 @@ def bwd_timing_phase(launches: int,
               "replaces": f"tpu_dist/ops/flash_attention.py:{line}",
               "ms": part_ms[part], "plain_ms": plain_ms,
               "plain_is_whole_backward": True,
-              "bound_ms": part_bound[part][0],
-              "bound_by": part_bound[part][1], "library_ms": None}
+              "bound_ms": part_bound[part][0][0],
+              "bound_by": part_bound[part][0][1],
+              "bound_ms_cuda_cores": part_bound[part][1][0],
+              "library_ms": None}
              for part, line in (("dq", 245), ("dkv", 285))]
     whole = {"name": "flash_bwd", **common,
              "replaces": "tpu_dist/ops/flash_attention.py:332",
              "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-             "bound_by": bound_by, "library_ms": library_ms}
+             "bound_by": bound_by, "bound_ms_cuda_cores": cuda_cores_ms,
+             "library_ms": library_ms, "delta_ms": delta_ms,
+             "library_kernels": [name for name, _ in sdpa_kernels],
+             "bf16": bf16}
     return [*parts, whole], fwd_err
+
+
+def bf16_timing(args, scale, pairs) -> dict:
+    """The backward on bf16 copies of the training-shape inputs (the
+    mixed-bf16 policy), beside SDPA's bf16 backward; no target."""
+    q, k, v, o, lse, do = args
+    bq, bk, bv, bdo = (t.to(torch.bfloat16) for t in (q, k, v, do))
+    bo, blse = fa.flash_attention_fwd(bq, bk, bv, causal=True, scale=scale)
+    bargs = (bq, bk, bv, bo, blse, bdo)
+    ms = _time_ms(lambda: fa.flash_attention_bwd(*bargs, causal=True,
+                                                 scale=scale))
+    library_ms, _, sdpa_kernels = _sdpa_bwd_ms(bq, bk, bv, bdo, scale)
+    bh, ln, d = q.shape[0] * q.shape[1], q.shape[2], q.shape[3]
+    nbytes = 8 * bh * ln * d * 2 + bh * ln * 4
+    bound_ms, bound_by = _bound(nbytes, 10 * d * pairs, BF16_FLOPS_PER_S)
+    names = ", ".join(f"{name} ({us:.0f} us)" for name, us in sdpa_kernels)
+    log(f"[11 times] flash backward {list(q.shape)} bf16 causal: kernels "
+        f"{ms:.4f} ms, SDPA backward {library_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}: 989 TFLOP/s bf16); SDPA ran "
+        f"{names or 'not measured (no device time in the trace)'}")
+    return {"ms": ms, "library_ms": library_ms, "bound_ms": bound_ms,
+            "library_kernels": [name for name, _ in sdpa_kernels]}
 
 
 def adam_timing_phase(launches: int, max_abs_err: float) -> dict:
@@ -1235,18 +1363,7 @@ def _device_ms(fn, steps: int) -> float | None:
     """Device time per call of ``fn`` (the sum of its CUDA kernels and
     copies in a ``torch.profiler`` trace of ``steps`` calls), or None when
     the trace holds no device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(getattr(e, "self_device_time_total", 0)
-                   for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    total_us = sum(us for _, us in _kernel_times(fn, steps))
     return total_us / 1e3 / steps if total_us else None
 
 

@@ -162,6 +162,87 @@ def test_bwd_plain_is_the_gradient_of_the_plain_forward():
         torch.testing.assert_close(g.double(), w, atol=1e-5, rtol=1e-5)
 
 
+def _tf32_rna(x):
+    """``cvt.rna.tf32.f32``: fp32 rounded to nearest (ties away from zero)
+    on its low 13 mantissa bits, kept as an fp32 value."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_einsum(eq, a, b, *, terms):
+    """An fp32 product as the CUDA kernel does it on the tensor cores: each
+    operand split into TF32 ``big = rna(x)`` and ``small = rna(x - big)``,
+    and the three products that matter summed (``terms=3``), or the big
+    parts alone (``terms=1``, plain TF32)."""
+    a_big, b_big = _tf32_rna(a), _tf32_rna(b)
+    out = torch.einsum(eq, a_big, b_big)
+    if terms == 3:
+        a_small, b_small = _tf32_rna(a - a_big), _tf32_rna(b - b_big)
+        out = (torch.einsum(eq, a_small, b_big)
+               + torch.einsum(eq, a_big, b_small) + out)
+    return out
+
+
+def _bwd_tf32(q, k, v, o, lse, do, *, causal, scale, terms):
+    """``flash_attention_bwd_plain`` (fp32 inputs) with its five products
+    done as :func:`_tf32_einsum`."""
+    mm = lambda eq, a, b: _tf32_einsum(eq, a, b, terms=terms)
+    s = mm("...qd,...kd->...qk", q, k) * scale
+    if causal:
+        keep = torch.ones(s.shape[-2:], dtype=torch.bool).tril()
+        s = s.masked_fill(~keep, float("-inf"))
+    p = torch.exp(s - lse)
+    delta = (do * o).sum(dim=-1, keepdim=True)
+    ds = p * (mm("...qd,...kd->...qk", do, v) - delta) * scale
+    return (mm("...qk,...kd->...qd", ds, k), mm("...qk,...qd->...kd", ds, q),
+            mm("...qk,...qd->...kd", p, do))
+
+
+def _bwd_residuals(ln, d, causal, seed):
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((1, 2, ln, d))
+                                    .astype(np.float32)) for _ in range(4))
+    scale = d ** -0.5
+    o, lse = fa.flash_attention_plain(q, k, v, causal=causal, scale=scale)
+    return (q, k, v, o, lse, do), scale
+
+
+def test_tf32_rounding_emulates_cvt_rna():
+    x = torch.tensor([1.0, 1.0 + 2 ** -11, 1.0 + 2 ** -12, -(1.0 + 2 ** -11),
+                      1.0 + 3 * 2 ** -12, 3.0e-3], dtype=torch.float32)
+    got = _tf32_rna(x)
+    # 10 stored mantissa bits: a tie (2**-11 past 1) rounds away from zero.
+    assert got[:5].tolist() == [1.0, 1.0 + 2 ** -10, 1.0, -(1.0 + 2 ** -10),
+                                1.0 + 2 ** -10]
+    assert (got.view(torch.int32) & 0x1FFF == 0).all()
+    assert abs(float(got[5]) - 3.0e-3) <= 3.0e-3 * 2 ** -11
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("ln,d", [(77, 32), (77, 64), (128, 32), (128, 64)])
+def test_3xtf32_products_keep_fp32_accuracy(ln, d, causal):
+    # The fp32 kernel's numeric design against the plain version, at the
+    # chip check's fp32 tolerance (atol = rtol = 1e-4).
+    args, scale = _bwd_residuals(ln, d, causal, seed=ln + d + causal)
+    got = _bwd_tf32(*args, causal=causal, scale=scale, terms=3)
+    want = fa.flash_attention_bwd_plain(*args, causal=causal, scale=scale)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_tf32_products_are_measurably_worse(causal):
+    # A kernel that dropped the small terms (plain TF32, 10-bit mantissas)
+    # is at least 10x further from the plain version than 3xTF32.
+    args, scale = _bwd_residuals(128, 64, causal, seed=11 + causal)
+    want = fa.flash_attention_bwd_plain(*args, causal=causal, scale=scale)
+    err = {terms: max(float((g - w).abs().max()) for g, w in zip(
+        _bwd_tf32(*args, causal=causal, scale=scale, terms=terms), want))
+        for terms in (1, 3)}
+    assert err[1] >= 10 * err[3], err
+    assert err[1] > 1e-4, err
+
+
 def test_inference_mode_runs_the_forward_only():
     q = torch.randn(1, 2, 16, 32)
     with torch.inference_mode():

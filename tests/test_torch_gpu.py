@@ -154,6 +154,55 @@ def test_flash_bwd_kernels_match_plain(cuda_device, causal, ln, d, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernels_are_deterministic(cuda_device, dtype):
+    # Each block writes only rows it owns and sums in a fixed order (no
+    # atomics): two calls on the same inputs give the same bits.
+    args = _bwd_inputs((2, 4, 200, 64), dtype, True, 0.125, cuda_device,
+                       seed=5)
+    first = fa.flash_attention_bwd(*args, causal=True, scale=0.125)
+    second = fa.flash_attention_bwd(*args, causal=True, scale=0.125)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_flash_bwd_bf16_at_the_largest_shared_memory_footprint(cuda_device):
+    # D = 128 takes the most shared memory per block; L = 1024 streams 16
+    # query tiles of 64 (dQ) and 32 tiles of 32 (dK/dV) through the double
+    # buffers.
+    args = _bwd_inputs((1, 8, 1024, 128), torch.bfloat16, True, 128 ** -0.5,
+                       cuda_device, seed=6)
+    got = fa.flash_attention_bwd(*args, causal=True, scale=128 ** -0.5)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_bwd_plain(*args, causal=True,
+                                        scale=128 ** -0.5)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == args[0].shape
+        assert_grads_close(g, w, torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_flash_bwd_takes_views_off_a_16_byte_boundary(cuda_device):
+    # The kernels copy 16-byte chunks; the wrapper copies a misaligned view
+    # once rather than handing it to them.
+    gen = torch.Generator().manual_seed(8)
+    flat = torch.randn(4 * 2 * 4 * 77 * 32 + 1, generator=gen).to(cuda_device)
+    q, k, v, do = (flat[1 + i * 2 * 4 * 77 * 32:][:2 * 4 * 77 * 32]
+                   .view(2, 4, 77, 32) for i in range(4))
+    assert q.data_ptr() % 16 != 0 and q.is_contiguous()
+    o, lse = fa.flash_attention_fwd(q.clone(), k.clone(), v.clone(),
+                                    causal=False, scale=0.2)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=False,
+                                 scale=0.2)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=False,
+                                        scale=0.2)
+    for g, w in zip(got, want):
+        assert_grads_close(g, w, torch.float32)
+
+
+@pytest.mark.gpu
 def test_flash_bwd_raises_on_a_head_dim_the_kernels_do_not_take(
         cuda_device):
     q = torch.zeros(1, 2, 64, 48, device=cuda_device)  # no D=48 build

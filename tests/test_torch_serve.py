@@ -58,7 +58,8 @@ def _prefilled(slot=2, plen=5, pad=8):
     jcache = jkv.init_cache(jplan, max_batch=4, max_len=SEQ)
     jcache, jlg = jkv.prefill(jplan, params, jcache, jnp.asarray(prompt),
                               jnp.int32(plen), jnp.int32(slot))
-    cache = kv_cache.init_cache(plan, max_batch=4, max_len=SEQ)
+    cache = kv_cache.init_cache(plan, max_batch=4, max_len=SEQ,
+                                device="cpu")
     with torch.no_grad():
         lg = kv_cache.prefill(plan, cache, torch.from_numpy(prompt).long(),
                               plen, slot)
@@ -112,6 +113,22 @@ def test_cache_sizing_matches_reference():
             plan.max_position, plan.vocab_size) == (
         jplan.num_layers, jplan.num_heads, jplan.key_dim,
         jplan.max_position, jplan.vocab_size)
+    with pytest.raises(ValueError, match="positional table"):
+        kv_cache.init_cache(plan, max_batch=1, max_len=SEQ + 1,
+                            device="cpu")
+
+
+def test_init_cache_defaults_to_the_card():
+    """With no ``device`` the cache goes on ``cuda``, as every entry point
+    of the port does; without a card that raises and never returns a CPU
+    cache."""
+    plan = kv_cache.build_plan(_pair()[2])
+    if torch.cuda.is_available():
+        cache = kv_cache.init_cache(plan, max_batch=1, max_len=8)
+        assert cache["k"].is_cuda and cache["v"].is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="pass device='cpu'"):
+            kv_cache.init_cache(plan, max_batch=1, max_len=8)
     with pytest.raises(ValueError, match="positional table"):
         kv_cache.init_cache(plan, max_batch=1, max_len=SEQ + 1)
 

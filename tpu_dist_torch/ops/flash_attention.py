@@ -9,8 +9,9 @@ sources):
   ``:210``) -> ``csrc/flash_fwd.cu``;
 * ``_dq_kernel`` (``:245``), ``_dkv_kernel`` (``:285``) and
   ``_dqkv_single_kernel`` (``:332``, the one-tile case) ->
-  ``csrc/flash_bwd.cu``, a dK/dV kernel and a dQ kernel (the one-tile case
-  is the same two kernels at that L).
+  ``csrc/flash_bwd.cu``, a dK/dV kernel and a dQ kernel on the tensor cores
+  (3xTF32 for fp32 inputs, bf16 MMA for bf16; the one-tile case is the same
+  two kernels at that L).
 
 Functions:
 
@@ -118,6 +119,15 @@ def _bwd_kernel():
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _delta_kernel():
+    fn = _build.load(_BWD_SOURCE).tpu_dist_flash_bwd_delta
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
+                                           ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _check(q, k, v) -> None:
     for name, t in (("k", k), ("v", v)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
@@ -185,12 +195,12 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = False,
     gradient ``do`` -> ``(dq, dk, dv)``. CUDA tensors launch the two
     kernels of ``csrc/flash_bwd.cu`` (and raise on anything they do not
     take); CPU tensors take :func:`flash_attention_bwd_plain`. δ =
-    rowsum(dO∘O) is one plain elementwise-reduce here, as ``_bwd`` computes
-    it outside Pallas."""
+    rowsum(dO∘O), which ``_bwd`` leaves to XLA, is a small kernel of the
+    same source launched first."""
     if not _on_cuda(q, k, v, o, lse, do):
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                          scale=scale)
-    do = do.contiguous()
+    o, do = o.contiguous(), do.contiguous()
     _check(q, k, v)
     for name, t in (("o", o), ("do", do)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
@@ -203,18 +213,39 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = False,
         raise ValueError(
             f"flash_attention: lse must be the forward's contiguous fp32 "
             f"[{b}, {h}, {ln}, 1]; got {tuple(lse.shape)} {lse.dtype}")
-    delta = (do.float() * o.float()).sum(dim=-1)
+    # The kernels copy tiles 16 bytes at a time: a view that starts off a
+    # 16-byte boundary is copied once (fresh allocations always qualify).
+    q, k, v, o, do = (t if t.data_ptr() % 16 == 0 else t.clone()
+                      for t in (q, k, v, o, do))
+    delta = torch.empty((b, h, ln), dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    _launch_delta(do, o, delta)
     _launch_bwd(q, k, v, do, lse, delta, dq, dk, dv, causal=causal,
                 scale=scale, parts=3)
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 
 
+def _launch_delta(do, o, delta):
+    """δ = rowsum(dO∘O) into ``delta`` ``[B, H, L]`` fp32, from checked,
+    16-byte-aligned ``do`` and ``o``."""
+    b, h, ln, d = do.shape
+    with torch.cuda.device(do.device):
+        stream = torch.cuda.current_stream(do.device).cuda_stream
+        err = _delta_kernel()(do.data_ptr(), o.data_ptr(), delta.data_ptr(),
+                              b * h * ln, d, int(do.dtype == torch.bfloat16),
+                              stream)
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attention: delta kernel launch failed with CUDA error "
+            f"{err} for {tuple(do.shape)} {do.dtype}")
+
+
 def _launch_bwd(q, k, v, do, lse, delta, dq, dk, dv, *, causal, scale,
                 parts):
     """Launch the dK/dV kernel (``parts`` bit 1) and the dQ kernel (bit 2)
-    on checked tensors; a benchmark may time one of them alone."""
+    on checked, 16-byte-aligned tensors; a benchmark may time one of them
+    alone."""
     b, h, ln, d = q.shape
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -42,6 +42,7 @@ from tpu_dist_torch.models.transformer import (Embedding, LayerNormalization,
                                                MultiHeadAttention,
                                                PositionalEmbedding,
                                                _default_attention)
+from tpu_dist_torch.utils.device import DeviceLike, resolve_device
 
 #: Plan ops are tuples: ("embed"|"pos"|"point", layer),
 #: ("attn", layer, cache_layer_index), ("res_start",),
@@ -137,14 +138,17 @@ def cache_nbytes(plan: DecodePlan, *, max_batch: int, max_len: int,
 
 
 def init_cache(plan: DecodePlan, *, max_batch: int, max_len: int,
-               dtype=torch.float32, device="cpu") -> dict:
+               dtype=torch.float32, device: DeviceLike = None) -> dict:
     """Zeros cache: ``k``/``v`` of
-    ``[num_layers, max_batch, num_heads, max_len, key_dim]`` on ``device``.
+    ``[num_layers, max_batch, num_heads, max_len, key_dim]`` on ``device``
+    (``None`` means ``cuda``, which must exist; pass ``device="cpu"`` for
+    the CPU), as the reference allocates on its default accelerator.
     """
     if max_len > plan.max_position:
         raise ValueError(
             f"max_len {max_len} exceeds the model's positional table "
             f"({plan.max_position})")
+    device = resolve_device(device)
     shape = (plan.num_layers, max_batch, plan.num_heads, max_len,
              plan.key_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
