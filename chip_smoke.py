@@ -10,11 +10,17 @@ plain PyTorch version. Phases:
 1. device: require CUDA; print the card's name and power limit
    (``nvidia-smi``); turn TF32 off for matmuls and cuDNN;
 2. build: compile the five kernel sources of the checkout (one ``nvcc``
-   per source, all at once), printing ptxas registers and spills;
-3. kernel vs plain version on the card, fp32 and bf16 inputs, causal and
-   not: O and lse against the plain version in fp32 at atol = rtol = 1e-4
-   (the summation order and ``exp`` differ), a bf16 O at rtol 2**-8 (half
-   a bf16 ulp) plus atol 1e-4;
+   per source, all at once), printing ptxas registers and spills, and the
+   SASS mix (instructions, HMMA) of every flash kernel: each must hold
+   HMMA (every product on the tensor cores);
+3. forward kernel vs plain version on the card, fp32 and bf16 inputs,
+   causal and not, at serving's 8 instances (each query tile's keys split
+   over several blocks and merged) and at 264 (unsplit): O and lse against
+   the plain version in fp32 at atol = rtol = 1e-4 (the summation order
+   and ``exp`` differ); a bf16 O within 1e-4 + 2**-8 (|O_ref| + P_ref @
+   |V|) (``bf16_limit``: the kernel rounds P to bf16 before P·V, as the TPU
+   kernel does, and O to bf16); two calls give the same bits in both
+   regimes;
 4. serve the benchmark LM at full width (vocab 8192, d_model 512, depth 4,
    8 heads, 512 positions, fp32, random weights from seed 0): 16 seeded
    requests through ``ServeEngine``; every request must finish, the flash
@@ -24,11 +30,14 @@ plain PyTorch version. Phases:
    top-2 gap under 1e-4 counts as a certified tie);
 5. the CLI (``python -m tpu_dist_torch.serve --bench``) at full width;
    its flash launches must be ``depth x`` the prefills it counted;
-6. times at the serving shape [8, 512, 64] fp32 causal: kernel, plain
-   version and ``F.scaled_dot_product_attention`` (a yardstick only, never
-   used by the port), beside the kernel's lower bound on the card's
-   fastest fp32-accurate route (3xTF32 on the tensor cores, 165 TFLOP/s)
-   and on the CUDA cores (67 TFLOP/s);
+6. times at serving's shapes [8, L, 64] fp32 causal, L = 512 (the
+   record's), 256 and 128 (the prefill pads): the wrapper (CUDA-event
+   windows, host work included), its kernels' device time
+   (``torch.profiler``), plain version and
+   ``F.scaled_dot_product_attention`` (a yardstick only, never used by the
+   port; wrapper-style and device time), beside the kernel's lower bound
+   on the card's fastest fp32-accurate route (3xTF32 on the tensor cores,
+   165 TFLOP/s) and on the CUDA cores (67 TFLOP/s), and the split count;
 7. backward kernels vs their plain version: dQ, dK, dV for L in {77, 128,
    200, 512, 1024} (512 is the TPU's one-tile case), D in {32, 64, 128},
    fp32 and bf16, causal and not (tolerances at ``assert_grads_close``);
@@ -49,10 +58,11 @@ plain PyTorch version. Phases:
     kernel;
 11. at the training shape [64, 8, 512, 64] fp32 causal, the forward and
     backward kernels against their plain versions on the same inputs (the
-    errors the kernel line reports), and a second backward call that must
-    give the same bits; then times at the training shapes, each beside its
-    bound: the backward there (kernels, each kernel alone, the delta
-    kernel, plain version, SDPA's backward as fwd+bwd minus fwd, the
+    errors the kernel line reports), and a second forward and backward
+    call that must give the same bits; then times at the training shapes,
+    each beside its bound: the forward in fp32 and bf16 beside SDPA's
+    forward (bounds: 3xTF32 operations; bytes for bf16); the backward there
+    (kernels, each kernel alone, the delta kernel, plain version, SDPA's backward as fwd+bwd minus fwd, the
     kernels SDPA ran from one ``torch.profiler`` pass; bounds on the
     tensor cores, 3xTF32 at 165 TFLOP/s, and on the CUDA cores), the same
     backward in bf16 beside SDPA's bf16 backward (bound at 989 TFLOP/s),
@@ -152,8 +162,9 @@ TIE_GAP = 1e-4
 #: Kernel vs plain version: fp32 arithmetic on both sides, different
 #: summation order and exp.
 FP32_TOL = 1e-4
-#: A bf16 output rounded to nearest is within half a bf16 ulp of its fp32
-#: value: 2**-8 of its magnitude (8 significant bits).
+#: A bf16 value rounded to nearest is within half a bf16 ulp of its fp32
+#: value: 2**-8 of its magnitude (8 significant bits). The flash forward
+#: rounds P and O so (``bf16_limit``).
 BF16_RTOL = 2.0 ** -8
 #: Train step vs the plain-attention twin: losses near ln(8192) = 9.01,
 #: where one fp32 ulp is 2**-20 = 9.5e-7, and the two attentions agree to
@@ -218,9 +229,16 @@ def build_phase() -> None:
         for line in info.get("log", "").splitlines():
             if "registers" in line or "spill" in line:
                 log(f"    ptxas: {line.strip()}")
-    for name, (total, hmma) in _sass_mix("flash_bwd.cu").items():
-        log(f"[2 build] flash_bwd.cu SASS {name}: {total} instructions, "
-            f"{hmma} HMMA ({hmma / max(total, 1) * 100:.1f} %)")
+    # Every product of the flash kernels runs on the tensor cores.
+    for source in ("flash_fwd.cu", "flash_bwd.cu"):
+        mix = _sass_mix(source)
+        for name, (total, hmma) in mix.items():
+            log(f"[2 build] {source} SASS {name}: {total} instructions, "
+                f"{hmma} HMMA ({hmma / max(total, 1) * 100:.1f} %)")
+        if any(hmma == 0 for _, hmma in mix.values()):
+            raise AssertionError(f"{source}: a kernel without HMMA: {mix}")
+        if not mix:
+            log(f"[2 build] {source} SASS: not read (no cuobjdump)")
 
 
 def _sass_mix(source: str) -> dict:
@@ -238,8 +256,8 @@ def _sass_mix(source: str) -> dict:
         return {}
     mix, name = {}, None
     for line in sass.splitlines():
-        fn = re.search(r"Function : \S*?(flash_bwd_(?:dkv|dq)_kernel)I(\w+?)Li(\d+)",
-                       line)
+        fn = re.search(r"Function : \S*?(flash_bwd_(?:dkv|dq)_kernel|"
+                       r"flash_fwd_kernel)I(\w+?)Li(\d+)", line)
         if fn:
             dtype = "bf16" if "bfloat16" in fn.group(2) else "fp32"
             name = f"{fn.group(1)} {dtype} D={fn.group(3)}"
@@ -256,40 +274,80 @@ def _qkv(shape, dtype, seed):
             for _ in range(3)]
 
 
+def fwd_close(q, k, v, o, lse, *, causal: bool, scale: float) -> float:
+    """The forward kernel's (O, lse) against the plain version in fp32 on
+    the same (upcast) inputs; returns the largest |difference| over O and
+    lse. fp32: atol = rtol = FP32_TOL. bf16 (``bf16_limit``): O within
+    1e-4 + 2**-8 (|O_ref| + P_ref @ |V|), lse at FP32_TOL."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    o_ref, lse_ref = fa.flash_attention_plain(qf, kf, vf, causal=causal,
+                                              scale=scale)
+    torch.testing.assert_close(lse, lse_ref, atol=FP32_TOL, rtol=FP32_TOL)
+    err = float((o.float() - o_ref).abs().max())
+    if q.dtype == torch.float32:
+        torch.testing.assert_close(o, o_ref, atol=FP32_TOL, rtol=FP32_TOL)
+    else:
+        limit = bf16_limit(qf, kf, vf, o_ref, causal=causal, scale=scale)
+        worst = float(((o.float() - o_ref).abs() / limit).max())
+        if worst > 1:
+            raise AssertionError(f"bf16 forward O off the plain version by "
+                                 f"{worst:.3f} x its limit")
+    return max(err, float((lse - lse_ref).abs().max()))
+
+
+def bf16_limit(qf, kf, vf, o_ref, *, causal: bool, scale: float):
+    """Elementwise limit of a bf16 forward's O against the plain fp32 one.
+    The kernel rounds each p to bf16 before P·V, as the TPU kernel casts it
+    (`p.astype(v_blk.dtype)`): p (1 + d), |d| <= 2**-8, moves O by at most
+    2**-8 (P_ref @ |V|) with P_ref the plain softmax (l sums the unrounded
+    p); O rounded to bf16 moves by at most 2**-8 |O|; the fp32 arithmetic
+    adds well under 1e-4."""
+    s = torch.einsum("...qd,...kd->...qk", qf, kf) * scale
+    if causal:
+        ln = s.shape[-1]
+        keep = torch.ones(ln, ln, dtype=torch.bool, device=s.device).tril()
+        s = s.masked_fill(~keep, float("-inf"))
+    return 1e-4 + BF16_RTOL * (o_ref.abs() + torch.softmax(s, -1) @ vf.abs())
+
+
 def kernel_check_phase() -> float:
     """Kernel vs plain version; returns the largest fp32 |difference|.
 
     The plain version runs in fp32 on the same (upcast) inputs. Both sides
-    do fp32 arithmetic, so O and lse agree to FP32_TOL; a bf16 O is further
-    rounded to nearest by the kernel, at most half a bf16 ulp, i.e.
-    2**-8 of its magnitude (BF16_RTOL)."""
-    cases = [(ln, 64) for ln in (128, 256, 512, 200)] + [(256, 128),
-                                                          (77, 32)]
+    do fp32 arithmetic, so O and lse agree to FP32_TOL; a bf16 O is held to
+    ``bf16_limit``. Serving's shapes (8 instances) split each query tile's
+    keys over several blocks and merge them; 264 instances fill the card
+    unsplit. Two calls must give the same bits in either regime."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cases = [(1, ln, 64) for ln in (128, 256, 512, 200)] + [
+        (1, 256, 128), (1, 77, 32), (1, 1, 64), (33, 128, 64)]
     worst_fp32 = 0.0
-    for ln, d in cases:
-        for dtype, rtol in ((torch.float32, FP32_TOL),
-                            (torch.bfloat16, BF16_RTOL)):
+    for b, ln, d in cases:
+        splits = fa.split_count(b * 8, ln, d, sms)
+        for dtype in (torch.float32, torch.bfloat16):
             for causal in (True, False):
-                q, k, v = _qkv((1, 8, ln, d), dtype, seed=ln * d)
+                q, k, v = _qkv((b, 8, ln, d), dtype, seed=ln * d + b)
                 scale = d ** -0.5
                 o, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
                                                 scale=scale)
                 torch.cuda.synchronize()
-                o_ref, lse_ref = fa.flash_attention_plain(
-                    q.float(), k.float(), v.float(), causal=causal,
-                    scale=scale)
-                torch.cuda.synchronize()
-                torch.testing.assert_close(o.float(), o_ref, atol=FP32_TOL,
-                                           rtol=rtol)
-                torch.testing.assert_close(lse, lse_ref, atol=FP32_TOL,
-                                           rtol=FP32_TOL)
-                err = max(float((o.float() - o_ref).abs().max()),
-                          float((lse - lse_ref).abs().max()))
+                err = fwd_close(q, k, v, o, lse, causal=causal, scale=scale)
                 if dtype == torch.float32:
                     worst_fp32 = max(worst_fp32, err)
-                log(f"[3 kernel] [8, {ln}, {d}] {str(dtype)[6:]} "
-                    f"causal={causal}: max |kernel - plain| {err:.3e} "
-                    f"(atol {FP32_TOL:g}, rtol {rtol:g})")
+                limit = (f"atol = rtol = {FP32_TOL:g}"
+                         if dtype == torch.float32 else "bf16 limit")
+                log(f"[3 kernel] [{b * 8}, {ln}, {d}] {str(dtype)[6:]} "
+                    f"causal={causal}, {splits} run(s): max |kernel - "
+                    f"plain| {err:.3e} ({limit})")
+    for b in (1, 33):
+        q, k, v = _qkv((b, 8, 512, 64), torch.float32, seed=3)
+        first = fa.flash_attention_fwd(q, k, v, causal=True, scale=0.125)
+        second = fa.flash_attention_fwd(q, k, v, causal=True, scale=0.125)
+        if not all(torch.equal(x, y) for x, y in zip(first, second)):
+            raise AssertionError(f"flash forward [{b * 8}, 512, 64] is not "
+                                 f"deterministic")
+    log("[3 kernel] two calls give the same bits at [8, 512, 64] (split) "
+        "and [264, 512, 64] (unsplit)")
     return worst_fp32
 
 
@@ -427,40 +485,104 @@ def _time_ms(fn, *, runs: int = 21, per_run: int = 10) -> float:
     return statistics.median(times)
 
 
+def _fwd_bounds(bh: int, ln: int, d: int, dtype) -> dict:
+    """The forward's least time on the card, causal: q, k, v read and O
+    written in the input dtype, lse in fp32; two L x L x D products over the
+    causal pairs, on the card's fastest route for the precision (3xTF32 at
+    165 TFLOP/s for fp32, 989 TFLOP/s for bf16) and, for fp32, on the CUDA
+    cores (67 TFLOP/s)."""
+    size = 4 if dtype == torch.float32 else 2
+    nbytes = 4 * bh * ln * d * size + bh * ln * 4
+    flops = 4 * bh * d * ln * (ln + 1) // 2
+    fast = TF32X3_FLOPS_PER_S if dtype == torch.float32 else BF16_FLOPS_PER_S
+    bound_ms, bound_by = _bound(nbytes, flops, fast)
+    return {"bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "flops": flops, "bound_ms_cuda_cores": _bound(nbytes, flops)[0]}
+
+
+def _fwd_times(q, k, v, scale, *, plain: bool) -> dict:
+    """The forward at these inputs, causal: the wrapper (CUDA-event windows
+    over calls back to back, which at serving's sizes also hold its host
+    work), its kernels' device time (``torch.profiler``), the plain version
+    and SDPA's forward (a yardstick only, never used by the port), each
+    beside the bound."""
+    def fwd():
+        return fa.flash_attention_fwd(q, k, v, causal=True, scale=scale)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              scale=scale)
+
+    b, h, ln, d = q.shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return {"ms": _time_ms(fwd), "device_ms": _device_ms(fwd, 20),
+            "plain_ms": (_time_ms(lambda: fa.flash_attention_plain(
+                q, k, v, causal=True, scale=scale)) if plain else None),
+            "library_ms": _time_ms(sdpa),
+            "library_device_ms": _device_ms(sdpa, 20),
+            "splits": fa.split_count(b * h, ln, d, sms),
+            "dtype": str(q.dtype)[6:], **_fwd_bounds(b * h, ln, d, q.dtype)}
+
+
+def _log_fwd_times(phase: str, shape: str, t: dict) -> None:
+    dev = lambda x: "not measured" if x is None else f"{x:.4f}"
+    plain = "" if t["plain_ms"] is None else f", plain {t['plain_ms']:.4f}"
+    cores = (f"; {t['bound_ms_cuda_cores']:.4f} ms at 67 TFLOP/s on the "
+             f"CUDA cores" if t["dtype"] == "float32" else "")
+    log(f"[{phase} times] flash forward {shape} {t['dtype']} causal, "
+        f"{t['splits']} run(s): wrapper {t['ms']:.4f} ms (device "
+        f"{dev(t['device_ms'])}){plain}, SDPA {t['library_ms']:.4f} (device "
+        f"{dev(t['library_device_ms'])}), bound {t['bound_ms']:.4f} ms "
+        f"({t['bound_by']}: {t['bytes']} B at 3.35 TB/s, {t['flops']} FLOP"
+        f"{cores})")
+
+
 def timing_phase(launches: int, max_abs_err: float) -> dict:
-    bh, ln, d = 8, 512, 64
-    q, k, v = _qkv((1, bh, ln, d), torch.float32, seed=1)
-    scale = d ** -0.5
-    ms = _time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=True,
-                                                 scale=scale))
-    plain_ms = _time_ms(lambda: fa.flash_attention_plain(
-        q, k, v, causal=True, scale=scale))
-    library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, scale=scale))
-    nbytes = 4 * bh * ln * d * 4 + bh * ln * 4   # q, k, v, O + lse, fp32
-    flops = 4 * bh * d * ln * (ln + 1) // 2      # QK^T and PV, causal pairs
-    bound_ms, bound_by = _bound(nbytes, flops, TF32X3_FLOPS_PER_S)
-    cuda_cores_ms, _ = _bound(nbytes, flops)
-    record = {
+    """The forward at serving's shapes: [8, L, 64] fp32 causal for the
+    prefill pads L = 512 (the record's shape), 256 and 128."""
+    times = {}
+    for ln in (512, 256, 128):
+        q, k, v = _qkv((1, 8, ln, 64), torch.float32, seed=1)
+        times[ln] = _fwd_times(q, k, v, 64 ** -0.5, plain=True)
+        _log_fwd_times("6", f"[8, {ln}, 64]", times[ln])
+    t = times[512]
+    return {
         "name": "flash_fwd",
         "route": "cuda",
         "source": "tpu_dist_torch/csrc/flash_fwd.cu",
         "replaces": "tpu_dist/ops/flash_attention.py:148",
         "launches": launches,
         "max_abs_err": max_abs_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "bound_ms_cuda_cores": cuda_cores_ms,
-        "library_ms": library_ms,
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "bound_ms_cuda_cores": t["bound_ms_cuda_cores"],
+        "library_ms": t["library_ms"],
+        "device_ms": t["device_ms"],
+        "library_device_ms": t["library_device_ms"],
+        "splits": t["splits"],
+        "shape": [8, 512, 64],
+        "serving_pads": {str(ln): {key: times[ln][key] for key in (
+            "ms", "device_ms", "plain_ms", "library_ms",
+            "library_device_ms", "bound_ms", "splits")}
+                         for ln in (256, 128)},
     }
-    log(f"[6 times] [{bh}, {ln}, {d}] fp32 causal, median of 21 windows x 10 "
-        f"calls: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
-        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {nbytes} "
-        f"B at 3.35 TB/s, {flops} FLOP at 165 TFLOP/s 3xTF32; "
-        f"{cuda_cores_ms:.4f} ms at 67 TFLOP/s on the CUDA cores)")
-    return record
+
+
+def fwd_train_timing(q, k, v, scale) -> dict:
+    """The forward at the training shape, fp32 and (the mixed-bf16
+    policy's) bf16, beside SDPA's forward and the bounds."""
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = [t.to(dtype) for t in (q, k, v)]
+        t = _fwd_times(*x, scale, plain=False)
+        _log_fwd_times("11", f"{list(q.shape)}", t)
+        out[str(dtype)[6:]] = {key: t[key] for key in (
+            "ms", "device_ms", "library_ms", "library_device_ms", "bound_ms",
+            "bound_by", "bound_ms_cuda_cores", "splits")}
+        del x
+    return out
 
 
 def assert_grads_close(got, want, dtype) -> float:
@@ -774,6 +896,11 @@ def train_shape_check(args, scale) -> tuple[float, float]:
     fwd_err = max(float((o - o_ref).abs().max()),
                   float((lse - lse_ref).abs().max()))
     del o_ref, lse_ref
+    again = fa.flash_attention_fwd(q, k, v, causal=True, scale=scale)
+    if not (torch.equal(again[0], o) and torch.equal(again[1], lse)):
+        raise AssertionError("flash forward is not deterministic at the "
+                             "training shape")
+    del again
     got = fa.flash_attention_bwd(*args, causal=True, scale=scale)
     want = fa.flash_attention_bwd_plain(*args, causal=True, scale=scale)
     bwd_err = max(assert_grads_close(g, w, torch.float32)
@@ -790,7 +917,8 @@ def train_shape_check(args, scale) -> tuple[float, float]:
     log(f"[11 times] training shape {list(q.shape)} fp32 causal, kernel vs "
         f"plain on the same inputs: forward O and lse {fwd_err:.3e} (atol = "
         f"rtol = {FP32_TOL:g}), backward dq, dk, dv {bwd_err:.3e} (atol = "
-        f"rtol = 1e-4); a second backward call gives the same bits")
+        f"rtol = 1e-4); a second forward and a second backward call give "
+        f"the same bits")
     return fwd_err, bwd_err
 
 
@@ -814,11 +942,11 @@ def _sdpa_bwd_ms(q, k, v, do, scale) -> tuple[float, float, list]:
 
 
 def bwd_timing_phase(launches: int,
-                     check_err: float) -> tuple[list, float]:
+                     check_err: float) -> tuple[list, float, dict]:
     """Checks and times the backward at the training shape; returns the
     records of its two kernels and of the whole backward call (the TPU's
-    one-tile kernel, which both compute at L = 512), and the forward's
-    error at that shape.
+    one-tile kernel, which both compute at L = 512), the forward's error
+    at that shape, and the forward's times there in fp32 and bf16.
 
     Bounds (rows 6-9 of the kernel table): the larger of the bytes over
     3.35 TB/s and the products' operations over the card's fastest route
@@ -843,8 +971,7 @@ def bwd_timing_phase(launches: int,
     plain_ms = _time_ms(lambda: fa.flash_attention_bwd_plain(
         *args, causal=True, scale=scale), runs=11, per_run=2)
     library_ms, fwd_bwd_ms, sdpa_kernels = _sdpa_bwd_ms(q, k, v, do, scale)
-    kernel_fwd_ms = _time_ms(lambda: fa.flash_attention_fwd(
-        q, k, v, causal=True, scale=scale))
+    fwd_train = fwd_train_timing(q, k, v, scale)
     pairs = bh * ln * (ln + 1) // 2              # causal (query, key) pairs
     # q, k, v, o, dO read and dq, dk, dv written, fp32; lse read.
     nbytes = 8 * bh * ln * d * 4 + bh * ln * 4
@@ -871,8 +998,7 @@ def bwd_timing_phase(launches: int,
         f"{fwd_bwd_ms - library_ms:.4f}), bound {bound_ms:.4f} ms "
         f"({bound_by}: {nbytes} B at 3.35 TB/s, {flops} FLOP at 165 TFLOP/s "
         f"3xTF32; {cuda_cores_ms:.4f} ms at 67 TFLOP/s on the CUDA cores); "
-        f"the forward kernel at this shape {kernel_fwd_ms:.4f} ms; SDPA ran "
-        f"{names or 'not measured (no device time in the trace)'}")
+        f"SDPA ran {names or 'not measured (no device time in the trace)'}")
     bf16 = bf16_timing(args, scale, pairs)
     del args, q, k, v, o, lse, do, delta, outs
     torch.cuda.empty_cache()
@@ -897,7 +1023,7 @@ def bwd_timing_phase(launches: int,
              "library_ms": library_ms, "delta_ms": delta_ms,
              "library_kernels": [name for name, _ in sdpa_kernels],
              "bf16": bf16}
-    return [*parts, whole], fwd_err
+    return [*parts, whole], fwd_err, fwd_train
 
 
 def bf16_timing(args, scale, pairs) -> dict:
@@ -1490,8 +1616,10 @@ def main() -> int:
     record["launches_by_path"] = {"serve": launches,
                                   "train": train_launches["fwd"]}
     fit_phase()
-    bwd_records, fwd_train_err = bwd_timing_phase(train_launches["bwd"],
-                                                  bwd_err)
+    bwd_records, fwd_train_err, fwd_train = bwd_timing_phase(
+        train_launches["bwd"], bwd_err)
+    record["train_shape"] = {"shape": [TRAIN_BATCH * LM["num_heads"],
+                                       LM["seq_len"], 64], **fwd_train}
     # The forward runs at the serving shapes (phase 3) and the training
     # shape: its error is the larger of the two.
     record["max_abs_err"] = max(record["max_abs_err"], fwd_train_err)

@@ -37,30 +37,124 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def assert_fwd_close(q, k, v, o, lse, *, causal, scale):
+    """The forward kernel's (O, lse) against the plain version in fp32 on
+    the same (upcast) inputs. fp32: the summation order and exp differ (atol
+    = rtol = 1e-4). bf16: the kernel rounds each p to bf16 before P·V, as
+    the TPU kernel does (2**-8 of each term p·|v|, at most 2**-8 (P_ref @
+    |V|) with P_ref the plain softmax), and rounds O to bf16 (2**-8 |O|):
+    |O - O_ref| <= 1e-4 + 2**-8 (|O_ref| + P_ref @ |V|). lse is fp32 on both
+    sides either way."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    o_ref, lse_ref = fa.flash_attention_plain(qf, kf, vf, causal=causal,
+                                              scale=scale)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-4)
+    if q.dtype == torch.float32:
+        torch.testing.assert_close(o, o_ref, atol=1e-4, rtol=1e-4)
+        return
+    s = torch.einsum("...qd,...kd->...qk", qf, kf) * scale
+    if causal:
+        ln = s.shape[-1]
+        keep = torch.ones(ln, ln, dtype=torch.bool, device=s.device).tril()
+        s = s.masked_fill(~keep, float("-inf"))
+    bound = 1e-4 + 2.0 ** -8 * (o_ref.abs() + torch.softmax(s, -1) @ vf.abs())
+    err = (o.float() - o_ref).abs()
+    assert bool((err <= bound).all()), float((err / bound).max())
+
+
+def _fwd_inputs(shape, dtype, device, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=gen).to(device, dtype)
+            for _ in range(3)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("ln,d,dtype,tol", [
-    (128, 64, torch.float32, 1e-4), (200, 64, torch.float32, 1e-4),
-    (512, 64, torch.float32, 1e-4), (96, 128, torch.float32, 1e-4),
-    (77, 32, torch.float32, 1e-4), (1, 64, torch.float32, 1e-4),
-    (256, 64, torch.bfloat16, 2.0 ** -8),
+@pytest.mark.parametrize("ln,d,dtype", [
+    (128, 64, torch.float32), (200, 64, torch.float32),
+    (512, 64, torch.float32), (96, 128, torch.float32),
+    (77, 32, torch.float32), (1, 64, torch.float32),
+    (256, 64, torch.bfloat16),
 ])
-def test_flash_kernel_matches_plain(cuda_device, causal, ln, d, dtype, tol):
-    # Against the plain version in fp32 on the same inputs. atol 1e-4: the
-    # summation order and exp differ; a bf16 O is also rounded to nearest,
-    # at most half a bf16 ulp (rtol 2**-8).
-    gen = torch.Generator().manual_seed(ln * d)
-    q, k, v = (torch.randn(2, 4, ln, d, generator=gen).to(cuda_device, dtype)
-               for _ in range(3))
+def test_flash_kernel_matches_plain(cuda_device, causal, ln, d, dtype):
+    q, k, v = _fwd_inputs((2, 4, ln, d), dtype, cuda_device, seed=ln * d)
     before = fa.flash_attention_fwd.launches
     o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, scale=0.125)
     torch.cuda.synchronize()
     assert fa.flash_attention_fwd.launches == before + 1
     assert o.dtype == dtype and lse.shape == (2, 4, ln, 1)
-    o_ref, lse_ref = fa.flash_attention_plain(
-        q.float(), k.float(), v.float(), causal=causal, scale=0.125)
-    torch.testing.assert_close(o.float(), o_ref, atol=1e-4, rtol=tol)
-    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-4)
+    assert_fwd_close(q, k, v, o, lse, causal=causal, scale=0.125)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("b,ln", [(1, 128), (1, 256), (1, 512), (33, 128)])
+def test_flash_fwd_split_and_unsplit_regimes(cuda_device, b, ln, causal,
+                                             dtype):
+    # Serving's prefill (8 instances) splits each query tile's keys into
+    # runs merged by a second kernel; 264 instances fill the card unsplit.
+    q, k, v = _fwd_inputs((b, 8, ln, 64), dtype, cuda_device, seed=ln + b)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    splits = fa.split_count(b * 8, ln, 64, sms)
+    assert (splits > 1) == (b == 1)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, scale=0.125)
+    torch.cuda.synchronize()
+    assert_fwd_close(q, k, v, o, lse, causal=causal, scale=0.125)
+    if splits > 1 and dtype == torch.float32:
+        # The same numbers as one run, to fp32 rounding. (In bf16 each run
+        # rounds P against its own running max: both sides are held to the
+        # bound above instead.)
+        o1, lse1 = torch.empty_like(o), torch.empty_like(lse)
+        fa._launch_fwd(q, k, v, o1, lse1, causal=causal, scale=0.125,
+                       splits=1)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(o1, o, atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(lse1, lse, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 33])
+def test_flash_fwd_is_deterministic(cuda_device, b):
+    # No atomics; the merge sums the runs in a fixed order: two calls on the
+    # same inputs give the same bits, split (b = 1) or not.
+    q, k, v = _fwd_inputs((b, 8, 512, 64), torch.float32, cuda_device,
+                          seed=3)
+    first = fa.flash_attention_fwd(q, k, v, causal=True, scale=0.125)
+    second = fa.flash_attention_fwd(q, k, v, causal=True, scale=0.125)
+    torch.cuda.synchronize()
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_fwd_at_the_largest_shared_memory_footprint(cuda_device,
+                                                          dtype):
+    # D = 128 takes the most shared memory per block (fp32 135 KB: Q's two
+    # planes and the double-buffered K and V); L = 1024 streams 32 key
+    # tiles through the buffers.
+    q, k, v = _fwd_inputs((1, 8, 1024, 128), dtype, cuda_device, seed=6)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True,
+                                    scale=128 ** -0.5)
+    torch.cuda.synchronize()
+    assert o.dtype == dtype and o.shape == q.shape
+    assert_fwd_close(q, k, v, o, lse, causal=True, scale=128 ** -0.5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_fwd_takes_views_off_a_16_byte_boundary(cuda_device, dtype):
+    # The kernel copies 16-byte chunks; the wrapper copies a misaligned view
+    # once rather than handing it to it.
+    n = 2 * 4 * 77 * 64
+    gen = torch.Generator().manual_seed(9)
+    flat = torch.randn(3 * n + 1, generator=gen).to(cuda_device, dtype)
+    q, k, v = (flat[1 + i * n:][:n].view(2, 4, 77, 64) for i in range(3))
+    assert q.data_ptr() % 16 != 0 and q.is_contiguous()
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True, scale=0.125)
+    torch.cuda.synchronize()
+    assert_fwd_close(q, k, v, o, lse, causal=True, scale=0.125)
 
 
 @pytest.mark.gpu

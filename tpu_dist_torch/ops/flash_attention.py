@@ -6,7 +6,9 @@ at first use and called through ``ctypes`` (design and bound in the
 sources):
 
 * ``_fwd_kernel`` (``flash_attention.py:148``, launched by ``_fwd`` at
-  ``:210``) -> ``csrc/flash_fwd.cu``;
+  ``:200-240``) -> ``csrc/flash_fwd.cu``, on the tensor cores (3xTF32 for
+  fp32 inputs, bf16 MMA for bf16), with a split over keys and a merge
+  kernel when the grid would leave most SMs idle (:func:`split_count`);
 * ``_dq_kernel`` (``:245``), ``_dkv_kernel`` (``:285``) and
   ``_dqkv_single_kernel`` (``:332``, the one-tile case) ->
   ``csrc/flash_bwd.cu``, a dK/dV kernel and a dQ kernel on the tensor cores
@@ -25,6 +27,8 @@ Functions:
 * :func:`flash_attention_plain` / :func:`flash_attention_bwd_plain` — the
   same math written out in PyTorch;
 * :func:`supported` — the kernels' envelope, which the wrappers enforce;
+* :func:`split_count` — how many runs the forward splits each query tile's
+  keys into (:func:`block_rows` query rows a tile);
 * :func:`use_flash` — whether ``models/transformer.py::_default_attention``
   launches the kernels for a tensor (every CUDA tensor).
 """
@@ -43,7 +47,8 @@ _BWD_SOURCE = "flash_bwd.cu"
 #: Head dims the kernels are instantiated for (a template parameter).
 HEAD_DIMS = (32, 64, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
-#: The kernels' grids put the 64-row tiles on grid.y (<= 65535).
+#: The kernels' grids put their query or key tiles (64 rows or more) on
+#: grid.y (<= 65535).
 MAX_LEN = 64 * 65535
 
 
@@ -101,11 +106,39 @@ def use_flash(q) -> bool:
     return q.is_cuda
 
 
+def block_rows(d: int) -> int:
+    """Query rows one block of the forward kernel owns at head dim ``d``:
+    4 warps of two 16-row tiles (128) at D <= 64, of one (64) at D = 128
+    (``m_tiles`` in ``csrc/flash_fwd.cu``)."""
+    return 128 if d <= 64 else 64
+
+
+def split_count(bh: int, ln: int, d: int, sms: int) -> int:
+    """Runs the forward splits each query tile's live keys into, for ``bh``
+    instances of ``[ln, d]`` on a card with ``sms`` SMs. A grid of at least
+    one block per SM is not split (the training shape's 2048 blocks). A
+    smaller one (serving's prefill: 8 instances of 1-4 query tiles) is
+    split into the largest power of two of runs that keeps it within one
+    block per SM, and at most one run per 32-key tile: 4, 8 and 4 at
+    serving's pads of 512, 256 and 128 (D = 64) on 132 SMs. (A power of two
+    divides the causal tiles' even key-tile counts evenly.)"""
+    blocks = bh * -(-ln // block_rows(d))
+    splits = 1
+    while 2 * splits * blocks <= sms and 2 * splits <= -(-ln // 32):
+        splits *= 2
+    return splits
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel():
     fn = _build.load(_SOURCE).tpu_dist_flash_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -161,24 +194,23 @@ def _on_cuda(*tensors) -> bool:
 def flash_attention_fwd(q, k, v, *, causal: bool = False, scale: float):
     """Fused attention forward, ``[B, H, L, D] -> (O [B, H, L, D],
     lse [B, H, L, 1] fp32)``. CUDA tensors launch the kernel (and raise on
-    anything it does not take); CPU tensors take
-    :func:`flash_attention_plain`."""
+    anything it does not take, a non-positive ``scale`` included); CPU
+    tensors take :func:`flash_attention_plain`."""
     if not _on_cuda(q, k, v):
         return flash_attention_plain(q, k, v, causal=causal, scale=scale)
     _check(q, k, v)
-    b, h, ln, d = q.shape
+    if not scale > 0:
+        raise ValueError(f"flash_attention: the forward kernel takes a "
+                         f"positive scale; got {scale}")
+    # The kernel copies tiles 16 bytes at a time: a view that starts off a
+    # 16-byte boundary is copied once (fresh allocations always qualify).
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
+    b, h, ln, _ = q.shape
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, ln, 1), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        o.data_ptr(), lse.data_ptr(), b * h, ln, d,
-                        int(q.dtype == torch.bfloat16), int(bool(causal)),
-                        float(scale), stream)
-    if err != 0:
-        raise RuntimeError(
-            f"flash_attention: kernel launch failed with CUDA error {err} "
-            f"for {tuple(q.shape)} {q.dtype}")
+    # A CUDA tensor's device always carries its index.
+    splits = split_count(b * h, ln, q.shape[-1], _sm_count(q.device.index))
+    _launch_fwd(q, k, v, o, lse, causal=causal, scale=scale, splits=splits)
     flash_attention_fwd.launches += 1
     return o, lse
 
@@ -186,6 +218,34 @@ def flash_attention_fwd(q, k, v, *, causal: bool = False, scale: float):
 #: Kernel launches since the last reset — a run reads it to show that its
 #: path went through the kernel. CPU calls (the plain version) never count.
 flash_attention_fwd.launches = 0
+
+
+def _launch_fwd(q, k, v, o, lse, *, causal, scale, splits):
+    """Launch the forward kernel (and, for ``splits > 1``, the merge
+    kernel, with its workspace) on checked, 16-byte-aligned tensors; a
+    benchmark may time another split count."""
+    b, h, ln, d = q.shape
+    part_acc = part_ml = 0
+    if splits > 1:
+        # One fp32 workspace: the runs' acc [splits, BH, L, D], then their
+        # (m, l) pairs [splits, BH, L, 2]. Freed on return: the caching
+        # allocator hands it only to work queued after the merge on this
+        # stream.
+        rows = splits * b * h * ln
+        work = torch.empty(rows * (d + 2), dtype=torch.float32,
+                           device=q.device)
+        part_acc = work.data_ptr()
+        part_ml = part_acc + 4 * rows * d
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        o.data_ptr(), lse.data_ptr(), part_acc, part_ml,
+                        b * h, ln, d, int(q.dtype == torch.bfloat16),
+                        int(bool(causal)), float(scale), int(splits), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attention: kernel launch failed with CUDA error {err} "
+            f"for {tuple(q.shape)} {q.dtype} in {splits} split(s)")
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = False,
