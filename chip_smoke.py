@@ -42,8 +42,9 @@ plain PyTorch version. Phases:
    200, 512, 1024} (512 is the TPU's one-tile case), D in {32, 64, 128},
    fp32 and bf16, causal and not (tolerances at ``assert_grads_close``);
 8. fused Adam vs its plain version over the full-width LM's 21.3 M
-   parameters for 3 steps (rtol 1e-6: the same arithmetic in the same
-   order);
+   parameters for 5 updates at counts up to 10**6 (the kernel computes the
+   bias correction from the count; rtol 1e-6: the same arithmetic in the
+   same order);
 9. train the benchmark LM at full width through ``make_train_function`` /
    ``train_state`` (``bench.py:63-68``, ``:101-106``, ``:120``: batch 64,
    L 512, SGD lr 0.001, the bench token stream), 3 steps: flash forward
@@ -52,7 +53,8 @@ plain PyTorch version. Phases:
    (``_dense_attention``) within ``LOSS_ATOL``, and the parameters must
    move, each leaf within ``PARAM_RTOL`` of its step plus ``PARAM_ATOL``
    of the twin's (SGD); then the same with ``Adam(fused=True)``, whose
-   launches must be the steps, against a twin on ``Adam(fused=False)``;
+   launches must be the steps, against a twin on ``Adam(fused=False)``,
+   and which must build its leaf table once;
 10. ``Model.fit((x, y), epochs=1, steps_per_epoch=4, verbose=0)`` at full
     width: a finite History loss and depth x 4 launches of each flash
     kernel;
@@ -66,10 +68,13 @@ plain PyTorch version. Phases:
     kernels SDPA ran from one ``torch.profiler`` pass; bounds on the
     tensor cores, 3xTF32 at 165 TFLOP/s, and on the CUDA cores), the same
     backward in bf16 beside SDPA's bf16 backward (bound at 989 TFLOP/s),
-    fused Adam over the 21.3 M parameters (kernel, plain version,
-    ``torch.optim.Adam(fused=True).step()``), and the full training step
-    in ms and tokens/s. Library calls are yardsticks only, never used by
-    the port;
+    fused Adam at the LM's 21.3 M parameters and the CNN's 225 k (the
+    whole call on a cached table, the kernel alone, ``Adam.update``, the
+    plain version, ``torch.optim.Adam(fused=True).step()``, the table
+    builds over the timed calls, and one update captured in a CUDA graph
+    and replayed bit for bit with eager), and the full training step in ms
+    and tokens/s. Library calls are yardsticks only, never used by the
+    port;
 12. fused cross-entropy kernels vs their plain version: loss, lse and
     dlogits at [64, 10], [37, 10] (ragged, some labels out of range),
     [2, 16, 64] (rank 3), [1000, 1000] and the LM's [32768, 8192], fp32
@@ -88,14 +93,19 @@ plain PyTorch version. Phases:
     same weights and batches; then 2 x 20 steps with ``SGD(momentum=0.9,
     fused=True)`` against its twin, which launch the momentum kernel, and
     2 x 20 with an ``ExponentialDecay`` rate, which launch the kernel too;
+    each run builds its optimizer's leaf table once;
 16. the benchmark LM at full width through ``make_train_function`` with
     the fused CE and ``SGD(fused=True)``, 3 steps: 3 launches of each new
     kernel plus the flash launches, losses and per-leaf parameters against
-    phase 9's plain twin under phase 9's rules;
-17. times of the new kernels at the LM's and the CNN's shapes (kernel,
-    plain version, library yardstick, bound), the LM train step with the
-    fused CE + SGD beside phase 11's, and the CNN train step, fused and
-    unfused in turns, in ms, images/s and device ms (``torch.profiler``).
+    phase 9's plain twin under phase 9's rules, and one leaf table built;
+17. times of the CE and SGD kernels at the LM's and the CNN's shapes
+    (kernel, plain version, library yardstick, bound; for SGD, plain and
+    momentum, the same set as phase 11's Adam, beside
+    ``torch.optim.SGD(foreach=True).step()``), a device copy moving the
+    plain SGD's bytes at the LM's size (the card's attainable rate), the LM
+    train step with the fused CE + SGD beside phase 11's, and the CNN train
+    step, fused and unfused in turns, in ms, images/s and device ms
+    (``torch.profiler``).
 
 Prints one JSON line of kernel records, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
@@ -467,6 +477,20 @@ def cli_phase() -> None:
         f"{launches} = depth {LM['depth']} x {prefills} prefills")
 
 
+def _host_us(fn, calls: int = 200) -> float:
+    """Host time per call of ``fn`` in microseconds: the calls are enqueued
+    back to back on the host clock, and the card is waited for after the
+    clock stops."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host / calls * 1e6
+
+
 def _time_ms(fn, *, runs: int = 21, per_run: int = 10) -> float:
     """Median over ``runs`` CUDA-event windows of ``per_run`` calls each."""
     for _ in range(5):
@@ -655,30 +679,35 @@ def _lm_params_and_grads():
     return params, grads
 
 
-def _adam_scale(t: int, lr: float = 1e-3) -> torch.Tensor:
-    step = torch.tensor(float(t), device="cuda")
-    return lr * torch.sqrt(1 - torch.pow(0.999, step)) / (
-        1 - torch.pow(0.9, step))
+def _adam_step(t: int) -> torch.Tensor:
+    """Adam's update count ``t`` as the optimizer keeps it: 0-d int32 on
+    the card."""
+    return torch.tensor(t, dtype=torch.int32, device="cuda")
+
+
+#: Phase 8's update counts: the first steps, and two far along, where the
+#: bias correction's powers differ in their last bits.
+ADAM_STEPS = (1, 2, 3, 10 ** 4, 10 ** 6)
 
 
 def adam_check_phase() -> tuple[float, int]:
     """Fused Adam vs its plain version over the full-width LM's parameters
-    for 3 steps; returns (largest |difference|, parameter count). rtol
-    1e-6: both sides do the same fp32 operations in the same order with
-    round-to-nearest (expected bit for bit); the tolerance allows a
-    division or square root that rounds the other way."""
+    for 5 updates at the counts ADAM_STEPS (the kernel derives the bias
+    correction from the count itself); returns (largest |difference|,
+    parameter count). rtol 1e-6: both sides do the same fp32 operations in
+    the same order with round-to-nearest (expected bit for bit); the
+    tolerance allows a division or square root that rounds the other
+    way."""
     params, grads = _lm_params_and_grads()
     n = sum(p.numel() for p in params)
     kernel = [[p.clone() for p in params],
               [torch.zeros_like(p) for p in params],
               [torch.zeros_like(p) for p in params]]
     plain = [[t.clone() for t in ts] for ts in kernel]
-    for t in range(1, 4):
-        scale = _adam_scale(t)
-        fused.fused_adam_apply(kernel[0], grads, kernel[1], kernel[2],
-                               scale=scale, epsilon=1e-7)
-        fused.fused_adam_plain(plain[0], grads, plain[1], plain[2],
-                               scale=scale, epsilon=1e-7)
+    for t in ADAM_STEPS:
+        kw = dict(step=_adam_step(t), learning_rate=1e-3, epsilon=1e-7)
+        fused.fused_adam_apply(kernel[0], grads, kernel[1], kernel[2], **kw)
+        fused.fused_adam_plain(plain[0], grads, plain[1], plain[2], **kw)
     torch.cuda.synchronize()
     worst, exact = 0.0, True
     for got, want in zip(kernel, plain):
@@ -689,7 +718,8 @@ def adam_check_phase() -> tuple[float, int]:
     moved = max(float((a - b).abs().max()) for a, b in zip(kernel[0], params))
     if not moved > 0:
         raise AssertionError("fused Adam left the parameters unchanged")
-    log(f"[8 adam] {len(params)} leaves, {n} parameters, 3 steps: max "
+    log(f"[8 adam] {len(params)} leaves, {n} parameters, updates at counts "
+        f"{list(ADAM_STEPS)}: max "
         f"|kernel - plain| over p, m, v {worst:.3e} (rtol 1e-6; bit for bit: "
         f"{exact}); params moved by up to {moved:.3e}")
     return worst, n
@@ -737,6 +767,16 @@ def _reset_counts() -> None:
 def _counts() -> tuple[int, ...]:
     """Launches of (flash fwd, flash bwd, Adam, CE fwd, CE bwd, SGD)."""
     return tuple(getattr(mod, name).launches for mod, name in _COUNTED)
+
+
+def _one_table(name: str, model) -> int:
+    """The fused optimizer of ``model`` built its leaf table once over the
+    run: the grads move every step, the params and the state do not."""
+    builds = model.optimizer._tables.builds
+    if builds != 1:
+        raise AssertionError(f"{name}: {builds} leaf tables built; expected "
+                             f"one per steady run")
+    return builds
 
 
 def _train_steps(model, x, y) -> list[float]:
@@ -818,6 +858,8 @@ def train_phase() -> dict:
                                    rtol=0, err_msg=name)
         moved, param_diff, limit = _twin_param_check(
             name, model, twin, before, sgd=not fused_adam)
+        tables = (f", leaf tables built {_one_table(name, model)}"
+                  if fused_adam else "")
         log(f"[9 train] {name}, batch {TRAIN_BATCH} x L {LM['seq_len']}, "
             f"{TRAIN_STEPS} steps in {wall:.3f} s: losses "
             f"{[round(v, 6) for v in losses]}; plain-attention twin "
@@ -827,7 +869,7 @@ def train_phase() -> dict:
             f"|params - twin's| {param_diff:.3e}"
             f"{limit}; launches fwd {counts[0]}, "
             f"bwd {counts[1]} (= depth {depth} x {TRAIN_STEPS}), fused Adam "
-            f"{counts[2]}")
+            f"{counts[2]}{tables}")
         del model, twin
         torch.cuda.empty_cache()
     return {"fwd": totals[0], "bwd": totals[1], "adam": totals[2]}
@@ -1048,47 +1090,123 @@ def bf16_timing(args, scale, pairs) -> dict:
             "library_kernels": [name for name, _ in sdpa_kernels]}
 
 
-def adam_timing_phase(launches: int, max_abs_err: float) -> dict:
-    params, grads = _lm_params_and_grads()
+def _state_tensors(state) -> list:
+    """Every tensor of an optimizer state, in order."""
+    if isinstance(state, list):
+        return state
+    return [t for part in state
+            for t in (part if isinstance(part, list) else [part])]
+
+
+def _graph_check(make, params, grads) -> int:
+    """One update of ``make()`` over a copy of ``params``, captured in a
+    CUDA graph and replayed 3 times after one eager warm-up, against a
+    twin's 4 eager updates of another copy: bit for bit, or raise. Returns
+    the captured optimizer's table builds (1 expected)."""
+    a, b = [p.clone() for p in params], [p.clone() for p in params]
+    opt, twin = make(), make()
+    sa, sb = opt.init(a), twin.init(b)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        sa = opt.update(grads, sa, a)
+    torch.cuda.current_stream().wait_stream(side)
+    sb = twin.update(grads, sb, b)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        opt.update(grads, sa, a)
+    for _ in range(3):
+        graph.replay()
+        sb = twin.update(grads, sb, b)
+    torch.cuda.synchronize()
+    got, want = a + _state_tensors(sa), b + _state_tensors(sb)
+    if not all(torch.equal(x, y) for x, y in zip(got, want)):
+        raise AssertionError(f"{opt!r}: the replayed graph differs from the "
+                             f"eager updates")
+    if all(torch.equal(x, p) for x, p in zip(a, params)):
+        raise AssertionError(f"{opt!r}: the replayed graph changed nothing")
+    return opt._tables.builds
+
+
+def _adam_times(params, grads) -> dict:
+    """Whole call (on a cached table), kernel alone, ``Adam.update``, plain
+    and library times of fused Adam over these leaves, the table builds
+    over the timed calls, the graph check and the bound."""
     n = sum(p.numel() for p in params)
     mu = [torch.zeros_like(p) for p in params]
     nu = [torch.zeros_like(p) for p in params]
-    scale = _adam_scale(1)
-    ms = _time_ms(lambda: fused.fused_adam_apply(params, grads, mu, nu,
-                                                 scale=scale))
-    # The kernel alone, on a table built once: the wrapper's time also
-    # holds its per-call checks and table, which bound it whenever the host
-    # takes longer than the card.
-    rows, chunks = fused._leaf_table(
-        0, list(zip(params, grads, mu, nu)), caller="chip_smoke",
-        names=("param", "grad", "mu", "nu"), width=4)
-    table = torch.tensor(rows, dtype=torch.int64).cuda()
+    step = _adam_step(1)
+    tables = fused.adam_tables()
+    call = lambda: fused.fused_adam_apply(
+        params, grads, mu, nu, step=step, learning_rate=1e-3, tables=tables)
+    ms, host_us = _time_ms(call), _host_us(call)
+    t = tables.get(0, params, grads, (mu, nu))
+    lr = tables.rate(1e-3, 0)
+    gptrs = fused._grad_pointers(grads)
     stream = torch.cuda.current_stream().cuda_stream
     kernel_ms = _time_ms(lambda: fused._adam_kernel()(
-        table.data_ptr(), len(rows), chunks, scale.data_ptr(), 0.9, 1 - 0.9,
-        0.999, 1 - 0.999, 1e-7, stream))
-    plain_ms = _time_ms(lambda: fused.fused_adam_plain(params, grads, mu, nu,
-                                                       scale=scale))
+        t.ptr, t.rows, t.chunks, step.data_ptr(), lr.data_ptr(), 0.9,
+        1 - 0.9, 0.999, 1 - 0.999, 1e-7, gptrs.buffer_info()[0], len(gptrs),
+        stream))
+    adam = Adam(fused=True)
+    state = adam.init(params)
+    update_ms = _time_ms(lambda: adam.update(grads, state, params))
+    plain_ms = _time_ms(lambda: fused.fused_adam_plain(
+        params, grads, mu, nu, step=step, learning_rate=1e-3))
     leaves = [p.clone().requires_grad_() for p in params]
     for p, g in zip(leaves, grads):
         p.grad = g
     torch_adam = torch.optim.Adam(leaves, lr=1e-3, eps=1e-7, fused=True)
     library_ms = _time_ms(torch_adam.step)
-    nbytes = 7 * 4 * n + 4          # read p, g, m, v; write p, m, v; scale
+    nbytes = 7 * 4 * n + 8          # read p, g, m, v; write p, m, v; t, lr
     flops = 12 * n                  # 3 for m, 4 for v, 5 for p
-    bound_ms, bound_by = _bound(nbytes, flops)
-    log(f"[11 times] fused Adam over {n} parameters ({len(params)} leaves), "
-        f"median of CUDA-event windows: wrapper {ms:.4f} ms (the kernel "
-        f"alone on a prebuilt table {kernel_ms:.4f} ms), plain "
-        f"{plain_ms:.4f} ms, torch.optim.Adam(fused=True).step() "
-        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
-        f"{nbytes} B at 3.35 TB/s, {flops} FLOP at 67 TFLOP/s fp32)")
+    return {"n": n, "leaves": len(params), "ms": ms, "host_us": host_us,
+            "kernel_alone_ms": kernel_ms, "update_ms": update_ms,
+            "plain_ms": plain_ms,
+            "library_ms": library_ms, "builds": tables.builds,
+            "update_builds": adam._tables.builds,
+            "graph_builds": _graph_check(lambda: Adam(fused=True), params,
+                                         grads),
+            "bound": _bound(nbytes, flops)}
+
+
+def _log_optimizer_times(phase: str, name: str, where: str, t: dict,
+                         library: str) -> None:
+    log(f"[{phase} times] {name} over {t['n']} {where} parameters "
+        f"({t['leaves']} leaves), median of CUDA-event windows: whole call "
+        f"{t['ms']:.4f} ms (host time {t['host_us']:.1f} us a call; kernel "
+        f"alone {t['kernel_alone_ms']:.4f} ms; table builds over the timed "
+        f"calls {t['builds']}), "
+        f"{'SGD' if 'SGD' in name else 'Adam'}.update {t['update_ms']:.4f} ms "
+        f"(builds {t['update_builds']}), plain {t['plain_ms']:.4f} ms, "
+        f"{library} {t['library_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms "
+        f"({t['bound'][1]}); captured update replayed 3 times bit for bit "
+        f"with eager (builds {t['graph_builds']})")
+
+
+def adam_timing_phase(launches: int, max_abs_err: float) -> dict:
+    """Fused Adam at the LM's and the CNN's sizes; returns its record."""
+    times = {}
+    for where, (params, grads) in (("LM", _lm_params_and_grads()),
+                                   ("CNN", _cnn_params_and_grads())):
+        times[where] = _adam_times(params, grads)
+        _log_optimizer_times("11", "fused Adam", where, times[where],
+                             "torch.optim.Adam(fused=True).step()")
+        del params, grads
+    lm, cnn = times["LM"], times["CNN"]
     return {"name": "fused_adam", "route": "cuda",
             "source": "tpu_dist_torch/csrc/fused_adam.cu",
             "replaces": "tpu_dist/ops/pallas_kernels.py:359",
-            "launches": launches, "max_abs_err": max_abs_err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "kernel_alone_ms": kernel_ms}
+            "launches": launches, "max_abs_err": max_abs_err,
+            "ms": lm["ms"], "plain_ms": lm["plain_ms"],
+            "bound_ms": lm["bound"][0], "bound_by": lm["bound"][1],
+            "library_ms": lm["library_ms"],
+            "kernel_alone_ms": lm["kernel_alone_ms"],
+            "update_ms": lm["update_ms"], "host_us": lm["host_us"],
+            "table_builds": lm["builds"],
+            "cnn_shape": {k: cnn[k] for k in (
+                "ms", "host_us", "kernel_alone_ms", "update_ms",
+                "plain_ms", "library_ms", "builds")} | {"bound_ms": cnn["bound"][0]}}
 
 
 def _lm_step_ms(name: str, model, phase: str) -> float:
@@ -1313,8 +1431,8 @@ def cnn_fused_phase() -> dict:
     try:
         _reset_counts()
         t0 = time.monotonic()
-        _, h = _cnn_fit(SGD(learning_rate=0.001, fused=True), True,
-                        CNN_EPOCHS, seed=0)
+        fm, h = _cnn_fit(SGD(learning_rate=0.001, fused=True), True,
+                         CNN_EPOCHS, seed=0)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
         counts = _counts()
@@ -1336,10 +1454,11 @@ def cnn_fused_phase() -> dict:
             f"s: losses {[round(v, 6) for v in h['loss']]}; unfused twin max "
             f"|diff| {max(abs(a - b) for a, b in zip(h['loss'], th['loss'])):.2e}"
             f" (atol {CNN_LOSS_ATOL:g}); launches CE fwd {counts[3]}, CE bwd "
-            f"{counts[4]}, SGD {counts[5]}")
+            f"{counts[4]}, SGD {counts[5]}; leaf tables built "
+            f"{_one_table('fused CNN program', fm)}")
         _reset_counts()
-        _, mh = _cnn_fit(SGD(learning_rate=0.001, momentum=0.9, fused=True),
-                         True, 2, seed=1)
+        mm, mh = _cnn_fit(SGD(learning_rate=0.001, momentum=0.9,
+                              fused=True), True, 2, seed=1)
         momentum = fused.fused_sgd_apply.momentum_launches
         if momentum != 2 * CNN_STEPS or _counts()[5] != 2 * CNN_STEPS:
             raise AssertionError(f"momentum CNN: {momentum} momentum launches "
@@ -1352,13 +1471,13 @@ def cnn_fused_phase() -> dict:
         log(f"[15 cnn] SGD(momentum=0.9, fused=True), 2 x {CNN_STEPS} steps: "
             f"losses {[round(v, 6) for v in mh['loss']]}, twin "
             f"{[round(v, 6) for v in mth['loss']]}; momentum launches "
-            f"{momentum}")
+            f"{momentum}; leaf tables built {_one_table('momentum CNN', mm)}")
         # A scheduled rate launches the kernel too: it reads the schedule's
         # value on the card.
         decay = lambda: ExponentialDecay(0.002, CNN_STEPS, 0.5)
         _reset_counts()
-        _, sh = _cnn_fit(SGD(learning_rate=decay(), fused=True), True, 2,
-                         seed=2)
+        sm, sh = _cnn_fit(SGD(learning_rate=decay(), fused=True), True, 2,
+                          seed=2)
         scheduled = _counts()[5]
         if scheduled != 2 * CNN_STEPS:
             raise AssertionError(f"scheduled CNN: {_counts()}; expected "
@@ -1370,7 +1489,8 @@ def cnn_fused_phase() -> dict:
         log(f"[15 cnn] SGD(ExponentialDecay(0.002, {CNN_STEPS}, 0.5), "
             f"fused=True), 2 x {CNN_STEPS} steps: losses "
             f"{[round(v, 6) for v in sh['loss']]}, twin "
-            f"{[round(v, 6) for v in sth['loss']]}; SGD launches {scheduled}")
+            f"{[round(v, 6) for v in sth['loss']]}; SGD launches {scheduled}; "
+            f"leaf tables built {_one_table('scheduled CNN', sm)}")
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
             flags
@@ -1411,7 +1531,8 @@ def lm_fused_phase() -> dict:
         f"{max(abs(a - b) for a, b in zip(losses, twin_losses)):.2e}, atol "
         f"{LOSS_ATOL:g}); params moved by up to {moved:.3e}, max |params - "
         f"twin's| {param_diff:.3e}{limit}; launches (flash fwd, flash bwd, "
-        f"Adam, CE fwd, CE bwd, SGD) {counts}")
+        f"Adam, CE fwd, CE bwd, SGD) {counts}; leaf tables built "
+        f"{_one_table(name, model)}")
     del model, twin
     torch.cuda.empty_cache()
     return {"ce_fwd": counts[3], "ce_bwd": counts[4], "sgd": counts[5]}
@@ -1451,34 +1572,43 @@ def _ce_times(shape) -> dict:
 
 
 def _sgd_times(params, grads) -> dict:
-    """Wrapper, kernel-alone, plain and library times of fused SGD, plain
-    and momentum, over these leaves."""
+    """Whole call (on a cached table), kernel alone, ``SGD.update``, plain
+    and library times of fused SGD, plain and momentum, over these leaves,
+    the table builds over the timed calls, the graph check and the
+    bound."""
     n = sum(p.numel() for p in params)
+    stream = torch.cuda.current_stream().cuda_stream
+    gptrs = fused._grad_pointers(grads)
     out = {}
     for mode, m in (("plain", 0.0), ("momentum", 0.9)):
         vel = [torch.zeros_like(p) for p in params] if m else None
         kw = dict(learning_rate=0.001, momentum=m)
-        rows, chunks = fused._leaf_table(
-            0, list(zip(params, grads, *([vel] if vel else []))),
-            caller="chip_smoke", names=("param", "grad", "velocity"),
-            width=3)
-        table = torch.tensor(rows, dtype=torch.int64).cuda()
-        lr = torch.full((), 0.001, dtype=torch.float32, device="cuda")
-        stream = torch.cuda.current_stream().cuda_stream
+        tables = fused.sgd_tables()
+        call = lambda: fused.fused_sgd_apply(params, grads, vel,
+                                             tables=tables, **kw)
+        ms, host_us = _time_ms(call), _host_us(call)
+        t = tables.get(0, params, grads, (vel,) if vel else ())
+        lr = tables.rate(0.001, 0)
+        sgd = SGD(fused=True, **kw)
+        state = sgd.init(params)
         leaves = [p.clone().requires_grad_() for p in params]
         for p, g in zip(leaves, grads):
             p.grad = g
         torch_sgd = torch.optim.SGD(leaves, lr=0.001, momentum=m,
                                     foreach=True)
         out[mode] = {
-            "ms": _time_ms(lambda: fused.fused_sgd_apply(params, grads, vel,
-                                                         **kw)),
+            "n": n, "leaves": len(params), "ms": ms, "host_us": host_us,
             "kernel_alone_ms": _time_ms(lambda: fused._sgd_kernel()(
-                table.data_ptr(), len(rows), chunks,
-                fused._sgd_mode(m, False), lr.data_ptr(), m, stream)),
+                t.ptr, t.rows, t.chunks, fused._sgd_mode(m, False),
+                lr.data_ptr(), m, gptrs.buffer_info()[0], len(gptrs),
+                stream)),
+            "update_ms": _time_ms(lambda: sgd.update(grads, state, params)),
             "plain_ms": _time_ms(lambda: fused.fused_sgd_plain(
                 params, grads, vel, **kw)),
             "library_ms": _time_ms(torch_sgd.step),
+            "builds": tables.builds, "update_builds": sgd._tables.builds,
+            "graph_builds": _graph_check(lambda: SGD(fused=True, **kw),
+                                         params, grads),
             # p, g read and p written (plus v read and written), fp32.
             "bound": _bound((12 if not m else 20) * n, (2 if not m else 4) * n),
         }
@@ -1524,15 +1654,26 @@ def slice3_timing_phase(launches: dict, ce_errs: tuple, sgd_errs: dict,
     lm_p, lm_g = _lm_params_and_grads()
     cnn_p, cnn_g = _cnn_params_and_grads()
     sgd = {"lm": _sgd_times(lm_p, lm_g), "cnn": _sgd_times(cnn_p, cnn_g)}
+    # The rate a plain device copy reaches for plain SGD's traffic at the
+    # LM's size (12 bytes an element: a copy reads and writes 1.5 floats).
+    n = sum(p.numel() for p in lm_p)
+    src = torch.ones(3 * n // 2, device="cuda")
+    dst = torch.empty_like(src)
+    copy_ms = _time_ms(lambda: dst.copy_(src))
+    lm_sgd = sgd["lm"]["plain"]
+    log(f"[17 times] device copy of {src.numel() * 4} B (plain SGD's {12 * n} "
+        f"B of traffic at the LM): {copy_ms:.4f} ms = "
+        f"{12 * n / copy_ms / 1e9:.3f} TB/s; the SGD kernel alone "
+        f"{lm_sgd['kernel_alone_ms']:.4f} ms = "
+        f"{12 * n / lm_sgd['kernel_alone_ms'] / 1e9:.3f} TB/s "
+        f"({copy_ms / lm_sgd['kernel_alone_ms'] * 100:.1f} % of the copy's)")
+    del src, dst
     for where in ("lm", "cnn"):
         for mode, t in sgd[where].items():
-            n = sum(p.numel() for p in (lm_p if where == "lm" else cnn_p))
-            log(f"[17 times] fused SGD {mode} over {n} {where.upper()} "
-                f"parameters: wrapper {t['ms']:.4f} ms (kernel alone "
-                f"{t['kernel_alone_ms']:.4f} ms), plain {t['plain_ms']:.4f} "
-                f"ms, torch.optim.SGD(foreach=True).step() "
-                f"{t['library_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms "
-                f"({t['bound'][1]})")
+            _log_optimizer_times(
+                "17", f"fused SGD {mode}", where.upper(), t,
+                f"torch.optim.SGD(momentum={0.9 if mode != 'plain' else 0},"
+                f" foreach=True).step()")
     del lm_p, lm_g
     model = _compiled_lm(SGD(learning_rate=0.001, fused=True), fused_ce=True)
     fused_ms = _lm_step_ms("fused CE + SGD(fused=True)", model, "17")
@@ -1595,10 +1736,11 @@ def slice3_timing_phase(launches: dict, ce_errs: tuple, sgd_errs: dict,
             "bound_ms": lm["bound"][0], "bound_by": lm["bound"][1],
             "library_ms": lm["library_ms"],
             "kernel_alone_ms": lm["kernel_alone_ms"],
-            "cnn_shape": {"ms": cnn_t["ms"], "plain_ms": cnn_t["plain_ms"],
-                          "library_ms": cnn_t["library_ms"],
-                          "kernel_alone_ms": cnn_t["kernel_alone_ms"],
-                          "bound_ms": cnn_t["bound"][0]}})
+            "update_ms": lm["update_ms"], "host_us": lm["host_us"],
+            "table_builds": lm["builds"],
+            "cnn_shape": {k: cnn_t[k] for k in (
+                "ms", "host_us", "kernel_alone_ms", "update_ms",
+                "plain_ms", "library_ms", "builds")} | {"bound_ms": cnn_t["bound"][0]}})
     return records
 
 

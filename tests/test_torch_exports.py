@@ -1,0 +1,124 @@
+"""The port's package surface against the reference's.
+
+For every reference package that the port has a counterpart of, each name
+in the reference's ``__all__`` must resolve in the port's package, unless
+``NOT_YET_PORTED`` names the ``ROADMAP.md`` queue-1 item that ports it.
+That dict only shrinks: a name on it that resolves fails the test, so a
+slice that ports a name also takes it off the list. The port keeps its own
+``__all__`` lists, which name exactly what it re-exports of the reference's.
+"""
+
+import importlib
+
+import pytest
+
+# The packages re-export the function ``policy``, which shadows the module.
+jpolicy = importlib.import_module("tpu_dist.models.policy")
+tpolicy = importlib.import_module("tpu_dist_torch.models.policy")
+
+PACKAGES = ("", "ops", "serve", "training", "observe", "models", "data",
+            "parallel", "cluster")
+
+#: Reference names the port does not have yet -> the ROADMAP.md queue-1
+#: item (or decision) that covers them.
+NOT_YET_PORTED = {
+    "OptaxWrapper": "not ported, by decision (optax has no PyTorch "
+                    "counterpart)",
+    # item 6: data
+    "DeviceDataset": "item 6", "DevicePrefetcher": "item 6",
+    "device_pipeline": "item 6", "image_shape": "item 6",
+    "num_classes": "item 6",
+    # item 7: predict, summary, the Model container
+    "Model": "item 7",
+    # item 8: layers and ResNets
+    "Activation": "item 8", "AveragePooling2D": "item 8",
+    "BatchNormalization": "item 8", "Dropout": "item 8",
+    "GlobalAveragePooling2D": "item 8", "ReLU": "item 8",
+    "ResNet18": "item 8", "ResNet50": "item 8",
+    # item 9: checkpoints, saved models, their callbacks
+    "checkpoint": "item 9", "load_model": "item 9", "save_model": "item 9",
+    "EarlyStopping": "item 9", "LambdaCallback": "item 9",
+    "ModelCheckpoint": "item 9",
+    # item 10: bucketed all-reduce and the missing collectives
+    "all_gather": "item 10", "broadcast_from_chief": "item 10",
+    "bucketed_all_reduce": "item 10", "host_all_reduce_sum": "item 10",
+    "partition_buckets": "item 10",
+    # item 12: the rest of the strategy surface (meshes, axes)
+    "InputContext": "item 12", "make_mesh": "item 12",
+    "replicate": "item 12", "replicated": "item 12",
+    "shard_batch": "item 12", "batch_sharded": "item 12",
+    "CANONICAL_AXES": "item 12", "DATA_AXIS": "item 12",
+    "MODEL_AXIS": "item 12", "SEQ_AXIS": "item 12", "PIPE_AXIS": "item 12",
+    "EXPERT_AXIS": "item 12",
+    # item 14: sharded-file sources
+    "write_sharded": "item 14",
+    # item 15: serving resilience
+    "RequestJournal": "item 15", "JournalState": "item 15",
+    "ServeSupervisor": "item 15",
+    # item 17: parallel axes
+    "RingAttention": "item 17", "ring_attention": "item 17",
+    "sequence_sharding": "item 17", "tensor_parallel_specs": "item 17",
+    "PipelinedBlocks": "item 17", "gpipe_schedule": "item 17",
+    "make_1f1b_train_step": "item 17", "one_f_one_b": "item 17",
+    "MixtureOfExperts": "item 17",
+    # item 18: resilience, async checkpoints, liveness
+    "AsyncCheckpointer": "item 18", "LivenessMonitor": "item 18",
+    "PeerUnavailableError": "item 18", "check_peer_health": "item 18",
+    # item 19: observability
+    "JSONLogger": "item 19", "TensorBoard": "item 19",
+    "Telemetry": "item 19", "LazyLogs": "item 19",
+    "StepTimer": "item 19", "active_step_timer": "item 19",
+    "maybe_telemetry_from_env": "item 19", "OBSERVE_DIR_ENV": "item 19",
+    "SCHEMA": "item 19", "JsonlExporter": "item 19",
+    "SchemaError": "item 19", "read_series": "item 19",
+    "write_prometheus_textfile": "item 19", "HeartbeatMonitor": "item 19",
+    "StragglerVerdict": "item 19", "detect_stragglers": "item 19",
+    "set_collective_logging": "item 19",
+    # item 20: the parameter server
+    "ParameterServerStrategy": "item 20",
+}
+
+
+def _pair(sub):
+    suffix = f".{sub}" if sub else ""
+    return (importlib.import_module("tpu_dist" + suffix),
+            importlib.import_module("tpu_dist_torch" + suffix))
+
+
+@pytest.mark.parametrize("sub", PACKAGES, ids=lambda s: s or "top")
+def test_reference_names_resolve_in_the_port(sub):
+    ref, port = _pair(sub)
+    missing = [n for n in ref.__all__
+               if n not in NOT_YET_PORTED and not hasattr(port, n)]
+    assert missing == [], f"ported names not exported: {missing}"
+    stale = [n for n in ref.__all__
+             if n in NOT_YET_PORTED and hasattr(port, n)]
+    assert stale == [], f"ported now; take them off NOT_YET_PORTED: {stale}"
+
+
+@pytest.mark.parametrize("sub", PACKAGES, ids=lambda s: s or "top")
+def test_port_all_names_what_it_exports_of_the_reference(sub):
+    ref, port = _pair(sub)
+    assert all(hasattr(port, n) for n in port.__all__)
+    want = {n for n in ref.__all__ if n not in NOT_YET_PORTED}
+    assert want <= set(port.__all__), sorted(want - set(port.__all__))
+
+
+def test_not_yet_ported_names_are_reference_names():
+    names = {n for sub in PACKAGES for n in _pair(sub)[0].__all__}
+    assert set(NOT_YET_PORTED) <= names, sorted(set(NOT_YET_PORTED) - names)
+
+
+def test_policy_name_follows_set_policy_as_in_the_reference():
+    before = jpolicy.policy(), tpolicy.policy()
+    try:
+        for name in ("mixed_bfloat16", "bfloat16", "float32"):
+            jpolicy.set_policy(name)
+            tpolicy.set_policy(name)
+            assert tpolicy.policy() == jpolicy.policy() == name
+        with pytest.raises(ValueError, match="unknown policy"):
+            tpolicy.set_policy("float16")
+        assert tpolicy.policy() == jpolicy.policy()
+    finally:
+        jpolicy.set_policy(before[0])
+        tpolicy.set_policy(before[1])

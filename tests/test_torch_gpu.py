@@ -25,6 +25,7 @@ from tpu_dist_torch.ops.losses import SparseCategoricalCrossentropy
 from tpu_dist_torch.ops.optimizers import SGD, Adam
 from tpu_dist_torch.ops.schedules import ExponentialDecay
 from tpu_dist_torch.serve.engine import ServeEngine
+from tpu_dist_torch.training import Callback
 
 
 @pytest.fixture
@@ -325,10 +326,11 @@ def test_fused_adam_matches_plain(cuda_device):
     ref = [[t.clone() for t in ts] for ts in (params, mu, nu)]
     before = fused.fused_adam_apply.launches
     for t in range(1, 4):
-        scale = torch.tensor(1e-3 * (1 - 0.999 ** t) ** 0.5 / (1 - 0.9 ** t),
-                             device=cuda_device)
-        fused.fused_adam_apply(params, grads, mu, nu, scale=scale)
-        fused.fused_adam_plain(*ref[:1], grads, *ref[1:], scale=scale)
+        step = torch.tensor(t, dtype=torch.int32, device=cuda_device)
+        fused.fused_adam_apply(params, grads, mu, nu, step=step,
+                               learning_rate=1e-3)
+        fused.fused_adam_plain(*ref[:1], grads, *ref[1:], step=step,
+                               learning_rate=1e-3)
     torch.cuda.synchronize()
     assert fused.fused_adam_apply.launches == before + 3
     for got, want in zip((params, mu, nu), ref):
@@ -339,20 +341,24 @@ def test_fused_adam_matches_plain(cuda_device):
 @pytest.mark.gpu
 def test_fused_adam_follows_fresh_grads_and_skips_empty_leaves(cuda_device):
     # New grad tensors every step (as backward allocates them) and an empty
-    # leaf among the others: the leaf table is built per call, so each step
-    # reads that step's grads. Tolerance as in the test above.
+    # leaf among the others: the grads' addresses go with each launch, so
+    # each step reads that step's grads on the one table built. Tolerance
+    # as in the test above.
     params, _, mu = _adam_leaves(cuda_device)
     params.insert(2, torch.empty(0, device=cuda_device))
     mu = [torch.zeros_like(p) for p in params]
     nu = [torch.zeros_like(p) for p in params]
     ref = [[t.clone() for t in ts] for ts in (params, mu, nu)]
+    tables = fused.adam_tables()
     for t in range(1, 4):
         grads = [torch.randn_like(p) for p in params]
-        scale = torch.tensor(1e-3 * (1 - 0.999 ** t) ** 0.5 / (1 - 0.9 ** t),
-                             device=cuda_device)
-        fused.fused_adam_apply(params, grads, mu, nu, scale=scale)
-        fused.fused_adam_plain(*ref[:1], grads, *ref[1:], scale=scale)
+        step = torch.tensor(t, dtype=torch.int32, device=cuda_device)
+        fused.fused_adam_apply(params, grads, mu, nu, step=step,
+                               learning_rate=1e-3, tables=tables)
+        fused.fused_adam_plain(*ref[:1], grads, *ref[1:], step=step,
+                               learning_rate=1e-3)
         del grads
+    assert tables.builds == 1
     torch.cuda.synchronize()
     for got, want in zip((params, mu, nu), ref):
         for g, w in zip(got, want):
@@ -360,14 +366,47 @@ def test_fused_adam_follows_fresh_grads_and_skips_empty_leaves(cuda_device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("rate", ["constant", "schedule"])
+def test_fused_adam_scale_matches_plain_at_every_step_count(cuda_device,
+                                                            rate):
+    # The kernel computes lr sqrt(1 - b2^t) / (1 - b1^t) from the device
+    # counter with the plain version's fp32 operations (powf, a correctly
+    # rounded sqrt and quotient): bit for bit at each of many counts, with
+    # a float rate and with a schedule's tensor, from the same state.
+    gen = torch.Generator().manual_seed(7)
+    params, grads, mu = ([torch.randn(4099, generator=gen).to(cuda_device)]
+                         for _ in range(3))
+    nu = [mu[0] * mu[0]]
+    lr = (1e-3 if rate == "constant" else
+          ExponentialDecay(2e-3, 3, 0.9)(torch.tensor(
+              5, dtype=torch.int32, device=cuda_device)))
+    tables = fused.adam_tables()
+    for t in [*range(1, 65), 1000, 12345, 10 ** 6, 2 ** 31 - 1]:
+        step = torch.tensor(t, dtype=torch.int32, device=cuda_device)
+        got = [[x.clone() for x in xs] for xs in (params, mu, nu)]
+        want = [[x.clone() for x in xs] for xs in (params, mu, nu)]
+        fused.fused_adam_apply(got[0], grads, got[1], got[2], step=step,
+                               learning_rate=lr, tables=tables)
+        fused.fused_adam_plain(want[0], grads, want[1], want[2], step=step,
+                               learning_rate=lr)
+        assert all(torch.equal(a, b) for a, b in zip(sum(got, []),
+                                                     sum(want, []))), t
+
+
+@pytest.mark.gpu
 def test_fused_adam_raises_on_what_the_kernel_does_not_take(cuda_device):
     p = torch.zeros(10, device=cuda_device, dtype=torch.bfloat16)
-    scale = torch.ones((), device=cuda_device)
+    step = torch.ones((), dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError, match="fp32"):
-        fused.fused_adam_apply([p], [p], [p], [p], scale=scale)
+        fused.fused_adam_apply([p], [p], [p], [p], step=step,
+                               learning_rate=0.1)
     p = torch.zeros(10, device=cuda_device)
     with pytest.raises(ValueError, match="one CUDA device"):
-        fused.fused_adam_apply([p], [p], [p], [p], scale=scale.cpu())
+        fused.fused_adam_apply([p], [p], [p], [p], step=step.cpu(),
+                               learning_rate=0.1)
+    with pytest.raises(ValueError, match="int32"):
+        fused.fused_adam_apply([p], [p], [p], [p], step=step.float(),
+                               learning_rate=0.1)
 
 
 @pytest.mark.gpu
@@ -532,3 +571,184 @@ def test_cnn_fused_fit_launches_the_kernels(cuda_device):
         assert launches == ((0, 0, 0) if device == "cpu" else (6, 6, 6))
     np.testing.assert_allclose(histories["cuda"], histories["cpu"],
                                atol=1e-4)
+
+
+# -- the fused optimizers' vector and scalar paths, cache and CUDA graphs ------
+
+#: (shape, columns starting one float past a 16-byte boundary): whole
+#: chunks, ragged last chunks, lengths that are not a multiple of 4 (the
+#: vector path's scalar tail), a one-element leaf, an empty leaf, leaves off
+#: the boundary in every column or in the grad's alone (the scalar path).
+MIXED_LEAVES = (((3 * 4096,), ()), ((4097,), "all"), ((1,), ()),
+                ((33, 65), (1,)), ((8197,), ()), ((0,), ()),
+                ((130,), "all"), ((4099,), ()))
+
+
+def _mixed(device, gen, column: int, scale: float = 1.0):
+    """One column (0 params, 1 grads, 2+ state) of MIXED_LEAVES."""
+    out = []
+    for shape, off in MIXED_LEAVES:
+        n = int(np.prod(shape))
+        shift = off == "all" or column in off
+        base = torch.randn(n + shift, generator=gen).to(device) * scale
+        out.append(base[shift:].reshape(shape))
+    return out
+
+
+def _rate(kind):
+    return (0.01 if kind == "constant" else
+            ExponentialDecay(0.02, decay_steps=1, decay_rate=0.5))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", ["constant", "schedule"])
+@pytest.mark.parametrize("momentum,nesterov", [(0.0, False), (0.9, False),
+                                               (0.9, True)])
+def test_fused_sgd_vector_and_scalar_paths_bit_for_bit(cuda_device, momentum,
+                                                       nesterov, rate):
+    # Fresh grads at new addresses each step; the fused optimizer's cached
+    # table follows them. The same fp32 operations in the same order on
+    # both paths: bit for bit with the plain update.
+    gen = torch.Generator().manual_seed(4)
+    params = _mixed(cuda_device, gen, 0)
+    assert any(p.data_ptr() % 16 for p in params)
+    ref = [p.clone() for p in params]
+    fused_opt = SGD(learning_rate=_rate(rate), momentum=momentum,
+                    nesterov=nesterov, fused=True)
+    plain_opt = SGD(learning_rate=_rate(rate), momentum=momentum,
+                    nesterov=nesterov)
+    fs, ps = fused_opt.init(params), plain_opt.init(ref)
+    before = fused.fused_sgd_apply.launches
+    for _ in range(3):
+        grads = _mixed(cuda_device, gen, 1)
+        fs = fused_opt.update(grads, fs, params)
+        ps = plain_opt.update(grads, ps, ref)
+    torch.cuda.synchronize()
+    assert fused.fused_sgd_apply.launches == before + 3
+    vel = fs.velocity if rate == "schedule" else fs
+    ref_vel = ps.velocity if rate == "schedule" else ps
+    for got, want in zip(params + list(vel), ref + list(ref_vel)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", ["constant", "schedule"])
+def test_fused_adam_vector_and_scalar_paths_bit_for_bit(cuda_device, rate):
+    # As above for Adam; its moments start off the boundary in some leaves
+    # too. The plain version does the same operations with round to nearest
+    # (division and square root included): bit for bit.
+    gen = torch.Generator().manual_seed(5)
+    params = _mixed(cuda_device, gen, 0)
+    ref = [p.clone() for p in params]
+    lr = (1e-3 if rate == "constant" else
+          ExponentialDecay(2e-3, decay_steps=1, decay_rate=0.5))
+    fused_opt, plain_opt = Adam(learning_rate=lr, fused=True), Adam(
+        learning_rate=lr)
+    fs, ps = fused_opt.init(params), plain_opt.init(ref)
+    # Moments that start off a 16-byte boundary where MIXED_LEAVES says.
+    fs = fs._replace(mu=[m.copy_(g.abs()) for m, g in
+                         zip(_mixed(cuda_device, gen, 2), fs.mu)],
+                     nu=[v.copy_(g * g) for v, g in
+                         zip(_mixed(cuda_device, gen, 3), fs.nu)])
+    ps = ps._replace(mu=[m.clone() for m in fs.mu],
+                     nu=[v.clone() for v in fs.nu])
+    before = fused.fused_adam_apply.launches
+    for _ in range(3):
+        grads = _mixed(cuda_device, gen, 1)
+        fs = fused_opt.update(grads, fs, params)
+        ps = plain_opt.update(grads, ps, ref)
+    torch.cuda.synchronize()
+    assert fused.fused_adam_apply.launches == before + 3
+    for got, want in zip(params + fs.mu + fs.nu, ref + ps.mu + ps.nu):
+        assert torch.equal(got, want)
+
+
+def _state_tensors(state):
+    """Every tensor of an optimizer state, in order."""
+    if isinstance(state, list):
+        return state
+    return [t for part in state
+            for t in (part if isinstance(part, list) else [part])]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("make", [
+    lambda: SGD(learning_rate=0.01, fused=True),
+    lambda: SGD(learning_rate=0.01, momentum=0.9, fused=True),
+    lambda: SGD(learning_rate=0.01, momentum=0.9, nesterov=True, fused=True),
+    lambda: SGD(learning_rate=ExponentialDecay(0.02, 1, 0.5), momentum=0.9,
+                fused=True),
+    lambda: Adam(learning_rate=1e-3, fused=True),
+], ids=["sgd", "momentum", "nesterov", "schedule", "adam"])
+def test_fused_update_is_captured_and_replays_as_eager(cuda_device, make):
+    # On a cached table the update copies nothing from the host and
+    # allocates nothing of its own, so a CUDA graph captures it (with the
+    # schedule's rate, Adam's step counter and scale); three replays give
+    # the bits of three eager updates.
+    gen = torch.Generator().manual_seed(6)
+    params = _mixed(cuda_device, gen, 0)
+    grads = _mixed(cuda_device, gen, 1, scale=0.1)
+    twin_params = [p.clone() for p in params]
+    optimizer, twin = make(), make()
+    state, twin_state = optimizer.init(params), twin.init(twin_params)
+    side = torch.cuda.Stream()              # warm up off the default stream
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        state = optimizer.update(grads, state, params)
+    torch.cuda.current_stream().wait_stream(side)
+    twin_state = twin.update(grads, twin_state, twin_params)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        optimizer.update(grads, state, params)
+    for _ in range(3):
+        graph.replay()
+        twin_state = twin.update(grads, twin_state, twin_params)
+    torch.cuda.synchronize()
+    assert optimizer._tables.builds == 1
+    for got, want in zip(params + _state_tensors(state),
+                         twin_params + _state_tensors(twin_state)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_fused_update_refuses_to_build_a_table_while_capturing(cuda_device):
+    # A miss needs a copy from the host, which a capture cannot hold: the
+    # wrapper says so instead of breaking the capture.
+    params = [torch.zeros(8, device=cuda_device)]
+    grads = [torch.ones(8, device=cuda_device)]
+    optimizer = SGD(learning_rate=0.1, fused=True)
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="eagerly first"):
+        with torch.cuda.graph(graph):
+            optimizer.update(grads, optimizer.init(params), params)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("make", [
+    lambda: SGD(learning_rate=0.01, fused=True),
+    lambda: SGD(learning_rate=0.01, momentum=0.9, fused=True),
+    lambda: Adam(learning_rate=1e-3, fused=True)], ids=["sgd", "momentum",
+                                                       "adam"])
+def test_steady_fit_builds_no_new_table(cuda_device, make):
+    # backward hands out new grads every step, at addresses that move; the
+    # table holds only the params and the state, so the first step builds
+    # it and no later one does.
+    images, labels = load_arrays("mnist", synthetic_size=512)
+    x, y = images.astype(np.float32) / 255.0, labels
+    model = build_cnn_model(seed=2)
+    optimizer = make()
+    model.compile(optimizer=optimizer,
+                  loss=SparseCategoricalCrossentropy(from_logits=True,
+                                                     fused=True),
+                  device=cuda_device)
+    builds = []
+
+    class Record(Callback):
+        wants_batches = True
+
+        def on_batch_end(self, step, logs):
+            builds.append(optimizer._tables.builds)
+
+    model.fit(Dataset.from_tensor_slices((x, y)).batch(32), epochs=2,
+              steps_per_epoch=6, verbose=0, callbacks=[Record()])
+    assert builds == [1] * 12

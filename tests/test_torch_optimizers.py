@@ -77,6 +77,10 @@ CASES = {
     "sgd_fused": lambda m: m.SGD(learning_rate=0.05, fused=True),
     "sgd_fused_nesterov": lambda m: m.SGD(learning_rate=0.05, momentum=0.9,
                                           nesterov=True, fused=True),
+    "sgd_fused_schedule": lambda m: m.SGD(
+        learning_rate=(jsched if m is jopt else sched).ExponentialDecay(
+            0.1, decay_steps=2, decay_rate=0.5),
+        momentum=0.5, fused=True),
     "sgd_schedule": lambda m: m.SGD(
         learning_rate=(jsched if m is jopt else sched).ExponentialDecay(
             0.1, decay_steps=2, decay_rate=0.5),
@@ -109,31 +113,34 @@ def test_optimizer_matches_reference(case):
 def test_fused_adam_plain_matches_reference_kernel_interpret():
     # The reference's Pallas _adam_kernel over its packed (rows, 128)
     # buffer, in the interpreter, against the port's plain version leaf by
-    # leaf: the same fp32 elementwise arithmetic.
+    # leaf: the same fp32 elementwise arithmetic. The port's version takes
+    # the step count and the rate and derives the reference's scale.
     rng = np.random.default_rng(1)
     p, g = _tree(rng), _tree(rng)
     m = jax.tree_util.tree_map(lambda a: 0.1 * np.abs(a), _tree(rng))
     v = jax.tree_util.tree_map(np.square, _tree(rng))
-    scale = np.float32(0.003)
+    t, lr = 3, 0.003
+    scale = np.float32(lr * np.sqrt(1 - 0.999 ** t) / (1 - 0.9 ** t))
     jp, jm, jv = jpk.fused_adam_apply(
         *(jax.tree_util.tree_map(jnp.asarray, t) for t in (p, g, m, v)),
         scale=jnp.asarray(scale), interpret=True)
     tp, tm, tv = (_leaves(t) for t in (p, m, v))
+    step = torch.tensor(t, dtype=torch.int32)
     before = fused.fused_adam_apply.launches
-    fused.fused_adam_plain(tp, _leaves(g), tm, tv,
-                           scale=torch.tensor(scale))
+    fused.fused_adam_plain(tp, _leaves(g), tm, tv, step=step,
+                           learning_rate=lr)
     for got, want in ((tp, jp), (tm, jm), (tv, jv)):
         _assert_tree_close(got, want)
     # The wrapper on CPU tensors is the plain version and counts nothing.
     tp2, tm2, tv2 = (_leaves(t) for t in (p, m, v))
-    fused.fused_adam_apply(tp2, _leaves(g), tm2, tv2,
-                           scale=torch.tensor(scale))
+    fused.fused_adam_apply(tp2, _leaves(g), tm2, tv2, step=step,
+                           learning_rate=lr)
     assert all(torch.equal(a, b) for a, b in zip(tp + tm + tv,
                                                  tp2 + tm2 + tv2))
     assert fused.fused_adam_apply.launches == before
 
 
-def test_sgd_fused_raises_naming_the_roadmap_slice():
+def test_sgd_fused_on_cpu_matches_reference():
     # SGD(fused=True) is ported now: on CPU parameters it takes the fused
     # kernel's plain version and matches the reference's SGD(fused=True).
     tparams, tstate, jparams, jstate = _run_both(
@@ -141,6 +148,28 @@ def test_sgd_fused_raises_naming_the_roadmap_slice():
     assert opt.SGD(fused=True).fused
     _assert_tree_close(tparams, jparams)
     _assert_tree_close(tstate, jstate)
+
+
+@pytest.mark.parametrize("case", ["sgd_fused", "sgd_fused_nesterov",
+                                  "sgd_fused_schedule", "adam_fused"])
+def test_fused_optimizer_state_keeps_the_reference_tree(case):
+    # The leaf table lives on the optimizer, beside the state: the state
+    # keeps the reference's shape (the same NamedTuple fields, or a velocity
+    # list in the reference tree's leaf order), with tensors as its only
+    # leaves.
+    _, tstate, _, jstate = _run_both(CASES[case])
+    tleaves = jax.tree_util.tree_leaves(tstate, is_leaf=torch.is_tensor)
+    jleaves = jax.tree_util.tree_leaves(jstate)
+    if hasattr(jstate, "_fields"):
+        assert type(tstate).__name__ == type(jstate).__name__
+        assert tstate._fields == jstate._fields
+    elif jstate == ():
+        assert tstate == ()
+    else:
+        assert isinstance(tstate, list)
+    assert len(tleaves) == len(jleaves)
+    assert all(torch.is_tensor(t) for t in tleaves)
+    assert [tuple(t.shape) for t in tleaves] == [j.shape for j in jleaves]
 
 
 def test_optimizer_arguments_are_checked_as_in_the_reference():

@@ -183,6 +183,87 @@ def test_engines_stream_identical_greedy_tokens():
     assert eng.compiled_programs() == jeng.compiled_programs()
 
 
+def test_engines_agree_on_a_custom_bucket_set():
+    # Unsorted, repeated buckets are sorted and made unique; the decode
+    # buckets and prefill pads used, and the greedy streams, match.
+    jmodel, _, model = _pair()
+    buckets = (4, 1, 3, 3)
+    jeng = JServeEngine(jmodel, max_batch=4, max_len=SEQ, buckets=buckets)
+    eng = ServeEngine(model, max_batch=4, max_len=SEQ, buckets=buckets,
+                      device="cpu")
+    assert eng.scheduler.buckets == jeng.scheduler.buckets == (1, 3, 4)
+    jreqs, reqs = _backlog(jeng), _backlog(eng)
+    jeng.run_until_idle()
+    eng.run_until_idle()
+    assert [r.generated for r in reqs] == [r.generated for r in jreqs]
+    assert eng.compiled_programs() == jeng.compiled_programs()
+    assert set(eng.compiled_programs()["decode"]) <= {1, 3, 4}
+    for mod in (scheduler, jsched):
+        with pytest.raises(ValueError, match="largest bucket 2 != max_batch"):
+            mod.Scheduler(4, buckets=(1, 2))
+    with pytest.raises(ValueError, match="largest bucket"):
+        ServeEngine(model, max_batch=4, max_len=SEQ, buckets=(1, 2),
+                    device="cpu")
+
+
+class _FakeClock:
+    """A clock the test moves by hand: each engine step runs at one
+    instant, so both engines stamp the same times."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+
+def test_engines_record_equal_times_under_one_fake_clock():
+    jmodel, _, model = _pair()
+    clock = _FakeClock()
+    jeng = JServeEngine(jmodel, max_batch=2, max_len=SEQ, clock=clock)
+    eng = ServeEngine(model, max_batch=2, max_len=SEQ, clock=clock,
+                      device="cpu")
+    assert eng.clock is clock
+    jreqs, reqs = _backlog(jeng), _backlog(eng)
+    # A deadline that expires while the request still waits for a slot.
+    jlate = jeng.submit([1, 2, 3], max_new_tokens=4, deadline_s=0.5)
+    late = eng.submit([1, 2, 3], max_new_tokens=4, deadline_s=0.5)
+    for step in range(1, 200):
+        if jeng.scheduler.idle() and eng.scheduler.idle():
+            break
+        clock.t = 0.25 * step
+        jeng.step()
+        eng.step()
+    assert eng.scheduler.idle() and jeng.scheduler.idle()
+    assert late.status == jlate.status == scheduler.EVICTED
+    for r, j in zip(reqs + [late], jreqs + [jlate]):
+        assert (r.ttft_s, r.latency_s, r.finish_reason) == (
+            j.ttft_s, j.latency_s, j.finish_reason)
+    assert all(r.ttft_s is not None and r.ttft_s > 0 for r in reqs)
+
+
+def test_engines_sample_identical_streams_at_temperature():
+    # The same host-side default_rng(seed) draws on logits that agree to
+    # 1e-5: 10 requests over 4 slots give the same sampled streams. The
+    # seed stays 0: the reference engine also initializes an unmaterialized
+    # model's weights from it, and _pair bridges init(0)'s.
+    jmodel, _, model = _pair()
+    jeng = JServeEngine(jmodel, max_batch=4, max_len=SEQ, temperature=0.8,
+                        seed=0)
+    eng = ServeEngine(model, max_batch=4, max_len=SEQ, temperature=0.8,
+                      seed=0, device="cpu")
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, VOCAB, size=int(n)).tolist()
+               for n in rng.integers(2, 12, size=10)]
+    jreqs = [jeng.submit(p, max_new_tokens=6) for p in prompts]
+    reqs = [eng.submit(p, max_new_tokens=6) for p in prompts]
+    jeng.run_until_idle()
+    eng.run_until_idle()
+    assert [r.generated for r in reqs] == [r.generated for r in jreqs]
+    assert len({tuple(r.generated) for r in reqs}) > 1
+    assert eng.compiled_programs() == jeng.compiled_programs()
+
+
 def test_engine_rejects_a_prompt_that_fills_the_slot():
     _, _, model = _pair()
     eng = ServeEngine(model, max_batch=1, max_len=8, device="cpu")

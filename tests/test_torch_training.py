@@ -229,16 +229,17 @@ def test_compile_defaults_to_cuda_and_raises_without_a_gpu():
 
 
 def test_mixed_bfloat16_policy_trains_with_fp32_params():
-    from tpu_dist_torch.models import policy
+    # ``models.policy`` is the function, as in the reference's package.
+    from tpu_dist_torch.models.policy import set_policy
 
     _, model = _compiled_pair(OPTIMIZERS["adam_fused"])
     x, y = _tokens(4, seed=14)
     fn, state = model.make_train_function(), model.train_state()
-    policy.set_policy("mixed_bfloat16")
+    set_policy("mixed_bfloat16")
     try:
         losses_ = [float(fn(*state, x, y)) for _ in range(3)]
     finally:
-        policy.set_policy("float32")
+        set_policy("float32")
     assert all(np.isfinite(losses_)) and losses_[-1] < losses_[0]
     assert all(p.dtype == torch.float32 for p in model.parameters())
     assert all(m.dtype == torch.float32 for m in state[2].mu)

@@ -8,6 +8,8 @@ generators give different numbers from one seed, so no test re-derives the
 reference's weights from its RNG.
 """
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,9 +19,13 @@ import torch.nn.functional as F
 
 from tpu_dist.models import layers as jlayers
 from tpu_dist.models import transformer as jtr
-from tpu_dist_torch.models import layers, policy, transformer as tr
+from tpu_dist_torch.models import layers, transformer as tr
 from tpu_dist_torch.models.bridge import params_from_jax
 from tpu_dist_torch.ops import initializers
+
+# ``models.policy`` is the function, as in the reference's package: the
+# module is imported by its full name.
+policy = importlib.import_module("tpu_dist_torch.models.policy")
 
 ATOL = 1e-5
 VOCAB, SEQ = 32, 32

@@ -27,18 +27,27 @@ The reference program ports line for line
     model.fit(dataset.with_options(options), epochs=10, steps_per_epoch=20)
 """
 
-from tpu_dist_torch import cluster, data, models, parallel
+from tpu_dist_torch import (cluster, data, models, observe, ops, parallel,
+                            training, utils)
+from tpu_dist_torch.cluster import ClusterConfig, barrier, initialize, is_chief
 from tpu_dist_torch.data import AutoShardPolicy, Dataset, Options
 from tpu_dist_torch.models import Sequential, build_and_compile_cnn_model
 from tpu_dist_torch.parallel import (CollectiveCommunication,
                                      MirroredStrategy,
                                      MultiWorkerMirroredStrategy, ReduceOp,
                                      Strategy, get_strategy)
+from tpu_dist_torch.training import Callback, History
+
+__version__ = "0.1.0"
 
 __all__ = [
-    "cluster", "data", "models", "parallel",
+    "cluster", "data", "models", "observe", "ops", "parallel", "training",
+    "utils",
+    "ClusterConfig", "barrier", "initialize", "is_chief",
     "AutoShardPolicy", "Dataset", "Options",
     "Sequential", "build_and_compile_cnn_model",
     "CollectiveCommunication", "MirroredStrategy",
     "MultiWorkerMirroredStrategy", "ReduceOp", "Strategy", "get_strategy",
+    "Callback", "History",
+    "__version__",
 ]

@@ -33,5 +33,10 @@ def set_policy(name: str) -> None:
         _current = name
 
 
+def policy() -> str:
+    """The current policy's name."""
+    return _current
+
+
 def compute_dtype() -> torch.dtype:
     return _POLICIES[_current]

@@ -34,8 +34,11 @@ tensor. Each counts its launches in ``.launches``; CPU calls count nothing.
 
 from __future__ import annotations
 
+import array
 import ctypes
 import functools
+import operator
+import weakref
 from typing import Optional, Sequence
 
 import torch
@@ -210,29 +213,188 @@ def fused_sparse_cross_entropy(logits: torch.Tensor,
     return loss.reshape(lead)
 
 
-# -- optimizer updates: a leaf table per call ---------------------------------
+# -- optimizer updates: a leaf table built once -------------------------------
+#
+# Both optimizer kernels walk a device table with one row per non-empty leaf
+# (the addresses of its param and state tensors, 0 for a missing one, the
+# index of its grad, its length, the index of its first CHUNK-element chunk
+# and a flag set when those tensors all start on a 16-byte boundary),
+# followed by an int32 map from each chunk to its row. The grads are not in
+# the table: backward hands out new grads every step, and the caching
+# allocator gives them new addresses from step to step (measured on an
+# H100: a fit rebuilt a table holding them on every step), so each launch
+# takes the grads' addresses among its kernel parameters, and the kernel
+# checks a grad's alignment itself. The table then depends only on the
+# params and the state, which stay in place, so :class:`LeafTables` builds
+# it once, with every check, uploads it and keeps it on the card. A later
+# call launches at once on it: no host-to-device copy and no allocation, so
+# the call can be captured in a CUDA graph (which then holds the grads'
+# addresses of the captured call, as it holds every other operand's).
+#
+# Re-checked on every call, with vectorised reads (one C method mapped over
+# a column): the params' and the state's addresses (the cache key) and
+# column lengths, that they are the very tensor objects the table was built
+# from (weak references: the cache keeps none of them alive, and a dead or
+# another object misses), and the grads' dtype, device, shape (the
+# params') and contiguity. Holding by construction: the params' and the
+# state's dtype, device, shape and layout, checked when the table was
+# built; a live tensor keeps them unless its storage is swapped (``.data
+# =``, ``set_``), which moves its address, or an in-place metadata op
+# (``resize_``, ``as_strided_``) reshapes it at the same address, which
+# autograd refuses on a parameter that requires grad. A miss rebuilds with
+# the full checks and raises what they refuse.
+
+_F32 = frozenset({torch.float32})
+_ptr = torch.Tensor.data_ptr
+_dtype = operator.attrgetter("dtype")
+_shape = operator.attrgetter("shape")
+_contiguous = torch.Tensor.is_contiguous
+_device_index = torch.Tensor.get_device
+_deref = weakref.ref.__call__
+#: Grads a launch takes among its kernel parameters (``kMaxGrads`` in the
+#: sources: 32,000 bytes of the 32,764 that CUDA 12.1+ allows on sm_70+).
+MAX_LEAVES = 4000
 
 
-def _leaf_table(index: int, leaves, *, caller: str, names: Sequence[str],
-                width: int) -> tuple[list, int]:
-    """The rows of a kernel's leaf table (``width`` addresses, 0 for a
-    missing tensor, then the length and the index of the leaf's first
-    chunk) and the number of chunks, checking on the way that every tensor
-    is contiguous fp32 on CUDA device ``index`` with its param's shape. One
-    pass, a few calls per tensor: this runs on every step."""
-    rows, chunks = [], 0
-    for i, leaf in enumerate(leaves):
-        n, shape = leaf[0].numel(), leaf[0].shape
-        for j, t in enumerate(leaf):
-            if (t.dtype is not torch.float32 or t.get_device() != index
-                    or not t.is_contiguous() or t.shape != shape):
-                raise ValueError(_mismatch(caller, names[j], i, t, leaf[0],
-                                           index))
-        if n:
-            rows.append((*(t.data_ptr() for t in leaf),
-                         *([0] * (width - len(leaf))), n, chunks))
-            chunks += -(-n // CHUNK)
-    return rows, chunks
+class _Table:
+    """One built table and what a later call is checked against."""
+
+    __slots__ = ("table", "ptr", "rows", "chunks", "leaves", "columns",
+                 "kept", "shapes", "devices")
+
+    def __init__(self, table, rows, chunks, columns, kept, shapes, index):
+        self.table, self.ptr = table, table.data_ptr()
+        self.rows, self.chunks = rows, chunks
+        self.leaves, self.columns = len(shapes), columns
+        self.kept = tuple(map(weakref.ref, kept))
+        self.shapes = shapes
+        self.devices = frozenset({index})
+
+    def dead(self) -> bool:
+        """Whether a tensor the table names was freed: no call can match
+        it again, and no CUDA graph that captured it can replay."""
+        return any(r() is None for r in self.kept)
+
+
+class LeafTables:
+    """The leaf tables of one fused optimizer: built on the first update
+    over a set of params and state tensors, kept on their device and
+    reused while the same tensors come back, whatever the grads' addresses.
+
+    ``caller`` names the wrapper in error messages and ``names`` the
+    columns (param, grad, then the state's). A fused optimizer holds one
+    beside its state (never inside it, so the state keeps the reference's
+    shapes). ``builds`` counts the tables built. A table stays until the
+    tensors it names are freed (a CUDA graph that captured a launch reads
+    it), so an optimizer holds one per set of tensors it updates."""
+
+    def __init__(self, caller: str, names: Sequence[str]):
+        self.caller, self.names = caller, tuple(names)
+        self.builds = 0
+        self._tables: dict[tuple, _Table] = {}
+        self._rates: dict[int, tuple[float, torch.Tensor]] = {}
+
+    def get(self, index: int, params: Sequence[torch.Tensor],
+            grads: Sequence[torch.Tensor], state=()) -> _Table:
+        """The table for these tensors on device ``index`` (-1: the CPU,
+        where nothing launches), built and checked if none holds them."""
+        kept = [*params]
+        for col in state:
+            kept += col
+        key = tuple(map(_ptr, kept))
+        t = self._tables.get(key)
+        if t is not None and self._holds(t, params, grads, state, kept):
+            return t
+        return self._build(index, params, grads, state, kept, key)
+
+    @staticmethod
+    def _holds(t: _Table, params, grads, state, kept) -> bool:
+        n = t.leaves
+        return (len(params) == n and len(grads) == n
+                and len(state) == t.columns
+                and all(len(col) == n for col in state)
+                and all(map(operator.is_, map(_deref, t.kept), kept))
+                and set(map(_dtype, grads)) <= _F32
+                and set(map(_device_index, grads)) <= t.devices
+                and all(map(_contiguous, grads))
+                and tuple(map(_shape, grads)) == t.shapes)
+
+    def _build(self, index, params, grads, state, kept, key) -> _Table:
+        if index >= 0 and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"{self.caller}: no leaf table holds these tensors, and none "
+                f"can be built while a CUDA graph is being captured; run one "
+                f"update on them eagerly first")
+        if len(params) > MAX_LEAVES:
+            raise ValueError(f"{self.caller}: the kernel takes at most "
+                             f"{MAX_LEAVES} leaves, got {len(params)}")
+        columns = (params, grads, *state)
+        width = len(self.names) - 1      # pointer columns: all but the grad
+        rows, counts, chunks = [], [], 0
+        for i, leaf in enumerate(zip(*columns, strict=True)):
+            p = leaf[0]
+            for j, t in enumerate(leaf):
+                if (t.dtype is not torch.float32 or t.get_device() != index
+                        or not t.is_contiguous() or t.shape != p.shape):
+                    raise ValueError(_mismatch(self.caller, self.names[j], i,
+                                               t, p, index))
+            n = p.numel()
+            if n:
+                ptrs = [p.data_ptr(), *(t.data_ptr() for t in leaf[2:])]
+                aligned = all(a % 16 == 0 for a in ptrs)
+                rows.append((*ptrs, *([0] * (width - len(ptrs))), i, n,
+                             chunks, int(aligned)))
+                counts.append(-(-n // CHUNK))
+                chunks += counts[-1]
+        table = torch.cat([
+            torch.tensor(rows, dtype=torch.int64).view(torch.int32).reshape(-1),
+            torch.repeat_interleave(torch.arange(len(rows), dtype=torch.int32),
+                                    torch.tensor(counts, dtype=torch.int64))])
+        if index >= 0:
+            # From pageable memory without waiting: CUDA stages the table
+            # before the copy call returns, and the copy runs in stream order.
+            table = table.to(torch.device("cuda", index), non_blocking=True)
+        self._tables = {k: v for k, v in self._tables.items()
+                        if not v.dead()}
+        t = self._tables[key] = _Table(table, len(rows), chunks, len(state),
+                                       kept, tuple(map(_shape, params)),
+                                       index)
+        self.builds += 1
+        return t
+
+    def rate(self, value: float, index: int) -> torch.Tensor:
+        """A constant learning rate as one fp32 scalar on device ``index``,
+        allocated once per device and refilled on the card (no copy from
+        the host) only when the value changes."""
+        value = float(value)
+        held = self._rates.get(index)
+        if held is None:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    f"{self.caller}: the learning rate's device scalar cannot "
+                    f"be allocated while a CUDA graph is being captured; run "
+                    f"one update eagerly first")
+            scalar = torch.full((), value, dtype=torch.float32,
+                                device=torch.device("cuda", index))
+        elif held[0] != value:
+            scalar = held[1].fill_(value)
+        else:
+            return held[1]
+        self._rates[index] = (value, scalar)
+        return scalar
+
+
+def _raw_stream(index: int) -> int:
+    """The current CUDA stream of device ``index`` as the address the C
+    entries take: PyTorch's own accessor for it (the one its generated
+    kernels use), without building a ``torch.cuda.Stream`` on every call."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def _grad_pointers(grads) -> array.array:
+    """The grads' addresses as the C entries take them: one uint64 each,
+    in leaf order (the table's rows name their grad by this index)."""
+    return array.array("Q", map(_ptr, grads))
 
 
 def _mismatch(caller: str, name: str, i: int, t: torch.Tensor,
@@ -249,10 +411,9 @@ def _mismatch(caller: str, name: str, i: int, t: torch.Tensor,
             f"{'' if t.is_contiguous() else ', non-contiguous'}")
 
 
-def _upload(rows: list, device: torch.device) -> torch.Tensor:
-    # From pageable memory without waiting: CUDA stages the rows before the
-    # copy call returns, and the copy runs in stream order.
-    return torch.tensor(rows, dtype=torch.int64).to(device, non_blocking=True)
+def _cuda_index(tensors) -> int:
+    """The CUDA device index of the first CUDA tensor, or -1 for none."""
+    return next((t.get_device() for t in tensors if t.is_cuda), -1)
 
 
 # -- fused SGD ------------------------------------------------------------------
@@ -286,7 +447,8 @@ def fused_sgd_plain(params: Sequence[torch.Tensor],
 def _sgd_kernel():
     fn = _build.load("fused_sgd.cu").tpu_dist_fused_sgd
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -295,59 +457,68 @@ def _sgd_mode(momentum: float, nesterov: bool) -> int:
     return 0 if momentum == 0.0 else (2 if nesterov else 1)
 
 
-def _device_rate(learning_rate, device: torch.device) -> torch.Tensor:
-    """The learning rate as one fp32 value on ``device``, where the kernel
-    reads it: a float is filled in on the card, a tensor (a schedule's 0-d
-    value) is cast and moved there. Either rounds to fp32 as the plain
-    version's ``lr * g`` does."""
-    if not torch.is_tensor(learning_rate):
-        return torch.full((), float(learning_rate), dtype=torch.float32,
-                          device=device)
+def _tensor_rate(learning_rate: torch.Tensor, index: int,
+                 caller: str = "fused_sgd_apply") -> torch.Tensor:
+    """A schedule's rate (a one-element tensor) as one fp32 value on the
+    card, where the kernel reads it; it rounds to fp32 as the plain
+    version's products with it do."""
     if learning_rate.numel() != 1:
-        raise ValueError(f"fused_sgd_apply: the learning rate must be one "
-                         f"value, got shape {tuple(learning_rate.shape)}")
-    return learning_rate.to(device=device, dtype=torch.float32).reshape(())
+        raise ValueError(f"{caller}: the learning rate must be one value, "
+                         f"got shape {tuple(learning_rate.shape)}")
+    return learning_rate.to(device=torch.device("cuda", index),
+                            dtype=torch.float32).reshape(())
+
+
+def sgd_tables() -> LeafTables:
+    """An empty table cache for :func:`fused_sgd_apply`."""
+    return LeafTables("fused_sgd_apply", ("param", "grad", "velocity"))
 
 
 def fused_sgd_apply(params: Sequence[torch.Tensor],
                     grads: Sequence[torch.Tensor],
                     velocity: Optional[Sequence[torch.Tensor]] = None, *,
                     learning_rate, momentum: float = 0.0,
-                    nesterov: bool = False):
+                    nesterov: bool = False,
+                    tables: Optional[LeafTables] = None):
     """One SGD step over every parameter leaf, in place; returns ``(params,
-    velocity)``. ``learning_rate`` is a float or a one-element tensor (a
-    schedule's value, which stays on the device: the kernel reads it
-    through a pointer); ``momentum`` is a Python float; ``velocity`` is a
-    list like ``params`` when ``momentum > 0``, else ``None``. CUDA leaves
-    (fp32, contiguous, one device) launch ``csrc/fused_sgd.cu`` once for all
-    of them and raise on anything else; CPU leaves take
+    velocity)``. ``learning_rate`` is a float (kept on the card as one
+    scalar per device) or a one-element tensor (a schedule's value, which
+    stays on the device: the kernel reads it through a pointer);
+    ``momentum`` is a Python float; ``velocity`` is a list like ``params``
+    when ``momentum > 0``, else ``None``. ``tables`` (from
+    :func:`sgd_tables`, held by the caller across steps) keeps the leaf
+    table built on the first call; without it every call builds its own.
+    CUDA leaves (fp32, contiguous, one device) launch ``csrc/fused_sgd.cu``
+    once for all of them and raise on anything else; CPU leaves take
     :func:`fused_sgd_plain`."""
     m = float(momentum)
     vel = list(velocity) if m != 0.0 else []
     if m != 0.0 and len(vel) != len(params):
         raise ValueError(f"fused_sgd_apply: momentum {m} needs a velocity "
                          f"per param, got {len(vel)} for {len(params)}")
-    leaves = list(zip(params, grads, *([vel] if vel else []), strict=True))
-    if not any(t.is_cuda for leaf in leaves for t in leaf):
-        return fused_sgd_plain(params, grads, velocity,
-                               learning_rate=learning_rate, momentum=m,
-                               nesterov=nesterov)
-    device = next(t.device for leaf in leaves for t in leaf if t.is_cuda)
-    rows, chunks = _leaf_table(device.index, leaves,
-                               caller="fused_sgd_apply",
-                               names=("param", "grad", "velocity"), width=3)
-    if not chunks:
+    index = params[0].get_device() if len(params) else -1
+    if index < 0:
+        index = _cuda_index([*params, *grads, *vel])
+        if index < 0:
+            return fused_sgd_plain(params, grads, velocity,
+                                   learning_rate=learning_rate, momentum=m,
+                                   nesterov=nesterov)
+    tables = tables or sgd_tables()
+    t = tables.get(index, params, grads, (vel,) if vel else ())
+    if not t.chunks:
         return params, velocity
-    with torch.cuda.device(device):
-        lr = _device_rate(learning_rate, device)
-        table = _upload(rows, device)
-        err = _sgd_kernel()(table.data_ptr(), len(rows), chunks,
-                            _sgd_mode(m, nesterov), lr.data_ptr(), m,
-                            torch.cuda.current_stream(device).cuda_stream)
+    with torch.cuda.device(index):
+        lr = (_tensor_rate(learning_rate, index)
+              if torch.is_tensor(learning_rate)
+              else tables.rate(learning_rate, index))
+        gptrs = _grad_pointers(grads)
+        err = _sgd_kernel()(t.ptr, t.rows, t.chunks, _sgd_mode(m, nesterov),
+                            lr.data_ptr(), m, gptrs.buffer_info()[0],
+                            len(gptrs), _raw_stream(index))
     if err != 0:
         raise RuntimeError(
             f"fused_sgd_apply: kernel launch failed with CUDA error {err} "
-            f"({len(leaves)} leaves, {chunks} chunks)")
+            f"({t.leaves} leaves, {t.chunks} chunks)")
     fused_sgd_apply.launches += 1
     if m != 0.0:
         fused_sgd_apply.momentum_launches += 1
@@ -364,13 +535,20 @@ fused_sgd_apply.momentum_launches = 0
 def fused_adam_plain(params: Sequence[torch.Tensor],
                      grads: Sequence[torch.Tensor],
                      mu: Sequence[torch.Tensor], nu: Sequence[torch.Tensor],
-                     *, scale, beta_1: float = 0.9, beta_2: float = 0.999,
+                     *, step: torch.Tensor, learning_rate,
+                     beta_1: float = 0.9, beta_2: float = 0.999,
                      epsilon: float = 1e-7):
     """``m' = b1 m + (1-b1) g; v' = b2 v + (1-b2) g²; p' = p − scale m' /
-    (√v' + ε)`` leaf by leaf, in place; ``scale`` is a float or a 0-d
-    tensor on the leaves' device. Returns ``(params, mu, nu)``."""
+    (√v' + ε)`` leaf by leaf, in place, with the bias-corrected step size
+    ``scale = lr·sqrt(1 − b2^t)/(1 − b1^t)`` computed in fp32 from ``step``
+    (``t``, the 0-d int32 count of updates including this one) and
+    ``learning_rate`` (a float or a schedule's 0-d tensor), on the step's
+    device. Returns ``(params, mu, nu)``."""
     b1, b2, eps = float(beta_1), float(beta_2), float(epsilon)
     with torch.no_grad():
+        t = step.to(torch.float32)
+        scale = learning_rate * torch.sqrt(1 - torch.pow(b2, t)) / (
+            1 - torch.pow(b1, t))
         for p, g, m, v in zip(params, grads, mu, nu, strict=True):
             m.copy_(b1 * m + (1.0 - b1) * g)
             v.copy_(b2 * v + (1.0 - b2) * torch.square(g))
@@ -381,61 +559,71 @@ def fused_adam_plain(params: Sequence[torch.Tensor],
 @functools.lru_cache(maxsize=None)
 def _adam_kernel():
     fn = _build.load("fused_adam.cu").tpu_dist_fused_adam
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p] + [ctypes.c_float] * 5 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_float] * 5
+                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def adam_tables() -> LeafTables:
+    """An empty table cache for :func:`fused_adam_apply`."""
+    return LeafTables("fused_adam_apply", ("param", "grad", "mu", "nu"))
 
 
 def fused_adam_apply(params: Sequence[torch.Tensor],
                      grads: Sequence[torch.Tensor],
                      mu: Sequence[torch.Tensor], nu: Sequence[torch.Tensor],
-                     *, scale: torch.Tensor, beta_1: float = 0.9,
-                     beta_2: float = 0.999, epsilon: float = 1e-7):
+                     *, step: torch.Tensor, learning_rate,
+                     beta_1: float = 0.9, beta_2: float = 0.999,
+                     epsilon: float = 1e-7,
+                     tables: Optional[LeafTables] = None):
     """One Adam step over every parameter leaf, in place; returns
-    ``(params, mu, nu)``. ``scale`` is the bias-corrected step size
-    ``lr·sqrt(1 − b2^t)/(1 − b1^t)`` as a one-element fp32 tensor on the
-    leaves' device: the kernel reads it through its pointer, so the step
-    count never reaches the host. CUDA leaves (fp32, contiguous) launch the
-    kernel once for all of them and raise on anything else; CPU leaves take
-    :func:`fused_adam_plain`. The leaf table is built and copied to the
-    card on every call (a few KB, without waiting), so the grads may live
-    at new addresses each step."""
-    leaves = list(zip(params, grads, mu, nu, strict=True))
-    if not (torch.is_tensor(scale) and scale.is_cuda):
-        if any(t.is_cuda for leaf in leaves for t in leaf):
+    ``(params, mu, nu)``. ``step`` is the 0-d int32 update count including
+    this one, on the leaves' device, and ``learning_rate`` a float (kept on
+    the card as one scalar per device) or a schedule's one-element tensor:
+    the kernel reads both through pointers and computes the bias-corrected
+    step size ``lr·sqrt(1 − b2^t)/(1 − b1^t)`` itself, in the plain
+    version's fp32 operations, so the count never reaches the host.
+    ``tables`` (from :func:`adam_tables`, held by the caller across steps)
+    keeps the leaf table built on the first call; without it every call
+    builds its own. CUDA leaves (fp32, contiguous) launch the kernel once
+    for all of them and raise on anything else; CPU leaves take
+    :func:`fused_adam_plain`."""
+    kw = dict(step=step, learning_rate=learning_rate, beta_1=beta_1,
+              beta_2=beta_2, epsilon=epsilon)
+    if not step.is_cuda:
+        if _cuda_index([*params, *grads, *mu, *nu]) >= 0:
             raise ValueError(
-                f"fused_adam_apply: params, grads, moments and scale must "
-                f"all be on one CUDA device (kernel) or all on the CPU (plain "
-                f"version); the scale is on "
-                f"{scale.device if torch.is_tensor(scale) else 'the host'}")
-        return fused_adam_plain(params, grads, mu, nu, scale=scale,
-                                beta_1=beta_1, beta_2=beta_2,
-                                epsilon=epsilon)
-    if not leaves:
+                f"fused_adam_apply: params, grads, moments and step must all "
+                f"be on one CUDA device (kernel) or all on the CPU (plain "
+                f"version); the step is on {step.device}")
+        return fused_adam_plain(params, grads, mu, nu, **kw)
+    if not len(params):
         raise ValueError("fused_adam_apply: no parameters")
-    if scale.dtype != torch.float32 or scale.numel() != 1:
+    if step.dtype != torch.int32 or step.numel() != 1:
         raise ValueError(
-            f"fused_adam_apply: scale must be one fp32 element; got "
-            f"{tuple(scale.shape)} {scale.dtype}")
-    device = scale.device
-    rows, chunks = _leaf_table(device.index, leaves,
-                               caller="fused_adam_apply",
-                               names=("param", "grad", "mu", "nu"), width=4)
-    if not chunks:
+            f"fused_adam_apply: step must be one int32 element; got "
+            f"{tuple(step.shape)} {step.dtype}")
+    index = step.get_device()
+    tables = tables or adam_tables()
+    t = tables.get(index, params, grads, (mu, nu))
+    if not t.chunks:
         return params, mu, nu
-    scale = scale.contiguous()
     b1, b2 = float(beta_1), float(beta_2)
-    with torch.cuda.device(device):
-        table = _upload(rows, device)
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = _adam_kernel()(table.data_ptr(), len(rows), chunks,
-                        scale.data_ptr(), b1, 1.0 - b1, b2, 1.0 - b2,
-                        float(epsilon), stream)
+    with torch.cuda.device(index):
+        lr = (_tensor_rate(learning_rate, index, "fused_adam_apply")
+              if torch.is_tensor(learning_rate)
+              else tables.rate(learning_rate, index))
+        gptrs = _grad_pointers(grads)
+        err = _adam_kernel()(t.ptr, t.rows, t.chunks, step.data_ptr(),
+                             lr.data_ptr(), b1, 1.0 - b1, b2, 1.0 - b2,
+                             float(epsilon), gptrs.buffer_info()[0],
+                             len(gptrs), _raw_stream(index))
     if err != 0:
         raise RuntimeError(
             f"fused_adam_apply: kernel launch failed with CUDA error {err} "
-            f"({len(leaves)} leaves, {chunks} chunks)")
+            f"({t.leaves} leaves, {t.chunks} chunks)")
     fused_adam_apply.launches += 1
     return params, mu, nu
 

@@ -21,8 +21,9 @@ from typing import Any, NamedTuple
 import torch
 
 from tpu_dist_torch.ops import schedules
-from tpu_dist_torch.ops.fused import (fused_adam_apply, fused_adam_plain,
-                                      fused_sgd_apply, fused_sgd_plain)
+from tpu_dist_torch.ops.fused import (adam_tables, fused_adam_apply,
+                                      fused_adam_plain, fused_sgd_apply,
+                                      fused_sgd_plain, sgd_tables)
 
 
 class Optimizer:
@@ -107,8 +108,12 @@ class SGD(Optimizer):
     kernel (``ops/fused.py``), a constant or a scheduled learning rate
     alike: the kernel reads the rate on the device. (The JAX package keeps
     a schedule on its jnp path because its TPU kernel bakes the rate in as
-    a constant; both give the same update.) Otherwise the same math runs
-    leaf by leaf (:func:`~tpu_dist_torch.ops.fused.fused_sgd_plain`)."""
+    a constant; both give the same update.) The optimizer keeps the
+    kernel's leaf table beside its state, built on the first fused update
+    and reused while the same tensors come back (``ops/fused.py``), so a
+    fused update of tensors it has seen can be captured in a CUDA graph.
+    Otherwise the same math runs leaf by leaf
+    (:func:`~tpu_dist_torch.ops.fused.fused_sgd_plain`)."""
 
     def __init__(self, learning_rate=0.01, momentum: float = 0.0,
                  nesterov: bool = False, clipnorm=None, clipvalue=None,
@@ -118,6 +123,7 @@ class SGD(Optimizer):
         self.nesterov = bool(nesterov)
         self.fused = bool(fused)
         self._set_clipping(clipnorm, clipvalue, global_clipnorm)
+        self._tables = sgd_tables()
 
     def init(self, params):
         vel = (() if self.momentum == 0.0
@@ -135,10 +141,13 @@ class SGD(Optimizer):
             else:
                 lr = self.learning_rate
                 vel = state
-            apply = fused_sgd_apply if self.fused else fused_sgd_plain
-            apply(params, grads, vel if self.momentum != 0.0 else None,
-                  learning_rate=lr, momentum=self.momentum,
-                  nesterov=self.nesterov)
+            vel = vel if self.momentum != 0.0 else None
+            kw = dict(learning_rate=lr, momentum=self.momentum,
+                      nesterov=self.nesterov)
+            if self.fused:
+                fused_sgd_apply(params, grads, vel, tables=self._tables, **kw)
+            else:
+                fused_sgd_plain(params, grads, vel, **kw)
             if self._scheduled:
                 state.step.add_(1)
         return state
@@ -155,9 +164,11 @@ class Adam(Optimizer):
     ``learning_rate`` accepts a float or a schedule (evaluated at the
     0-based completed-step count). The step scale ``lr·sqrt(1 − b2^t)/
     (1 − b1^t)`` is computed in fp32 on the device, as the JAX package
-    does. ``fused=True`` updates every parameter in one launch of the
-    fused kernel (``ops/fused.py``); otherwise the same math runs leaf by
-    leaf (:func:`~tpu_dist_torch.ops.fused.fused_adam_plain`)."""
+    does: by the plain version's ops, or inside the kernel from the step
+    counter. ``fused=True`` updates every parameter in one launch of the
+    fused kernel (``ops/fused.py``), on a leaf table kept beside the state
+    as for :class:`SGD`; otherwise the same math runs leaf by leaf
+    (:func:`~tpu_dist_torch.ops.fused.fused_adam_plain`)."""
 
     def __init__(self, learning_rate=0.001, beta_1: float = 0.9,
                  beta_2: float = 0.999, epsilon: float = 1e-7,
@@ -169,24 +180,25 @@ class Adam(Optimizer):
         self.epsilon = float(epsilon)
         self.fused = bool(fused)
         self._set_clipping(clipnorm, clipvalue, global_clipnorm)
+        self._tables = adam_tables()
 
     def init(self, params):
         z = lambda: [torch.zeros_like(p) for p in params]
         return AdamState(step=_step_counter(params), mu=z(), nu=z())
 
     def update(self, grads, state, params):
-        b1, b2 = self.beta_1, self.beta_2
         with torch.no_grad():
             grads = self._clip(grads)
             lr = (self.learning_rate(state.step) if self._scheduled
                   else self.learning_rate)
             state.step.add_(1)
-            t = state.step.to(torch.float32)
-            scale = lr * torch.sqrt(1 - torch.pow(b2, t)) / (
-                1 - torch.pow(b1, t))
-            apply = fused_adam_apply if self.fused else fused_adam_plain
-            apply(params, grads, state.mu, state.nu, scale=scale,
-                  beta_1=b1, beta_2=b2, epsilon=self.epsilon)
+            kw = dict(step=state.step, learning_rate=lr, beta_1=self.beta_1,
+                      beta_2=self.beta_2, epsilon=self.epsilon)
+            if self.fused:
+                fused_adam_apply(params, grads, state.mu, state.nu,
+                                 tables=self._tables, **kw)
+            else:
+                fused_adam_plain(params, grads, state.mu, state.nu, **kw)
         return state
 
 

@@ -1,0 +1,14 @@
+"""Serving layer: the continuous-batching engine over a contiguous KV
+cache (``python -m tpu_dist_torch.serve`` runs it)."""
+
+from tpu_dist_torch.serve.engine import ServeEngine
+from tpu_dist_torch.serve.kv_cache import (DecodePlan, build_plan,
+                                           decode_step, init_cache, prefill)
+from tpu_dist_torch.serve.scheduler import (DONE, EVICTED, SHED, Request,
+                                            Scheduler, default_buckets)
+
+__all__ = [
+    "ServeEngine", "DecodePlan", "build_plan", "decode_step", "init_cache",
+    "prefill", "Request", "Scheduler", "default_buckets",
+    "DONE", "EVICTED", "SHED",
+]

@@ -8,7 +8,8 @@ of per-slot decode state:
 * prompts pad up to a power of two (at least 8, at most ``max_len``) and
   each admitted request pays one prefill, which emits its first token;
 * each :meth:`step` runs one decode step over the scheduler's bucket (the
-  smallest power of two covering the active slots);
+  smallest configured bucket covering the active slots; powers of two by
+  default);
 * a freed slot is compacted by swapping the last active slot down, and
   the engine mirrors the swap in the cache (``kv_cache.swap_slots``).
 
@@ -58,18 +59,24 @@ class ServeEngine:
       max_batch: KV slots == maximum concurrent requests.
       max_len: per-slot cache capacity (prompt + generated tokens);
         defaults to the model's positional-table length.
-      policy: ``continuous`` or ``static`` (see :class:`Scheduler`).
+      buckets / policy: forwarded to :class:`Scheduler` (``buckets``:
+        the decode batch sizes, powers of two up to ``max_batch`` by
+        default; the largest must be ``max_batch``).
       temperature: 0 = greedy argmax; > 0 samples from the tempered softmax
         with a host-side generator seeded by ``seed``.
       cache_dtype: KV cache dtype.
+      clock: a monotonic clock in seconds (``time.monotonic`` by
+        default); tests inject one to pin deadlines and latencies.
       device: ``None`` (the CUDA device; raises without one) or an explicit
         device such as ``"cpu"``.
     """
 
     def __init__(self, model: Sequential, *, max_batch: int = 8,
-                 max_len: Optional[int] = None, policy: str = "continuous",
-                 temperature: float = 0.0, seed: int = 0,
-                 cache_dtype=torch.float32, device=None):
+                 max_len: Optional[int] = None,
+                 buckets: Optional[tuple[int, ...]] = None,
+                 policy: str = "continuous", temperature: float = 0.0,
+                 seed: int = 0, cache_dtype=torch.float32, clock=None,
+                 device=None):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.plan = kv_cache.build_plan(model)
@@ -80,18 +87,20 @@ class ServeEngine:
                 f"table ({self.plan.max_position})")
         self.max_batch = int(max_batch)
         self.temperature = float(temperature)
-        self.clock = time.monotonic
+        self.clock = clock or time.monotonic
         self._rng = np.random.default_rng(seed)
         self.cache = kv_cache.init_cache(
             self.plan, max_batch=self.max_batch, max_len=self.max_len,
             dtype=cache_dtype, device=self.device)
         logger.info(
-            "serve: %d slots x %d positions on %s, KV cache %.1f MiB",
-            self.max_batch, self.max_len, self.device,
+            "serve: %d slots x %d positions on %s, KV cache %.1f MiB, "
+            "buckets %s", self.max_batch, self.max_len, self.device,
             kv_cache.cache_nbytes(self.plan, max_batch=self.max_batch,
                                   max_len=self.max_len,
-                                  dtype=cache_dtype) / 2**20)
-        self.scheduler = Scheduler(self.max_batch, policy=policy)
+                                  dtype=cache_dtype) / 2**20,
+            buckets or "pow2")
+        self.scheduler = Scheduler(self.max_batch, buckets=buckets,
+                                   policy=policy)
         # Host mirrors of per-slot decode state (compacted with the
         # scheduler's slot moves).
         self._tokens = np.zeros(self.max_batch, np.int64)

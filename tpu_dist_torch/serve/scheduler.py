@@ -88,14 +88,22 @@ class Scheduler:
     ``finish()``/``evict_deadline()`` after, ``bucket()`` to pick the
     decode program."""
 
-    def __init__(self, max_batch: int, *, policy: str = "continuous"):
+    def __init__(self, max_batch: int, *,
+                 buckets: Optional[tuple[int, ...]] = None,
+                 policy: str = "continuous"):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         if policy not in ("continuous", "static"):
             raise ValueError(f"unknown policy {policy!r}")
         self.max_batch = max_batch
         self.policy = policy
-        self.buckets = default_buckets(max_batch)
+        #: Decode batch sizes, sorted and unique; the largest is max_batch.
+        self.buckets = tuple(sorted(set(buckets or
+                                        default_buckets(max_batch))))
+        if self.buckets[-1] != max_batch:
+            raise ValueError(
+                f"largest bucket {self.buckets[-1]} != max_batch "
+                f"{max_batch}")
         self.queue: list[Request] = []  #: FIFO, arrival order
         #: active requests by slot; slots [0, num_active) are occupied.
         self.slots: list[Optional[Request]] = [None] * max_batch
