@@ -105,7 +105,29 @@ plain PyTorch version. Phases:
     plain SGD's bytes at the LM's size (the card's attainable rate), the LM
     train step with the fused CE + SGD beside phase 11's, and the CNN train
     step, fused and unfused in turns, in ms, images/s and device ms
-    (``torch.profiler``).
+    (``torch.profiler``);
+18. paged serving at full width (phase 4's LM, 8 slots, ``page_size=16``,
+    256 pages + scratch; the paged path computes dense attention as the
+    reference's does, so it launches no flash kernel): (a) phase 4's 16
+    requests through ``ServeEngine(paged=True)``: all finish, every token
+    the full forward's greedy choice (``_certified``), the streams phase
+    4's but at certified ties, 0 flash launches; (b) a warm request, then
+    8 sharing its 256-token prefix with 16-64-token suffixes, prefix
+    caching on and off: at least 8 hits, skipped tokens, equal streams but
+    at certified ties; (c) (a)'s requests with ``prefill_chunk=64``, paged
+    and contiguous: the unchunked streams but at certified ties, and
+    ``serve.prefill.chunks`` = the sum of ceil(len / 64); (d) (a)'s
+    requests on int8 pages: all finish; one prompt into an fp32 and an
+    int8 pool, every written position's dequantized K/V within scale / 2
+    (+ 1e-6 relative) of the rows quantized (layer 0's: the fp32 pool's),
+    the worst equal to ``serve.kv.quant_error``'s maximum to 1e-6; (e) at
+    the budget of the contiguous 8 x 512 cache, 48 short requests through
+    ``max_batch=32`` paged peak at 16 or more concurrent, and a contiguous
+    9-slot engine refuses the budget; (f) tok/s, TTFT and latency p50 of
+    every run and the decode step at bucket 8, 448 positions (contiguous,
+    fp32 pool, int8 pool; CUDA events and ``torch.profiler``); then
+    ``python -m tpu_dist_torch.serve --bench --paged`` with and without
+    ``--kv-dtype int8`` at phase 5's arguments.
 
 Prints one JSON line of kernel records, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
@@ -366,15 +388,27 @@ def _certified(logits: torch.Tensor, token: int) -> bool:
     return float(logits.max() - logits[token]) < TIE_GAP
 
 
-def serve_phase() -> int:
-    model = build_transformer_lm(LM["vocab_size"], LM["seq_len"],
-                                 d_model=LM["d_model"], depth=LM["depth"],
-                                 num_heads=LM["num_heads"], seed=0)
-    engine = ServeEngine(model, max_batch=8, max_len=LM["seq_len"])
+def _serve_lm():
+    """The benchmark LM at full width, random weights from seed 0."""
+    return build_transformer_lm(LM["vocab_size"], LM["seq_len"],
+                                d_model=LM["d_model"], depth=LM["depth"],
+                                num_heads=LM["num_heads"], seed=0)
+
+
+def _serve_specs() -> list:
+    """Phase 4's 16 seeded requests: (prompt of 65-448 tokens, budget of
+    16-32 new tokens)."""
     rng = np.random.default_rng(0)
-    specs = [(rng.integers(0, LM["vocab_size"],
-                           size=int(rng.integers(65, 449))).tolist(),
-              int(rng.integers(16, 33))) for _ in range(16)]
+    return [(rng.integers(0, LM["vocab_size"],
+                          size=int(rng.integers(65, 449))).tolist(),
+             int(rng.integers(16, 33))) for _ in range(16)]
+
+
+def serve_phase() -> tuple[int, list]:
+    """Returns the flash launches of the serve run and its streams."""
+    model = _serve_lm()
+    engine = ServeEngine(model, max_batch=8, max_len=LM["seq_len"])
+    specs = _serve_specs()
 
     fa.flash_attention_fwd.launches = 0
     t0 = time.monotonic()
@@ -449,7 +483,7 @@ def serve_phase() -> int:
         f"(atol 1e-3); first greedy token: {first_agree}/16 agree, {ties} "
         f"certified ties (top-2 gap < {TIE_GAP:g}); generated tokens match "
         f"the full forward for {decode_ok}/16 requests")
-    return launches
+    return launches, [r.generated for r in reqs]
 
 
 def cli_phase() -> None:
@@ -1744,12 +1778,372 @@ def slice3_timing_phase(launches: dict, ce_errs: tuple, sgd_errs: dict,
     return records
 
 
+# -- slice 7: the paged KV pool, prefix caching, chunked prefill, int8 pages --
+
+#: Phase 18's chunk size for chunked prefill.
+PAGED_CHUNK = 64
+#: A dequantized int8 K/V value against the row it quantized: rounding to
+#: the nearest step is within half a step (scale / 2); the division and
+#: the product add a few fp32 ulps of the value.
+QUANT_RTOL = 1e-6
+
+
+def _counter(name: str) -> float:
+    return metrics.get_registry().snapshot()["counters"].get(name, 0)
+
+
+def _drain(engine, specs) -> tuple[list, dict]:
+    """Submit ``specs`` on a fresh metrics registry and drain; returns the
+    requests and the run's times (host clock, the card synchronized)."""
+    metrics.get_registry().reset()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    reqs = [engine.submit(p, max_new_tokens=m) for p, m in specs]
+    engine.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    if not all(r.status == DONE and len(r.generated) == r.max_new_tokens
+               for r in reqs):
+        raise AssertionError("not every request finished with its budget: "
+                             f"{[(r.status, len(r.generated)) for r in reqs]}")
+    tokens = sum(len(r.generated) for r in reqs)
+    return reqs, {"tok_s": tokens / wall,
+                  "ttft_p50_ms": statistics.median(
+                      r.ttft_s for r in reqs) * 1e3,
+                  "latency_p50_ms": statistics.median(
+                      r.latency_s for r in reqs) * 1e3}
+
+
+def _certify(model, reqs, label: str) -> None:
+    """Every generated token is the full forward's greedy choice, under
+    phase 4's rule (a top-2 gap under TIE_GAP counts as a tie)."""
+    with torch.inference_mode():
+        for r in reqs:
+            seq = torch.tensor(r.prompt + r.generated[:-1], device="cuda")
+            full = model(seq[None])[0]
+            plen = len(r.prompt)
+            for t, tok in enumerate(r.generated):
+                if not _certified(full[plen - 1 + t], tok):
+                    raise AssertionError(
+                        f"{label}: request {r.rid} token {t} ({tok}) differs "
+                        f"from the full forward's "
+                        f"{int(full[plen - 1 + t].argmax())}")
+
+
+def _ties(model, reqs, want: list, label: str) -> int:
+    """The number of requests whose stream leaves ``want``'s at a certified
+    tie of the full forward; any other difference raises."""
+    ties = 0
+    with torch.inference_mode():
+        for r, other in zip(reqs, want):
+            if r.generated == other:
+                continue
+            t = next((i for i, (a, b) in enumerate(zip(r.generated, other))
+                      if a != b), None)
+            if t is None:
+                raise AssertionError(f"{label}: request {r.rid} stream "
+                                     "length differs")
+            seq = torch.tensor(r.prompt + r.generated[:t], device="cuda")
+            logits = model(seq[None])[0, -1]
+            if not (_certified(logits, r.generated[t])
+                    and _certified(logits, other[t])):
+                raise AssertionError(
+                    f"{label}: request {r.rid} leaves the other stream at "
+                    f"token {t} ({r.generated[t]} vs {other[t]}), which is "
+                    "not a certified tie")
+            ties += 1
+    return ties
+
+
+@contextlib.contextmanager
+def _quantized_rows():
+    """Record every (rows, int8 payload, scale) that the int8 pool
+    quantizes while the block runs."""
+    seen = []
+    quant = kv_cache._quant_rows
+
+    def record(x):
+        q, scale = quant(x)
+        seen.append((x.float(), q, scale))
+        return q, scale
+
+    kv_cache._quant_rows = record
+    try:
+        yield seen
+    finally:
+        kv_cache._quant_rows = quant
+
+
+def _int8_check(model, prompt) -> tuple[float, float, float]:
+    """One prompt prefilled into an fp32 pool and an int8 pool (two paged
+    engines on the same weights). Every written position's dequantized
+    K/V lies within scale / 2 (plus QUANT_RTOL of the value) of the rows
+    the int8 path quantized; at layer 0, where both pools saw the same
+    inputs, those rows are the fp32 pool's. Returns (worst error, the
+    ``serve.kv.quant_error`` maximum, the largest |int8 - fp32| over later
+    layers, where the int8 path's own rounding has moved the inputs)."""
+    ln, ps = LM["seq_len"], 16
+    plen = len(prompt)
+    engines = {}
+    for dtype in ("fp32", "int8"):
+        engines[dtype] = ServeEngine(model, max_batch=8, max_len=ln,
+                                     paged=True, kv_dtype=dtype)
+        metrics.get_registry().reset()
+        engines[dtype].submit(prompt, max_new_tokens=4)
+        with _quantized_rows() as seen:
+            engines[dtype].step()  # the prefill and one decode step
+        if dtype == "int8":
+            qerr_max = metrics.get_registry().snapshot()[
+                "distributions"]["serve.kv.quant_error"]["max"]
+            rows = seen[:2 * LM["depth"]]  # the prefill's k and v, in order
+    pools = {d: e.cache for d, e in engines.items()}
+    table = {d: torch.tensor(e._paging.allocator.table[0], device="cuda")
+             for d, e in engines.items()}
+    worst, later = 0.0, 0.0
+    with torch.inference_mode():
+        for i, (x, q, scale) in enumerate(rows):
+            layer, name = divmod(i, 2)
+            name = "kv"[name]
+            x, q, scale = x[:plen], q[:plen], scale[:plen]  # [plen, H, dk]
+            deq = q.float() * scale[..., None]
+            err = (x - deq).abs()
+            bound = scale[..., None] / 2 + QUANT_RTOL * x.abs()
+            if not bool((err <= bound).all()):
+                raise AssertionError(f"int8 layer {layer} {name}: dequantized "
+                                     "values off by more than half a step")
+            worst = max(worst, float(err.max()))
+            # What the pool holds is what was quantized, and (layer 0) the
+            # rows are the fp32 pool's.
+            got = kv_cache._gather_kv(pools["int8"], name, layer,
+                                      table["int8"])[:, :plen].movedim(0, 1)
+            torch.testing.assert_close(got, deq, atol=0, rtol=0)
+            ref = kv_cache._gather_kv(pools["fp32"], name, layer,
+                                      table["fp32"])[:, :plen].movedim(0, 1)
+            if layer == 0:
+                torch.testing.assert_close(x, ref, atol=0, rtol=QUANT_RTOL)
+            else:
+                later = max(later, float((deq - ref).abs().max()))
+    if abs(worst - qerr_max) > 1e-6:
+        raise AssertionError(f"serve.kv.quant_error max {qerr_max} is not the "
+                             f"worst dequantization error {worst}")
+    return worst, qerr_max, later
+
+
+def _decode_step_times(plan, dtype=None) -> dict:
+    """The decode step at bucket 8 with every slot at 448 positions: the
+    contiguous cache (``dtype`` None) or a pool of 256 pages (32 a slot,
+    fp32 or int8), timed with CUDA events and in device time."""
+    ln, ps, b, pos = LM["seq_len"], 16, 8, 448
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tokens = torch.randint(0, LM["vocab_size"], (b,), device="cuda",
+                           generator=gen)
+    lengths = torch.full((b,), pos, device="cuda")
+    if dtype is None:
+        cache = kv_cache.init_cache(plan, max_batch=b, max_len=ln,
+                                    device="cuda")
+        step = lambda: kv_cache.decode_step(plan, cache, tokens, lengths,
+                                            bucket=b)
+    else:
+        cache = kv_cache.init_page_pool(plan, num_pages=b * ln // ps,
+                                        page_size=ps, dtype=dtype,
+                                        device="cuda")
+        tables = torch.arange(b * ln // ps, device="cuda",
+                              dtype=torch.int32).reshape(b, ln // ps)
+        step = lambda: kv_cache.paged_decode_step(plan, cache, tables,
+                                                  tokens, lengths, bucket=b)
+    with torch.inference_mode():
+        ms = _time_ms(step)
+        kernels = _kernel_times(step, 20)
+    total_us = sum(us for _, us in kernels)
+    return {"ms": ms, "device_ms": total_us / 1e3 / 20 if total_us else None,
+            "top": [(name[:48], us / 20) for name, us in kernels[:3]]}
+
+
+def paged_phase(card: str, contiguous_streams: list) -> dict:
+    """Phase 18: the paged engine at full width; returns its numbers."""
+    model = _serve_lm()
+    plan = kv_cache.build_plan(model)
+    specs = _serve_specs()
+    ln = LM["seq_len"]
+    times = {}
+    metrics.enable()
+    try:
+        # (a) Cold paged streams: phase 4's requests.
+        engine = ServeEngine(model, max_batch=8, max_len=ln, paged=True)
+        fa.flash_attention_fwd.launches = 0
+        reqs, times["paged fp32"] = _drain(engine, specs)
+        launches = fa.flash_attention_fwd.launches
+        if launches:
+            raise AssertionError(f"the paged run launched the flash kernel "
+                                 f"{launches} times; its prefill is dense")
+        _certify(model, reqs, "(a) paged")
+        ties = _ties(model, reqs, contiguous_streams, "(a) paged")
+        paged_streams = [r.generated for r in reqs]
+        pool = kv_cache.page_pool_nbytes(plan, num_pages=engine.num_pages,
+                                         page_size=16)
+        log(f"[18 paged] (a) 16 requests through ServeEngine(paged=True), "
+            f"{engine.num_pages} pages of 16 + scratch ({pool} B): all done, "
+            f"every token the full forward's greedy choice; streams equal "
+            f"phase 4's but {ties} leaving it at a certified tie; flash "
+            f"launches {launches}")
+
+        # (b) Prefix caching: a warm request, then 8 sharing its prefix.
+        rng = np.random.default_rng(18)
+        prefix = rng.integers(0, LM["vocab_size"], size=256).tolist()
+        warm = [(prefix + rng.integers(0, LM["vocab_size"],
+                                       size=16).tolist(), 16)]
+        shared = [(prefix + rng.integers(0, LM["vocab_size"], size=int(
+            rng.integers(16, 65))).tolist(), int(rng.integers(16, 33)))
+            for _ in range(8)]
+        runs = {}
+        # In turns, twice: the second of each is kept (the first pays the
+        # first use of the suffixes' shapes).
+        for caching in (True, False, True, False):
+            engine = ServeEngine(model, max_batch=8, max_len=ln, paged=True,
+                                 prefix_caching=caching)
+            _drain(engine, warm)
+            reqs, t = _drain(engine, shared)
+            snap = metrics.get_registry().snapshot()
+            runs[caching] = (reqs, t, snap)
+        reqs, t_hit, snap = runs[True]
+        hits = snap["counters"].get("serve.prefix.hits", 0)
+        skipped = snap["distributions"]["serve.prefill.skipped_tokens"]
+        if hits < 8 or not skipped["sum"] > 0:
+            raise AssertionError(f"(b) prefix hits {hits}, skipped tokens "
+                                 f"{skipped['sum']}")
+        _certify(model, reqs, "(b) prefix hits")
+        b_ties = _ties(model, reqs, [r.generated for r in runs[False][0]],
+                       "(b) prefix caching on vs off")
+        times["prefix hits"], times["prefix off"] = t_hit, runs[False][1]
+        log(f"[18 paged] (b) 8 requests sharing a 256-token prefix: "
+            f"{hits} hits, {int(skipped['sum'])} prefill tokens skipped; "
+            f"streams equal to prefix_caching=False but {b_ties} certified "
+            f"ties; TTFT p50 {t_hit['ttft_p50_ms']:.3f} ms with hits vs "
+            f"{runs[False][1]['ttft_p50_ms']:.3f} ms cold ({card})")
+
+        # (c) Chunked prefill, paged and contiguous.
+        want_chunks = sum(-(-len(p) // PAGED_CHUNK) for p, _ in specs)
+        for paged, want in ((True, paged_streams),
+                            (False, contiguous_streams)):
+            engine = ServeEngine(model, max_batch=8, max_len=ln, paged=paged,
+                                 prefill_chunk=PAGED_CHUNK)
+            reqs, times[f"chunked {'paged' if paged else 'contiguous'}"] = \
+                _drain(engine, specs)
+            chunks = _counter("serve.prefill.chunks")
+            if chunks != want_chunks:
+                raise AssertionError(f"(c) {chunks} chunks, expected "
+                                     f"{want_chunks}")
+            c_ties = _ties(model, reqs, want, "(c) chunked")
+            log(f"[18 paged] (c) prefill_chunk={PAGED_CHUNK}, "
+                f"{'paged' if paged else 'contiguous'}: {chunks} chunks = "
+                f"sum of ceil(len / {PAGED_CHUNK}); streams equal to the "
+                f"unchunked ones but {c_ties} certified ties")
+
+        # (d) int8 pages.
+        engine = ServeEngine(model, max_batch=8, max_len=ln, paged=True,
+                             kv_dtype="int8")
+        reqs, times["paged int8"] = _drain(engine, specs)
+        same = sum(a == b for r, want in zip(reqs, paged_streams)
+                   for a, b in zip(r.generated, want))
+        total = sum(len(w) for w in paged_streams)
+        worst, qerr_max, later = _int8_check(model, specs[0][0])
+        page = kv_cache.page_nbytes(plan, page_size=16, dtype=torch.int8)
+        log(f"[18 paged] (d) kv_dtype='int8' ({page} B a page): all done; "
+            f"dequantized K/V within scale/2 of the rows quantized, worst "
+            f"{worst:.6g} = serve.kv.quant_error max {qerr_max:.6g}; layer 0 "
+            f"rows equal the fp32 pool's (later layers' |int8 - fp32| "
+            f"{later:.6g}); {same}/{total} tokens equal (a)'s (not gated)")
+
+        # (e) A fixed budget: the contiguous cache of 8 slots x 512.
+        budget = kv_cache.cache_nbytes(plan, max_batch=8, max_len=ln)
+        try:
+            ServeEngine(model, max_batch=9, max_len=ln, budget_bytes=budget)
+        except ValueError as e:
+            if "fits 8 slot(s)" not in str(e):
+                raise
+            refused = str(e)
+        else:
+            raise AssertionError("(e) a contiguous 9-slot cache fit the "
+                                 "8-slot budget")
+        engine = ServeEngine(model, max_batch=32, max_len=ln, paged=True,
+                             budget_bytes=budget)
+        rng = np.random.default_rng(19)
+        backlog = [(rng.integers(0, LM["vocab_size"], size=int(
+            rng.integers(16, 65))).tolist(), int(rng.integers(16, 33)))
+            for _ in range(48)]
+        metrics.get_registry().reset()
+        reqs = [engine.submit(p, max_new_tokens=m) for p, m in backlog]
+        peak = 0
+        while not engine.scheduler.idle():
+            engine.step()
+            peak = max(peak, engine.scheduler.num_active)
+        if not all(r.status == DONE for r in reqs) or peak < 16:
+            raise AssertionError(f"(e) peak {peak} concurrent (need >= 16), "
+                                 f"{sum(r.status == DONE for r in reqs)}/48 "
+                                 "done")
+        log(f"[18 paged] (e) budget {budget} B: {engine.num_pages} pages; "
+            f"48 requests through max_batch=32, all done, peak {peak} "
+            f"concurrent (>= 16, twice the contiguous engine's 8); a "
+            f"contiguous 9-slot engine refuses: {refused[:60]}...")
+
+        # (f) Times of (a)'s requests in turns, twice; the second round is
+        # kept.
+        for _ in range(2):
+            for name, kw in (("contiguous", {}),
+                             ("paged fp32", {"paged": True}),
+                             ("paged int8", {"paged": True,
+                                             "kv_dtype": "int8"})):
+                _, times[name] = _drain(
+                    ServeEngine(model, max_batch=8, max_len=ln, **kw), specs)
+        for name in ("contiguous", "paged fp32", "paged int8",
+                     "chunked contiguous", "chunked paged", "prefix hits",
+                     "prefix off"):
+            t = times[name]
+            log(f"[18 times] serve {name}: {t['tok_s']:.1f} tok/s, TTFT p50 "
+                f"{t['ttft_p50_ms']:.3f} ms, latency p50 "
+                f"{t['latency_p50_ms']:.3f} ms ({card}; host clock)")
+        steps = {"contiguous": _decode_step_times(plan),
+                 "paged fp32": _decode_step_times(plan, torch.float32),
+                 "paged int8": _decode_step_times(plan, torch.int8)}
+        for name, t in steps.items():
+            dev = ("not measured" if t["device_ms"] is None
+                   else f"{t['device_ms']:.4f} ms "
+                        f"({t['device_ms'] / t['ms'] * 100:.1f} % busy)")
+            top = "; ".join(f"{k} {us:.1f} us" for k, us in t["top"])
+            log(f"[18 times] decode step, bucket 8 at 448 positions, {name}: "
+                f"{t['ms']:.4f} ms (CUDA events), device {dev} "
+                f"(torch.profiler; most device time: {top}) ({card})")
+    finally:
+        metrics.disable()
+    return {"serve": times, "decode_step": steps, "ties": ties}
+
+
+def paged_cli_phase() -> None:
+    """``python -m tpu_dist_torch.serve --bench --paged`` (and with
+    ``--kv-dtype int8``) at phase 5's full-width arguments."""
+    for extra in ([], ["--kv-dtype", "int8"]):
+        argv = ["--bench", "--paged", *extra, "--requests", "8",
+                "--max-len", str(LM["seq_len"]), "--vocab",
+                str(LM["vocab_size"]), "--d-model", str(LM["d_model"]),
+                "--depth", str(LM["depth"]), "--num-heads",
+                str(LM["num_heads"]), "--min-new", "8", "--max-new", "16"]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+        report = json.loads(out.getvalue())
+        if rc != 0 or not report["ok"] or report["completed"] != 8:
+            raise AssertionError(f"paged serve CLI failed: rc {rc}, {report}")
+        log(f"[18 cli] python -m tpu_dist_torch.serve --bench --paged "
+            f"{' '.join(extra)}: 8 done, {report['throughput_tok_s']} tok/s, "
+            f"TTFT p50 {report['ttft_s']['p50']} s on {report['device']}")
+
+
 def main() -> int:
     t0 = time.monotonic()
     card = device_phase()
     build_phase()
     max_abs_err = kernel_check_phase()
-    launches = serve_phase()
+    launches, contiguous_streams = serve_phase()
     cli_phase()
     record = timing_phase(launches, max_abs_err)
     bwd_err = bwd_check_phase()
@@ -1773,6 +2167,8 @@ def main() -> int:
     slice3 = {"cnn": cnn_fused_phase(), "lm": lm_fused_phase()}
     new_records = slice3_timing_phase(slice3, ce_errs, sgd_errs,
                                       sgd_step_ms)
+    paged_phase(card, contiguous_streams)
+    paged_cli_phase()
     # In the order of the TPU kernel table (PERF.md): rows 1-9.
     records = [*new_records, adam_record, record, *bwd_records]
     log(f"done in {time.monotonic() - t0:.1f} s")

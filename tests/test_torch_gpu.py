@@ -6,7 +6,9 @@ GPU machine that has no JAX installed, without the JAX conftest:
     python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
 
 Each kernel is held against its plain PyTorch version on the card; the
-serving test shows the engine's prefills went through the forward kernel,
+serving test shows the engine's prefills went through the forward kernel
+(and the paged engine's, which compute dense attention as the
+reference's do, streams on the card as on the CPU),
 the training test that a train step went through the forward, backward
 and fused Adam kernels, and the CNN test that a fused ``fit`` went through
 the fused cross-entropy and SGD kernels.
@@ -186,6 +188,52 @@ def test_engine_prefills_go_through_the_kernel(cuda_device):
     ref = [cpu.submit(r.prompt, max_new_tokens=6) for r in reqs]
     cpu.run_until_idle()
     assert [r.generated for r in reqs] == [r.generated for r in ref]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype,chunk", [("fp32", 0), ("int8", 0),
+                                            ("fp32", 32)])
+def test_paged_engine_on_the_card_streams_as_on_the_cpu(cuda_device,
+                                                        kv_dtype, chunk):
+    """The paged engine (prefix hits, copy on write, int8 pages, chunked
+    prefill) on the card streams the same greedy tokens as on the CPU."""
+    rng = np.random.default_rng(1)
+    shared = rng.integers(0, 64, size=37).tolist()
+    prompts = [shared + rng.integers(0, 64, size=n).tolist()
+               for n in (3, 20, 1, 9)]
+    prompts += [rng.integers(0, 64, size=n).tolist() for n in (5, 70)]
+    streams, hits = [], []
+    for device in ("cuda", "cpu"):
+        model = build_transformer_lm(64, 128, d_model=64, depth=2,
+                                     num_heads=2)
+        engine = ServeEngine(model, max_batch=3, max_len=128, paged=True,
+                             page_size=16, kv_dtype=kv_dtype,
+                             prefill_chunk=chunk, device=device)
+        assert engine.cache["k"].device.type == device
+        fa.flash_attention_fwd.launches = 0
+        reqs = [engine.submit(p, max_new_tokens=8) for p in prompts]
+        engine.run_until_idle()
+        assert fa.flash_attention_fwd.launches == 0
+        assert all(len(r.generated) == 8 for r in reqs)
+        streams.append([r.generated for r in reqs])
+        hits.append(engine._paging.prefix.hits)
+        engine._paging.allocator.check()
+    assert streams[0] == streams[1]
+    assert hits[0] == hits[1] > 0
+
+
+@pytest.mark.gpu
+def test_init_page_pool_lands_on_the_card(cuda_device):
+    from tpu_dist_torch.serve import kv_cache
+
+    plan = kv_cache.build_plan(build_transformer_lm(64, 128, d_model=64,
+                                                    depth=2, num_heads=2))
+    for dtype in (torch.float32, torch.int8):
+        pool = kv_cache.init_page_pool(plan, num_pages=4, page_size=16,
+                                       dtype=dtype)
+        assert all(a.is_cuda for a in pool.values())
+        assert sorted(pool) == (["k", "k_scale", "v", "v_scale"]
+                                if dtype == torch.int8 else ["k", "v"])
 
 
 @pytest.mark.gpu

@@ -308,18 +308,36 @@ def test_scheduler_copy_behaves_like_reference(policy):
                 for i in range(6)]
         for i, r in enumerate(reqs):
             s.submit(r, now=0.1 * i)
+        # The paged engine's admission gate: closed on every third call,
+        # which stops the round (FIFO, no reordering).
+        calls = []
+        gate = lambda r: calls.append(r.rid) or len(calls) % 3 != 0
         for step in range(12):
             now = 0.2 * step
             trace.append(("evict", [(r.rid, sw) for r, sw in
                                     s.evict_deadline(now=now)]))
-            trace.append(("admit", [(r.rid, r.slot) for r in s.admit()]))
-            trace.append(("bucket", s.bucket(), s.num_active))
-            for r in sorted(s.active(), key=lambda r: r.slot,
+            admitted = s.admit(gate=gate)
+            trace.append(("admit", [(r.rid, r.slot) for r in admitted]))
+            # Chunked prefill: every even rid spends one step on the chunk
+            # queue before it decodes.
+            for r in admitted:
+                if r.rid % 2 == 0:
+                    s.enqueue_prefill(r)
+            head = s.peek_prefill()
+            trace.append(("chunks", head and head.rid,
+                          [r.rid for r in s.prefilling],
+                          [s.is_prefilling(r) for r in reqs]))
+            trace.append(("bucket", s.bucket(), s.num_active,
+                          [r.rid for r in s.ready()]))
+            for r in sorted(s.ready(), key=lambda r: r.slot,
                             reverse=True):
                 if s.record_token(r, 5, now=now):
                     trace.append(("finish", r.rid, s.finish(r, now=now)))
-        trace.append([(r.rid, r.status, r.finish_reason, r.generated)
-                      for r in reqs])
+            if head is not None:
+                s.dequeue_prefill(head)
+        trace.append([(r.rid, r.status, r.finish_reason, r.generated,
+                       r.released_slot, r.prefill_pos) for r in reqs])
+        trace.append(calls)
         return trace
 
     assert drive(scheduler) == drive(jsched)

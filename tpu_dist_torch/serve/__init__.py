@@ -1,5 +1,6 @@
 """Serving layer: the continuous-batching engine over a contiguous KV
-cache (``python -m tpu_dist_torch.serve`` runs it)."""
+cache or a paged KV pool with prefix caching, chunked prefill and int8
+pages (``python -m tpu_dist_torch.serve [--paged]`` runs it)."""
 
 from tpu_dist_torch.serve.engine import ServeEngine
 from tpu_dist_torch.serve.kv_cache import (DecodePlan, build_plan,

@@ -11,6 +11,9 @@ Counterpart of ``tpu_dist/serve/cli.py`` (its demo and ``--bench`` modes):
   req/s). Prints a JSON report with p50/p95/p99 request latency, TTFT,
   throughput and batch occupancy; exits 1 when no request completed.
 
+``--paged`` serves from the paged KV pool with prefix caching
+(``--page-size``, ``--num-pages``, ``--budget-mb``, ``--kv-dtype int8``
+for quantized pages); ``--budget-mb`` alone guards the contiguous cache.
 Runs on the CUDA device unless ``--device cpu`` is given. The full width
 of the repo's benchmark LM is ``--vocab 8192 --d-model 512 --depth 4
 --num-heads 8 --max-len 512``.
@@ -40,13 +43,21 @@ def _build_engine(args):
     from tpu_dist_torch.models.transformer import build_transformer_lm
     from tpu_dist_torch.serve.engine import ServeEngine
 
+    paged_kwargs = {}
+    if args.paged:
+        paged_kwargs = {"paged": True, "page_size": args.page_size,
+                        "num_pages": args.num_pages}
+        if args.kv_dtype is not None:
+            paged_kwargs["kv_dtype"] = args.kv_dtype
+    if args.budget_mb is not None:
+        paged_kwargs["budget_bytes"] = int(args.budget_mb * 2**20)
     model = build_transformer_lm(args.vocab, args.max_len,
                                  d_model=args.d_model, depth=args.depth,
                                  num_heads=args.num_heads, seed=args.seed)
     return ServeEngine(model, max_batch=args.max_batch,
                        max_len=args.max_len, policy=args.policy,
                        temperature=args.temperature, seed=args.seed,
-                       device=args.device)
+                       device=args.device, **paged_kwargs)
 
 
 def _workload(args) -> list[dict]:
@@ -174,6 +185,22 @@ def main(argv=None) -> int:
     p.add_argument("--num-heads", type=int, default=4)
     p.add_argument("--temperature", type=float, default=0.0)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--paged", action="store_true",
+                   help="paged KV cache + prefix reuse instead of the "
+                        "contiguous per-slot preallocation")
+    p.add_argument("--page-size", type=int, default=16,
+                   help="positions per KV page (with --paged)")
+    p.add_argument("--num-pages", type=int, default=None,
+                   help="page-pool size (default: contiguous-capacity "
+                        "parity, max_batch * ceil(max_len/page_size))")
+    p.add_argument("--budget-mb", type=float, default=None,
+                   help="KV memory budget in MiB — loud sizing error "
+                        "(contiguous) or pool auto-sizing (--paged)")
+    p.add_argument("--kv-dtype", choices=("fp32", "bf16", "int8"),
+                   default=None,
+                   help="paged-pool storage dtype (with --paged); int8 "
+                        "quantizes K/V pages with per-position fp32 "
+                        "scales — ~2x pages at a fixed --budget-mb")
     args = p.parse_args(argv)
 
     metrics.get_registry().reset()
@@ -195,6 +222,9 @@ def main(argv=None) -> int:
                            "max_len": args.max_len,
                            "clients": args.clients,
                            "arrival_rate": args.arrival_rate,
+                           "paged": bool(args.paged),
+                           "page_size": args.page_size,
+                           "kv_dtype": args.kv_dtype,
                            "seed": args.seed},
                 **summary,
             }

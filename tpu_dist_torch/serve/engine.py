@@ -1,24 +1,33 @@
 """ServeEngine: the continuous-batching inference loop on one device.
 
-Counterpart of the contiguous-cache path of ``tpu_dist/serve/engine.py``.
-Scheduling stays host-side in ``scheduler.py``, math in ``kv_cache.py``;
-the engine owns the model on its device, the KV cache and the host mirrors
-of per-slot decode state:
+Counterpart of ``tpu_dist/serve/engine.py`` without its journal, load
+shedding, stall watchdog, jobs runtime and ragged decode. Scheduling stays
+host-side in ``scheduler.py`` (and ``paging.py`` for the paged pool), math
+in ``kv_cache.py``; the engine owns the model on its device, the KV cache
+or page pool and the host mirrors of per-slot decode state:
 
 * prompts pad up to a power of two (at least 8, at most ``max_len``) and
   each admitted request pays one prefill, which emits its first token;
+  with ``prefill_chunk > 0`` the prefill runs in chunks interleaved with
+  decode steps instead;
 * each :meth:`step` runs one decode step over the scheduler's bucket (the
   smallest configured bucket covering the active slots; powers of two by
   default);
 * a freed slot is compacted by swapping the last active slot down, and
-  the engine mirrors the swap in the cache (``kv_cache.swap_slots``).
+  the engine mirrors the swap in the cache (``kv_cache.swap_slots``) or,
+  paged, in the host page tables.
+
+``paged=True`` serves from a page pool: admission reserves each request's
+worst-case pages, repeated prompt prefixes attach shared read-only pages
+(prefill runs over the suffix only), a write into a shared page copies it
+first, and ``kv_dtype="int8"`` stores quantized pages. The host's page
+table is sent to the device with every call that reads it.
 
 PyTorch runs eagerly, so there are no compiled programs to cache;
-:meth:`compiled_programs` reports the prefill pad lengths and decode
-buckets used, the reference's program families, so summaries keep their
-shape. Every step emits host-side metrics (``observe/metrics.py``) under the
-reference's names. The journal, load shedding, stall watchdog, jobs
-runtime, paging and chunked prefill come later in the port.
+:meth:`compiled_programs` reports the pad lengths and decode buckets used,
+the reference's program families, so summaries keep their shape. Every
+step emits host-side metrics (``observe/metrics.py``) under the
+reference's names.
 """
 
 from __future__ import annotations
@@ -32,13 +41,17 @@ import torch
 
 from tpu_dist_torch.models.model import Sequential
 from tpu_dist_torch.observe import metrics
-from tpu_dist_torch.serve import kv_cache
+from tpu_dist_torch.serve import kv_cache, paging
 from tpu_dist_torch.serve.scheduler import DONE, Request, Scheduler
 from tpu_dist_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
 _MIN_PROMPT_PAD = 8
+
+#: ``kv_dtype`` names and the pool dtypes they select.
+_KV_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16,
+              "int8": torch.int8}
 
 
 def _pad_to_pow2(n: int, *, lo: int = _MIN_PROMPT_PAD, hi: int) -> int:
@@ -67,6 +80,36 @@ class ServeEngine:
       cache_dtype: KV cache dtype.
       clock: a monotonic clock in seconds (``time.monotonic`` by
         default); tests inject one to pin deadlines and latencies.
+      paged: serve from the paged KV pool (``serve/paging.py``): memory
+        is carved into fixed-size pages addressed through per-slot page
+        tables, admission consults free-page headroom as well as slots,
+        repeated prompt prefixes resolve to shared read-only pages, and
+        slot compaction is a host pointer swap. Greedy streams equal the
+        contiguous engine's.
+      page_size: positions per page (paged mode).
+      num_pages: pool size (paged mode). Defaults to
+        ``max_batch * ceil(max_len / page_size)``; pass fewer (or a
+        ``budget_bytes``) to overcommit slots against actual lengths.
+      budget_bytes: hard KV-memory bound. Contiguous mode: raise a loud
+        sizing error (how many slots fit). Paged mode: sizes
+        ``num_pages`` to the budget when ``num_pages`` is not given, else
+        guards the explicit pool the same way.
+      prefix_caching: paged mode only — disable to keep paging without
+        cross-request prefix sharing.
+      prefill_chunk: when > 0, split each admitted prompt's prefill into
+        chunks of this many positions (a power of two >= 8) interleaved
+        with decode steps. Each chunk attends over all earlier cached
+        positions, so greedy streams equal whole-prompt prefill's. A slot
+        being chunk-prefilled stays out of decode until its final chunk,
+        which emits the first token. Contiguous mode needs it to divide
+        ``max_len``. Default 0: whole-prompt prefill.
+      prefill_interleave: most prefill chunks run between two decode
+        steps (default 1); chunks drain in arrival order.
+      kv_dtype: paged-pool storage dtype — ``"fp32"``/``"bf16"``/
+        ``"int8"`` (or the torch dtypes). ``"int8"`` stores K/V pages as
+        int8 with per-position fp32 scale rows, about twice the pages at
+        a fixed ``budget_bytes``. Paged mode only; default None: the pool
+        dtype is ``cache_dtype``.
       device: ``None`` (the CUDA device; raises without one) or an explicit
         device such as ``"cpu"``.
     """
@@ -76,7 +119,11 @@ class ServeEngine:
                  buckets: Optional[tuple[int, ...]] = None,
                  policy: str = "continuous", temperature: float = 0.0,
                  seed: int = 0, cache_dtype=torch.float32, clock=None,
-                 device=None):
+                 paged: bool = False, page_size: int = 16,
+                 num_pages: Optional[int] = None,
+                 budget_bytes: Optional[int] = None,
+                 prefix_caching: bool = True, prefill_chunk: int = 0,
+                 prefill_interleave: int = 1, kv_dtype=None, device=None):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.plan = kv_cache.build_plan(model)
@@ -85,20 +132,90 @@ class ServeEngine:
             raise ValueError(
                 f"max_len {self.max_len} exceeds the model's positional "
                 f"table ({self.plan.max_position})")
+        self.prefill_chunk = int(prefill_chunk)
+        self.prefill_interleave = int(prefill_interleave)
+        if self.prefill_chunk:
+            if (self.prefill_chunk < _MIN_PROMPT_PAD
+                    or self.prefill_chunk & (self.prefill_chunk - 1)):
+                raise ValueError(
+                    f"prefill_chunk must be a power of two >= "
+                    f"{_MIN_PROMPT_PAD}, got {prefill_chunk}")
+            if not paged and self.max_len % self.prefill_chunk:
+                raise ValueError(
+                    f"prefill_chunk {self.prefill_chunk} must divide "
+                    f"max_len {self.max_len} on the contiguous path — "
+                    "chunk K/V writes are dynamic_update_slice windows "
+                    "that must never run past the cache row")
+        if self.prefill_interleave < 1:
+            raise ValueError(
+                f"prefill_interleave must be >= 1, got {prefill_interleave}")
         self.max_batch = int(max_batch)
         self.temperature = float(temperature)
         self.clock = clock or time.monotonic
         self._rng = np.random.default_rng(seed)
-        self.cache = kv_cache.init_cache(
-            self.plan, max_batch=self.max_batch, max_len=self.max_len,
-            dtype=cache_dtype, device=self.device)
-        logger.info(
-            "serve: %d slots x %d positions on %s, KV cache %.1f MiB, "
-            "buckets %s", self.max_batch, self.max_len, self.device,
-            kv_cache.cache_nbytes(self.plan, max_batch=self.max_batch,
-                                  max_len=self.max_len,
-                                  dtype=cache_dtype) / 2**20,
-            buckets or "pow2")
+        self.paged = bool(paged)
+        self.page_size = int(page_size)
+        if kv_dtype is not None:
+            if not self.paged:
+                raise ValueError(
+                    "serve: kv_dtype is a paged-pool knob — pass "
+                    "paged=True (the contiguous cache keeps cache_dtype)")
+            cache_dtype = _KV_DTYPES.get(kv_dtype, kv_dtype)
+            if cache_dtype not in _KV_DTYPES.values():
+                raise ValueError(
+                    f"serve: kv_dtype must be one of fp32/bf16/int8, "
+                    f"got {kv_dtype!r}")
+        self._kv_quant = self.paged and cache_dtype == torch.int8
+        if self.paged:
+            max_pages = -(-self.max_len // self.page_size)
+            if num_pages is None and budget_bytes is not None:
+                num_pages = kv_cache.pages_for_budget(
+                    self.plan, page_size=self.page_size,
+                    budget_bytes=budget_bytes, dtype=cache_dtype)
+                if num_pages < 1:
+                    raise ValueError(
+                        f"serve: budget_bytes={budget_bytes} does not fit "
+                        "even one page (plus scratch) at page_size="
+                        f"{self.page_size}")
+            if num_pages is None:
+                num_pages = self.max_batch * max_pages
+            self.num_pages = int(num_pages)
+            self.cache = kv_cache.init_page_pool(
+                self.plan, num_pages=self.num_pages,
+                page_size=self.page_size, dtype=cache_dtype,
+                budget_bytes=budget_bytes, device=self.device)
+            # Per-position pool bytes, derived from the page layout so
+            # int8's fp32 scale rows are priced in.
+            per_token = kv_cache.page_nbytes(
+                self.plan, page_size=self.page_size,
+                dtype=cache_dtype) // self.page_size
+            self._paging = paging.PagedKVState(
+                num_pages=self.num_pages, page_size=self.page_size,
+                slots=self.max_batch, max_pages=max_pages,
+                bytes_per_token=per_token, prefix_caching=prefix_caching)
+            logger.info(
+                "serve: paged — %d slots, %d pages x %d positions "
+                "(+scratch) on %s, pool %.1f MiB (%s), prefix caching %s, "
+                "buckets %s", self.max_batch, self.num_pages,
+                self.page_size, self.device,
+                kv_cache.page_pool_nbytes(
+                    self.plan, num_pages=self.num_pages,
+                    page_size=self.page_size, dtype=cache_dtype) / 2**20,
+                cache_dtype, "on" if prefix_caching else "off",
+                buckets or "pow2")
+        else:
+            self._paging = None
+            self.cache = kv_cache.init_cache(
+                self.plan, max_batch=self.max_batch, max_len=self.max_len,
+                dtype=cache_dtype, budget_bytes=budget_bytes,
+                device=self.device)
+            logger.info(
+                "serve: %d slots x %d positions on %s, KV cache %.1f MiB, "
+                "buckets %s", self.max_batch, self.max_len, self.device,
+                kv_cache.cache_nbytes(self.plan, max_batch=self.max_batch,
+                                      max_len=self.max_len,
+                                      dtype=cache_dtype) / 2**20,
+                buckets or "pow2")
         self.scheduler = Scheduler(self.max_batch, buckets=buckets,
                                    policy=policy)
         # Host mirrors of per-slot decode state (compacted with the
@@ -108,12 +225,25 @@ class ServeEngine:
         self.finished: list[Request] = []
         self._decode_buckets: set[int] = set()
         self._prefill_pads: set[int] = set()
+        self._paged_decode_buckets: set[int] = set()
+        self._paged_prefill_pads: set[int] = set()
+        self._chunk_pads: set[int] = set()
 
     def compiled_programs(self) -> dict:
         """``{'decode': [buckets...], 'prefill': [pad_lens...]}`` used so
-        far — the reference's program families."""
-        return {"decode": sorted(self._decode_buckets),
-                "prefill": sorted(self._prefill_pads)}
+        far — the reference's program families. Paged engines add
+        ``paged_decode``/``paged_prefill`` (a suffix after a prefix hit
+        pads to its own power of two; paged chunks run through
+        ``paged_prefill`` too); contiguous chunked engines add
+        ``prefill_chunk``."""
+        out = {"decode": sorted(self._decode_buckets),
+               "prefill": sorted(self._prefill_pads)}
+        if self.paged:
+            out["paged_decode"] = sorted(self._paged_decode_buckets)
+            out["paged_prefill"] = sorted(self._paged_prefill_pads)
+        if self.prefill_chunk and not self.paged:
+            out["prefill_chunk"] = sorted(self._chunk_pads)
+        return out
 
     # -- request intake -------------------------------------------------------
 
@@ -125,6 +255,11 @@ class ServeEngine:
             raise ValueError(
                 f"prompt of {len(prompt)} tokens does not fit a "
                 f"{self.max_len}-position cache slot (need >= 1 free)")
+        if self.paged:
+            # Reject a request that could never fit even an empty pool
+            # now, loudly, instead of deadlocking admission later.
+            self._paging.check_fits(
+                min(len(prompt) + int(max_new_tokens), self.max_len))
         req = Request(prompt=prompt, max_new_tokens=int(max_new_tokens),
                       eos_id=eos_id, deadline_s=deadline_s)
         self.scheduler.submit(req, now=self.clock())
@@ -141,18 +276,49 @@ class ServeEngine:
         p = np.exp(z)
         return int(self._rng.choice(logits.shape[-1], p=p / p.sum()))
 
+    # -- host -> device -------------------------------------------------------
+
+    def _to_device(self, array: np.ndarray) -> torch.Tensor:
+        """A device copy of a host array (never a view of it: the host
+        mirrors and page tables change after the call)."""
+        return torch.tensor(array, device=self.device)
+
+    def _copy_pages(self, copies) -> None:
+        """Run the copy-on-write ``(src, dst)`` page copies in order."""
+        for src, dst in copies:
+            kv_cache.copy_page(self.cache, src, dst)
+
     # -- the serving loop -----------------------------------------------------
 
     def _apply_swap(self, swap: Optional[tuple[int, int]]) -> None:
         if swap is None:
             return
         i, j = swap
-        kv_cache.swap_slots(self.cache, i, j)
+        if self.paged:
+            # Compaction under paging is a host page-table pointer swap.
+            self._paging.swap_slots(i, j)
+        else:
+            kv_cache.swap_slots(self.cache, i, j)
         self._tokens[[i, j]] = self._tokens[[j, i]]
         self._lengths[[i, j]] = self._lengths[[j, i]]
 
+    def _release_pages(self, req: Request) -> None:
+        """Paged reclaim for a request that just left its slot: index its
+        prompt for future prefix hits, then drop the slot's page
+        references. Must run BEFORE the mirrored slot swap, while the
+        allocator row still belongs to this request."""
+        if self.paged and req.released_slot is not None:
+            # Bound prefix registration to positions actually written: a
+            # request evicted mid-chunked-prefill holds allocated pages
+            # past its cursor whose K/V are garbage.
+            upto = min(req.prefill_pos, len(req.prompt))
+            self._paging.finish(req.released_slot, req.prompt, upto=upto)
+            req.released_slot = None
+
     def _retire(self, req: Request, *, now: float, status: str) -> None:
-        self._apply_swap(self.scheduler.finish(req, now=now, status=status))
+        swap = self.scheduler.finish(req, now=now, status=status)
+        self._release_pages(req)
+        self._apply_swap(swap)
         self.finished.append(req)
         if status == DONE:
             metrics.inc("serve.requests.completed")
@@ -164,21 +330,44 @@ class ServeEngine:
         else:
             metrics.inc("serve.requests.evicted")
 
-    def _prefill(self, req: Request) -> None:
-        seq = list(req.prompt) + list(req.generated)
-        plen = len(seq)
-        pad = _pad_to_pow2(plen, hi=self.max_len)
+    def _total_tokens(self, req: Request) -> int:
+        """Worst-case positions this request can occupy — the paged
+        admission/reservation unit."""
+        return min(len(req.prompt) + len(req.generated)
+                   + max(req.max_new_tokens - len(req.generated), 0),
+                   self.max_len)
+
+    def _admission_gate(self, req: Request) -> bool:
+        """Paged admission: the pool must also hold this request's worst
+        case. Reserving up front keeps every later incremental allocation
+        (decode appends, COW clones) deadlock-free."""
+        return self._paging.try_admit(self._total_tokens(req))
+
+    def _paged_prefill(self, req: Request, seq: list, start: int, end: int,
+                       pad: int):
+        """``kv_cache.paged_prefill`` over ``seq[start:end]`` padded to
+        ``pad``; returns the logits of position ``end - 1``. An int8 pool's
+        max-abs dequantization error goes into the
+        ``serve.kv.quant_error`` distribution."""
         tokens = np.zeros(pad, np.int64)
-        tokens[:plen] = seq
-        self._prefill_pads.add(pad)
-        with torch.inference_mode():
-            logits = kv_cache.prefill(
-                self.plan, self.cache,
-                torch.from_numpy(tokens).to(self.device), plen, req.slot)
-            logits = logits.float().cpu().numpy()
+        tokens[:end - start] = seq[start:end]
+        self._paged_prefill_pads.add(pad)
+        out = kv_cache.paged_prefill(
+            self.plan, self.cache,
+            self._to_device(self._paging.allocator.table[req.slot]),
+            self._to_device(tokens), end, start)
+        if not self._kv_quant:
+            return out
+        logits, qerr = out
+        metrics.observe_value("serve.kv.quant_error", float(qerr))
+        return logits
+
+    def _first_token(self, req: Request, logits, plen: int) -> None:
+        """Sample the first generated token from the prefill's logits (on
+        the host, so the first-token time is stamped after the device
+        finished) and retire the request if that was all it needed."""
         metrics.inc("serve.prefills")
-        # Stamp the first-token time only after the logits reached the host.
-        token = self._pick(logits)
+        token = self._pick(logits.float().cpu().numpy())
         now = self.clock()
         done = self.scheduler.record_token(req, token, now=now)
         metrics.inc("serve.tokens.generated")
@@ -187,31 +376,136 @@ class ServeEngine:
         if done or plen >= self.max_len:
             self._retire(req, now=now, status=DONE)
 
+    def _prefill(self, req: Request) -> None:
+        if self.prefill_chunk:
+            self._begin_chunked_prefill(req)
+            return
+        seq = list(req.prompt) + list(req.generated)
+        plen = len(seq)
+        with torch.inference_mode():
+            if self.paged:
+                setup = self._paging.begin(req.slot, seq,
+                                           self._total_tokens(req))
+                self._copy_pages(setup.copies)
+                pad = _pad_to_pow2(plen - setup.start, hi=self.max_len)
+                logits = self._paged_prefill(req, seq, setup.start, plen,
+                                             pad)
+                self._paging.register_prefill(req.slot, req.prompt)
+            else:
+                pad = _pad_to_pow2(plen, hi=self.max_len)
+                tokens = np.zeros(pad, np.int64)
+                tokens[:plen] = seq
+                self._prefill_pads.add(pad)
+                logits = kv_cache.prefill(self.plan, self.cache,
+                                          self._to_device(tokens), plen,
+                                          req.slot)
+        req.prefill_pos = plen
+        self._first_token(req, logits, plen)
+
+    def _begin_chunked_prefill(self, req: Request) -> None:
+        """Admission under ``prefill_chunk > 0``: set up the slot (page
+        table and prefix-cache attach in paged mode; allocation is
+        chunk-granular from here on) and put the request on the chunk
+        queue. No forward pass runs yet; :meth:`step` drains chunks
+        interleaved with decode."""
+        seq = list(req.prompt) + list(req.generated)
+        if self.paged:
+            setup = self._paging.begin(req.slot, seq,
+                                       self._total_tokens(req),
+                                       chunk=self.prefill_chunk)
+            with torch.inference_mode():
+                self._copy_pages(setup.copies)
+            req.prefill_pos = setup.start
+        else:
+            req.prefill_pos = 0
+        # Mirror the cursor: a mid-prefill slot rides inside the decode
+        # bucket, so decode writes one garbage K/V at exactly
+        # lengths[slot] — the next unwritten position, which the next
+        # chunk overwrites before any mask admits it.
+        self._tokens[req.slot] = 0
+        self._lengths[req.slot] = req.prefill_pos
+        self.scheduler.enqueue_prefill(req)
+
+    def _prefill_chunk_one(self, req: Request) -> None:
+        """Run ONE chunk of ``req``'s prefill: positions ``[prefill_pos,
+        min(prefill_pos + prefill_chunk, plen))``. The final chunk yields
+        the first generated token and moves the request into decode."""
+        seq = list(req.prompt) + list(req.generated)
+        plen = len(seq)
+        start = req.prefill_pos
+        end = min(start + self.prefill_chunk, plen)
+        pad = _pad_to_pow2(end - start, hi=self.prefill_chunk)
+        with torch.inference_mode():
+            if self.paged:
+                self._paging.extend_prefill(req.slot, end)
+                logits = self._paged_prefill(req, seq, start, end, pad)
+            else:
+                tokens = np.zeros(pad, np.int64)
+                tokens[:end - start] = seq[start:end]
+                self._chunk_pads.add(pad)
+                logits = kv_cache.prefill_chunk_step(
+                    self.plan, self.cache, self._to_device(tokens), end,
+                    req.slot, start)
+        req.prefill_pos = end
+        self._lengths[req.slot] = end
+        metrics.inc("serve.prefill.chunks")
+        if end < plen:
+            return  # more chunks owed; a mid-chunk's logits are unused
+        self.scheduler.dequeue_prefill(req)
+        if self.paged:
+            self._paging.register_prefill(req.slot, req.prompt)
+        self._first_token(req, logits, plen)
+
     def step(self) -> int:
         """One scheduling round: deadline evictions -> admissions (each
-        pays its prefill and emits its first token) -> one decode step for
-        the active bucket. Returns the number of still-active requests."""
+        pays its prefill and emits its first token, or joins the chunk
+        queue) -> up to ``prefill_interleave`` prefill chunks -> one decode
+        step for the bucket. Returns the number of still-active requests."""
         now = self.clock()
         for req, swap in self.scheduler.evict_deadline(now=now):
+            self._release_pages(req)
             self._apply_swap(swap)
             self.finished.append(req)
             metrics.inc("serve.requests.evicted")
-        for req in self.scheduler.admit():
+        gate = self._admission_gate if self.paged else None
+        for req in self.scheduler.admit(gate=gate):
             self._prefill(req)
         metrics.set_gauge("serve.queue.depth", self.scheduler.queue_depth())
-
-        ready = self.scheduler.active()
+        if self.prefill_chunk:
+            for _ in range(self.prefill_interleave):
+                head = self.scheduler.peek_prefill()
+                if head is None:
+                    break
+                self._prefill_chunk_one(head)
+        if self.paged:
+            self._paging.note_usage()
+        n = self.scheduler.num_active
+        # Decode covers only fully prefilled slots (all active ones when
+        # chunking is off).
+        ready = self.scheduler.ready()
         if not ready:
-            return self.scheduler.num_active
+            return n
         bucket = self.scheduler.bucket()
-        self._decode_buckets.add(bucket)
         metrics.observe_value("serve.batch.occupancy", len(ready) / bucket)
         with torch.inference_mode():
-            logits = kv_cache.decode_step(
-                self.plan, self.cache,
-                torch.from_numpy(self._tokens).to(self.device),
-                torch.from_numpy(self._lengths).to(self.device),
-                bucket=bucket)
+            if self.paged:
+                # This round's appends: a page boundary allocates the next
+                # page (covered by the admission reservation); a tail page
+                # shared with the prefix cache is copied private first.
+                for req in ready:
+                    self._copy_pages(self._paging.prepare_append(
+                        req.slot, int(self._lengths[req.slot])))
+                self._paged_decode_buckets.add(bucket)
+                logits = kv_cache.paged_decode_step(
+                    self.plan, self.cache,
+                    self._to_device(self._paging.allocator.table),
+                    self._to_device(self._tokens),
+                    self._to_device(self._lengths), bucket=bucket)
+            else:
+                self._decode_buckets.add(bucket)
+                logits = kv_cache.decode_step(
+                    self.plan, self.cache, self._to_device(self._tokens),
+                    self._to_device(self._lengths), bucket=bucket)
             logits = logits.cpu().numpy()  # waits for the device
         metrics.inc("serve.decode.steps")
         now = self.clock()

@@ -23,8 +23,18 @@ mutate the dict's tensors and return no new cache.
 The interpreter is built from a :func:`build_plan` walk over the
 ``Sequential``'s module tree and reuses each layer's own forward (and
 ``MultiHeadAttention.qkv``/``out``), so the decode path shares weights and
-code with the model's forward. The paged pool, chunked prefill and int8
-pages come later in the port.
+code with the model's forward.
+
+The second half is the **paged pool** (the reference's paged half of the
+same module): ``{"k", "v"}`` of ``[layers, num_pages + 1, heads,
+page_size, key_dim]`` addressed through per-slot page tables that
+``serve/paging.py`` keeps on the host, plus ``k_scale``/``v_scale`` planes
+for an int8 pool. :func:`paged_prefill` (cold, suffix after a prefix hit,
+or one chunk), :func:`paged_decode_step` and :func:`copy_page` update the
+pool in place; :func:`prefill_chunk_step` is the contiguous cache's chunk
+step. As in the reference these compute attention with dense einsums
+over the gathered pages under the ``key_pos <= pos`` mask, not with the
+flash kernel (the reference's paged path reaches no Pallas kernel).
 """
 
 from __future__ import annotations
@@ -129,25 +139,53 @@ def build_plan(model: Sequential) -> DecodePlan:
                       max_position=max_position, vocab_size=last.units)
 
 
+def _itemsize(dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
 def cache_nbytes(plan: DecodePlan, *, max_batch: int, max_len: int,
                  dtype=torch.float32) -> int:
     """Device memory the cache will pin, for capacity planning / logs."""
     n = (2 * plan.num_layers * max_batch * plan.num_heads * max_len
          * plan.key_dim)
-    return n * torch.empty((), dtype=dtype).element_size()
+    return n * _itemsize(dtype)
 
 
 def init_cache(plan: DecodePlan, *, max_batch: int, max_len: int,
-               dtype=torch.float32, device: DeviceLike = None) -> dict:
+               dtype=torch.float32, budget_bytes: Optional[int] = None,
+               device: DeviceLike = None) -> dict:
     """Zeros cache: ``k``/``v`` of
     ``[num_layers, max_batch, num_heads, max_len, key_dim]`` on ``device``
     (``None`` means ``cuda``, which must exist; pass ``device="cpu"`` for
     the CPU), as the reference allocates on its default accelerator.
+
+    ``budget_bytes`` turns the advisory :func:`cache_nbytes` math into a
+    hard guard: when the cache would not fit, raise a loud error naming
+    how many slots DO fit instead of running out of memory later.
     """
+    if dtype == torch.int8:
+        raise ValueError(
+            "serve: int8 KV is a paged-pool feature (the quantized pages "
+            "carry per-page scale rows the contiguous cache has no layout "
+            "for) — use ServeEngine(paged=True, kv_dtype='int8')")
     if max_len > plan.max_position:
         raise ValueError(
             f"max_len {max_len} exceeds the model's positional table "
             f"({plan.max_position})")
+    if budget_bytes is not None:
+        need = cache_nbytes(plan, max_batch=max_batch, max_len=max_len,
+                            dtype=dtype)
+        if need > budget_bytes:
+            per_slot = need // max_batch
+            fits = int(budget_bytes // per_slot)
+            raise ValueError(
+                f"serve: contiguous KV cache needs {need} B for "
+                f"{max_batch} slots x {max_len} positions but "
+                f"budget_bytes={budget_bytes} — at this max_len the "
+                f"budget fits {fits} slot(s). Lower max_batch/max_len, "
+                "raise the budget, or switch to the paged cache "
+                "(ServeEngine(paged=True)), which allocates per page "
+                "instead of max_len per slot.")
     device = resolve_device(device)
     shape = (plan.num_layers, max_batch, plan.num_heads, max_len,
              plan.key_dim)
@@ -198,6 +236,86 @@ def prefill(plan: DecodePlan, cache: dict, tokens, length: int, slot: int,
     return x[0, max(length - 1, 0)]
 
 
+def _abs_positions(op, x, pos):
+    """The positional table at absolute positions ``pos`` (clamped into
+    the table), added to ``x`` — a suffix or a chunk starts past 0."""
+    table = op[1].table
+    at = torch.clamp(pos, max=table.shape[0] - 1)
+    return x + table[at].to(x.dtype)
+
+
+def _masked_attention(q, keys, vals, mask, key_dim: int):
+    """fp32 softmax attention of ``q`` ``[.., H, Lq, dk]`` over gathered
+    ``keys``/``vals`` ``[.., H, S, dk]`` under ``mask`` (broadcast to
+    ``[.., H, Lq, S]``); returns ``[.., H, Lq, dk]`` in ``q``'s dtype."""
+    s = torch.einsum("...qd,...kd->...qk", q.float(),
+                     keys.float()) * (1.0 / math.sqrt(key_dim))
+    s = s.masked_fill(~mask, float("-inf"))
+    prob = torch.softmax(s, dim=-1)
+    return torch.einsum("...qk,...kd->...qd", prob,
+                        vals.float()).to(q.dtype)
+
+
+def prefill_chunk_step(plan: DecodePlan, cache: dict, tokens, length: int,
+                       slot: int, start: int):
+    """Causal forward over ONE chunk of a prompt — the contiguous-cache
+    half of chunked prefill; the cache is updated in place.
+
+    The first ``start`` positions' K/V are already in cache slot ``slot``
+    (written by earlier chunks); this pass computes positions ``start ..
+    length - 1``, writes their K/V at window ``[start, start + pad)`` and
+    attends each chunk query over the whole cached row under the
+    absolute-position causal mask — what a full prefill computes for
+    those positions, so chunked and whole-prompt prefill stay
+    token-identical.
+
+    Args:
+      tokens: int ``[chunk_pad]`` chunk tokens for absolute positions
+        ``start .. length - 1``, padded past ``length - start``. Padded
+        positions write garbage K/V at ``[length, start + chunk_pad)``,
+        beyond every mask until a later chunk or a decode append
+        overwrites them. ``start + chunk_pad`` must not pass ``max_len``.
+      length: total valid positions through the end of this chunk.
+      slot: cache row.
+      start: already-cached positions (``< length``).
+
+    Returns:
+      logits ``[vocab]`` of position ``length - 1``.
+    """
+    pad = tokens.shape[0]
+    max_len = cache["k"].shape[3]
+    if start + pad > max_len:
+        raise ValueError(
+            f"serve: chunk window [{start}, {start + pad}) runs past the "
+            f"{max_len}-position cache row")
+    x = tokens[None]                       # [1, pad]
+    pos = start + torch.arange(pad, device=tokens.device)
+    mask = (torch.arange(max_len, device=tokens.device)[None, :]
+            <= pos[:, None])               # [pad, S]
+    residuals: list = []
+    for op in plan.ops:
+        tag = op[0]
+        if tag == "res_start":
+            residuals.append(x)
+        elif tag == "res_end":
+            x = _activation(op[1])(residuals.pop() + x)
+        elif tag == "pos":
+            x = _abs_positions(op, x, pos[None])
+        elif tag == "attn":
+            _, layer, idx = op
+            q, k, v = layer.qkv(x)         # [1, H, pad, dk]
+            for name, new in (("k", k), ("v", v)):
+                cache[name][idx, slot, :, start:start + pad] = new[0].to(
+                    cache[name].dtype)
+            out = _masked_attention(q[0], cache["k"][idx, slot],
+                                    cache["v"][idx, slot], mask,
+                                    layer.key_dim)
+            x = layer.out(out[None])
+        else:  # "embed" / "point"
+            x = op[1](x)
+    return x[0, max(length - start - 1, 0)]
+
+
 def decode_step(plan: DecodePlan, cache: dict, tokens, lengths, *,
                 bucket: int):
     """One generated token for the first ``bucket`` cache slots; the cache
@@ -227,24 +345,16 @@ def decode_step(plan: DecodePlan, cache: dict, tokens, lengths, *,
         elif tag == "res_end":
             x = _activation(op[1])(residuals.pop() + x)
         elif tag == "pos":
-            x = x + op[1].table[pos].to(x.dtype)[:, None, :]
+            x = _abs_positions(op, x, pos[:, None])
         elif tag == "attn":
             _, layer, idx = op
             q, k, v = layer.qkv(x)        # [b, H, 1, dk]
-            # Append at each slot's length: advanced indices around the
-            # head slice put the [b] dim first -> [b, H, dk].
-            cache["k"][idx][rows, :, pos] = k[:, :, 0, :].to(
-                cache["k"].dtype)
-            cache["v"][idx][rows, :, pos] = v[:, :, 0, :].to(
-                cache["v"].dtype)
-            keys = cache["k"][idx, :bucket]   # [b, H, S, dk]
-            vals = cache["v"][idx, :bucket]
-            s = torch.einsum("bhqd,bhkd->bhqk", q.float(),
-                             keys.float()) * (1.0 / math.sqrt(layer.key_dim))
-            s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
-            prob = torch.softmax(s, dim=-1)
-            out = torch.einsum("bhqk,bhkd->bhqd", prob,
-                               vals.float()).to(q.dtype)
+            # Append at each slot's length.
+            _write_rows(cache, "k", idx, rows, pos, k[:, :, 0, :])
+            _write_rows(cache, "v", idx, rows, pos, v[:, :, 0, :])
+            out = _masked_attention(q, cache["k"][idx, :bucket],
+                                    cache["v"][idx, :bucket],
+                                    valid[:, None, None, :], layer.key_dim)
             x = layer.out(out)
         else:  # "embed" / "point"
             x = op[1](x)
@@ -259,3 +369,315 @@ def swap_slots(cache: dict, i: int, j: int) -> None:
         row = a[:, i].clone()
         a[:, i] = a[:, j]
         a[:, j] = row
+
+
+# -- paged cache --------------------------------------------------------------
+#
+# The pool replaces the contiguous [layers, slots, heads, max_len, key_dim]
+# preallocation with fixed-size pages — [layers, num_pages + 1, heads,
+# page_size, key_dim] — addressed through a per-slot page table of page
+# indices (host-managed by serve/paging.py). Row ``num_pages`` is a
+# reserved scratch page: every index computed for an invalid position
+# (prompt padding, inactive decode slots) is routed there, so garbage
+# writes land where nothing ever reads. A key at flattened gather position
+# j of a slot's table is absolute sequence position j, so the contiguous
+# validity mask ``arange <= pos`` carries over unchanged.
+#
+# int8 pool (``dtype=torch.int8``): pages store K/V as int8 with fp32
+# per-position scale ROWS — ``k_scale``/``v_scale`` of ``[num_layers,
+# num_pages + 1, num_heads, page_size]``, one amax-derived symmetric scale
+# per written position per head. Quantization happens at write time and
+# dequantization inside the page gather, so the fp32 attention downstream
+# is the float path on the dequantized values. Scaling per position makes
+# a position's stored bytes depend only on its own K/V projection, never
+# on what else landed in the page, so chunked prefill reproduces
+# whole-prompt prefill byte for byte.
+
+#: Symmetric int8 range; scale = amax / _QMAX, values in [-127, 127].
+_QMAX = 127.0
+
+
+def _quantized(pool: dict) -> bool:
+    """True for an int8 pool (fp32 scale planes present)."""
+    return "k_scale" in pool
+
+
+def _quant_rows(x):
+    """Quantize ``[..., dk]`` rows to (int8 ``[..., dk]``, fp32 scale
+    ``[...]``) — one symmetric amax scale per row. All-zero rows get
+    scale 1 so they round-trip to exact zeros. The order is the
+    reference's: divide by the scale, round half to even, clip, cast."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1) / _QMAX
+    safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+    q = torch.clamp(torch.round(xf / safe[..., None]), -_QMAX, _QMAX)
+    return q.to(torch.int8), scale
+
+
+def page_nbytes(plan: DecodePlan, *, page_size: int,
+                dtype=torch.float32) -> int:
+    """Device memory one page pins across every layer, k and v. An int8
+    page also carries its fp32 scale rows (k and v, per head per
+    position)."""
+    n = 2 * plan.num_layers * plan.num_heads * page_size * plan.key_dim
+    if dtype == torch.int8:
+        scales = 2 * plan.num_layers * plan.num_heads * page_size * 4
+        return n * _itemsize(dtype) + scales
+    return n * _itemsize(dtype)
+
+
+def page_pool_nbytes(plan: DecodePlan, *, num_pages: int, page_size: int,
+                     dtype=torch.float32) -> int:
+    """Device memory the pool will pin, scratch page included."""
+    return page_nbytes(plan, page_size=page_size, dtype=dtype) \
+        * (num_pages + 1)
+
+
+def pages_for_budget(plan: DecodePlan, *, page_size: int, budget_bytes: int,
+                     dtype=torch.float32) -> int:
+    """Largest ``num_pages`` whose pool (plus scratch) fits the budget."""
+    per = page_nbytes(plan, page_size=page_size, dtype=dtype)
+    return max(int(budget_bytes // per) - 1, 0)
+
+
+def init_page_pool(plan: DecodePlan, *, num_pages: int, page_size: int,
+                   dtype=torch.float32, budget_bytes: Optional[int] = None,
+                   device: DeviceLike = None) -> dict:
+    """Zeros page pool: ``k``/``v`` of
+    ``[num_layers, num_pages + 1, num_heads, page_size, key_dim]`` on
+    ``device`` (``None`` means ``cuda``, which must exist) — the extra
+    row is the write-off scratch page. An int8 pool adds fp32
+    ``k_scale``/``v_scale`` of ``[num_layers, num_pages + 1, num_heads,
+    page_size]``.
+
+    Like :func:`init_cache`, ``budget_bytes`` raises a loud sizing error
+    (how many pages DO fit) instead of running out of memory later.
+    """
+    if num_pages < 1:
+        raise ValueError(f"num_pages must be >= 1, got {num_pages}")
+    if page_size < 1:
+        raise ValueError(f"page_size must be >= 1, got {page_size}")
+    if budget_bytes is not None:
+        need = page_pool_nbytes(plan, num_pages=num_pages,
+                                page_size=page_size, dtype=dtype)
+        if need > budget_bytes:
+            fits = pages_for_budget(plan, page_size=page_size,
+                                    budget_bytes=budget_bytes, dtype=dtype)
+            raise ValueError(
+                f"serve: page pool needs {need} B for {num_pages} pages of "
+                f"{page_size} positions (plus the scratch page) but "
+                f"budget_bytes={budget_bytes} — the budget fits {fits} "
+                "page(s). Lower num_pages/page_size or raise the budget.")
+    device = resolve_device(device)
+    shape = (plan.num_layers, num_pages + 1, plan.num_heads, page_size,
+             plan.key_dim)
+    pool = {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if dtype == torch.int8:
+        # Zero pages decode to exact zeros under any scale; real scales
+        # are written alongside every K/V write.
+        pool["k_scale"] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                      device=device)
+        pool["v_scale"] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                      device=device)
+    return pool
+
+
+def _gather_pages(pool_arr, layer_idx: int, page_rows):
+    """Flatten one layer's pages into position order.
+
+    ``pool_arr``: ``[L, P, H, ps, dk]``; ``page_rows``: int
+    ``[..., max_pages]`` page-table row(s). Returns
+    ``[..., H, max_pages * ps, dk]`` where flattened index j holds
+    absolute position j of that slot's sequence (unallocated entries
+    point at scratch, whose garbage the caller's mask never admits).
+    """
+    g = pool_arr[layer_idx][page_rows]     # [..., max_pages, H, ps, dk]
+    g = g.movedim(-3, -4)                  # [..., H, max_pages, ps, dk]
+    *lead, h, mp, ps, dk = g.shape
+    return g.reshape(*lead, h, mp * ps, dk)
+
+
+def _gather_kv(pool: dict, name: str, layer_idx: int, page_rows):
+    """Position-ordered gather of ``pool[name]``, dequantized for int8
+    pools (int8 payload x per-position fp32 scale row -> fp32); float
+    pools pass straight through :func:`_gather_pages`."""
+    g = _gather_pages(pool[name], layer_idx, page_rows)
+    if not _quantized(pool):
+        return g
+    s = pool[name + "_scale"][layer_idx][page_rows]  # [..., mp, H, ps]
+    s = s.movedim(-2, -3)                            # [..., H, mp, ps]
+    *lead, h, mp, ps = s.shape
+    return g.float() * s.reshape(*lead, h, mp * ps)[..., None]
+
+
+def _write_rows(pool: dict, name: str, layer_idx: int, pg, off, rows):
+    """Scatter ``rows`` ``[n, H, dk]`` to (page or slot ``pg[i]``,
+    position ``off[i]``) of one layer of a pool or cache (the advanced
+    indices around the head slice put the ``[n]`` dim first), quantizing
+    for an int8 pool. Returns the int8 payload and scales (None for a
+    float pool)."""
+    if _quantized(pool):
+        qv, sc = _quant_rows(rows)
+        pool[name][layer_idx][pg, :, off] = qv
+        pool[name + "_scale"][layer_idx][pg, :, off] = sc
+        return qv, sc
+    pool[name][layer_idx][pg, :, off] = rows.to(pool[name].dtype)
+    return None, None
+
+
+def paged_prefill(plan: DecodePlan, pool: dict, page_row, tokens,
+                  length: int, start: int):
+    """Causal forward over the UNCACHED suffix of one prompt, writing K/V
+    through the page table into ``pool`` in place.
+
+    With a prefix-cache hit the first ``start`` positions' K/V already sit
+    in (shared) pages referenced by ``page_row``; only the suffix is
+    computed, attending over the gathered cached prefix plus its own
+    causally-masked keys, so the result equals a full prefill. ``start=0``
+    is the cold path; under chunked prefill ``start`` is the chunk
+    cursor.
+
+    Args:
+      pool: page pool from :func:`init_page_pool`.
+      page_row: int ``[max_pages]`` — this slot's page-table row, on the
+        pool's device. Entries covering ``[0, length)`` must be real pages
+        (suffix pages writable, i.e. unshared); the rest point at scratch.
+      tokens: int ``[pad]`` suffix tokens for absolute positions
+        ``start .. length - 1``, padded past ``length - start``.
+      length: total valid positions (prefix + suffix).
+      start: cached-prefix length (``< length``).
+
+    Returns:
+      logits ``[vocab]`` of position ``length - 1`` for a float pool; an
+      int8 pool returns ``(logits, quant_error)``, the max-abs
+      dequantization error over this call's valid suffix positions (an
+      fp32 scalar tensor — the ``serve.kv.quant_error`` datum).
+    """
+    num_pages = pool["k"].shape[1] - 1     # last row is scratch
+    ps = pool["k"].shape[3]
+    max_pages = page_row.shape[0]
+    pad = tokens.shape[0]
+    dev = tokens.device
+    x = tokens[None]                       # [1, pad]
+    suffix = length - start
+    ar = torch.arange(pad, device=dev)
+    pos = start + ar                       # absolute positions [pad]
+    valid_q = ar < suffix                  # [pad]
+    mask = (torch.arange(max_pages * ps, device=dev)[None, :]
+            <= pos[:, None])               # [pad, S]
+    row = page_row.long()
+    # Each suffix position's (page, offset); padding goes to scratch.
+    pg = torch.where(valid_q, row[torch.clamp(pos // ps, max=max_pages - 1)],
+                     num_pages)            # [pad]
+    off = pos % ps
+    quant = _quantized(pool)
+    qerr = torch.zeros((), dtype=torch.float32, device=dev)
+    residuals: list = []
+    for op in plan.ops:
+        tag = op[0]
+        if tag == "res_start":
+            residuals.append(x)
+        elif tag == "res_end":
+            x = _activation(op[1])(residuals.pop() + x)
+        elif tag == "pos":
+            x = _abs_positions(op, x, pos[None])
+        elif tag == "attn":
+            _, layer, idx = op
+            q, k, v = layer.qkv(x)         # [1, H, pad, dk]
+            for name, new in (("k", k), ("v", v)):
+                rows = new[0].movedim(1, 0)              # [pad, H, dk]
+                if quant:
+                    rows = rows.float()
+                qv, sc = _write_rows(pool, name, idx, pg, off, rows)
+                if quant:
+                    err = (rows - qv.float() * sc[..., None]).abs().amax(
+                        dim=(1, 2))                      # [pad]
+                    qerr = torch.maximum(qerr, torch.where(
+                        valid_q, err, torch.zeros_like(err)).max())
+            out = _masked_attention(q[0], _gather_kv(pool, "k", idx, row),
+                                    _gather_kv(pool, "v", idx, row), mask,
+                                    layer.key_dim)
+            x = layer.out(out[None])
+        else:  # "embed" / "point"
+            x = op[1](x)
+    last = x[0, max(suffix - 1, 0)]
+    return (last, qerr) if quant else last
+
+
+def _paged_decode_core(plan: DecodePlan, pool: dict, tables, tokens, pos,
+                       route):
+    """Shared body of the paged decode steps; ``pool`` is updated in place.
+
+    ``route(pg)`` maps each slot's computed tail page to its write
+    destination — the identity for the bucketed path (inactive slots carry
+    all-scratch table rows by host invariant); a ragged decode would route
+    inactive slots to scratch instead.
+    """
+    ps = pool["k"].shape[3]
+    max_pages = tables.shape[1]
+    b = tokens.shape[0]
+    dev = tokens.device
+    pos = pos.long()
+    tables = tables.long()
+    rows = torch.arange(b, device=dev)
+    valid = (torch.arange(max_pages * ps, device=dev)[None, :]
+             <= pos[:, None])              # [b, S]
+    # Tail-page append: clamping the table column keeps the gather in
+    # range; ``route`` decides where garbage writes go.
+    pg = route(tables[rows, torch.clamp(pos // ps, max=max_pages - 1)])
+    off = pos % ps
+    x = tokens[:, None]                    # [b, 1]
+    residuals: list = []
+    for op in plan.ops:
+        tag = op[0]
+        if tag == "res_start":
+            residuals.append(x)
+        elif tag == "res_end":
+            x = _activation(op[1])(residuals.pop() + x)
+        elif tag == "pos":
+            x = _abs_positions(op, x, pos[:, None])
+        elif tag == "attn":
+            _, layer, idx = op
+            q, k, v = layer.qkv(x)         # [b, H, 1, dk]
+            _write_rows(pool, "k", idx, pg, off, k[:, :, 0, :])
+            _write_rows(pool, "v", idx, pg, off, v[:, :, 0, :])
+            out = _masked_attention(q, _gather_kv(pool, "k", idx, tables),
+                                    _gather_kv(pool, "v", idx, tables),
+                                    valid[:, None, None, :], layer.key_dim)
+            x = layer.out(out)
+        else:  # "embed" / "point"
+            x = op[1](x)
+    return x[:, 0, :].float()  # [b, vocab]
+
+
+def paged_decode_step(plan: DecodePlan, pool: dict, page_tables, tokens,
+                      lengths, *, bucket: int):
+    """One generated token for the first ``bucket`` slots through the page
+    tables; the pool is updated in place.
+
+    The new K/V land at offset ``length % page_size`` of the slot's tail
+    page ``page_tables[slot, length // page_size]``; attention then runs
+    over the gathered pages under the same ``arange <= pos`` mask as the
+    contiguous path. Inactive slots inside the bucket must have
+    all-scratch table rows so their garbage writes are absorbed.
+
+    Args:
+      page_tables: int ``[cap, max_pages]`` on the pool's device; only
+        ``[:bucket]`` is read.
+      tokens / lengths / bucket: as :func:`decode_step`.
+
+    Returns:
+      logits ``[bucket, vocab]`` fp32.
+    """
+    return _paged_decode_core(plan, pool, page_tables[:bucket],
+                              tokens[:bucket], lengths[:bucket],
+                              lambda pg: pg)
+
+
+def copy_page(pool: dict, src: int, dst: int) -> None:
+    """Copy page row ``src`` over ``dst`` in place (every layer and every
+    entry of the pool: k, v and an int8 pool's scale rows) — the device
+    half of copy-on-write."""
+    for a in pool.values():
+        a[:, dst] = a[:, src]

@@ -26,9 +26,10 @@ Host-side and framework-free on purpose: scheduling decisions happen
 between device steps, never inside them. This is the port's own copy of
 the contiguous-engine subset of ``tpu_dist/serve/scheduler.py`` (the port
 imports nothing of ``tpu_dist``); the two must stay behaviourally
-identical, which ``tests/test_torch_serve.py`` checks. The reference's
-bounded queue, journal request ids, admission gate and chunked-prefill
-queue come with the port's shedding, journal, paging and chunking.
+identical, which ``tests/test_torch_serve.py`` checks. It carries the
+paged engine's admission gate and the chunked-prefill queue; the
+reference's bounded queue and journal request ids come with the port's
+shedding and journal.
 """
 
 from __future__ import annotations
@@ -60,6 +61,19 @@ class Request:
     first_token_s: Optional[float] = None
     finish_s: Optional[float] = None
     finish_reason: Optional[str] = None  #: eos | length | deadline
+    #: The slot this request occupied when :meth:`Scheduler.finish`
+    #: released it (``slot`` itself is cleared to -1 there). The paged
+    #: engine reads this to free the right page-table row; None until
+    #: the request has held — and left — a slot.
+    released_slot: Optional[int] = None
+    #: Chunked-prefill cursor: sequence positions whose K/V already sit
+    #: in the cache (prefix-cache hits included). While the request is
+    #: on the prefill queue this trails the prompt length and the slot
+    #: is excluded from decode; the whole-prompt path sets it to the
+    #: full prefilled length in one go. The engine also reads it at
+    #: release time to bound prefix-cache registration to pages that
+    #: were actually written.
+    prefill_pos: int = 0
 
     @property
     def latency_s(self) -> Optional[float]:
@@ -107,6 +121,13 @@ class Scheduler:
         self.queue: list[Request] = []  #: FIFO, arrival order
         #: active requests by slot; slots [0, num_active) are occupied.
         self.slots: list[Optional[Request]] = [None] * max_batch
+        #: Chunked-prefill queue, arrival order: ACTIVE requests whose
+        #: prompts are still being prefilled chunk by chunk. The engine
+        #: drains the HEAD first (at most ``prefill_interleave`` chunks
+        #: between decode steps), so a later long prompt cannot delay an
+        #: earlier one's first token. Empty unless the engine runs with
+        #: ``prefill_chunk > 0``.
+        self.prefilling: list[Request] = []
         self.num_active = 0
         self._cohort = 0  #: static policy: admitted cohort size, sticky
         self._next_rid = 0
@@ -126,14 +147,21 @@ class Scheduler:
 
     # -- admission ------------------------------------------------------------
 
-    def admit(self) -> list[Request]:
+    def admit(self, *, gate=None) -> list[Request]:
         """Move queued requests into free slots (FIFO); returns the newly
         admitted requests, each with ``slot`` assigned — the engine owes
-        each one a prefill before the next decode step."""
+        each one a prefill before the next decode step.
+
+        ``gate`` (optional ``fn(req) -> bool``) is consulted before each
+        admission and stops the round on the first False — the paged
+        engine's free-page-headroom check. FIFO order is preserved: a
+        gated-out head request blocks those behind it."""
         if self.policy == "static" and self.num_active > 0:
             return []  # static cohorts run to completion before refilling
         admitted = []
         while self.queue and self.num_active < self.max_batch:
+            if gate is not None and not gate(self.queue[0]):
+                break
             req = self.queue.pop(0)
             req.slot = self.num_active
             req.status = ACTIVE
@@ -143,6 +171,34 @@ class Scheduler:
         if self.policy == "static" and admitted:
             self._cohort = self.num_active
         return admitted
+
+    # -- chunked prefill queue ------------------------------------------------
+
+    def enqueue_prefill(self, req: Request) -> None:
+        """Put an admitted request on the chunk queue: its slot stays out
+        of decode until the final chunk lands."""
+        self.prefilling.append(req)
+
+    def peek_prefill(self) -> Optional[Request]:
+        """Arrival-order head of the chunk queue (None when empty)."""
+        return self.prefilling[0] if self.prefilling else None
+
+    def dequeue_prefill(self, req: Request) -> None:
+        """Drop a request from the chunk queue — its final chunk landed,
+        or it was evicted mid-prefill."""
+        self.prefilling = [r for r in self.prefilling if r is not req]
+
+    def is_prefilling(self, req: Request) -> bool:
+        return any(r is req for r in self.prefilling)
+
+    def ready(self) -> list[Request]:
+        """Active requests eligible for decode: everyone whose prefill is
+        complete. Identical to :meth:`active` when chunked prefill is off
+        (the queue is empty)."""
+        if not self.prefilling:
+            return self.active()
+        return [r for r in self.slots[:self.num_active]
+                if not self.is_prefilling(r)]
 
     # -- step accounting ------------------------------------------------------
 
@@ -191,8 +247,11 @@ class Scheduler:
         slot = req.slot
         if not (0 <= slot < self.num_active and self.slots[slot] is req):
             raise ValueError(f"request {req.rid} does not own slot {slot}")
+        if self.prefilling:  # evicted mid-prefill: off the chunk queue too
+            self.dequeue_prefill(req)
         req.status = status
         req.finish_s = now
+        req.released_slot = slot
         req.slot = -1
         last = self.num_active - 1
         swap = None
