@@ -127,7 +127,35 @@ plain PyTorch version. Phases:
     every run and the decode step at bucket 8, 448 positions (contiguous,
     fp32 pool, int8 pool; CUDA events and ``torch.profiler``); then
     ``python -m tpu_dist_torch.serve --bench --paged`` with and without
-    ``--kv-dtype int8`` at phase 5's arguments.
+    ``--kv-dtype int8`` at phase 5's arguments;
+19. serving on captured CUDA graphs (on CUDA every engine runs each
+    program family as a captured program: the first call eager, the
+    second captured, later ones replayed; phases 4, 5 and 18 run so too,
+    their kernel counts holding because a replay adds the launches its
+    capture recorded): (a) for each family (decode, prefill, prefill
+    chunk; paged decode, ragged decode and paged prefill on fp32 and int8
+    pools) a captured program against the eager ``kv_cache`` function on
+    the same inputs over three calls: outputs and cache or pool bytes bit
+    for bit (a pool's scratch row aside); (b) phase 4's 16 requests
+    through ``ServeEngine(paged=True, ragged=True)``, fp32 and int8: the
+    streams of phase 18's bucketed engines (fp32 under the certified-tie
+    rule, int8 token for token), one decode program whose calls are the
+    decode steps; (c) phase 18 (f)'s decode step through a captured
+    program, CUDA events and device time, beside the eager numbers; (d)
+    phase 18 (b)'s prefix run on engines warmed up first: TTFT p50 with
+    hits against cold beside the reference's 0.5x (reported), capture
+    seconds apart, and the device time of the step that admits the
+    sharers (``torch.profiler``); (e) the flash forward at [8, L, 64], L = 512, 256, 128,
+    through its wrapper, replayed from a captured program, and SDPA's
+    call (ROADMAP K1);
+20. training on captured graphs: (a) the reference program with
+    ``steps_per_execution=20``, fused and unfused: per-epoch losses within
+    ``CNN_LOSS_ATOL`` and parameters within ``GRAPH_PARAM_ATOL`` of phase
+    15's k = 1 runs, 200 launches of each fused kernel; (b) the CNN step's
+    time and device-busy share at k = 20 beside k = 1 (phase 17's
+    measure); (c) the full-width LM at k = 2 for 2 executions with SGD
+    and with ``Adam(fused=True)``: losses within ``LOSS_ATOL`` of k = 1's
+    pair means, every kernel launch counted.
 
 Prints one JSON line of kernel records, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
@@ -1441,15 +1469,17 @@ def _program_chain(seed: int):
     return ds.with_options(options)
 
 
-def _cnn_fit(optimizer, fused_ce: bool, epochs: int, seed: int):
-    """The reference program's strategy, model and fit, with this compile."""
+def _cnn_fit(optimizer, fused_ce: bool, epochs: int, seed: int, k: int = 1):
+    """The reference program's strategy, model and fit, with this compile
+    (``k`` steps an execution)."""
     strategy = MultiWorkerMirroredStrategy()
     with strategy.scope():
         model = build_cnn_model()
         model.compile(optimizer=optimizer,
                       loss=SparseCategoricalCrossentropy(from_logits=True,
                                                          fused=fused_ce),
-                      metrics=[SparseCategoricalAccuracy()])
+                      metrics=[SparseCategoricalAccuracy()],
+                      steps_per_execution=k)
     history = model.fit(_program_chain(seed), epochs=epochs,
                         steps_per_epoch=CNN_STEPS, verbose=0)
     return model, history.history
@@ -1476,7 +1506,7 @@ def cnn_fused_phase() -> dict:
             raise AssertionError(f"fused CNN program: launches {counts}; "
                                  f"expected {want}")
         _reset_counts()
-        _, th = _cnn_fit(SGD(learning_rate=0.001), False, CNN_EPOCHS, seed=0)
+        tm, th = _cnn_fit(SGD(learning_rate=0.001), False, CNN_EPOCHS, seed=0)
         if any(_counts()):
             raise AssertionError(f"the unfused twin launched {_counts()}")
         np.testing.assert_allclose(h["loss"], th["loss"], atol=CNN_LOSS_ATOL,
@@ -1528,8 +1558,12 @@ def cnn_fused_phase() -> dict:
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
             flags
+    # Phase 20 holds its graphed runs to these k = 1 runs.
+    k1 = {"fused": (h["loss"], [p.detach().clone() for p in fm.parameters()]),
+          "unfused": (th["loss"],
+                      [p.detach().clone() for p in tm.parameters()])}
     return {"ce_fwd": counts[3], "ce_bwd": counts[4], "sgd": counts[5],
-            "sgd_momentum": momentum, "sgd_scheduled": scheduled}
+            "sgd_momentum": momentum, "sgd_scheduled": scheduled, "k1": k1}
 
 
 def lm_fused_phase() -> dict:
@@ -2043,6 +2077,7 @@ def paged_phase(card: str, contiguous_streams: list) -> dict:
         engine = ServeEngine(model, max_batch=8, max_len=ln, paged=True,
                              kv_dtype="int8")
         reqs, times["paged int8"] = _drain(engine, specs)
+        int8_streams = [r.generated for r in reqs]
         same = sum(a == b for r, want in zip(reqs, paged_streams)
                    for a, b in zip(r.generated, want))
         total = sum(len(w) for w in paged_streams)
@@ -2115,7 +2150,8 @@ def paged_phase(card: str, contiguous_streams: list) -> dict:
                 f"(torch.profiler; most device time: {top}) ({card})")
     finally:
         metrics.disable()
-    return {"serve": times, "decode_step": steps, "ties": ties}
+    return {"serve": times, "decode_step": steps, "ties": ties,
+            "streams": {"fp32": paged_streams, "int8": int8_streams}}
 
 
 def paged_cli_phase() -> None:
@@ -2136,6 +2172,456 @@ def paged_cli_phase() -> None:
         log(f"[18 cli] python -m tpu_dist_torch.serve --bench --paged "
             f"{' '.join(extra)}: 8 done, {report['throughput_tok_s']} tok/s, "
             f"TTFT p50 {report['ttft_s']['p50']} s on {report['device']}")
+
+
+# -- slice 8: CUDA graphs, ragged decode, steps_per_execution ---------------
+
+#: The reference's serve-bench gate on prefix caching: TTFT p50 with hits at
+#: or under half of cold. Reported beside the port's ratio, not asserted.
+PREFIX_TTFT_GATE = 0.5
+#: Phase 20's graphed CNN parameters against k = 1's after 200 steps: the
+#: replays run the kernels of the eager steps on the same inputs, so any
+#: difference is cuBLAS or cuDNN choosing otherwise on the capture stream;
+#: at lr 0.001 such a choice moves a weight by well under 1e-6.
+GRAPH_PARAM_ATOL = 1e-6
+#: Phase 20 (c): executions of the full-width LM at k = 2 (the first
+#: eager, the second captured and replayed, the rest replays), and its final
+#: parameters against k = 1's: the same kernels on the same inputs, as for
+#: the CNN.
+LM_GRAPH_EXECUTIONS = 3
+LM_GRAPH_PARAM_ATOL = 1e-6
+
+
+def _filled(shape, dtype, gen):
+    """Seeded values for a cache or pool entry: int8 payloads, positive
+    scales, normal floats."""
+    if dtype == torch.int8:
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int8)
+    return torch.randn(shape, generator=gen, device="cuda")
+
+
+def _fresh_state(plan, kind: str):
+    """A contiguous 8 x 512 cache, or a 256-page pool (fp32 or int8),
+    filled with the same seeded values on every call."""
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    if kind == "cache":
+        state = kv_cache.init_cache(plan, max_batch=8, max_len=LM["seq_len"],
+                                    device="cuda")
+    else:
+        state = kv_cache.init_page_pool(
+            plan, num_pages=256, page_size=16, device="cuda",
+            dtype=torch.int8 if kind == "int8" else torch.float32)
+    for name, a in state.items():
+        vals = _filled(a.shape, a.dtype, gen)
+        a.copy_(vals.abs() / 64 if name.endswith("_scale") else vals)
+    return state
+
+
+def _replay_check(name, plan, kind, fn, calls) -> int:
+    """One program family's captured program against its eager function:
+    ``fn(state, **inputs)`` runs the kv_cache function; ``calls`` are host
+    inputs (numpy arrays and ints), the first run eagerly, the second
+    captured and replayed, the third replayed. Each call's outputs and the
+    cache or pool bytes equal the eager function's on the same inputs (ints
+    as ints) bit for bit, a pool's scratch row aside (padding and inactive
+    rows write there, in no fixed order). Returns the replays."""
+    import functools
+
+    from tpu_dist_torch.utils.graphs import CapturedProgram, spec_of
+
+    eager, graphed = _fresh_state(plan, kind), _fresh_state(plan, kind)
+    prog = CapturedProgram(functools.partial(fn, graphed),
+                           {n: spec_of(v) for n, v in calls[0].items()},
+                           device="cuda")
+    with torch.inference_mode():
+        for i, call in enumerate(calls):
+            got = prog(**call)
+            got = [t.clone() for t in (got if isinstance(got, tuple)
+                                       else (got,))]
+            want = fn(eager, **{n: torch.from_numpy(v).cuda()
+                                if isinstance(v, np.ndarray) else v
+                                for n, v in call.items()})
+            for g, w in zip(got, want if isinstance(want, tuple)
+                            else (want,)):
+                if not torch.equal(g, w):
+                    raise AssertionError(
+                        f"(a) {name}: call {i + 1}'s output differs from the "
+                        f"eager function's by {float((g - w).abs().max())}")
+            for key in eager:
+                a, b = eager[key], graphed[key]
+                if kind != "cache":
+                    a, b = a[:, :-1], b[:, :-1]
+                if not torch.equal(a, b):
+                    raise AssertionError(f"(a) {name}: call {i + 1} left "
+                                         f"{key} unlike the eager function")
+    return prog.replays
+
+
+def _family_checks(plan) -> list:
+    """Phase 19 (a): every program family the engine captures."""
+    ln, vocab = LM["seq_len"], LM["vocab_size"]
+    rng = np.random.default_rng(20)
+    tok = lambda n: rng.integers(0, vocab, size=n)
+    tables = rng.permutation(256).astype(np.int32).reshape(8, 32)
+    lengths = lambda: rng.integers(0, 448, size=8)
+    active = np.array([1, 1, 0, 1, 0, 1, 1, 0], bool)  # 2, 4, 7: inactive
+    decode = [dict(tokens=tok(8), lengths=lengths()) for _ in range(3)]
+    paged = [dict(page_tables=tables, **d) for d in decode]
+    ragged = [dict(active=active, **d) for d in paged]
+    prefill = [dict(tokens=tok(256), length=n, slot=s)
+               for n, s in ((200, 3), (256, 0), (131, 7))]
+    chunk = [dict(tokens=tok(64), length=n, slot=s, start=st)
+             for n, s, st in ((114, 2, 64), (192, 5, 128), (40, 0, 0))]
+    suffix = [dict(page_row=tables[s], tokens=tok(64), length=n, start=st)
+              for n, s, st in ((104, 1, 64), (50, 4, 0), (300, 6, 256))]
+    families = [
+        ("decode bucket 8", "cache", lambda c, tokens, lengths:
+         kv_cache.decode_step(plan, c, tokens, lengths, bucket=8), decode),
+        ("prefill pad 256", "cache", lambda c, tokens, length, slot:
+         kv_cache.prefill(plan, c, tokens, length, slot), prefill),
+        ("prefill_chunk pad 64", "cache", lambda c, **kw:
+         kv_cache.prefill_chunk_step(plan, c, **kw), chunk)]
+    for kind in ("fp32", "int8"):
+        families += [
+            (f"paged_decode bucket 8 {kind}", kind, lambda c, **kw:
+             kv_cache.paged_decode_step(plan, c, bucket=8, **kw), paged),
+            (f"paged_decode_ragged {kind}", kind, lambda c, **kw:
+             kv_cache.paged_decode_ragged(plan, c, **kw), ragged),
+            (f"paged_prefill pad 64 {kind}", kind, lambda c, **kw:
+             kv_cache.paged_prefill(plan, c, **kw), suffix)]
+    return [(name, _replay_check(name, plan, kind, fn, calls))
+            for name, kind, fn, calls in families]
+
+
+def _graphed_decode_times(plan, kind: str) -> dict:
+    """Phase 18 (f)'s decode step (bucket 8, every slot at 448 positions)
+    through a captured program fed from the host, as the engine runs it:
+    staging, copies to the card and the replay, timed with CUDA events and
+    in device time."""
+    import functools
+
+    from tpu_dist_torch.utils.graphs import CapturedProgram, spec_of
+
+    state = _fresh_state(plan, kind)
+    host = dict(tokens=np.random.default_rng(3).integers(
+        0, LM["vocab_size"], size=8), lengths=np.full(8, 448))
+    if kind == "cache":
+        fn = functools.partial(kv_cache.decode_step, plan, state, bucket=8)
+    else:
+        host["page_tables"] = np.arange(256, dtype=np.int32).reshape(8, 32)
+        fn = functools.partial(kv_cache.paged_decode_step, plan, state,
+                               bucket=8)
+    prog = CapturedProgram(fn, {n: spec_of(v) for n, v in host.items()},
+                           device="cuda")
+    step = lambda: prog(**host)
+    with torch.inference_mode():
+        ms = _time_ms(step)
+        kernels = _kernel_times(step, 20)
+    total_us = sum(us for _, us in kernels)
+    return {"ms": ms, "device_ms": total_us / 1e3 / 20 if total_us else None}
+
+
+def _flash_graph_times() -> list:
+    """ROADMAP K1: the flash forward at serving's prefill shapes [8, L, 64]
+    fp32 causal, L = 512, 256, 128, called through its wrapper, replayed
+    from a captured program (the wrapper's host work gone), and SDPA's
+    call, in turns in one window each; CUDA events."""
+    from tpu_dist_torch.utils.graphs import CapturedProgram
+
+    out = []
+    for ln in (512, 256, 128):
+        q, k, v = _qkv((1, 8, ln, 64), torch.float32, seed=ln)
+        call = lambda: fa.flash_attention_fwd(q, k, v, causal=True,
+                                              scale=0.125)
+        prog = CapturedProgram(call, {}, device="cuda")
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v,
+                                                      is_causal=True)
+        out.append((ln, _time_ms(call), _time_ms(prog), _time_ms(sdpa)))
+    return out
+
+
+def _admission_device_ms(engine, warm, shared) -> float | None:
+    """Device time of the step that admits ``shared`` (its 8 prefills and
+    one decode step) after ``warm`` ran, from a ``torch.profiler`` trace;
+    None when the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _drain(engine, warm)
+    for p, m in shared:
+        engine.submit(p, max_new_tokens=m)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        engine.step()
+        torch.cuda.synchronize()
+    engine.run_until_idle()
+    us = sum(getattr(e, "self_device_time_total", 0)
+             for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 if us else None
+
+
+def _prefix_ttft(model, caching: bool) -> tuple:
+    """Phase 18 (b)'s prefix run on an engine whose programs are captured
+    first: two warm-up rounds of the same shapes under other prefixes, then
+    the warm request and the 8 sharers. Returns the sharers' times, the
+    warm-up's capture seconds, the measured run's, and the device ms of
+    one more such admission step, profiled."""
+    ln, vocab = LM["seq_len"], LM["vocab_size"]
+
+    def backlog(seed):
+        rng = np.random.default_rng(seed)
+        prefix = rng.integers(0, vocab, size=256).tolist()
+        warm = [(prefix + rng.integers(0, vocab, size=16).tolist(), 16)]
+        shared = [(prefix + rng.integers(0, vocab, size=int(
+            rng.integers(16, 65))).tolist(), int(rng.integers(16, 33)))
+            for _ in range(8)]
+        return warm, shared
+
+    engine = ServeEngine(model, max_batch=8, max_len=ln, paged=True,
+                         prefix_caching=caching)
+    lengths = [(len(p), m) for p, m in backlog(18)[1]]
+    for seed in (118, 218):
+        warm, _ = backlog(seed)
+        rng = np.random.default_rng(seed)
+        shared = [(warm[0][0][:256] + rng.integers(0, vocab, size=n - 256)
+                   .tolist(), m) for n, m in lengths]
+        _drain(engine, warm)
+        _drain(engine, shared)
+    warmup_s = engine.capture_seconds
+    warm, shared = backlog(18)
+    _drain(engine, warm)
+    _, t = _drain(engine, shared)
+    measured_s = engine.capture_seconds - warmup_s
+    warm, _ = backlog(318)
+    rng = np.random.default_rng(318)
+    shared = [(warm[0][0][:256] + rng.integers(0, vocab, size=n - 256)
+               .tolist(), m) for n, m in lengths]
+    return (t, warmup_s, measured_s,
+            _admission_device_ms(engine, warm, shared))
+
+
+def graph_serve_phase(card: str, paged: dict) -> None:
+    """Phase 19: serving on captured graphs at full width."""
+    model = _serve_lm().cuda().eval()
+    plan = kv_cache.build_plan(model)
+    specs = _serve_specs()
+    ln = LM["seq_len"]
+    checks = _family_checks(plan)
+    log(f"[19 graphs] (a) one replay equals the eager kv_cache function, "
+        f"outputs and cache/pool bytes bit for bit (a pool's scratch row "
+        f"aside), for {len(checks)} program families: "
+        f"{', '.join(f'{n} ({r} replays)' for n, r in checks)}")
+    metrics.enable()
+    try:
+        for kv in ("fp32", "int8"):
+            engine = ServeEngine(model, max_batch=8, max_len=ln, paged=True,
+                                 ragged=True, kv_dtype=kv)
+            fa.flash_attention_fwd.launches = 0
+            reqs, t = _drain(engine, specs)
+            want = paged["streams"][kv]
+            if kv == "fp32":
+                ties = _ties(model, reqs, want, f"(b) ragged {kv}")
+            elif [r.generated for r in reqs] != want:
+                raise AssertionError("(b) ragged int8 streams differ from "
+                                     "phase 18 (d)'s bucketed ones")
+            else:
+                ties = 0
+            steps = _counter("serve.decode.steps")
+            decode = [p for (family, _), p in engine.programs.items()
+                      if family == "paged_decode"]
+            if (len(decode) != 1 or decode[0].calls != steps
+                    or decode[0].replays != steps - 1
+                    or engine.compiled_programs()["paged_decode"] != [8]
+                    or fa.flash_attention_fwd.launches):
+                raise AssertionError(
+                    f"(b) ragged {kv}: {len(decode)} decode programs, "
+                    f"{steps} steps, {engine.compiled_programs()}, flash "
+                    f"launches {fa.flash_attention_fwd.launches}")
+            graphs_n = sum(p.graph is not None
+                           for p in engine.programs.values())
+            log(f"[19 graphs] (b) phase 4's 16 requests through "
+                f"ServeEngine(paged=True, ragged=True, kv_dtype='{kv}'): "
+                f"streams equal phase 18's bucketed paged streams, {ties} "
+                f"certified ties; one decode program, {decode[0].calls} "
+                f"calls = {steps} decode steps, {decode[0].replays} replays "
+                f"(the first call ran eagerly and the second captured); "
+                f"{graphs_n} graphs captured in "
+                f"{engine.capture_seconds:.3f} s; {t['tok_s']:.1f} tok/s, "
+                f"TTFT p50 {t['ttft_p50_ms']:.3f} ms, captures included "
+                f"({card}; host clock)")
+        eager = paged["decode_step"]
+        for kind, name in (("cache", "contiguous"), ("fp32", "paged fp32"),
+                           ("int8", "paged int8")):
+            g, e = _graphed_decode_times(plan, kind), eager[name]
+            busy = lambda t: (
+                "device not measured" if t["device_ms"] is None else
+                f"device {t['device_ms']:.4f} ms "
+                f"({t['device_ms'] / t['ms'] * 100:.1f} % busy)")
+            log(f"[19 times] decode step, bucket 8 at 448 positions, {name}:"
+                f" graph {g['ms']:.4f} ms (CUDA events; staging, copies and "
+                f"replay), {busy(g)}; "
+                f"eager (phase 18 f) {e['ms']:.4f} ms, {busy(e)} ({card})")
+        for ln, wrapper, replay, sdpa in _flash_graph_times():
+            log(f"[19 times] flash forward [8, {ln}, 64] fp32 causal: "
+                f"wrapper {wrapper:.4f} ms, captured and replayed "
+                f"{replay:.4f} ms, SDPA {sdpa:.4f} ms (CUDA events; {card})")
+        runs = {}
+        for caching in (True, False, True, False):
+            runs[caching] = _prefix_ttft(model, caching)
+        (hit, warm_s, hit_s, hit_dev), (cold, cold_warm_s, cold_s,
+                                         cold_dev) = runs[True], runs[False]
+        ratio = hit["ttft_p50_ms"] / cold["ttft_p50_ms"]
+        dev = ("not measured" if hit_dev is None or cold_dev is None else
+               f"{hit_dev:.3f} ms with hits vs {cold_dev:.3f} ms cold = "
+               f"{hit_dev / cold_dev:.3f}x")
+        log(f"[19 times] prefix hits on captured programs: TTFT p50 "
+            f"{hit['ttft_p50_ms']:.3f} ms with hits vs "
+            f"{cold['ttft_p50_ms']:.3f} ms cold = {ratio:.3f}x (the "
+            f"reference's serve-bench gate: <= {PREFIX_TTFT_GATE}x; "
+            f"reported, not asserted); captures {warm_s:.3f} s / "
+            f"{cold_warm_s:.3f} s in the warm-ups, {hit_s:.3f} s / "
+            f"{cold_s:.3f} s in the measured runs; second of two rounds in "
+            f"turns ({card}; host clock); device time of the step that "
+            f"admits the 8 (8 prefills, 1 decode step; torch.profiler): "
+            f"{dev}")
+    finally:
+        metrics.disable()
+
+
+def _cnn_device_busy(batch, k: int, fused_on: bool) -> tuple:
+    """(ms per CNN train step, device ms per step or None) at ``k`` steps
+    an execution: phase 17's measure (the batch on the card), through
+    ``make_train_function(k)`` on k stacked copies of it."""
+    model = build_cnn_model()
+    model.compile(optimizer=SGD(learning_rate=0.001, fused=fused_on),
+                  loss=SparseCategoricalCrossentropy(from_logits=True,
+                                                     fused=fused_on),
+                  metrics=[SparseCategoricalAccuracy()])
+    fn, state = model.make_train_function(k), model.train_state()
+    xs, ys = (torch.stack([a] * k) if k > 1 else a for a in batch)
+    step = lambda: fn(*state, xs, ys)
+    windows = max(1, 20 // k)
+    ms = _time_ms(step, runs=11, per_run=windows) / k
+    dev = _device_ms(step, windows)
+    return ms, None if dev is None else dev / k
+
+
+def _lm_k_run(make_opt, k: int, batches) -> tuple[list, tuple, list]:
+    """The full-width LM through ``make_train_function(k)`` over
+    ``batches``, k at a time; returns the executions' losses, the launch
+    counts and the final parameters."""
+    model = _compiled_lm(make_opt())
+    fn, state = model.make_train_function(k), model.train_state()
+    _reset_counts()
+    losses = []
+    for i in range(0, len(batches), k):
+        group = batches[i:i + k]
+        if k == 1:
+            losses.append(fn(*state, *group[0]))
+        else:
+            losses.append(fn(*state, torch.stack([x for x, _ in group]),
+                             torch.stack([y for _, y in group])))
+    losses = [float(v) for v in losses]
+    counts = _counts()
+    params = [p.detach().clone() for p in model.parameters()]
+    del model, fn, state
+    torch.cuda.empty_cache()
+    return losses, counts, params
+
+
+def graph_train_phase(card: str, k1: dict) -> None:
+    """Phase 20: training on captured graphs."""
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    steps = CNN_EPOCHS * CNN_STEPS
+    try:
+        for fused_on in (True, False):
+            name = "fused" if fused_on else "unfused"
+            _reset_counts()
+            t0 = time.monotonic()
+            model, h = _cnn_fit(SGD(learning_rate=0.001, fused=fused_on),
+                                fused_on, CNN_EPOCHS, seed=0, k=CNN_STEPS)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            counts = _counts()
+            want = (0, 0, 0) + ((steps,) * 3 if fused_on else (0, 0, 0))
+            if counts != want:
+                raise AssertionError(f"(a) CNN {name} at k = {CNN_STEPS}: "
+                                     f"launches {counts}; expected {want}")
+            loss1, params1 = k1[name]
+            loss_diff = max(abs(a - b) for a, b in zip(h["loss"], loss1))
+            param_diff = max(float((p.detach() - q).abs().max())
+                             for p, q in zip(model.parameters(), params1))
+            if loss_diff > CNN_LOSS_ATOL or param_diff > GRAPH_PARAM_ATOL:
+                raise AssertionError(
+                    f"(a) CNN {name} at k = {CNN_STEPS}: losses off k = 1's "
+                    f"by {loss_diff:.3e} (atol {CNN_LOSS_ATOL:g}), params by "
+                    f"{param_diff:.3e} (atol {GRAPH_PARAM_ATOL:g})")
+            (graphed,) = model._trainer._graphed.values()
+            ((prog, _),) = graphed.programs.values()
+            log(f"[20 graphs] (a) the program, {name}, "
+                f"steps_per_execution={CNN_STEPS}, {CNN_EPOCHS} x "
+                f"{CNN_STEPS} steps of {CNN_BATCH} in {wall:.3f} s: "
+                f"{prog.calls} executions ({prog.replays} replays of one "
+                f"graph captured in {prog.capture_s:.3f} s); losses "
+                f"{[round(v, 6) for v in h['loss']]}, max |diff| to k = 1 "
+                f"{loss_diff:.3e} (atol {CNN_LOSS_ATOL:g}), params "
+                f"{param_diff:.3e} (atol {GRAPH_PARAM_ATOL:g}); launches CE "
+                f"fwd {counts[3]}, CE bwd {counts[4]}, SGD {counts[5]}")
+            del model
+        x, y = next(iter(_program_chain(0)))
+        batch = (torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
+        for fused_on in (True, False):
+            for k in (1, CNN_STEPS):
+                ms, dev = _cnn_device_busy(batch, k, fused_on)
+                busy = ("not measured" if dev is None else
+                        f"device {dev:.4f} ms/step ({dev / ms * 100:.1f} % "
+                        f"busy)")
+                log(f"[20 times] CNN train step, batch {CNN_BATCH}, "
+                    f"{'fused' if fused_on else 'unfused'}, k = {k}: "
+                    f"{ms:.4f} ms/step = {CNN_BATCH / ms * 1e3:.1f} images/s;"
+                    f" {busy} (torch.profiler) ({card})")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            flags
+    x, y = _bench_tokens(TRAIN_BATCH)
+    batches = [(torch.roll(x, i, 0), torch.roll(y, i, 0))
+               for i in range(2 * LM_GRAPH_EXECUTIONS)]
+    depth, n = LM["depth"], len(batches)
+    for name, make, adam in (
+            ("SGD(learning_rate=0.001)", lambda: SGD(learning_rate=0.001),
+             False),
+            ("Adam(fused=True)", lambda: Adam(fused=True), True)):
+        one, c1, p1 = _lm_k_run(make, 1, batches)
+        two, c2, p2 = _lm_k_run(make, 2, batches)
+        pairs = [(one[i] + one[i + 1]) / 2 for i in range(0, n, 2)]
+        want = (depth * n, depth * n, n if adam else 0, 0, 0, 0)
+        if c1 != want or c2 != want:
+            raise AssertionError(f"(c) LM {name}: launches {c1} (k = 1), "
+                                 f"{c2} (k = 2); expected {want}")
+        np.testing.assert_allclose(two, pairs, atol=LOSS_ATOL, rtol=0,
+                                   err_msg=f"(c) LM {name} at k = 2")
+        leaf_diffs = [float((a - b).abs().max()) for a, b in zip(p2, p1)]
+        param_diff = max(leaf_diffs)
+        if param_diff > LM_GRAPH_PARAM_ATOL:
+            raise AssertionError(
+                f"(c) LM {name} at k = 2: parameters off k = 1's by "
+                f"{param_diff:.3e} (atol {LM_GRAPH_PARAM_ATOL:g}); per leaf "
+                f"{[f'{d:.2e}' for d in leaf_diffs]}")
+        log(f"[20 graphs] (c) full-width LM, {name}, steps_per_execution=2,"
+            f" {len(two)} executions (the first eager, then a capture and "
+            f"{len(two) - 1} replays): losses {[round(v, 6) for v in two]} "
+            f"vs k = 1's pair means {[round(v, 6) for v in pairs]} (max "
+            f"|diff| {max(abs(a - b) for a, b in zip(two, pairs)):.2e}, "
+            f"atol {LOSS_ATOL:g}); final parameters, {len(p2)} leaves, max "
+            f"|diff| to k = 1 {param_diff:.3e} (atol "
+            f"{LM_GRAPH_PARAM_ATOL:g}; {sum(d == 0 for d in leaf_diffs)} "
+            f"leaves bit-identical); launches (flash fwd, flash bwd, Adam, "
+            f"CE fwd, CE bwd, SGD) {c2}")
 
 
 def main() -> int:
@@ -2167,8 +2653,10 @@ def main() -> int:
     slice3 = {"cnn": cnn_fused_phase(), "lm": lm_fused_phase()}
     new_records = slice3_timing_phase(slice3, ce_errs, sgd_errs,
                                       sgd_step_ms)
-    paged_phase(card, contiguous_streams)
+    paged = paged_phase(card, contiguous_streams)
     paged_cli_phase()
+    graph_serve_phase(card, paged)
+    graph_train_phase(card, slice3["cnn"]["k1"])
     # In the order of the TPU kernel table (PERF.md): rows 1-9.
     records = [*new_records, adam_record, record, *bwd_records]
     log(f"done in {time.monotonic() - t0:.1f} s")

@@ -11,7 +11,9 @@ serving test shows the engine's prefills went through the forward kernel
 reference's do, streams on the card as on the CPU),
 the training test that a train step went through the forward, backward
 and fused Adam kernels, and the CNN test that a fused ``fit`` went through
-the fused cross-entropy and SGD kernels.
+the fused cross-entropy and SGD kernels. The captured programs (CUDA
+graphs, ``utils/graphs.py``) replay as their eager functions, bit for bit,
+and their replays count the kernels they launch.
 """
 
 import numpy as np
@@ -800,3 +802,193 @@ def test_steady_fit_builds_no_new_table(cuda_device, make):
     model.fit(Dataset.from_tensor_slices((x, y)).batch(32), epochs=2,
               steps_per_epoch=6, verbose=0, callbacks=[Record()])
     assert builds == [1] * 12
+
+
+# -- CUDA graphs: serving's and training's captured programs -----------------
+
+
+def _graph_lm():
+    from tpu_dist_torch.serve import kv_cache
+
+    model = build_transformer_lm(64, 128, d_model=64, depth=2, num_heads=2,
+                                 seed=3).cuda().eval()
+    return model, kv_cache.build_plan(model)
+
+
+@pytest.mark.gpu
+def test_a_prefill_replay_equals_the_eager_prefill(cuda_device):
+    # The first call runs eagerly, the second captures and replays, the
+    # third replays: every call's logits and the cache bytes are the eager
+    # function's on the same inputs, bit for bit, and each call counts its
+    # depth flash launches once (the capture counts none).
+    from functools import partial
+
+    from tpu_dist_torch.serve import kv_cache
+    from tpu_dist_torch.utils.graphs import CapturedProgram, spec_of
+
+    _, plan = _graph_lm()
+    caches = [kv_cache.init_cache(plan, max_batch=3, max_len=128,
+                                  device=cuda_device) for _ in range(2)]
+    rng = np.random.default_rng(4)
+    calls = [dict(tokens=rng.integers(0, 64, size=32), length=n, slot=s)
+             for n, s in ((29, 0), (7, 2), (32, 1))]
+    prog = CapturedProgram(partial(kv_cache.prefill, plan, caches[1]),
+                           {n: spec_of(v) for n, v in calls[0].items()},
+                           device=cuda_device)
+    fa.flash_attention_fwd.launches = 0
+    with torch.inference_mode():
+        for i, call in enumerate(calls):
+            got = prog(**call).clone()
+            counted = fa.flash_attention_fwd.launches
+            want = kv_cache.prefill(plan, caches[0],
+                                    torch.from_numpy(call["tokens"]).cuda(),
+                                    call["length"], call["slot"])
+            assert fa.flash_attention_fwd.launches == counted + 2
+            assert counted == 2 * (2 * i + 1)
+            assert torch.equal(got, want)
+            assert all(torch.equal(caches[0][k], caches[1][k])
+                       for k in caches[0])
+    assert prog.graph is not None and prog.replays == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.int8])
+def test_a_ragged_decode_replay_equals_the_eager_step(cuda_device, kv_dtype):
+    from functools import partial
+
+    from tpu_dist_torch.serve import kv_cache
+    from tpu_dist_torch.utils.graphs import CapturedProgram, spec_of
+
+    _, plan = _graph_lm()
+    pools = [kv_cache.init_page_pool(plan, num_pages=16, page_size=16,
+                                     dtype=kv_dtype, device=cuda_device)
+             for _ in range(2)]
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    for name, a in pools[0].items():
+        if a.dtype == torch.int8:
+            a.copy_(torch.randint(-127, 128, a.shape, generator=gen,
+                                  device=cuda_device))
+        else:
+            a.copy_(torch.rand(a.shape, generator=gen, device=cuda_device))
+        pools[1][name].copy_(a)
+    tables = np.full((4, 8), 16, np.int32)
+    tables[0, :3], tables[1, :2], tables[2, :2] = [4, 1, 9], [2, 7], [3, 5]
+    host = dict(page_tables=tables, tokens=np.array([1, 2, 3, 4]),
+                lengths=np.array([40, 20, 17, 0]),
+                active=np.array([True, False, True, False]))
+    prog = CapturedProgram(
+        partial(kv_cache.paged_decode_ragged, plan, pools[1]),
+        {n: spec_of(v) for n, v in host.items()}, device=cuda_device)
+    with torch.inference_mode():
+        for _ in range(3):
+            got = prog(**host).clone()
+            want = kv_cache.paged_decode_ragged(
+                plan, pools[0], *(torch.from_numpy(host[n]).cuda() for n in
+                                  ("page_tables", "tokens", "lengths",
+                                   "active")))
+            assert torch.equal(got, want)
+            assert all(torch.equal(pools[0][k], pools[1][k])
+                       for k in pools[0])
+            host["tokens"] = got.argmax(-1).cpu().numpy()
+            host["lengths"] = host["lengths"] + host["active"]
+    assert prog.replays == 2
+
+
+@pytest.mark.gpu
+def test_engine_captures_each_program_on_the_card_and_never_on_the_cpu(
+        cuda_device):
+    # The ragged engine holds one decode program, replayed every step but
+    # the first; every key used twice is captured; the CPU engine holds
+    # none. Both stream the same tokens.
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, 64, size=n).tolist() for n in (5, 30, 9, 12)]
+    streams = []
+    for device in (cuda_device, "cpu"):
+        model = build_transformer_lm(64, 128, d_model=64, depth=2,
+                                     num_heads=2)
+        engine = ServeEngine(model, max_batch=4, max_len=128, paged=True,
+                             ragged=True, device=device)
+        reqs = [engine.submit(p, max_new_tokens=8) for p in prompts]
+        engine.run_until_idle()
+        streams.append([r.generated for r in reqs])
+        if device == "cpu":
+            assert engine.programs == {} and engine.capture_seconds == 0.0
+            continue
+        decode = [p for (family, _), p in engine.programs.items()
+                  if family == "paged_decode"]
+        assert len(decode) == 1 and decode[0].replays == decode[0].calls - 1
+        assert all((p.graph is not None) == (p.calls > 1)
+                   for p in engine.programs.values())
+        assert engine.capture_seconds > 0
+    assert streams[0] == streams[1]
+
+
+@pytest.mark.gpu
+def test_a_capture_that_fails_raises_and_runs_nothing_eagerly(cuda_device):
+    # A fused update whose leaf table is new at every call: the first call
+    # runs eagerly and builds its table; the second must capture, meets a
+    # table it cannot build inside a capture, and raises — the parameter
+    # keeps the first call's value.
+    from tpu_dist_torch.utils.graphs import CapturedProgram
+
+    params = [torch.zeros(8, device=cuda_device)]
+    grads = [torch.ones(8, device=cuda_device)]
+
+    def update(lr):
+        optimizer = SGD(learning_rate=0.1, fused=True)
+        optimizer.update(grads, optimizer.init(params), params)
+        return params[0].sum()
+
+    prog = CapturedProgram(update, {"lr": ((), torch.float32)},
+                           device=cuda_device)
+    fused.fused_sgd_apply.launches = 0
+    prog(lr=np.float32(0.1))
+    after_one = params[0].clone()
+    with pytest.raises(RuntimeError, match="eagerly first"):
+        prog(lr=np.float32(0.1))
+    torch.cuda.synchronize()
+    assert torch.equal(params[0], after_one)
+    assert prog.graph is None and fused.fused_sgd_apply.launches == 1
+    with pytest.raises(ValueError, match="CUDA device"):
+        CapturedProgram(update, {}, device="cpu")
+
+
+@pytest.mark.gpu
+def test_cnn_fit_on_graphs_equals_k1_and_counts_replays(cuda_device):
+    # steps_per_execution = 3 on the card: each window after the first is
+    # a replay of one captured graph of 3 steps. Losses and parameters
+    # equal k = 1's, and the kernels count every step (cuDNN set
+    # deterministic, so the convolutions' sums do not move between runs).
+    images, labels = load_arrays("mnist", synthetic_size=512)
+    x, y = images.astype(np.float32) / 255.0, labels
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    out = {}
+    try:
+        for k in (1, 3):
+            model = build_cnn_model(seed=1)
+            model.compile(optimizer=SGD(learning_rate=0.01, fused=True),
+                          loss=SparseCategoricalCrossentropy(
+                              from_logits=True, fused=True),
+                          steps_per_execution=k, device=cuda_device)
+            fused.fused_ce_fwd.launches = fused.fused_ce_bwd.launches = 0
+            fused.fused_sgd_apply.launches = 0
+            history = model.fit(Dataset.from_tensor_slices((x, y)).batch(32),
+                                epochs=3, steps_per_epoch=6, verbose=0)
+            out[k] = (history.history["loss"],
+                      [p.detach().clone() for p in model.parameters()],
+                      (fused.fused_ce_fwd.launches,
+                       fused.fused_ce_bwd.launches,
+                       fused.fused_sgd_apply.launches),
+                      model._trainer)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            flags
+    assert out[3][2] == out[1][2] == (18, 18, 18)
+    assert out[3][0] == out[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(out[3][1], out[1][1]))
+    (graphed,) = out[3][3]._graphed.values()
+    ((prog, _),) = graphed.programs.values()
+    assert prog.calls == 6 and prog.replays == 5

@@ -167,8 +167,6 @@ def test_callbacks_see_batches_and_can_stop_training(capsys):
 
 
 @pytest.mark.parametrize("knob,call", [
-    ("steps_per_execution", lambda m: m.compile(
-        optimizer="sgd", loss="mse", steps_per_execution=2, device="cpu")),
     ("gradient_bucket_bytes", lambda m: m.compile(
         optimizer="sgd", loss="mse", gradient_bucket_bytes=1024,
         device="cpu")),
@@ -178,8 +176,6 @@ def test_callbacks_see_batches_and_can_stop_training(capsys):
                                             device="cpu")),
     ("profile_dir", lambda m: m.fit(_tokens(32, 0), profile_dir="p")),
     ("checkpoint_dir", lambda m: m.fit(_tokens(32, 0), checkpoint_dir="c")),
-    ("steps_per_execution", lambda m: m.make_train_function(
-        steps_per_execution=4)),
     ("Dataset input", lambda m: m.fit(
         Dataset.from_tensor_slices(_tokens(32, 0)).batch(8),
         profile_dir="p")),

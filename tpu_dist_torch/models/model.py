@@ -116,10 +116,12 @@ class Sequential(nn.Module):
         its parameters are. Recompiling keeps the weights and rebuilds the
         optimizer state.
 
-        ``steps_per_execution > 1``, ``gradient_bucket_bytes`` and
+        ``steps_per_execution = k`` runs k train steps per execution (on
+        CUDA in one process, one captured CUDA graph; see
+        ``training/trainer.py``). ``gradient_bucket_bytes`` and
         ``prefetch_to_device`` are the JAX package's knobs that come with
-        slice 3b of the port; each raises ``NotImplementedError`` until
-        then."""
+        later slices of the port; each raises ``NotImplementedError``
+        until then."""
         from tpu_dist_torch.parallel.strategy import get_strategy
 
         if steps_per_execution < 1:
@@ -132,8 +134,6 @@ class Sequential(nn.Module):
         if prefetch_to_device < 0:
             raise ValueError(
                 f"prefetch_to_device must be >= 0, got {prefetch_to_device}")
-        if steps_per_execution > 1:
-            raise unported("compile(steps_per_execution > 1)")
         if gradient_bucket_bytes:
             raise unported("compile(gradient_bucket_bytes=)")
         if prefetch_to_device:

@@ -83,11 +83,17 @@ class PiecewiseConstantDecay(LearningRateSchedule):
 
     def __call__(self, step):
         step = torch.as_tensor(step)
-        bounds = torch.tensor(self.boundaries, device=step.device)
-        vals = torch.tensor(self.values, dtype=torch.float32,
-                            device=step.device)
-        # Index = number of boundaries the step has passed (step > b).
-        return vals[(step > bounds).sum()]
+        # Index = number of boundaries the step has passed (step > b). Only
+        # device ops on Python scalars, no copy from the host, so a CUDA
+        # graph can capture the schedule.
+        passed = torch.zeros((), dtype=torch.int64, device=step.device)
+        for b in self.boundaries:
+            passed = passed + (step > b)
+        lr = torch.full((), self.values[0], dtype=torch.float32,
+                        device=step.device)
+        for i, v in enumerate(self.values[1:], 1):
+            lr = torch.where(passed == i, v, lr)
+        return lr
 
 
 class WarmupCosine(LearningRateSchedule):

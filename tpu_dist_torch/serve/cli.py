@@ -13,7 +13,8 @@ Counterpart of ``tpu_dist/serve/cli.py`` (its demo and ``--bench`` modes):
 
 ``--paged`` serves from the paged KV pool with prefix caching
 (``--page-size``, ``--num-pages``, ``--budget-mb``, ``--kv-dtype int8``
-for quantized pages); ``--budget-mb`` alone guards the contiguous cache.
+for quantized pages, ``--ragged`` for one full-capacity decode program);
+``--budget-mb`` alone guards the contiguous cache.
 Runs on the CUDA device unless ``--device cpu`` is given. The full width
 of the repo's benchmark LM is ``--vocab 8192 --d-model 512 --depth 4
 --num-heads 8 --max-len 512``.
@@ -49,6 +50,8 @@ def _build_engine(args):
                         "num_pages": args.num_pages}
         if args.kv_dtype is not None:
             paged_kwargs["kv_dtype"] = args.kv_dtype
+        if args.ragged:
+            paged_kwargs["ragged"] = True
     if args.budget_mb is not None:
         paged_kwargs["budget_bytes"] = int(args.budget_mb * 2**20)
     model = build_transformer_lm(args.vocab, args.max_len,
@@ -201,6 +204,9 @@ def main(argv=None) -> int:
                    help="paged-pool storage dtype (with --paged); int8 "
                         "quantizes K/V pages with per-position fp32 "
                         "scales — ~2x pages at a fixed --budget-mb")
+    p.add_argument("--ragged", action="store_true",
+                   help="one full-capacity decode program with per-slot "
+                        "masking instead of pow2 buckets (with --paged)")
     args = p.parse_args(argv)
 
     metrics.get_registry().reset()
@@ -225,6 +231,7 @@ def main(argv=None) -> int:
                            "paged": bool(args.paged),
                            "page_size": args.page_size,
                            "kv_dtype": args.kv_dtype,
+                           "ragged": bool(args.ragged),
                            "seed": args.seed},
                 **summary,
             }

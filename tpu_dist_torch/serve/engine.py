@@ -1,7 +1,7 @@
 """ServeEngine: the continuous-batching inference loop on one device.
 
 Counterpart of ``tpu_dist/serve/engine.py`` without its journal, load
-shedding, stall watchdog, jobs runtime and ragged decode. Scheduling stays
+shedding, stall watchdog and jobs runtime. Scheduling stays
 host-side in ``scheduler.py`` (and ``paging.py`` for the paged pool), math
 in ``kv_cache.py``; the engine owns the model on its device, the KV cache
 or page pool and the host mirrors of per-slot decode state:
@@ -12,7 +12,7 @@ or page pool and the host mirrors of per-slot decode state:
   decode steps instead;
 * each :meth:`step` runs one decode step over the scheduler's bucket (the
   smallest configured bucket covering the active slots; powers of two by
-  default);
+  default), or, with ``ragged=True``, over every slot under an active mask;
 * a freed slot is compacted by swapping the last active slot down, and
   the engine mirrors the swap in the cache (``kv_cache.swap_slots``) or,
   paged, in the host page tables.
@@ -23,15 +23,23 @@ worst-case pages, repeated prompt prefixes attach shared read-only pages
 first, and ``kv_dtype="int8"`` stores quantized pages. The host's page
 table is sent to the device with every call that reads it.
 
-PyTorch runs eagerly, so there are no compiled programs to cache;
-:meth:`compiled_programs` reports the pad lengths and decode buckets used,
-the reference's program families, so summaries keep their shape. Every
-step emits host-side metrics (``observe/metrics.py``) under the
-reference's names.
+Where the reference ``jax.jit``s one program per family and key (a
+decode bucket, a prefill pad), the port on CUDA runs each family and key
+through one :class:`~tpu_dist_torch.utils.graphs.CapturedProgram`: the
+first call runs eagerly, the second captures a CUDA graph, every later one
+replays it from static input buffers that pinned staging fills. The host
+mirrors and page tables cross to the card by that staging; on the CPU the
+functions run eagerly on copies of them. :meth:`compiled_programs` reports
+the keys used, the reference's program families, and
+:attr:`ServeEngine.capture_seconds` the time spent capturing, which is
+no request's. Every step emits host-side metrics (``observe/metrics.py``)
+under the reference's names.
 """
 
 from __future__ import annotations
 
+import collections
+import functools
 import logging
 import time
 from typing import Optional, Sequence
@@ -43,6 +51,7 @@ from tpu_dist_torch.models.model import Sequential
 from tpu_dist_torch.observe import metrics
 from tpu_dist_torch.serve import kv_cache, paging
 from tpu_dist_torch.serve.scheduler import DONE, Request, Scheduler
+from tpu_dist_torch.utils import graphs
 from tpu_dist_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -110,8 +119,14 @@ class ServeEngine:
         int8 with per-position fp32 scale rows, about twice the pages at
         a fixed ``budget_bytes``. Paged mode only; default None: the pool
         dtype is ``cache_dtype``.
+      ragged: paged mode only — decode ALL slots in one full-capacity
+        program with a per-slot active mask instead of the bucketed
+        family (``kv_cache.paged_decode_ragged``): one decode program (on
+        CUDA one graph), and streams token-identical to the bucketed
+        engine's. Default False.
       device: ``None`` (the CUDA device; raises without one) or an explicit
-        device such as ``"cpu"``.
+        device such as ``"cpu"``. On CUDA every program family runs as
+        captured CUDA graphs (module docstring).
     """
 
     def __init__(self, model: Sequential, *, max_batch: int = 8,
@@ -123,7 +138,8 @@ class ServeEngine:
                  num_pages: Optional[int] = None,
                  budget_bytes: Optional[int] = None,
                  prefix_caching: bool = True, prefill_chunk: int = 0,
-                 prefill_interleave: int = 1, kv_dtype=None, device=None):
+                 prefill_interleave: int = 1, kv_dtype=None,
+                 ragged: bool = False, device=None):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.plan = kv_cache.build_plan(model)
@@ -155,6 +171,11 @@ class ServeEngine:
         self._rng = np.random.default_rng(seed)
         self.paged = bool(paged)
         self.page_size = int(page_size)
+        self.ragged = bool(ragged)
+        if self.ragged and not self.paged:
+            raise ValueError(
+                "serve: ragged decode rides the page tables (one full-"
+                "capacity program, per-slot masking) — pass paged=True")
         if kv_dtype is not None:
             if not self.paged:
                 raise ValueError(
@@ -196,13 +217,14 @@ class ServeEngine:
             logger.info(
                 "serve: paged — %d slots, %d pages x %d positions "
                 "(+scratch) on %s, pool %.1f MiB (%s), prefix caching %s, "
-                "buckets %s", self.max_batch, self.num_pages,
+                "decode %s", self.max_batch, self.num_pages,
                 self.page_size, self.device,
                 kv_cache.page_pool_nbytes(
                     self.plan, num_pages=self.num_pages,
                     page_size=self.page_size, dtype=cache_dtype) / 2**20,
                 cache_dtype, "on" if prefix_caching else "off",
-                buckets or "pow2")
+                "ragged" if self.ragged else
+                f"buckets {buckets or 'pow2'}")
         else:
             self._paging = None
             self.cache = kv_cache.init_cache(
@@ -223,27 +245,30 @@ class ServeEngine:
         self._tokens = np.zeros(self.max_batch, np.int64)
         self._lengths = np.zeros(self.max_batch, np.int64)
         self.finished: list[Request] = []
-        self._decode_buckets: set[int] = set()
-        self._prefill_pads: set[int] = set()
-        self._paged_decode_buckets: set[int] = set()
-        self._paged_prefill_pads: set[int] = set()
-        self._chunk_pads: set[int] = set()
+        #: ``family -> keys`` run so far, on either device.
+        self._keys: dict[str, set[int]] = collections.defaultdict(set)
+        #: ``(family, key) -> CapturedProgram`` on CUDA (empty on the CPU).
+        self.programs: dict[tuple[str, int], graphs.CapturedProgram] = {}
+        self._graph_pool = (torch.cuda.graph_pool_handle()
+                            if self.device.type == "cuda" else None)
+        #: Seconds spent capturing graphs, apart from any request's time.
+        self.capture_seconds = 0.0
 
     def compiled_programs(self) -> dict:
         """``{'decode': [buckets...], 'prefill': [pad_lens...]}`` used so
-        far — the reference's program families. Paged engines add
-        ``paged_decode``/``paged_prefill`` (a suffix after a prefix hit
-        pads to its own power of two; paged chunks run through
-        ``paged_prefill`` too); contiguous chunked engines add
+        far — the reference's program families; on CUDA each key is one
+        :attr:`programs` entry, captured at its second use. Paged engines
+        add ``paged_decode``/``paged_prefill`` (a suffix after a prefix
+        hit pads to its own power of two; paged chunks run through
+        ``paged_prefill`` too; a ragged engine's one decode key is
+        ``max_batch``); contiguous chunked engines add
         ``prefill_chunk``."""
-        out = {"decode": sorted(self._decode_buckets),
-               "prefill": sorted(self._prefill_pads)}
+        families = ["decode", "prefill"]
         if self.paged:
-            out["paged_decode"] = sorted(self._paged_decode_buckets)
-            out["paged_prefill"] = sorted(self._paged_prefill_pads)
+            families += ["paged_decode", "paged_prefill"]
         if self.prefill_chunk and not self.paged:
-            out["prefill_chunk"] = sorted(self._chunk_pads)
-        return out
+            families.append("prefill_chunk")
+        return {f: sorted(self._keys[f]) for f in families}
 
     # -- request intake -------------------------------------------------------
 
@@ -280,8 +305,30 @@ class ServeEngine:
 
     def _to_device(self, array: np.ndarray) -> torch.Tensor:
         """A device copy of a host array (never a view of it: the host
-        mirrors and page tables change after the call)."""
+        mirrors and page tables change after the call). The CPU path's: a
+        pageable copy cannot be captured."""
         return torch.tensor(array, device=self.device)
+
+    def _run(self, family: str, key: int, fn, **inputs):
+        """``fn(**inputs)`` as the program of ``family`` at ``key``. On the
+        CPU, eagerly on device copies of the host arrays (ints as they
+        are). On CUDA through that key's captured program, fed from
+        ``inputs`` by its pinned staging; the outputs are read before the
+        next call."""
+        self._keys[family].add(key)
+        if self.device.type != "cuda":
+            return fn(**{n: self._to_device(v) if isinstance(v, np.ndarray)
+                         else v for n, v in inputs.items()})
+        prog = self.programs.get((family, key))
+        if prog is None:
+            prog = self.programs[(family, key)] = graphs.CapturedProgram(
+                fn, {n: graphs.spec_of(v) for n, v in inputs.items()},
+                device=self.device, pool=self._graph_pool)
+        captured = prog.graph is not None
+        out = prog(**inputs)
+        if not captured and prog.graph is not None:
+            self.capture_seconds += prog.capture_s
+        return out
 
     def _copy_pages(self, copies) -> None:
         """Run the copy-on-write ``(src, dst)`` page copies in order."""
@@ -351,11 +398,11 @@ class ServeEngine:
         ``serve.kv.quant_error`` distribution."""
         tokens = np.zeros(pad, np.int64)
         tokens[:end - start] = seq[start:end]
-        self._paged_prefill_pads.add(pad)
-        out = kv_cache.paged_prefill(
-            self.plan, self.cache,
-            self._to_device(self._paging.allocator.table[req.slot]),
-            self._to_device(tokens), end, start)
+        out = self._run(
+            "paged_prefill", pad,
+            functools.partial(kv_cache.paged_prefill, self.plan, self.cache),
+            page_row=self._paging.allocator.table[req.slot], tokens=tokens,
+            length=end, start=start)
         if not self._kv_quant:
             return out
         logits, qerr = out
@@ -395,10 +442,11 @@ class ServeEngine:
                 pad = _pad_to_pow2(plen, hi=self.max_len)
                 tokens = np.zeros(pad, np.int64)
                 tokens[:plen] = seq
-                self._prefill_pads.add(pad)
-                logits = kv_cache.prefill(self.plan, self.cache,
-                                          self._to_device(tokens), plen,
-                                          req.slot)
+                logits = self._run(
+                    "prefill", pad,
+                    functools.partial(kv_cache.prefill, self.plan,
+                                      self.cache),
+                    tokens=tokens, length=plen, slot=req.slot)
         req.prefill_pos = plen
         self._first_token(req, logits, plen)
 
@@ -442,10 +490,11 @@ class ServeEngine:
             else:
                 tokens = np.zeros(pad, np.int64)
                 tokens[:end - start] = seq[start:end]
-                self._chunk_pads.add(pad)
-                logits = kv_cache.prefill_chunk_step(
-                    self.plan, self.cache, self._to_device(tokens), end,
-                    req.slot, start)
+                logits = self._run(
+                    "prefill_chunk", pad,
+                    functools.partial(kv_cache.prefill_chunk_step,
+                                      self.plan, self.cache),
+                    tokens=tokens, length=end, slot=req.slot, start=start)
         req.prefill_pos = end
         self._lengths[req.slot] = end
         metrics.inc("serve.prefill.chunks")
@@ -485,7 +534,9 @@ class ServeEngine:
         ready = self.scheduler.ready()
         if not ready:
             return n
-        bucket = self.scheduler.bucket()
+        # A ragged engine decodes every slot in one program, so occupancy
+        # is measured against the whole capacity.
+        bucket = self.max_batch if self.ragged else self.scheduler.bucket()
         metrics.observe_value("serve.batch.occupancy", len(ready) / bucket)
         with torch.inference_mode():
             if self.paged:
@@ -495,17 +546,33 @@ class ServeEngine:
                 for req in ready:
                     self._copy_pages(self._paging.prepare_append(
                         req.slot, int(self._lengths[req.slot])))
-                self._paged_decode_buckets.add(bucket)
-                logits = kv_cache.paged_decode_step(
-                    self.plan, self.cache,
-                    self._to_device(self._paging.allocator.table),
-                    self._to_device(self._tokens),
-                    self._to_device(self._lengths), bucket=bucket)
+                decode = dict(page_tables=self._paging.allocator.table,
+                              tokens=self._tokens,
+                              lengths=self._lengths)
+                if self.ragged:
+                    # Only fully prefilled slots write their real tail
+                    # pages: empty slots and slots in the middle of a
+                    # chunked prefill (whose rows hold real pages) write
+                    # to the scratch page.
+                    active = np.zeros(self.max_batch, bool)
+                    active[[r.slot for r in ready]] = True
+                    logits = self._run(
+                        "paged_decode", bucket,
+                        functools.partial(kv_cache.paged_decode_ragged,
+                                          self.plan, self.cache),
+                        active=active, **decode)
+                else:
+                    logits = self._run(
+                        "paged_decode", bucket,
+                        functools.partial(kv_cache.paged_decode_step,
+                                          self.plan, self.cache,
+                                          bucket=bucket), **decode)
             else:
-                self._decode_buckets.add(bucket)
-                logits = kv_cache.decode_step(
-                    self.plan, self.cache, self._to_device(self._tokens),
-                    self._to_device(self._lengths), bucket=bucket)
+                logits = self._run(
+                    "decode", bucket,
+                    functools.partial(kv_cache.decode_step, self.plan,
+                                      self.cache, bucket=bucket),
+                    tokens=self._tokens, lengths=self._lengths)
             logits = logits.cpu().numpy()  # waits for the device
         metrics.inc("serve.decode.steps")
         now = self.clock()

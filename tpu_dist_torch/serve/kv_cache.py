@@ -32,9 +32,17 @@ page_size, key_dim]`` addressed through per-slot page tables that
 for an int8 pool. :func:`paged_prefill` (cold, suffix after a prefix hit,
 or one chunk), :func:`paged_decode_step` and :func:`copy_page` update the
 pool in place; :func:`prefill_chunk_step` is the contiguous cache's chunk
-step. As in the reference these compute attention with dense einsums
-over the gathered pages under the ``key_pos <= pos`` mask, not with the
-flash kernel (the reference's paged path reaches no Pallas kernel).
+step; :func:`paged_decode_ragged` decodes every slot of the engine at once
+under an active mask. As in the reference these compute attention with
+dense einsums over the gathered pages under the ``key_pos <= pos`` mask,
+not with the flash kernel (the reference's paged path reaches no Pallas
+kernel).
+
+The scalar arguments of the prefills (``length``, ``slot``, ``start``) are
+Python ints or 0-d integer tensors on the cache's device. Either becomes a
+0-d tensor at entry and is used only through index ops, never read on the
+host, so one CUDA graph of a prefill at a pad (``utils/graphs.py``) serves
+every request.
 """
 
 from __future__ import annotations
@@ -193,8 +201,27 @@ def init_cache(plan: DecodePlan, *, max_batch: int, max_len: int,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def prefill(plan: DecodePlan, cache: dict, tokens, length: int, slot: int,
-            *, attention_fn: Optional[Callable] = None):
+def _scalar(v, device) -> torch.Tensor:
+    """A prefill's scalar argument (an int or a 0-d integer tensor) as a
+    0-d int64 tensor on ``device``; the prefills use it only through index
+    ops, never read on the host."""
+    return torch.as_tensor(v, dtype=torch.long, device=device)
+
+
+def _take(x, i):
+    """``x[i]`` along dim 0 for a 0-d integer tensor ``i``: an index op
+    (PyTorch reads a 0-d tensor index on the host)."""
+    return x.index_select(0, i.reshape(1)).squeeze(0)
+
+
+def _last(n):
+    """``max(n - 1, 0)`` of a 0-d integer tensor: the index of the last of
+    ``n`` positions."""
+    return torch.clamp(n - 1, min=0)
+
+
+def prefill(plan: DecodePlan, cache: dict, tokens, length, slot, *,
+            attention_fn: Optional[Callable] = None):
     """Full causal forward over one padded prompt, filling cache slot
     ``slot`` in place.
 
@@ -203,7 +230,8 @@ def prefill(plan: DecodePlan, cache: dict, tokens, length: int, slot: int,
         ``length`` with any token id (padded positions' K/V land in the
         cache but decode's validity mask never reads them before they are
         overwritten).
-      length: number of valid prompt tokens (>= 1).
+      length: number of valid prompt tokens (>= 1), an int or a 0-d
+        integer tensor on the cache's device (as ``slot``).
       slot: cache row to fill.
       attention_fn: override for the prefill attention inner loop
         (signature ``fn(q, k, v, causal=..., scale=...)``); defaults to the
@@ -214,6 +242,8 @@ def prefill(plan: DecodePlan, cache: dict, tokens, length: int, slot: int,
       distribution over the first generated token.
     """
     attend = attention_fn or _default_attention
+    length = _scalar(length, tokens.device)
+    slot = _scalar(slot, tokens.device)
     x = tokens[None]  # [1, pad_len]
     pad_len = tokens.shape[0]
     residuals: list = []
@@ -229,11 +259,12 @@ def prefill(plan: DecodePlan, cache: dict, tokens, length: int, slot: int,
             out = attend(q, k, v, causal=True,
                          scale=1.0 / math.sqrt(layer.key_dim))
             for name, new in (("k", k), ("v", v)):
-                cache[name][idx, slot, :, :pad_len] = new[0]
+                cache[name][idx, :, :, :pad_len].index_copy_(
+                    0, slot.reshape(1), new.to(cache[name].dtype))
             x = layer.out(out)
         else:  # "embed" / "pos" / "point": the layer's own forward
             x = op[1](x)
-    return x[0, max(length - 1, 0)]
+    return _take(x[0], _last(length))
 
 
 def _abs_positions(op, x, pos):
@@ -256,8 +287,8 @@ def _masked_attention(q, keys, vals, mask, key_dim: int):
                         vals.float()).to(q.dtype)
 
 
-def prefill_chunk_step(plan: DecodePlan, cache: dict, tokens, length: int,
-                       slot: int, start: int):
+def prefill_chunk_step(plan: DecodePlan, cache: dict, tokens, length, slot,
+                       start):
     """Causal forward over ONE chunk of a prompt — the contiguous-cache
     half of chunked prefill; the cache is updated in place.
 
@@ -277,20 +308,26 @@ def prefill_chunk_step(plan: DecodePlan, cache: dict, tokens, length: int,
         overwrites them. ``start + chunk_pad`` must not pass ``max_len``.
       length: total valid positions through the end of this chunk.
       slot: cache row.
-      start: already-cached positions (``< length``).
+      start: already-cached positions (``< length``). ``length``, ``slot``
+        and ``start`` are ints or 0-d integer tensors on the cache's
+        device; the window check below needs an int ``start`` (the
+        engine's windows never run past the row: its chunk divides
+        ``max_len``).
 
     Returns:
       logits ``[vocab]`` of position ``length - 1``.
     """
     pad = tokens.shape[0]
     max_len = cache["k"].shape[3]
-    if start + pad > max_len:
+    if not isinstance(start, torch.Tensor) and start + pad > max_len:
         raise ValueError(
             f"serve: chunk window [{start}, {start + pad}) runs past the "
             f"{max_len}-position cache row")
+    dev = tokens.device
+    length, slot, start = (_scalar(a, dev) for a in (length, slot, start))
     x = tokens[None]                       # [1, pad]
-    pos = start + torch.arange(pad, device=tokens.device)
-    mask = (torch.arange(max_len, device=tokens.device)[None, :]
+    pos = start + torch.arange(pad, device=dev)
+    mask = (torch.arange(max_len, device=dev)[None, :]
             <= pos[:, None])               # [pad, S]
     residuals: list = []
     for op in plan.ops:
@@ -305,15 +342,16 @@ def prefill_chunk_step(plan: DecodePlan, cache: dict, tokens, length: int,
             _, layer, idx = op
             q, k, v = layer.qkv(x)         # [1, H, pad, dk]
             for name, new in (("k", k), ("v", v)):
-                cache[name][idx, slot, :, start:start + pad] = new[0].to(
-                    cache[name].dtype)
-            out = _masked_attention(q[0], cache["k"][idx, slot],
-                                    cache["v"][idx, slot], mask,
+                # The window's positions as an index: [pad, H, dk].
+                _write_rows(cache, name, idx, slot.reshape(1), pos,
+                            new[0].movedim(1, 0))
+            out = _masked_attention(q[0], _take(cache["k"][idx], slot),
+                                    _take(cache["v"][idx], slot), mask,
                                     layer.key_dim)
             x = layer.out(out[None])
         else:  # "embed" / "point"
             x = op[1](x)
-    return x[0, max(length - start - 1, 0)]
+    return _take(x[0], _last(length - start))
 
 
 def decode_step(plan: DecodePlan, cache: dict, tokens, lengths, *,
@@ -526,8 +564,8 @@ def _write_rows(pool: dict, name: str, layer_idx: int, pg, off, rows):
     return None, None
 
 
-def paged_prefill(plan: DecodePlan, pool: dict, page_row, tokens,
-                  length: int, start: int):
+def paged_prefill(plan: DecodePlan, pool: dict, page_row, tokens, length,
+                  start):
     """Causal forward over the UNCACHED suffix of one prompt, writing K/V
     through the page table into ``pool`` in place.
 
@@ -546,7 +584,8 @@ def paged_prefill(plan: DecodePlan, pool: dict, page_row, tokens,
       tokens: int ``[pad]`` suffix tokens for absolute positions
         ``start .. length - 1``, padded past ``length - start``.
       length: total valid positions (prefix + suffix).
-      start: cached-prefix length (``< length``).
+      start: cached-prefix length (``< length``). ``length`` and ``start``
+        are ints or 0-d integer tensors on the pool's device.
 
     Returns:
       logits ``[vocab]`` of position ``length - 1`` for a float pool; an
@@ -559,6 +598,7 @@ def paged_prefill(plan: DecodePlan, pool: dict, page_row, tokens,
     max_pages = page_row.shape[0]
     pad = tokens.shape[0]
     dev = tokens.device
+    length, start = _scalar(length, dev), _scalar(start, dev)
     x = tokens[None]                       # [1, pad]
     suffix = length - start
     ar = torch.arange(pad, device=dev)
@@ -601,7 +641,7 @@ def paged_prefill(plan: DecodePlan, pool: dict, page_row, tokens,
             x = layer.out(out[None])
         else:  # "embed" / "point"
             x = op[1](x)
-    last = x[0, max(suffix - 1, 0)]
+    last = _take(x[0], _last(suffix))
     return (last, qerr) if quant else last
 
 
@@ -611,8 +651,8 @@ def _paged_decode_core(plan: DecodePlan, pool: dict, tables, tokens, pos,
 
     ``route(pg)`` maps each slot's computed tail page to its write
     destination — the identity for the bucketed path (inactive slots carry
-    all-scratch table rows by host invariant); a ragged decode would route
-    inactive slots to scratch instead.
+    all-scratch table rows by host invariant); :func:`paged_decode_ragged`
+    routes inactive slots to scratch instead.
     """
     ps = pool["k"].shape[3]
     max_pages = tables.shape[1]
@@ -673,6 +713,34 @@ def paged_decode_step(plan: DecodePlan, pool: dict, page_tables, tokens,
     return _paged_decode_core(plan, pool, page_tables[:bucket],
                               tokens[:bucket], lengths[:bucket],
                               lambda pg: pg)
+
+
+def paged_decode_ragged(plan: DecodePlan, pool: dict, page_tables, tokens,
+                        lengths, active):
+    """One generated token for every ACTIVE slot, the whole slot capacity
+    in one program; the pool is updated in place.
+
+    The ragged replacement for the bucketed decode family: the page-table
+    gather has already erased contiguity, so the batch can be every slot
+    of the engine with per-slot masking — one decode program, and on CUDA
+    one captured graph. Inactive rows (empty slots, and slots in the
+    middle of a chunked prefill, whose table rows hold REAL pages) write
+    their tail K/V to the scratch page, and their logits are never read;
+    active rows compute exactly what :func:`paged_decode_step` computes for
+    them, so ragged and bucketed streams are token-identical.
+
+    Args:
+      page_tables: int ``[cap, max_pages]`` on the pool's device.
+      tokens / lengths: int ``[cap]``; every row is read, inactive rows'
+        values are ignored.
+      active: bool ``[cap]`` — the slots that really decode.
+
+    Returns:
+      logits ``[cap, vocab]`` fp32.
+    """
+    num_pages = pool["k"].shape[1] - 1     # last row is scratch
+    return _paged_decode_core(plan, pool, page_tables, tokens, lengths,
+                              lambda pg: torch.where(active, pg, num_pages))
 
 
 def copy_page(pool: dict, src: int, dst: int) -> None:

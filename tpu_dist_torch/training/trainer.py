@@ -33,10 +33,25 @@ OFF every process brings its own equally sized local batch.
 ``fit``/``evaluate`` take a ``Dataset``, a ``DistributedDataset`` or
 ``(x, y)`` arrays (batches of 32 in order), wrapped as the JAX package's
 ``_distribute`` wraps them; anything else raises ``TypeError``.
-``steps_per_execution > 1``, ``gradient_bucket_bytes``,
-``prefetch_to_device``, ``checkpoint_dir`` and ``profile_dir`` come with
-slice 3b of the port, the integrity ``health`` vector with the resilience
-slice (``ROADMAP.md``); each raises ``NotImplementedError``.
+``gradient_bucket_bytes``, ``prefetch_to_device``, ``checkpoint_dir`` and
+``profile_dir`` come with later slices of the port, the integrity
+``health`` vector with the resilience slice (``ROADMAP.md``); each raises
+``NotImplementedError``.
+
+``steps_per_execution = k > 1`` runs k train steps per execution, the JAX
+package's ``lax.scan`` of k steps in one compiled program: the k batches
+arrive stacked on a leading axis and the execution returns their mean
+loss. On CUDA in a single process an execution is one captured CUDA graph
+of the k steps unrolled (``utils/graphs.py``): the first execution of a
+shape runs eagerly (it builds the fused optimizers' leaf tables and moves
+training as any execution does), the second captures and replays, and
+the stacked batches cross to the card by one pinned copy. One graph of k
+unrolled steps is chosen over one graph of a step replayed k times: the
+host then pays one launch an execution, as the reference pays one
+dispatch, where a replayed step needs k replays and k device copies of
+its slice of the batch. The CPU, and a process group (whose all-reduce
+NCCL would have to capture, ROADMAP queue item 10), run the k steps one
+after another with the same kernels.
 
 Epoch semantics are the JAX package's: one persistent iterator across
 epochs when ``steps_per_epoch`` is set, re-created on exhaustion; the epoch
@@ -58,6 +73,7 @@ from tpu_dist_torch.data.pipeline import Dataset
 from tpu_dist_torch.parallel import collectives
 from tpu_dist_torch.training.callbacks import (CallbackList, History,
                                                StopTraining)
+from tpu_dist_torch.utils import graphs
 from tpu_dist_torch.utils.errors import unported
 from tpu_dist_torch.utils.progbar import ProgressBar
 
@@ -95,6 +111,56 @@ def _to_device(a, device) -> torch.Tensor:
     return t.to(device, non_blocking=True)
 
 
+def _device_dtype(a) -> torch.dtype:
+    """The dtype :func:`_to_device` gives a batch (an array or a tensor)."""
+    dt = (a.dtype if isinstance(a, torch.Tensor) else
+          torch.from_numpy(np.empty(0, np.asarray(a).dtype)).dtype)
+    if dt.is_floating_point:
+        return torch.float32
+    return dt if dt == torch.bool else torch.int64
+
+
+def _tensors(tree) -> list:
+    """The tensors of a nest of lists, tuples and dicts, in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = tree.values()
+    return [t for sub in tree for t in _tensors(sub)]
+
+
+class _GraphedExecutions:
+    """K-step executions as captured CUDA graphs: one
+    :class:`~tpu_dist_torch.utils.graphs.CapturedProgram` per stacked batch
+    shape, whose graphs share one memory pool. A program bakes in the
+    addresses of the variables it ran on, so a call with other variable
+    tensors (another ``loss_acc``, say) replaces the shape's program."""
+
+    def __init__(self, multi, device):
+        self.multi, self.device = multi, device
+        self.pool = torch.cuda.graph_pool_handle()
+        self.programs: dict[tuple, tuple] = {}
+
+    def __call__(self, params, state, opt_state, metric_states, loss_acc,
+                 xs, ys, rng=None):
+        variables = (params, state, opt_state, metric_states, loss_acc)
+        key = (tuple(np.shape(xs)), _device_dtype(xs), tuple(np.shape(ys)),
+               _device_dtype(ys))
+        held = [(id(t), t.data_ptr()) for t in _tensors(variables)]
+        prog, was = self.programs.get(key, (None, None))
+        if prog is None or was != held:
+            fn = lambda xs, ys: self.multi(*variables, xs, ys)
+            prog = graphs.CapturedProgram(
+                fn, {"xs": key[:2], "ys": key[2:]}, device=self.device,
+                pool=self.pool)
+            # The program's closure holds the variables, so their ids stay
+            # theirs while it lives.
+            self.programs[key] = (prog, held)
+        # A replay's loss is the graph's own output, rewritten by the next
+        # replay: the caller gets a copy.
+        return prog(xs=xs, ys=ys).clone()
+
+
 class Trainer:
     """Owns the training variables of one model and its train step."""
 
@@ -106,6 +172,8 @@ class Trainer:
         self.variables: Optional[dict] = None  # params/state/opt/metrics
         self._iterator = None
         self._iterator_source = None
+        self._fit_loss_acc: Optional[torch.Tensor] = None
+        self._graphed: dict = {}  # class_weight key -> _GraphedExecutions
 
     @property
     def device(self) -> torch.device:
@@ -209,6 +277,29 @@ class Trainer:
 
         return step
 
+    def _multi_step(self, class_weight: Optional[dict] = None):
+        """The K-step execution, ``(params, state, opt, metrics, loss_acc,
+        xs, ys, rng=None) -> loss``: the train step over ``xs[i], ys[i]``
+        for each i of the leading axis in order, returning the mean of the
+        K losses (the JAX package's scanned step). On CUDA in a single
+        process each execution is a captured graph
+        (:class:`_GraphedExecutions`)."""
+        step = self._step(class_weight)
+
+        def multi(params, state, opt_state, metric_states, loss_acc, xs, ys,
+                  rng=None):
+            losses = [step(params, state, opt_state, metric_states,
+                           loss_acc, xs[i], ys[i]) for i in range(len(xs))]
+            return torch.stack(losses).mean()
+
+        if self.device.type != "cuda" or self.distributed:
+            return multi
+        key = None if class_weight is None else tuple(sorted(
+            class_weight.items()))
+        if key not in self._graphed:
+            self._graphed[key] = _GraphedExecutions(multi, self.device)
+        return self._graphed[key]
+
     def make_train_function(self, steps_per_execution: Optional[int] = None):
         """The train step — public surface for benchmarks and custom loops
         (the JAX package's ``make_train_function``)::
@@ -219,13 +310,15 @@ class Trainer:
         loss_acc, health)`` for the caller to thread into the next call,
         this one updates the variables it is given in place and returns
         the loss alone; call it again with the same :meth:`train_state`.
-        Always the unweighted loss (``class_weight`` is a fit feature)."""
+        With ``steps_per_execution`` (default: the compiled value) k > 1,
+        ``x`` and ``y`` carry a leading k axis (k stacked batches) and the
+        loss is the k-mean; on CUDA in a single process each call is one
+        captured CUDA graph of the k steps (module docstring). Always the
+        unweighted loss (``class_weight`` is a fit feature)."""
         k = (steps_per_execution if steps_per_execution is not None
              else self.model.steps_per_execution)
-        if k > 1:
-            raise unported("steps_per_execution > 1")
         self.ensure_variables()
-        return self._step()
+        return self._multi_step() if k > 1 else self._step()
 
     def train_state(self) -> tuple:
         """The live ``(params, state, opt, metrics, loss_acc)`` tuple, in
@@ -280,8 +373,6 @@ class Trainer:
                            "torch.profiler)")
         if checkpoint_dir is not None:
             raise unported("fit(checkpoint_dir=) (the v1 checkpoint path)")
-        if self.model.steps_per_execution > 1:
-            raise unported("steps_per_execution > 1")
         self.ensure_variables(seed)
         if class_weight is not None:
             class_weight = {int(c): float(w) for c, w in class_weight.items()}
@@ -289,6 +380,8 @@ class Trainer:
                 raise ValueError(f"negative class index in {class_weight}")
             class_weight = class_weight or None  # {} means no weighting
         step = self._step(class_weight)
+        multi = (self._multi_step(class_weight)
+                 if self.model.steps_per_execution > 1 else None)
         batches = self._distribute(x)
         if steps_per_epoch is None:
             steps_per_epoch = batches.cardinality()
@@ -304,39 +397,75 @@ class Trainer:
         cbs = CallbackList([history, *callbacks], model=self.model)
         cbs.on_train_begin()
         try:
-            self._run_epochs(step, batches, cbs, initial_epoch, epochs,
-                             steps_per_epoch, bool(verbose), val_batches,
-                             val_steps)
+            self._run_epochs(step, multi, batches, cbs, initial_epoch,
+                             epochs, steps_per_epoch, bool(verbose),
+                             val_batches, val_steps)
         except StopTraining as e:
             logger.info("training stopped early: %s", e)
         finally:
             cbs.on_train_end()
         return history
 
-    def _run_epochs(self, step, batches, cbs, initial_epoch, epochs,
+    def _reset_accumulators(self) -> torch.Tensor:
+        """Zero the epoch's accumulators in place and return the loss
+        accumulator: the metric states and one loss accumulator stay the
+        same tensors across epochs and fits, so the captured executions
+        that add to them stay valid."""
+        for metric, state in zip(self.model.metrics,
+                                 self.variables["metrics"]):
+            for name, fresh in metric.init(self.device).items():
+                state[name].copy_(fresh)
+        if self._fit_loss_acc is None:
+            self._fit_loss_acc = self._init_loss_acc()
+        return self._fit_loss_acc.zero_()
+
+    def _execute(self, step, multi, batches, k: int):
+        """One execution of ``k`` steps over the next ``k`` batches;
+        returns its loss (the k-mean). A window whose batches do not all
+        have one shape (a ``drop_remainder=False`` tail) runs step by step
+        and returns the last step's loss, as the JAX package does."""
+        v = self.variables
+        variables = (v["params"], v["state"], v["opt"], v["metrics"],
+                     self._fit_loss_acc)
+        if k == 1:
+            return step(*variables, *self._next_batch(batches))
+        window = [self._next_batch(batches) for _ in range(k)]
+        if len({(np.shape(x), np.shape(y)) for x, y in window}) > 1:
+            for xb, yb in window:
+                loss = step(*variables, xb, yb)
+            return loss
+        return multi(*variables, np.stack([x for x, _ in window]),
+                     np.stack([y for _, y in window]))
+
+    def _run_epochs(self, step, multi, batches, cbs, initial_epoch, epochs,
                     steps_per_epoch, show, val_batches, val_steps):
         v = self.variables
+        k = self.model.steps_per_execution
         for epoch in range(initial_epoch, epochs):
             cbs.on_epoch_begin(epoch)
             if show:
                 print(f"Epoch {epoch + 1}/{epochs}")
             bar = ProgressBar(steps_per_epoch, enabled=show)
-            v["metrics"] = self._init_metric_states()  # reset per epoch
-            loss_acc = self._init_loss_acc()
-            # The per-step host read of the loss is paid only when something
-            # consumes it; otherwise the host runs ahead of the device.
+            loss_acc = self._reset_accumulators()  # per epoch
+            # The per-execution host read of the loss is paid only when
+            # something consumes it; otherwise the host runs ahead of the
+            # device.
             eager_loss = show or cbs.has_batch_hooks
             loss_running = 0.0
             t_epoch = time.perf_counter()
-            for step_i in range(steps_per_epoch):
-                xb, yb = self._next_batch(batches)
-                loss = step(v["params"], v["state"], v["opt"], v["metrics"],
-                            loss_acc, xb, yb)
+            step_i = executions = 0
+            while step_i < steps_per_epoch:
+                kk = min(k, steps_per_epoch - step_i)
+                loss = self._execute(step, multi, batches, kk)
+                step_i += kk
+                executions += 1
                 if eager_loss:
+                    # Batch hooks fire once per execution, with its loss;
+                    # the bar advances by its steps.
                     loss_val = float(loss)
                     loss_running += loss_val
-                    bar.update(step_i + 1, loss=loss_running / (step_i + 1))
-                    cbs.on_batch_end(step_i, {"loss": loss_val})
+                    bar.update(step_i, loss=loss_running / executions)
+                    cbs.on_batch_end(step_i - 1, {"loss": loss_val})
             logs = {"epoch_time": time.perf_counter() - t_epoch,
                     **self._results(loss_acc, v["metrics"])}
             if val_batches is not None:
