@@ -155,7 +155,30 @@ plain PyTorch version. Phases:
     time and device-busy share at k = 20 beside k = 1 (phase 17's
     measure); (c) the full-width LM at k = 2 for 2 executions with SGD
     and with ``Adam(fused=True)``: losses within ``LOSS_ATOL`` of k = 1's
-    pair means, every kernel launch counted.
+    pair means, every kernel launch counted;
+21. the input pipeline (``data/``): (a) the native loader built from
+    ``csrc/loader.cpp`` with ``g++``; at 60,000 synthetic MNIST images its
+    ``shuffled_indices``, ``gather_scale`` and ``gather_labels`` equal its
+    numpy path bit for bit; (b) a ``DeviceDataset`` at seed 5, ``mul`` and
+    ``div``, 2 epochs: every batch on the card equals the host chain's map
+    of the same samples bit for bit, each epoch covers every sample once,
+    the images stay uint8 on the card, an evaluation pass leaves the
+    training order as it was; (c) the reference program as it stands: fit
+    promotes its chain to a ``DeviceDataset`` (one upload), whose steps
+    send the card only their index vectors (the host-to-device copies of
+    a profiled epoch: none as large as an image), and the loss falls; then
+    phase 15's fused compile on the promoted chain without a shuffle: 200
+    launches each of CE forward, CE backward and SGD, losses within
+    ``CNN_LOSS_ATOL`` and parameters within ``GRAPH_PARAM_ATOL`` of the
+    same program fed from the host chain; (d) the same at
+    ``steps_per_execution=20``: one captured program whose only input is
+    the index vector, equal to (c) within the same tolerances, 200 launches
+    each; (e) ``compile(prefetch_to_device=2)`` on the host chain: the
+    losses of prefetch 0; (f) the host ms per batch of the element path,
+    the vectorized paths and the prefetched path, the CNN fit step fused,
+    host-fed and device-resident, at k = 1 and 20 (ms, images/s, device ms
+    and busy share from ``torch.profiler``), and the upload's seconds at
+    8,192 and 60,000 images.
 
 Prints one JSON line of kernel records, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
@@ -167,10 +190,12 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import pathlib
 import runpy
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -178,6 +203,7 @@ import torch
 import torch.nn.functional as F
 
 from tpu_dist_torch import data as td_data
+from tpu_dist_torch.data import native
 from tpu_dist_torch.models.cnn import build_cnn_model
 from tpu_dist_torch.models.transformer import (MultiHeadAttention,
                                                _dense_attention,
@@ -2624,6 +2650,345 @@ def graph_train_phase(card: str, k1: dict) -> None:
             f"CE fwd, CE bwd, SGD) {c2}")
 
 
+
+#: Phase 21's source for the upload at MNIST's real scale: the synthetic
+#: MNIST at 60,000 images (47 MB as uint8).
+MNIST_TRAIN = 60000
+
+
+def _scale_div(image, label):
+    """The reference program's map: x / 255 in float32."""
+    return np.asarray(image, np.float32) / 255.0, label
+
+
+def _scale_mul(image, label):
+    return np.asarray(image, np.float32) * np.float32(1.0 / 255.0), label
+
+
+def _chain(shuffle: bool, seed=None, scale=_scale_div, size=None):
+    """The reference program's chain (load -> map -> cache -> shuffle? ->
+    batch, OFF). Unseeded and unshuffled chains are promoted to the card
+    by ``fit``; a seeded one stays on the host path."""
+    ds = td_data.load("mnist", split="train", synthetic_size=size).map(
+        scale).cache()
+    if shuffle:
+        ds = ds.shuffle(10000, seed=seed)
+    options = td_data.Options()
+    options.experimental_distribute.auto_shard_policy = \
+        td_data.AutoShardPolicy.OFF
+    return ds.batch(CNN_BATCH).with_options(options)
+
+
+def _fused_fit(x, *, k: int = 1, prefetch: int = 0, epochs: int = CNN_EPOCHS,
+               model=None):
+    """The reference program's strategy and CNN with phase 15's fused
+    compile, fit on ``x``; returns (model, History dict)."""
+    if model is None:
+        strategy = MultiWorkerMirroredStrategy()
+        with strategy.scope():
+            model = build_cnn_model()
+            model.compile(optimizer=SGD(learning_rate=0.001, fused=True),
+                          loss=SparseCategoricalCrossentropy(
+                              from_logits=True, fused=True),
+                          metrics=[SparseCategoricalAccuracy()],
+                          steps_per_execution=k, prefetch_to_device=prefetch)
+    h = model.fit(x, epochs=epochs, steps_per_epoch=CNN_STEPS, verbose=0)
+    return model, h.history
+
+
+def _params(model) -> list:
+    return [p.detach().clone() for p in model.parameters()]
+
+
+def _max_diff(a, b) -> float:
+    return max(float((p - q).abs().max()) for p, q in zip(a, b))
+
+
+@contextlib.contextmanager
+def _numpy_loader():
+    """The native loader's numpy path, as on a machine without g++."""
+    load = native._load
+    native._load = lambda: None
+    try:
+        yield
+    finally:
+        native._load = load
+
+
+def _htod_copies(fn) -> list | None:
+    """The sizes in bytes of the copies the card received from the host
+    while ``fn`` ran (the ``Memcpy HtoD`` records of a ``torch.profiler``
+    trace), or None when the trace gives no sizes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text()).get("traceEvents", [])
+    copies = [e for e in events if "HtoD" in str(e.get("name", ""))
+              and e.get("ph") == "X"]
+    if not copies or any("bytes" not in e.get("args", {}) for e in copies):
+        return None
+    return [int(e["args"]["bytes"]) for e in copies]
+
+
+def _host_ms_per_batch(batches, count: int) -> float:
+    it = iter(batches)
+    next(it)
+    t0 = time.perf_counter()
+    for _ in range(count):
+        next(it)
+    return (time.perf_counter() - t0) / count * 1e3
+
+
+def _fit_step_times(make_x, k: int) -> tuple:
+    """(ms a step of ``fit`` on the host clock, device ms a step or None)
+    for the fused CNN at ``k`` steps an execution: two warm-up epochs (a
+    k > 1 execution's first run is eager, its second captures), then 5
+    epochs timed and 2 profiled."""
+    x = make_x()
+    model, _ = _fused_fit(x, k=k, epochs=2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _fused_fit(x, epochs=5, model=model)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / (5 * CNN_STEPS) * 1e3
+    dev = _device_ms(lambda: _fused_fit(x, epochs=1, model=model), 1)
+    return ms, None if dev is None else dev / CNN_STEPS
+
+
+def data_phase(card: str) -> None:
+    """Phase 21: the input pipeline on the card."""
+    from tpu_dist_torch.data import vectorize
+    from tpu_dist_torch.data.device import DeviceDataset
+
+    steps = CNN_EPOCHS * CNN_STEPS
+    # (a) The native loader, built from the checkout, against its numpy
+    # path at MNIST's real scale.
+    t0 = time.monotonic()
+    if not native.native_available():
+        raise AssertionError("the native loader did not build (g++)")
+    build_s = time.monotonic() - t0
+    images, labels = td_data.load_arrays("mnist", "train",
+                                         synthetic_size=MNIST_TRAIN)
+    perm = native.shuffled_indices(MNIST_TRAIN, 7)
+    idx = perm[:CNN_BATCH * 16]
+    got = (perm, native.gather_scale(images, idx, 1.0 / 255.0),
+           native.gather_labels(labels, idx))
+    with _numpy_loader():
+        want = (native.shuffled_indices(MNIST_TRAIN, 7),
+                native.gather_scale(images, idx, 1.0 / 255.0),
+                native.gather_labels(labels, idx))
+    for name, g, w in zip(("shuffled_indices", "gather_scale",
+                           "gather_labels"), got, want):
+        if g.dtype != w.dtype or not np.array_equal(g, w):
+            raise AssertionError(f"(a) native {name} differs from its numpy "
+                                 f"path")
+    log(f"[21 data] (a) native loader {native.library_path().name} built "
+        f"from csrc/loader.cpp in {build_s:.2f} s; at {MNIST_TRAIN} images "
+        f"shuffled_indices, gather_scale ({len(idx)} rows) and "
+        f"gather_labels equal the numpy path bit for bit")
+
+    # (b) DeviceDataset against the host chain's batches, mul and div.
+    x8, y8 = td_data.load_arrays("mnist", "train")
+    for scale, op, fn in ((1.0 / 255.0, "mul", _scale_mul),
+                          (255.0, "div", _scale_div)):
+        ds = DeviceDataset(x8, y8, global_batch_size=CNN_BATCH, seed=5,
+                           scale=scale, scale_op=op, device="cuda")
+        probe = DeviceDataset(x8, y8, global_batch_size=CNN_BATCH, seed=5,
+                              scale=scale, scale_op=op, device="cuda")
+        per_epoch = ds.cardinality()
+        seen = []
+        for epoch in range(2):
+            for b in range(per_epoch):
+                xb, yb = ds.next_batch()
+                sel = ds._perm[ds._pos - CNN_BATCH:ds._pos]
+                wx, wy = fn(x8[sel], y8[sel])
+                if not (torch.equal(xb.cpu(), torch.from_numpy(wx))
+                        and torch.equal(yb.cpu(), torch.from_numpy(wy))):
+                    raise AssertionError(f"(b) {op}: epoch {epoch} batch {b}"
+                                         " differs from the host chain's")
+                seen.append(sel)
+            got = np.concatenate(seen[-per_epoch:])
+            if sorted(got.tolist()) != list(range(len(x8))):
+                raise AssertionError(f"(b) {op}: epoch {epoch} does not "
+                                     "cover every sample once")
+        if ds._dx.dtype != torch.uint8 or ds._dx.device.type != "cuda":
+            raise AssertionError(f"(b) images on the card as {ds._dx.dtype}")
+        # The same draws with an evaluation pass in the middle of epoch 0.
+        for i, sel in enumerate(seen):
+            if i == 40:
+                list(probe)
+            probe.next_batch()
+            if not np.array_equal(probe._perm[probe._pos - CNN_BATCH:
+                                              probe._pos], sel):
+                raise AssertionError("(b) an evaluation pass moved the "
+                                     "training order")
+    log(f"[21 data] (b) DeviceDataset, seed 5, 2 epochs x {per_epoch} "
+        f"batches of {CNN_BATCH}, mul and div: every batch equals the host "
+        f"chain's map of the same samples bit for bit on the card, each "
+        f"epoch covers the {len(x8)} samples once, images uint8 on the "
+        f"card, an evaluation pass leaves the training order as it was")
+
+    # (c) The reference program as it stands: fit promotes its chain.
+    argv, out = sys.argv, io.StringIO()
+    try:
+        sys.argv = ["tpu_dist_example"]
+        with contextlib.redirect_stdout(out):
+            g = runpy.run_module("tpu_dist_torch.examples.tpu_dist_example",
+                                 run_name="__main__")
+    finally:
+        sys.argv = argv
+    promoted = getattr(g["train_datasets_no_auto_shard"], "_device_promoted",
+                       None)
+    loss = g["history"].history["loss"]
+    if not isinstance(promoted, DeviceDataset) or promoted.uploads != 1 \
+            or promoted.device.type != "cuda":
+        raise AssertionError(f"(c) the program's chain was not promoted: "
+                             f"{promoted!r}")
+    if not loss[-1] < loss[0]:
+        raise AssertionError(f"(c) promoted program: losses {loss}")
+    index_per_step = promoted.index_bytes / steps
+    model = g["multi_worker_model"]
+    copies = _htod_copies(lambda: model.fit(
+        g["train_datasets_no_auto_shard"], epochs=1,
+        steps_per_epoch=CNN_STEPS, verbose=0))
+    if copies is None:
+        sent = "not measured (the trace gives no copy sizes)"
+    else:
+        # No copy as large as one image of the batch: no pixel crossed.
+        image_bytes = int(np.prod(x8.shape[1:]))
+        if max(copies) >= image_bytes or copies.count(
+                int(index_per_step)) < CNN_STEPS:
+            raise AssertionError(f"(c) host->device copies in an epoch of "
+                                 f"{CNN_STEPS} steps: {copies}")
+        sent = (f"{len(copies)} copies, {sum(copies)} bytes in "
+                f"{CNN_STEPS} steps ({copies.count(int(index_per_step))} "
+                f"index vectors; other sizes "
+                f"{sorted(set(copies) - {int(index_per_step)})})")
+    log(f"[21 data] (c) the reference program as it stands: its chain "
+        f"promoted to a DeviceDataset on {promoted.device} ({promoted.uploads}"
+        f" upload of {promoted.upload_bytes} bytes in "
+        f"{promoted.upload_seconds:.4f} s), {index_per_step:.0f} bytes of "
+        f"indices a step; host->device in a profiled epoch: {sent}; loss "
+        f"{loss[0]:.6f} -> {loss[-1]:.6f}")
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        chain = _chain(shuffle=False)
+        _reset_counts()
+        dm, dh = _fused_fit(chain)
+        counts = _counts()
+        if counts != (0, 0, 0, steps, steps, steps):
+            raise AssertionError(f"(c) fused on the card's data: launches "
+                                 f"{counts}")
+        if not isinstance(getattr(chain, "_device_promoted", None),
+                          DeviceDataset):
+            raise AssertionError("(c) the unshuffled chain was not promoted")
+        hm, hh = _fused_fit(td_data.DistributedDataset(_chain(shuffle=False),
+                                                       None))
+        loss_diff = max(abs(a - b) for a, b in zip(dh["loss"], hh["loss"]))
+        param_diff = _max_diff(_params(dm), _params(hm))
+        if loss_diff > CNN_LOSS_ATOL or param_diff > GRAPH_PARAM_ATOL:
+            raise AssertionError(f"(c) device-resident vs host-fed: losses "
+                                 f"{loss_diff:.3e}, params {param_diff:.3e}")
+        log(f"[21 data] (c) fused CE + SGD on the promoted chain (no "
+            f"shuffle), {CNN_EPOCHS} x {CNN_STEPS}: launches CE fwd "
+            f"{counts[3]}, CE bwd {counts[4]}, SGD {counts[5]}; against the "
+            f"same program fed from the host chain: losses max |diff| "
+            f"{loss_diff:.3e} (atol {CNN_LOSS_ATOL:g}), params "
+            f"{param_diff:.3e} (atol {GRAPH_PARAM_ATOL:g})")
+
+        # (d) steps_per_execution=20 on the device-resident chain.
+        _reset_counts()
+        km, kh = _fused_fit(_chain(shuffle=False), k=CNN_STEPS)
+        counts = _counts()
+        loss_diff = max(abs(a - b) for a, b in zip(kh["loss"], dh["loss"]))
+        param_diff = _max_diff(_params(km), _params(dm))
+        if counts != (0, 0, 0, steps, steps, steps) or \
+                loss_diff > CNN_LOSS_ATOL or param_diff > GRAPH_PARAM_ATOL:
+            raise AssertionError(f"(d) k = {CNN_STEPS} on the card's data: "
+                                 f"launches {counts}, losses {loss_diff:.3e},"
+                                 f" params {param_diff:.3e}")
+        (graphed,) = km._trainer._graphed.values()
+        ((key, (prog, _)),) = graphed.programs.items()
+        if key[0] != "indices" or list(prog.static) != ["idx"]:
+            raise AssertionError(f"(d) the program's inputs: {key}")
+        log(f"[21 data] (d) steps_per_execution={CNN_STEPS} on the promoted "
+            f"chain: one program whose only input is the [{CNN_STEPS}, "
+            f"{CNN_BATCH}] index vector ({prog.calls} executions, "
+            f"{prog.replays} replays); losses max |diff| to k = 1 "
+            f"{loss_diff:.3e} (atol {CNN_LOSS_ATOL:g}), params "
+            f"{param_diff:.3e} (atol {GRAPH_PARAM_ATOL:g}); launches CE fwd "
+            f"{counts[3]}, CE bwd {counts[4]}, SGD {counts[5]}")
+
+        # (e) prefetch_to_device=2 on the host chain.
+        metrics.enable()
+        hits0 = _counter("data.prefetch.hits")
+        misses0 = _counter("data.prefetch.misses")
+        _, ph = _fused_fit(_program_chain(3), prefetch=2)
+        hits = _counter("data.prefetch.hits") - hits0
+        misses = _counter("data.prefetch.misses") - misses0
+        _, nh = _fused_fit(_program_chain(3))
+        loss_diff = max(abs(a - b) for a, b in zip(ph["loss"], nh["loss"]))
+        if loss_diff > CNN_LOSS_ATOL or hits + misses != steps:
+            raise AssertionError(f"(e) prefetch_to_device=2: losses "
+                                 f"{loss_diff:.3e}, {hits} hits + {misses} "
+                                 f"misses")
+        log(f"[21 data] (e) prefetch_to_device=2 on the host chain (seed 3):"
+            f" losses max |diff| to prefetch 0 {loss_diff:.3e} (atol "
+            f"{CNN_LOSS_ATOL:g}); {hits} batches already on the card when "
+            f"asked, {misses} not")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            flags
+
+    # (f) Times.
+    element = _chain(shuffle=True, seed=1)
+    list(element)   # the first pass fills the cache
+    n = len(x8) // CNN_BATCH - 2
+    host = {
+        "element": _host_ms_per_batch(element, n),
+        "vectorized (uint8, the trainer's CUDA path)": _host_ms_per_batch(
+            vectorize.try_rewrite(_chain(True, seed=1), device="cuda"), n),
+        "vectorized (native gather_scale, mul)": _host_ms_per_batch(
+            vectorize.try_rewrite(_chain(True, seed=1, scale=_scale_mul),
+                                  defer_scale_to_device=False), n),
+    }
+    pf = td_data.DevicePrefetcher(iter(vectorize.try_rewrite(
+        _chain(True, seed=1), device="cuda")), depth=2, device="cuda")
+    host["prefetched onto the card (uint8)"] = _host_ms_per_batch(pf, n)
+    pf.close()
+    for name, ms in host.items():
+        log(f"[21 times] host input, {name}: {ms:.4f} ms a batch of "
+            f"{CNN_BATCH} ({card})")
+    if not all(native.calls.values()):
+        raise AssertionError(f"the native loader's calls: {native.calls}")
+    log(f"[21 times] native loader calls {native.calls}")
+    for name, make in (("host-fed", lambda: _program_chain(1)),
+                       ("device-resident", lambda: _chain(shuffle=True))):
+        for k in (1, CNN_STEPS):
+            ms, dev = _fit_step_times(make, k)
+            busy = ("not measured" if dev is None else
+                    f"device {dev:.4f} ms/step ({dev / ms * 100:.1f} % busy)")
+            log(f"[21 times] CNN fit step, batch {CNN_BATCH}, fused, {name},"
+                f" k = {k}: {ms:.4f} ms/step = {CNN_BATCH / ms * 1e3:.1f} "
+                f"images/s; {busy} (torch.profiler) ({card})")
+    for size, (xs, ys) in ((len(x8), (x8, y8)), (MNIST_TRAIN,
+                                                  (images, labels))):
+        ds = DeviceDataset(xs, ys, global_batch_size=CNN_BATCH, device="cuda")
+        ds.next_batch()
+        log(f"[21 times] upload of {size} images ({ds.upload_bytes} bytes, "
+            f"pinned copy and transfer): {ds.upload_seconds:.4f} s ({card})")
+
+
 def main() -> int:
     t0 = time.monotonic()
     card = device_phase()
@@ -2657,6 +3022,7 @@ def main() -> int:
     paged_cli_phase()
     graph_serve_phase(card, paged)
     graph_train_phase(card, slice3["cnn"]["k1"])
+    data_phase(card)
     # In the order of the TPU kernel table (PERF.md): rows 1-9.
     records = [*new_records, adam_record, record, *bwd_records]
     log(f"done in {time.monotonic() - t0:.1f} s")

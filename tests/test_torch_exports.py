@@ -24,10 +24,6 @@ PACKAGES = ("", "ops", "serve", "training", "observe", "models", "data",
 NOT_YET_PORTED = {
     "OptaxWrapper": "not ported, by decision (optax has no PyTorch "
                     "counterpart)",
-    # item 6: data
-    "DeviceDataset": "item 6", "DevicePrefetcher": "item 6",
-    "device_pipeline": "item 6", "image_shape": "item 6",
-    "num_classes": "item 6",
     # item 7: predict, summary, the Model container
     "Model": "item 7",
     # item 8: layers and ResNets

@@ -992,3 +992,132 @@ def test_cnn_fit_on_graphs_equals_k1_and_counts_replays(cuda_device):
     (graphed,) = out[3][3]._graphed.values()
     ((prog, _),) = graphed.programs.values()
     assert prog.calls == 6 and prog.replays == 5
+
+
+# -- the input pipeline (data/) on the card ------------------------------------
+
+
+def _scale_div(image, label):
+    return np.asarray(image, np.float32) / 255.0, label
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["mul", "div"])
+def test_device_scale_is_numpys_bits_on_cuda(cuda_device, op):
+    # Every byte value through the device transform: a CUDA division by a
+    # host scalar would multiply by the reciprocal and miss numpy's
+    # quotient by an ulp for some bytes; the 0-d device divisor does not.
+    from tpu_dist_torch.data.vectorize import device_scale_fn
+
+    k = 255.0 if op == "div" else 1.0 / 255.0
+    x = np.arange(256, dtype=np.uint8).reshape(16, 16)
+    got = device_scale_fn(k, op)(torch.from_numpy(x).to(cuda_device))
+    xf = x.astype(np.float32)
+    want = xf / np.float32(k) if op == "div" else xf * np.float32(k)
+    assert got.dtype == torch.float32 and got.device.type == "cuda"
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["mul", "div"])
+def test_device_dataset_on_cuda_equals_cpu(cuda_device, op):
+    from tpu_dist_torch.data import DeviceDataset
+
+    x, y = load_arrays("mnist", synthetic_size=512)
+    kw = dict(global_batch_size=64, seed=4, scale_op=op,
+              scale=255.0 if op == "div" else 1.0 / 255.0)
+    gpu = DeviceDataset(x, y, device=cuda_device, **kw)
+    cpu = DeviceDataset(x, y, device="cpu", **kw)
+    for _ in range(10):   # across an epoch boundary
+        for a, b in zip(gpu.next_batch(), cpu.next_batch()):
+            assert a.device.type == "cuda"
+            assert torch.equal(a.cpu(), b)
+    for a, b in zip(gpu.next_stack(3), cpu.next_stack(3)):
+        assert torch.equal(a.cpu(), b)
+    for (ga, gb), (ca, cb) in zip(gpu, cpu):
+        assert torch.equal(ga.cpu(), ca) and torch.equal(gb.cpu(), cb)
+    assert gpu._dx.dtype == torch.uint8 and gpu.uploads == 1
+
+
+@pytest.mark.gpu
+def test_device_prefetcher_places_batches_on_its_own_stream(cuda_device):
+    from tpu_dist_torch.data import DevicePrefetcher
+
+    x, y = load_arrays("mnist", synthetic_size=256)
+    host = [(x[i:i + 32], y[i:i + 32]) for i in range(0, 256, 32)]
+    pf = DevicePrefetcher(iter(host), depth=2, device=cuda_device)
+    got = list(pf)
+    assert len(got) == len(host) and pf.hits + pf.misses == len(host)
+    for (gx, gy), (hx, hy) in zip(got, host):
+        assert gx.device.type == "cuda" and gx.dtype == torch.uint8
+        assert torch.equal(gx.cpu(), torch.from_numpy(hx))
+        assert torch.equal(gy.cpu(), torch.from_numpy(hy))
+    pf.close()
+    assert pf.closed
+
+
+@pytest.mark.gpu
+def test_fit_promotes_the_reference_chain_and_gathers_in_the_program(
+        cuda_device):
+    # The reference program's chain (unseeded shuffle) is promoted on
+    # CUDA: one upload, and at k = 4 one captured program whose only input
+    # is the index vector; its losses equal the same chain's at k = 1 when
+    # the order is fixed (no shuffle).
+    from tpu_dist_torch.data import DeviceDataset, load
+
+    def chain(shuffle):
+        ds = load("mnist", split="train", synthetic_size=512).map(
+            _scale_div).cache()
+        return (ds.shuffle(10000) if shuffle else ds).batch(32)
+
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    out = {}
+    try:
+        for k, shuffle in ((1, True), (1, False), (4, False)):
+            model = build_cnn_model(seed=2)
+            model.compile(optimizer=SGD(learning_rate=0.01, fused=True),
+                          loss=SparseCategoricalCrossentropy(
+                              from_logits=True, fused=True),
+                          steps_per_execution=k, device=cuda_device)
+            ds = chain(shuffle)
+            h = model.fit(ds, epochs=2, steps_per_epoch=8, verbose=0)
+            promoted = ds._device_promoted
+            assert isinstance(promoted, DeviceDataset)
+            assert promoted.uploads == 1 and promoted.device.type == "cuda"
+            out[k, shuffle] = (h.history["loss"],
+                               [p.detach().clone()
+                                for p in model.parameters()],
+                               model._trainer)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            flags
+    assert np.isfinite(out[1, True][0]).all()
+    np.testing.assert_allclose(out[4, False][0], out[1, False][0], rtol=0,
+                               atol=1e-5)
+    for a, b in zip(out[4, False][1], out[1, False][1]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+    (graphed,) = out[4, False][2]._graphed.values()
+    ((key, (prog, _)),) = graphed.programs.items()
+    assert key[0] == "indices" and list(prog.static) == ["idx"]
+    assert prog.calls == 4 and prog.replays == 3
+
+
+@pytest.mark.gpu
+def test_prefetch_to_device_equals_no_prefetch(cuda_device):
+    from tpu_dist_torch.data import load
+
+    losses = []
+    for depth in (0, 2):
+        model = build_cnn_model(seed=2)
+        model.compile(optimizer=SGD(learning_rate=0.01),
+                      loss=SparseCategoricalCrossentropy(from_logits=True),
+                      prefetch_to_device=depth, device=cuda_device)
+        ds = (load("mnist", split="train", synthetic_size=256)
+              .map(_scale_div).shuffle(256, seed=1).batch(32))
+        h = model.fit(ds, epochs=2, steps_per_epoch=8, verbose=0)
+        losses.append(h.history["loss"])
+        assert model._trainer._prefetcher is None   # closed by fit
+    np.testing.assert_allclose(losses[1], losses[0], rtol=0, atol=1e-5)

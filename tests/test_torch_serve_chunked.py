@@ -137,28 +137,32 @@ def test_deadline_eviction_mid_prefill_matches_reference():
     jmodel, _, model = _pair()
     prompt = np.random.default_rng(9).integers(1, VOCAB, size=22).tolist()
     out = []
-    for make in (lambda **kw: JServeEngine(jmodel, **kw),
-                 lambda **kw: ServeEngine(model, device="cpu", **kw)):
+    for name, make in (
+            ("reference", lambda **kw: JServeEngine(jmodel, **kw)),
+            ("port", lambda **kw: ServeEngine(model, device="cpu", **kw))):
         clock = _FakeClock()
         engine = make(max_batch=1, max_len=SEQ, paged=True, page_size=4,
                       prefill_chunk=8, clock=clock)
         stuck = engine.submit(prompt, max_new_tokens=4, deadline_s=5.0)
         engine.step()  # admit + first chunk only
-        assert engine.scheduler.is_prefilling(stuck)
-        assert stuck.prefill_pos == 8
+        assert engine.scheduler.is_prefilling(stuck), name
+        assert stuck.prefill_pos == 8, (name, stuck.prefill_pos)
         clock.t = 6.0  # blow the deadline mid-prefill
         engine.run_until_idle()
-        assert stuck.status == "evicted" and stuck.finish_reason == "deadline"
+        assert (stuck.status, stuck.finish_reason) == ("evicted",
+                                                       "deadline"), name
         alloc = engine._paging.allocator
-        assert alloc.count.sum() == 0
-        assert alloc.pages_in_use == engine._paging.prefix.pages_held == 2
+        assert alloc.count.sum() == 0, (name, alloc.count.tolist())
+        assert alloc.pages_in_use == engine._paging.prefix.pages_held == 2, (
+            name, alloc.pages_in_use, engine._paging.prefix.pages_held)
         again = engine.generate(prompt, max_new_tokens=4)
         out.append((again, list(alloc._free), alloc.refcount.tolist(),
                     engine._paging.prefix.hits))
     cold = ServeEngine(model, max_batch=1, max_len=SEQ,
                        device="cpu").generate(prompt, max_new_tokens=4)
-    assert out[1] == out[0]
-    assert out[1][0] == cold and out[1][3] == 1
+    # (tokens, free list, refcounts, prefix hits) of each engine.
+    assert out[1] == out[0], f"port {out[1]} != reference {out[0]}"
+    assert out[1][0] == cold and out[1][3] == 1, (out[1], cold)
 
 
 def _quant_metric(mod):

@@ -170,8 +170,6 @@ def test_callbacks_see_batches_and_can_stop_training(capsys):
     ("gradient_bucket_bytes", lambda m: m.compile(
         optimizer="sgd", loss="mse", gradient_bucket_bytes=1024,
         device="cpu")),
-    ("prefetch_to_device", lambda m: m.compile(
-        optimizer="sgd", loss="mse", prefetch_to_device=2, device="cpu")),
     ("strategy", lambda m: MirroredStrategy(axis_shapes={"data": 1},
                                             device="cpu")),
     ("profile_dir", lambda m: m.fit(_tokens(32, 0), profile_dir="p")),

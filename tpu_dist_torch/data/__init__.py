@@ -1,14 +1,18 @@
-"""Input-pipeline layer: datasets, combinators, shard policies, distribution."""
+"""Input-pipeline layer: datasets, combinators, shard policies, distribution,
+device-resident datasets."""
 
+from tpu_dist_torch.data.device import DeviceDataset, device_pipeline
 from tpu_dist_torch.data.distribute import DistributedDataset
-from tpu_dist_torch.data.pipeline import AutoShardPolicy, Dataset, Options
+from tpu_dist_torch.data.pipeline import (AutoShardPolicy, Dataset,
+                                          DevicePrefetcher, Options)
 from tpu_dist_torch.data.sharding import resolve_policy, shard_dataset
 from tpu_dist_torch.data.sources import (DatasetInfo, SplitInfo,
-                                         disable_progress_bar, load,
-                                         load_arrays)
+                                         disable_progress_bar, image_shape,
+                                         load, load_arrays, num_classes)
 
 __all__ = [
-    "AutoShardPolicy", "Dataset", "DatasetInfo", "DistributedDataset",
-    "Options", "SplitInfo", "disable_progress_bar", "load", "load_arrays",
-    "resolve_policy", "shard_dataset",
+    "AutoShardPolicy", "Dataset", "DatasetInfo", "DeviceDataset",
+    "DevicePrefetcher", "DistributedDataset", "Options", "SplitInfo",
+    "device_pipeline", "disable_progress_bar", "image_shape", "load",
+    "load_arrays", "num_classes", "resolve_policy", "shard_dataset",
 ]

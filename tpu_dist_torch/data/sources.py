@@ -275,3 +275,11 @@ def load(name: str, split: str | None = None, *, as_supervised: bool = True,
     if not with_info:
         return result
     return result, DatasetInfo(name, builder)
+
+
+def num_classes(name: str) -> int:
+    return _SPECS[name][1]
+
+
+def image_shape(name: str) -> tuple[int, int, int]:
+    return _SPECS[name][0]

@@ -47,6 +47,7 @@ class Sequential(nn.Module):
         self.loss = None
         self.metrics: list = []
         self.steps_per_execution = 1
+        self.prefetch_to_device = 0
         self.strategy = None
         self._trainer = None
         if input_shape is not None:
@@ -118,10 +119,11 @@ class Sequential(nn.Module):
 
         ``steps_per_execution = k`` runs k train steps per execution (on
         CUDA in one process, one captured CUDA graph; see
-        ``training/trainer.py``). ``gradient_bucket_bytes`` and
-        ``prefetch_to_device`` are the JAX package's knobs that come with
-        later slices of the port; each raises ``NotImplementedError``
-        until then."""
+        ``training/trainer.py``). ``prefetch_to_device = d > 0`` places
+        the host pipeline's next ``d`` batches on the device from a
+        background thread (``data.DevicePrefetcher``) while a step runs.
+        ``gradient_bucket_bytes`` comes with a later slice of the port and
+        raises ``NotImplementedError`` until then."""
         from tpu_dist_torch.parallel.strategy import get_strategy
 
         if steps_per_execution < 1:
@@ -136,8 +138,6 @@ class Sequential(nn.Module):
                 f"prefetch_to_device must be >= 0, got {prefetch_to_device}")
         if gradient_bucket_bytes:
             raise unported("compile(gradient_bucket_bytes=)")
-        if prefetch_to_device:
-            raise unported("compile(prefetch_to_device=)")
         strategy = get_strategy()
         target = resolve_device(device if device is not None
                                 else strategy.device)
@@ -153,6 +153,7 @@ class Sequential(nn.Module):
         self.loss = losses_lib.get(loss) if loss is not None else None
         self.metrics = [metrics_lib.get(m) for m in metrics]
         self.steps_per_execution = int(steps_per_execution)
+        self.prefetch_to_device = int(prefetch_to_device)
         self._trainer = None
 
     def _get_trainer(self, needs: str):
@@ -173,9 +174,10 @@ class Sequential(nn.Module):
             validation_data=None, validation_steps: Optional[int] = None,
             checkpoint_dir: Optional[str] = None,
             class_weight: Optional[dict] = None):
-        """Run the epoch/step loop over a ``Dataset``, a
-        ``DistributedDataset`` or ``(x, y)`` arrays (batches of 32 in
-        order); returns the ``History``. ``validation_data`` runs a
+        """Run the epoch/step loop over a ``DeviceDataset``, a
+        ``Dataset`` (on CUDA promoted to a ``DeviceDataset`` where it can
+        be), a ``DistributedDataset`` or ``(x, y)`` arrays (batches of 32
+        in order); returns the ``History``. ``validation_data`` runs a
         validation pass each epoch, reported as ``val_``-prefixed logs;
         ``class_weight`` scales each sample's loss by its class's weight.
         ``profile_dir`` and ``checkpoint_dir`` raise

@@ -30,13 +30,23 @@ only for equal shards: DATA sharding slices every global batch into equal
 parts (and raises on a batch the process count does not divide); under
 OFF every process brings its own equally sized local batch.
 
-``fit``/``evaluate`` take a ``Dataset``, a ``DistributedDataset`` or
-``(x, y)`` arrays (batches of 32 in order), wrapped as the JAX package's
-``_distribute`` wraps them; anything else raises ``TypeError``.
-``gradient_bucket_bytes``, ``prefetch_to_device``, ``checkpoint_dir`` and
-``profile_dir`` come with later slices of the port, the integrity
-``health`` vector with the resilience slice (``ROADMAP.md``); each raises
-``NotImplementedError``.
+``fit``/``evaluate`` take a ``DeviceDataset``, a ``Dataset``, a
+``DistributedDataset`` or ``(x, y)`` arrays (batches of 32 in order),
+taken in the JAX package's ``_distribute`` order; anything else raises
+``TypeError``. A ``Dataset`` is first offered to the promotion to a
+device-resident ``DeviceDataset`` (``data/vectorize.py``: one process, a
+device other than the CPU, a chain of the promotion's grammar): its
+arrays cross to the card once and each step gathers its batch there from
+an index vector. The port promotes the reference program's own chain on
+the synthetic MNIST, where the JAX package's scale detection declines its
+``x / 255`` and keeps it on the host path (``_detect_scale``). Otherwise the chain is rewritten where it can be: a uint8
+batch crosses to the device and its scale (the dataset's
+``device_transform``) runs inside the step, and so inside a captured
+execution too. ``prefetch_to_device = d`` places the host pipeline's next
+``d`` batches on the card from a background thread. ``gradient_bucket_
+bytes``, ``checkpoint_dir`` and ``profile_dir`` come with later slices of
+the port, the integrity ``health`` vector with the resilience slice
+(``ROADMAP.md``); each raises ``NotImplementedError``.
 
 ``steps_per_execution = k > 1`` runs k train steps per execution, the JAX
 package's ``lax.scan`` of k steps in one compiled program: the k batches
@@ -51,7 +61,12 @@ host then pays one launch an execution, as the reference pays one
 dispatch, where a replayed step needs k replays and k device copies of
 its slice of the batch. The CPU, and a process group (whose all-reduce
 NCCL would have to capture, ROADMAP queue item 10), run the k steps one
-after another with the same kernels.
+after another with the same kernels. On a ``DeviceDataset`` the gather
+runs inside the captured program: the execution's ``[k, B]`` index vector
+is its only input, one pinned copy of a few KB, and the gathers and the
+scale replay with the steps (an eager gather before the replay would add
+a launch per batch and a device copy of the gathered batch into the
+program's static input).
 
 Epoch semantics are the JAX package's: one persistent iterator across
 epochs when ``steps_per_epoch`` is set, re-created on exhaustion; the epoch
@@ -61,6 +76,7 @@ totals over the epoch.
 
 from __future__ import annotations
 
+import itertools
 import logging
 import time
 from typing import Optional, Sequence
@@ -68,8 +84,10 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from tpu_dist_torch.data import vectorize
+from tpu_dist_torch.data.device import DeviceDataset
 from tpu_dist_torch.data.distribute import DistributedDataset
-from tpu_dist_torch.data.pipeline import Dataset
+from tpu_dist_torch.data.pipeline import Dataset, DevicePrefetcher
 from tpu_dist_torch.parallel import collectives
 from tpu_dist_torch.training.callbacks import (CallbackList, History,
                                                StopTraining)
@@ -111,13 +129,36 @@ def _to_device(a, device) -> torch.Tensor:
     return t.to(device, non_blocking=True)
 
 
+def _place(x, device, transform):
+    """The x batch on ``device``: through :func:`_to_device`, or, with a
+    dataset's device transform, in its wire dtype (uint8) and then
+    transformed there."""
+    if transform is None:
+        return _to_device(x, device)
+    return transform(torch.as_tensor(x).to(device, non_blocking=True))
+
+
+def _dtype_of(a) -> torch.dtype:
+    return (a.dtype if isinstance(a, torch.Tensor) else
+            torch.from_numpy(np.empty(0, np.asarray(a).dtype)).dtype)
+
+
 def _device_dtype(a) -> torch.dtype:
     """The dtype :func:`_to_device` gives a batch (an array or a tensor)."""
-    dt = (a.dtype if isinstance(a, torch.Tensor) else
-          torch.from_numpy(np.empty(0, np.asarray(a).dtype)).dtype)
+    dt = _dtype_of(a)
     if dt.is_floating_point:
         return torch.float32
     return dt if dt == torch.bool else torch.int64
+
+
+def _transform_key(t):
+    """A device transform's identity for the caches of steps and programs:
+    two scale transforms of equal op and factor are one program, though
+    each DistributedDataset makes its own function."""
+    if t is None:
+        return None
+    op, k = getattr(t, "_op", None), getattr(t, "_scale", None)
+    return ("scale", op, k) if k is not None else id(t)
 
 
 def _tensors(tree) -> list:
@@ -132,33 +173,49 @@ def _tensors(tree) -> list:
 class _GraphedExecutions:
     """K-step executions as captured CUDA graphs: one
     :class:`~tpu_dist_torch.utils.graphs.CapturedProgram` per stacked batch
-    shape, whose graphs share one memory pool. A program bakes in the
-    addresses of the variables it ran on, so a call with other variable
-    tensors (another ``loss_acc``, say) replaces the shape's program."""
+    shape and dtype, whose graphs share one memory pool. With a device
+    transform the x batch keeps its wire dtype (uint8) in the program's
+    input. A program bakes in the addresses of the tensors it ran on, so a
+    call with other variable tensors (another ``loss_acc``, say) or
+    another device-resident dataset replaces the shape's program."""
 
-    def __init__(self, multi, device):
+    def __init__(self, multi, device, raw_x: bool):
         self.multi, self.device = multi, device
+        self._x_dtype = _dtype_of if raw_x else _device_dtype
         self.pool = torch.cuda.graph_pool_handle()
         self.programs: dict[tuple, tuple] = {}
 
-    def __call__(self, params, state, opt_state, metric_states, loss_acc,
-                 xs, ys, rng=None):
-        variables = (params, state, opt_state, metric_states, loss_acc)
-        key = (tuple(np.shape(xs)), _device_dtype(xs), tuple(np.shape(ys)),
-               _device_dtype(ys))
-        held = [(id(t), t.data_ptr()) for t in _tensors(variables)]
+    def _run(self, key, held_tensors, fn, specs, inputs):
+        held = [(id(t), t.data_ptr()) for t in _tensors(held_tensors)]
         prog, was = self.programs.get(key, (None, None))
         if prog is None or was != held:
-            fn = lambda xs, ys: self.multi(*variables, xs, ys)
-            prog = graphs.CapturedProgram(
-                fn, {"xs": key[:2], "ys": key[2:]}, device=self.device,
-                pool=self.pool)
-            # The program's closure holds the variables, so their ids stay
+            prog = graphs.CapturedProgram(fn, specs, device=self.device,
+                                          pool=self.pool)
+            # The program's closure holds the tensors, so their ids stay
             # theirs while it lives.
             self.programs[key] = (prog, held)
         # A replay's loss is the graph's own output, rewritten by the next
         # replay: the caller gets a copy.
-        return prog(xs=xs, ys=ys).clone()
+        return prog(**inputs).clone()
+
+    def __call__(self, params, state, opt_state, metric_states, loss_acc,
+                 xs, ys, rng=None):
+        variables = (params, state, opt_state, metric_states, loss_acc)
+        xspec = (tuple(np.shape(xs)), self._x_dtype(xs))
+        yspec = (tuple(np.shape(ys)), _device_dtype(ys))
+        return self._run((xspec, yspec), variables,
+                         lambda xs, ys: self.multi(*variables, xs, ys),
+                         {"xs": xspec, "ys": yspec}, {"xs": xs, "ys": ys})
+
+    def indexed(self, variables, dataset: DeviceDataset, idx: np.ndarray):
+        """One execution on a device-resident dataset: the program gathers
+        its ``[k, B]`` batches itself from ``idx``, its only input."""
+        spec = graphs.spec_of(idx)
+        return self._run(
+            ("indices", spec, id(dataset)),
+            (variables, dataset._dx, dataset._dy),
+            lambda idx: self.multi(*variables, *dataset.gather(idx)),
+            {"idx": spec}, {"idx": idx})
 
 
 class Trainer:
@@ -172,8 +229,11 @@ class Trainer:
         self.variables: Optional[dict] = None  # params/state/opt/metrics
         self._iterator = None
         self._iterator_source = None
+        self._iterator_kind: Optional[str] = None  # "host" or "prefetch"
+        self._prefetcher: Optional[DevicePrefetcher] = None
         self._fit_loss_acc: Optional[torch.Tensor] = None
-        self._graphed: dict = {}  # class_weight key -> _GraphedExecutions
+        # (class_weight, device transform) key -> _GraphedExecutions
+        self._graphed: dict = {}
 
     @property
     def device(self) -> torch.device:
@@ -238,7 +298,8 @@ class Trainer:
             w = torch.where(y == c, torch.full_like(w, wt), w)
         return (per * w).mean()
 
-    def _step(self, class_weight: Optional[dict] = None):
+    def _step(self, class_weight: Optional[dict] = None,
+              device_transform=None):
         """The train step: ``(params, state, opt, metrics, loss_acc, x, y,
         rng=None) -> loss``. Forward, loss, backward (the flash backward
         kernels on CUDA), optimizer update, metric update and the
@@ -246,7 +307,9 @@ class Trainer:
         variables; returns the step's loss as a 0-d device tensor without
         reading it. ``params`` must be the model's own parameters (as
         :meth:`train_state` gives them); ``rng`` is accepted for the JAX
-        signature's sake (the port's layers draw no random numbers)."""
+        signature's sake (the port's layers draw no random numbers).
+        ``device_transform`` (a dataset's) runs on x once it is on the
+        device."""
         model, optimizer = self.model, self.model.optimizer
         metrics = tuple(model.metrics)
         device = self.device
@@ -254,7 +317,8 @@ class Trainer:
 
         def step(params, state, opt_state, metric_states, loss_acc, x, y,
                  rng=None):
-            x, y = _to_device(x, device), _to_device(y, device)
+            x = _place(x, device, device_transform)
+            y = _to_device(y, device)
             for p in params:
                 p.grad = None
             logits = model(x)
@@ -277,14 +341,15 @@ class Trainer:
 
         return step
 
-    def _multi_step(self, class_weight: Optional[dict] = None):
+    def _multi_step(self, class_weight: Optional[dict] = None,
+                    device_transform=None):
         """The K-step execution, ``(params, state, opt, metrics, loss_acc,
         xs, ys, rng=None) -> loss``: the train step over ``xs[i], ys[i]``
         for each i of the leading axis in order, returning the mean of the
         K losses (the JAX package's scanned step). On CUDA in a single
         process each execution is a captured graph
         (:class:`_GraphedExecutions`)."""
-        step = self._step(class_weight)
+        step = self._step(class_weight, device_transform)
 
         def multi(params, state, opt_state, metric_states, loss_acc, xs, ys,
                   rng=None):
@@ -294,10 +359,12 @@ class Trainer:
 
         if self.device.type != "cuda" or self.distributed:
             return multi
-        key = None if class_weight is None else tuple(sorted(
-            class_weight.items()))
+        key = (None if class_weight is None
+               else tuple(sorted(class_weight.items())),
+               _transform_key(device_transform))
         if key not in self._graphed:
-            self._graphed[key] = _GraphedExecutions(multi, self.device)
+            self._graphed[key] = _GraphedExecutions(
+                multi, self.device, raw_x=device_transform is not None)
         return self._graphed[key]
 
     def make_train_function(self, steps_per_execution: Optional[int] = None):
@@ -331,34 +398,72 @@ class Trainer:
 
     # -- data --------------------------------------------------------------------
 
-    def _distribute(self, x) -> DistributedDataset:
-        """The JAX package's ``_distribute``: a DistributedDataset as it
-        is, a Dataset wrapped under its auto-shard policy, ``(x, y)``
-        arrays as batches of 32 in order."""
+    def _distribute(self, x):
+        """The JAX package's ``_distribute`` order: a DeviceDataset bound
+        to the trainer's device; a DistributedDataset as it is; a Dataset
+        promoted to a DeviceDataset if it can be (the port's scale
+        detection accepts chains the JAX package's declines) (one upload for the
+        chain, however many fits), else wrapped under its auto-shard
+        policy with the device transform allowed (the step applies it);
+        ``(x, y)`` arrays as batches of 32 in order."""
+        if isinstance(x, DeviceDataset):
+            return x.bind_device(self.device)
         if isinstance(x, DistributedDataset):
             return x
         if isinstance(x, Dataset):
-            return DistributedDataset(x, self.strategy)
+            promoted = vectorize.try_promote_to_device(x, self.device)
+            if promoted is not None:
+                return promoted.bind_device(self.device)
+            return DistributedDataset(x, self.strategy,
+                                      allow_device_transform=True,
+                                      device=self.device)
         if isinstance(x, (tuple, list)) and len(x) == 2:
             return DistributedDataset(array_batches(*x), self.strategy)
         raise TypeError(
-            f"fit/evaluate expects a Dataset, DistributedDataset or (x, y) "
-            f"arrays; got {type(x).__name__}")
+            f"fit/evaluate expects a Dataset, DistributedDataset, "
+            f"DeviceDataset or (x, y) arrays; got {type(x).__name__}")
 
     def _next_batch(self, batches: DistributedDataset):
         """Persistent-iterator semantics across epochs (Keras 2): re-create
-        on exhaustion."""
-        if self._iterator is None or self._iterator_source is not batches:
-            self._iterator = iter(batches)
-            self._iterator_source = batches
+        on exhaustion. With ``prefetch_to_device > 0`` and one step an
+        execution, batches come placed on the device from a
+        :class:`DevicePrefetcher`; a k-step execution stacks host batches
+        (its copy goes through the program's pinned staging)."""
+        depth = self.model.prefetch_to_device
+        kind = ("prefetch" if depth > 0 and self.model.steps_per_execution
+                == 1 else "host")
+        if (self._iterator is None or self._iterator_source is not batches
+                or self._iterator_kind != kind):
+            self._open_iterator(batches, kind)
         try:
             return next(self._iterator)
         except StopIteration:
-            self._iterator = iter(batches)
+            self._open_iterator(batches, kind)
             batch = next(self._iterator, None)
             if batch is None:
+                self._close_prefetcher()
                 raise RuntimeError("dataset yielded no batches") from None
             return batch
+
+    def _open_iterator(self, batches, kind: str) -> None:
+        self._close_prefetcher()
+        if kind == "prefetch":
+            self._prefetcher = DevicePrefetcher(
+                iter(batches), depth=self.model.prefetch_to_device,
+                device=self.device)
+            self._iterator = self._prefetcher
+        else:
+            self._iterator = iter(batches)
+        self._iterator_source, self._iterator_kind = batches, kind
+
+    def _close_prefetcher(self) -> None:
+        """Tear down the device prefetcher (every exit from the epoch
+        loop, ``StopTraining`` included): stop its producer, drain the
+        batches in flight, join the thread."""
+        if self._prefetcher is not None:
+            self._prefetcher.close()
+            self._prefetcher = None
+            self._iterator = self._iterator_source = None
 
     # -- fit / evaluate ------------------------------------------------------
 
@@ -379,10 +484,11 @@ class Trainer:
             if any(c < 0 for c in class_weight):
                 raise ValueError(f"negative class index in {class_weight}")
             class_weight = class_weight or None  # {} means no weighting
-        step = self._step(class_weight)
-        multi = (self._multi_step(class_weight)
-                 if self.model.steps_per_execution > 1 else None)
         batches = self._distribute(x)
+        transform = getattr(batches, "device_transform", None)
+        step = self._step(class_weight, transform)
+        multi = (self._multi_step(class_weight, transform)
+                 if self.model.steps_per_execution > 1 else None)
         if steps_per_epoch is None:
             steps_per_epoch = batches.cardinality()
             if steps_per_epoch is None:
@@ -403,6 +509,7 @@ class Trainer:
         except StopTraining as e:
             logger.info("training stopped early: %s", e)
         finally:
+            self._close_prefetcher()
             cbs.on_train_end()
         return history
 
@@ -423,10 +530,20 @@ class Trainer:
         """One execution of ``k`` steps over the next ``k`` batches;
         returns its loss (the k-mean). A window whose batches do not all
         have one shape (a ``drop_remainder=False`` tail) runs step by step
-        and returns the last step's loss, as the JAX package does."""
+        and returns the last step's loss, as the JAX package does. A
+        DeviceDataset gathers the batches on the device: one at k = 1, k
+        stacked for an execution, whose captured program gathers them
+        itself from the index vector (module docstring)."""
         v = self.variables
         variables = (v["params"], v["state"], v["opt"], v["metrics"],
                      self._fit_loss_acc)
+        if isinstance(batches, DeviceDataset):
+            if k == 1:
+                return step(*variables, *batches.next_batch())
+            if isinstance(multi, _GraphedExecutions):
+                return multi.indexed(variables, batches,
+                                     batches.next_indices(k))
+            return multi(*variables, *batches.next_stack(k))
         if k == 1:
             return step(*variables, *self._next_batch(batches))
         window = [self._next_batch(batches) for _ in range(k)]
@@ -495,20 +612,20 @@ class Trainer:
             print(" - ".join(f"{k}: {v_:.4f}" for k, v_ in logs.items()))
         return logs
 
-    def _evaluate_on(self, batches: DistributedDataset,
-                     steps: Optional[int]) -> dict:
-        """One evaluation pass (all batches, or the first ``steps``): the
-        mean of the batches' losses and each metric's ratio."""
+    def _evaluate_on(self, batches, steps: Optional[int]) -> dict:
+        """One evaluation pass (all batches, or the first ``steps``; a
+        DeviceDataset's from its own seed stream, which leaves the
+        training order as it was): the mean of the batches' losses and
+        each metric's ratio."""
         model, loss_obj = self.model, self.model.loss
+        transform = getattr(batches, "device_transform", None)
         metric_states = self._init_metric_states()
         loss_acc = self._init_loss_acc()
         count = 0
         with torch.no_grad():
-            for xb, yb in batches:
-                if steps is not None and count >= steps:
-                    break
-                xb, yb = _to_device(xb, self.device), _to_device(
-                    yb, self.device)
+            for xb, yb in itertools.islice(iter(batches), steps):
+                xb = _place(xb, self.device, transform)
+                yb = _to_device(yb, self.device)
                 logits = model(xb)
                 for m, ms in zip(model.metrics, metric_states):
                     m.update(ms, logits, yb)
