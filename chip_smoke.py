@@ -178,7 +178,30 @@ plain PyTorch version. Phases:
     the vectorized paths and the prefetched path, the CNN fit step fused,
     host-fed and device-resident, at k = 1 and 20 (ms, images/s, device ms
     and busy share from ``torch.profiler``), and the upload's seconds at
-    8,192 and 60,000 images.
+    8,192 and 60,000 images;
+22. bench.py's ResNets at full width and batch (``bench.py:59-60, 71-111,
+    1045-1047``): ResNet-18 on Fashion-MNIST 28x28x1 and ResNet-50 on
+    CIFAR-10 32x32x3 (the synthetic splits), global batch 256, SGD(0.001),
+    random weights from seed 0; (a) ``fit`` 2 epochs x 8 steps on the
+    reference chain without its shuffle (promoted to a ``DeviceDataset``),
+    fused CE + SGD against an unfused twin from the same weights (cuDNN
+    deterministic): losses, parameters and BatchNorm state within
+    ``RESNET_*`` after the first step, and after 16 within
+    ``RESNET_DRIFT`` times the drift of an unfused twin started one ulp
+    off; 16 launches each of CE fwd, CE bwd and SGD; (b) the same
+    at ``steps_per_execution`` 8 / 4 on a captured graph against (a); (c)
+    ``evaluate`` and ``predict`` over 10,000 test images (a ragged last
+    batch of 16): one captured eval program, equal to the eval forward
+    batch by batch (the ragged one padded), and within ``PREDICT_RTOL`` of
+    the forward of its 16 rows alone; (d) ResNet-18 fit again under ``mixed_bfloat16``
+    without recompiling, on the chain with its shuffle: a new captured
+    program, bf16 into the first conv, finite losses, fp32 logits and
+    BatchNorm state; (e) fused SGD at both leaf tables (phase 17's
+    measures); (f) the train step at k = 1 and 8 / 4, fp32 and ResNet-18
+    bf16: ms, images/s, device busy share, the top device kernels and
+    operators and the layout work (SAME pads, copies, transposes;
+    ``torch.profiler``), and the conv and Dense FLOPs' share of the card's
+    fp32 CUDA-core (bf16 tensor) peak.
 
 Prints one JSON line of kernel records, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
@@ -204,7 +227,10 @@ import torch.nn.functional as F
 
 from tpu_dist_torch import data as td_data
 from tpu_dist_torch.data import native
+from tpu_dist_torch.data.device import DeviceDataset
 from tpu_dist_torch.models.cnn import build_cnn_model
+from tpu_dist_torch.models.policy import policy, set_policy
+from tpu_dist_torch.models.resnet import ResNet18, ResNet50
 from tpu_dist_torch.models.transformer import (MultiHeadAttention,
                                                _dense_attention,
                                                build_transformer_lm)
@@ -220,6 +246,7 @@ from tpu_dist_torch.parallel import MultiWorkerMirroredStrategy
 from tpu_dist_torch.serve import cli, kv_cache
 from tpu_dist_torch.serve.engine import ServeEngine, _pad_to_pow2
 from tpu_dist_torch.serve.scheduler import DONE
+from tpu_dist_torch.training import Callback
 
 #: bench.py's TRANSFORMER_LM at its 512-token sequence length.
 LM = dict(vocab_size=8192, seq_len=512, d_model=512, depth=4, num_heads=8)
@@ -579,9 +606,11 @@ def _host_us(fn, calls: int = 200) -> float:
     return host / calls * 1e6
 
 
-def _time_ms(fn, *, runs: int = 21, per_run: int = 10) -> float:
-    """Median over ``runs`` CUDA-event windows of ``per_run`` calls each."""
-    for _ in range(5):
+def _time_ms(fn, *, runs: int = 21, per_run: int = 10,
+             warmup: int = 5) -> float:
+    """Median over ``runs`` CUDA-event windows of ``per_run`` calls each,
+    after ``warmup`` calls."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -998,6 +1027,15 @@ def _kernel_times(fn, calls: int = 1) -> list:
     """The CUDA kernels and copies of ``calls`` calls of ``fn`` in a
     ``torch.profiler`` trace, most device time first: ``[(name, us), ...]``,
     empty when the trace holds no device time."""
+    return _step_profile(fn, calls)[0]
+
+
+def _step_profile(fn, calls: int) -> tuple[list, list]:
+    """One ``torch.profiler`` trace of ``calls`` calls of ``fn`` (after one
+    more): its CUDA kernels and copies, and the PyTorch operators that
+    launched them with their own device time, each ``[(name, us), ...]``
+    most device time first (the operators are empty for a graph replay,
+    which runs no operator)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1007,10 +1045,48 @@ def _kernel_times(fn, calls: int = 1) -> list:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    events = [(e.key, getattr(e, "self_device_time_total", 0))
-              for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    return sorted((e for e in events if e[1] > 0), key=lambda e: -e[1])
+    table = prof.key_averages()
+    kernels = [(e.key, getattr(e, "self_device_time_total", 0))
+               for e in table
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    ops = [(e.key, getattr(e, "self_device_time_total", 0)) for e in table
+           if e.device_type == torch.autograd.DeviceType.CPU
+           and e.key.startswith("aten::")]
+    top = lambda rows: sorted((r for r in rows if r[1] > 0),
+                              key=lambda r: -r[1])
+    return top(kernels), top(ops)
+
+
+#: Where a ResNet step moves data without computing: the SAME pads'
+#: padded copies, explicit contiguous copies, and the layout transposes
+#: that cuDNN or PyTorch launch (by kernel name).
+LAYOUT_OPS = ("aten::constant_pad_nd", "aten::clone", "aten::contiguous")
+LAYOUT_KERNELS = ("nchwToNhwc", "nhwcToNchw", "transpose", "Transpose")
+
+
+def _layout_ms(fn, calls: int) -> dict:
+    """Device ms a call of the layout work in one trace of ``fn``: each of
+    :data:`LAYOUT_OPS` with its children's kernels, and the kernels whose
+    names hold one of :data:`LAYOUT_KERNELS`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {name: 0.0 for name in LAYOUT_OPS}
+    out["transpose kernels"] = 0.0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CPU and e.key in out:
+            out[e.key] += getattr(e, "device_time_total", 0) / 1e3 / calls
+        elif (e.device_type == torch.autograd.DeviceType.CUDA
+              and any(k in e.key for k in LAYOUT_KERNELS)):
+            out["transpose kernels"] += getattr(
+                e, "self_device_time_total", 0) / 1e3 / calls
+    return out
 
 
 def train_shape_check(args, scale) -> tuple[float, float]:
@@ -2989,6 +3065,396 @@ def data_phase(card: str) -> None:
             f"pinned copy and transfer): {ds.upload_seconds:.4f} s ({card})")
 
 
+# -- slice 10: the ResNets of bench.py at full width ---------------------------
+
+#: bench.py:59-60 (dataset, input shape) and :1045-1047 (steps_per_execution)
+#: of its two ResNet configurations; both at global batch 256, built and
+#: compiled as ``bench.py:71-111`` builds them.
+RESNETS = (("resnet18", "fashion_mnist", (28, 28, 1), 8, ResNet18),
+           ("resnet50", "cifar10", (32, 32, 3), 4, ResNet50))
+RESNET_BATCH, RESNET_EPOCHS, RESNET_STEPS = 256, 2, 8
+#: The test split: 10,000 = 39 x 256 + 16, so the last batch is ragged.
+RESNET_TEST = 10_000
+#: Fused against unfused, after the first step: the same forward (so the
+#: same loss and BatchNorm statistics, to rounding) and one update whose
+#: gradients differ by the CE kernel's ~1e-7 relative rounding, which moves
+#: a weight by far under 1e-6 at lr 0.001.
+RESNET_LOSS_ATOL = 1e-5
+RESNET_PARAM_ATOL = 1e-6
+RESNET_STATE_TOL = 1e-5
+#: After 16 steps a BatchNorm net carries any rounding difference far (on
+#: the card, a twin whose weights start one ulp off drifts by as much as
+#: the fused run does): the fused run must stay within RESNET_DRIFT times
+#: that one-ulp twin's distance from the unfused one, measured in the same
+#: run, on losses, parameters and BatchNorm state.
+RESNET_DRIFT = 10.0
+#: predict against the eval-mode forward: the same kernels on the same
+#: rows give the same bits (full batches; the ragged batch against the
+#: forward of its padded copy). Against the forward of the 16 rows alone,
+#: cuDNN may take another algorithm and sum in another order: within
+#: PREDICT_RTOL of the logits' size (fp32 sums over up to 4,608 terms).
+PREDICT_RTOL = 1e-4
+
+
+class _FirstStep(Callback):
+    """Keeps the parameters and buffers after the fit's first step."""
+
+    wants_batches = True
+
+    def __init__(self):
+        self.taken = None
+
+    def on_batch_end(self, step, logs):
+        if self.taken is None:
+            self.taken = (logs["loss"], _params(self.model),
+                          _bn_state(self.model))
+
+
+def _resnet_chain(source, *, shuffle: bool = False):
+    """The reference chain on a loaded dataset: map(x / 255) -> cache ->
+    (shuffle(10000), unseeded, as the reference program's) -> batch(256).
+    Without the shuffle, two fits see the same batches in order (phase 21's
+    rule for its comparisons: a promoted chain's shuffle draws a seed of
+    its own)."""
+    def scale(image, label):
+        return np.asarray(image, np.float32) / 255.0, label
+
+    ds = source.map(scale).cache()
+    if shuffle:
+        ds = ds.shuffle(10000)
+    return ds.batch(RESNET_BATCH)
+
+
+def _resnet(make_model, shape, *, fused_on: bool = True, k: int = 1):
+    """``bench.py:build_model``'s ResNet: SparseCategoricalCrossentropy(
+    from_logits=True), SGD(0.001) and SparseCategoricalAccuracy, with the
+    kernels' flags; random weights from seed 0, so two builds start equal."""
+    model = make_model(num_classes=10, input_shape=shape)
+    model.compile(optimizer=SGD(learning_rate=0.001, fused=fused_on),
+                  loss=SparseCategoricalCrossentropy(from_logits=True,
+                                                     fused=fused_on),
+                  metrics=[SparseCategoricalAccuracy()],
+                  steps_per_execution=k)
+    return model
+
+
+def _bn_state(model) -> list:
+    return [b.detach().clone() for b in model.buffers()]
+
+
+def _state_diff(a, b) -> float:
+    """The largest |a - b| / (1 + |b|) over the BatchNorm buffers."""
+    return max(float(((p - q).abs() / (1 + q.abs())).max())
+               for p, q in zip(a, b))
+
+
+def _conv_dense_flops(model, x) -> float:
+    """FLOPs of one train step's convolutions and Dense products, counted
+    from their shapes in an eval forward of ``x``: 2 per multiply-add
+    forward, twice that backward (the input gradient and the weight
+    gradient), less the first conv's input gradient, which nothing needs.
+    BatchNorm, activations, pooling and the optimizer are not counted."""
+    from tpu_dist_torch.models.layers import Conv2D, Dense
+
+    fwd, first = [], []
+
+    def hook(m, inputs, out):
+        if isinstance(m, Conv2D):
+            kh, kw = m.kernel_size
+            macs = out.numel() * kh * kw * inputs[0].shape[-1]
+        else:
+            macs = out.numel() * inputs[0].shape[-1]
+        fwd.append(2.0 * macs)
+        if not first:
+            first.append(2.0 * macs)
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, (Conv2D, Dense))]
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for h in handles:
+            h.remove()
+    return 3 * sum(fwd) - first[0]
+
+
+def _resnet_step_times(make_model, shape, k: int, batch, peak: float) -> dict:
+    """A fresh fused model's train step at ``k`` steps an execution on one
+    device batch (``make_train_function``): ms a step (median of
+    CUDA-event windows), images/s, device ms and busy share, the top
+    device kernels and operators (``torch.profiler``), and the conv and
+    Dense FLOPs' share of ``peak``."""
+    model = _resnet(make_model, shape)
+    fn, state = model.make_train_function(k), model.train_state()
+    xs, ys = (torch.stack([a] * k) if k > 1 else a for a in batch)
+    step = lambda: fn(*state, xs, ys)
+    per = 2 if k == 1 else 1
+    ms = _time_ms(step, runs=3, per_run=per, warmup=2) / k
+    kernels, ops = _step_profile(step, per)
+    layout = _layout_ms(step, per) if k == 1 else None
+    steps = per * k
+    dev = sum(us for _, us in kernels) / 1e3 / steps if kernels else None
+    flops = _conv_dense_flops(model, batch[0])
+    return {"k": k, "ms": ms, "images_s": RESNET_BATCH / ms * 1e3,
+            "device_ms": dev, "busy": None if dev is None else dev / ms,
+            "top": [(n, us / steps / 1e3) for n, us in kernels[:6]],
+            "ops": [(n, us / steps / 1e3) for n, us in ops[:8]],
+            "layout": layout,
+            "tflop": flops / 1e12, "flop_share": flops / (ms * 1e-3) / peak}
+
+
+def _log_step(name: str, policy_name: str, t: dict, card: str) -> None:
+    busy = ("device not measured" if t["device_ms"] is None else
+            f"device {t['device_ms']:.4f} ms a step "
+            f"({t['busy'] * 100:.1f} % busy)")
+    log(f"[22 resnet] (f) {name} {policy_name} train step, batch "
+        f"{RESNET_BATCH}, k = {t['k']}: {t['ms']:.4f} ms = "
+        f"{t['images_s']:.1f} images/s; {busy}; conv + Dense "
+        f"{t['tflop']:.4f} TFLOP a step = "
+        f"{t['flop_share'] * 100:.1f} % of the card's "
+        f"{'fp32 CUDA-core' if policy_name == 'float32' else 'bf16 tensor'}"
+        f" peak ({card})")
+    log("    top device kernels, ms a step: " + "; ".join(
+        f"{n[:90]} {ms:.4f}" for n, ms in t["top"]))
+    if t["ops"]:
+        log("    top operators by their kernels' device time, ms a step: "
+            + "; ".join(f"{n} {ms:.4f}" for n, ms in t["ops"]))
+    if t["layout"]:
+        log("    layout work, device ms a step: " + "; ".join(
+            f"{n} {ms:.4f}" for n, ms in t["layout"].items()))
+
+
+def resnet_phase(card: str) -> dict:
+    """Phase 22: bench.py's two ResNets at full width and batch."""
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    steps = RESNET_EPOCHS * RESNET_STEPS
+    out = {}
+    try:
+        for name, dataset, shape, k, make_model in RESNETS:
+            source = td_data.load(dataset, split="train")
+            runs = {}
+            for label, fused_on, kk, nudge in (
+                    ("fused", True, 1, False), ("unfused", False, 1, False),
+                    ("nudged", False, 1, True), ("graphed", True, k, False)):
+                model = _resnet(make_model, shape, fused_on=fused_on, k=kk)
+                if nudge:   # every weight one ulp up
+                    with torch.no_grad():
+                        for p in model.parameters():
+                            p.copy_(torch.nextafter(
+                                p, torch.full_like(p, float("inf"))))
+                chain = _resnet_chain(source)
+                first = _FirstStep()
+                _reset_counts()
+                t0 = time.monotonic()
+                h = model.fit(chain, epochs=RESNET_EPOCHS,
+                              steps_per_epoch=RESNET_STEPS, verbose=0,
+                              callbacks=[first] if kk == 1 else [])
+                torch.cuda.synchronize()
+                runs[label] = (model, h.history, _counts(),
+                               time.monotonic() - t0, first.taken)
+                promoted = getattr(chain, "_device_promoted", None)
+                if not isinstance(promoted, DeviceDataset):
+                    raise AssertionError(f"(a) {name}: the chain was not "
+                                         f"promoted: {promoted!r}")
+            fm, fh, fc, fwall, f1 = runs["fused"]
+            tm, th, tc, _, t1 = runs["unfused"]
+            nm, nh, _, _, _ = runs["nudged"]
+            gm, gh, gc, gwall, _ = runs["graphed"]
+            want = (0, 0, 0, steps, steps, steps)
+            if fc != want or gc != want or any(tc):
+                raise AssertionError(f"(a) {name}: launches fused {fc}, "
+                                     f"graphed {gc}, unfused {tc}; expected "
+                                     f"{want}, {want} and none")
+
+            def gaps(a, b):
+                return (max(abs(x - y) for x, y in zip(a[0], b[0])),
+                        _max_diff(a[1], b[1]), _state_diff(a[2], b[2]))
+
+            first_gap = gaps(([f1[0]], f1[1], f1[2]), ([t1[0]], t1[1], t1[2]))
+            end = [(h["loss"], _params(m), _bn_state(m))
+                   for m, h in ((fm, fh), (tm, th), (nm, nh))]
+            fused_gap, ulp_gap = gaps(end[0], end[1]), gaps(end[2], end[1])
+            if (first_gap[0] > RESNET_LOSS_ATOL
+                    or first_gap[1] > RESNET_PARAM_ATOL
+                    or first_gap[2] > RESNET_STATE_TOL
+                    or any(f > RESNET_DRIFT * u
+                           for f, u in zip(fused_gap, ulp_gap))
+                    or not np.isfinite(fh["loss"]).all()):
+                raise AssertionError(
+                    f"(a) {name} fused vs unfused: after one step losses, "
+                    f"params, BN state {first_gap} (limits "
+                    f"{RESNET_LOSS_ATOL:g}, {RESNET_PARAM_ATOL:g}, "
+                    f"{RESNET_STATE_TOL:g}); after {steps} {fused_gap} "
+                    f"against the one-ulp twin's {ulp_gap} (x "
+                    f"{RESNET_DRIFT:g}); losses {fh['loss']}")
+            log(f"[22 resnet] (a) {name} "
+                f"({sum(p.numel() for p in fm.parameters())} parameters in "
+                f"{len(list(fm.parameters()))} leaves, "
+                f"{sum(b.numel() for b in fm.buffers())} BN state), the "
+                f"{dataset} chain promoted to a DeviceDataset, fused CE + "
+                f"SGD(fused=True), {RESNET_EPOCHS} x {RESNET_STEPS} steps of "
+                f"{RESNET_BATCH} in {fwall:.3f} s: losses "
+                f"{[round(v, 6) for v in fh['loss']]}; against the unfused "
+                f"twin, max |diff| of losses, params and BN state "
+                f"(relative) after one step {first_gap[0]:.3e}, "
+                f"{first_gap[1]:.3e}, {first_gap[2]:.3e} (limits "
+                f"{RESNET_LOSS_ATOL:g}, {RESNET_PARAM_ATOL:g}, "
+                f"{RESNET_STATE_TOL:g}), after {steps} {fused_gap[0]:.3e}, "
+                f"{fused_gap[1]:.3e}, {fused_gap[2]:.3e}, where the twin "
+                f"started one ulp off drifts by {ulp_gap[0]:.3e}, "
+                f"{ulp_gap[1]:.3e}, {ulp_gap[2]:.3e} (limit {RESNET_DRIFT:g}"
+                f" x); launches CE fwd {fc[3]}, CE bwd {fc[4]}, SGD {fc[5]};"
+                f" leaf tables built {_one_table(name, fm)}")
+            # (b) k steps an execution on a captured graph against k = 1.
+            loss_k = max(abs(a - b) for a, b in zip(gh["loss"], fh["loss"]))
+            param_k = _max_diff(_params(gm), _params(fm))
+            state_k = _state_diff(_bn_state(gm), _bn_state(fm))
+            (graphed,) = gm._trainer._graphed.values()
+            ((key, (prog, _)),) = graphed.programs.items()
+            if (loss_k > RESNET_LOSS_ATOL or param_k > GRAPH_PARAM_ATOL
+                    or state_k > RESNET_STATE_TOL or prog.replays < 1):
+                raise AssertionError(
+                    f"(b) {name} k = {k} vs k = 1: losses {loss_k:.3e}, "
+                    f"params {param_k:.3e}, BN state {state_k:.3e}; "
+                    f"{prog.replays} replays")
+            log(f"[22 resnet] (b) {name} steps_per_execution={k} on a "
+                f"captured graph ({prog.calls} executions, {prog.replays} "
+                f"replays, captured in {prog.capture_s:.3f} s; key {key[0]})"
+                f" in {gwall:.3f} s against k = 1: max |diff| losses "
+                f"{loss_k:.3e}, params {param_k:.3e}, BN state {state_k:.3e}"
+                f" ({'exact' if param_k == state_k == 0 else 'not exact'}); "
+                f"launches {gc[3]}, {gc[4]}, {gc[5]}")
+            # (c) evaluate and predict over the test split, eval mode.
+            test = _resnet_chain(td_data.load(dataset, split="test",
+                                              synthetic_size=RESNET_TEST))
+            logs = fm.evaluate(test, verbose=0)
+            t0 = time.monotonic()
+            pred = fm.predict(test)
+            pred_s = time.monotonic() - t0
+            ((pkey, (pprog, _)),) = fm._trainer._predict_programs.items()
+            exact = ragged = 0.0
+            row = 0
+            with torch.no_grad():
+                for xb, _ in test:
+                    xb = np.asarray(xb)
+                    n = len(xb)
+                    padded = np.concatenate(
+                        [xb, np.repeat(xb[-1:], RESNET_BATCH - n, axis=0)])
+                    got = pred[row:row + n]
+                    ref = fm(torch.from_numpy(padded).cuda()).cpu().numpy()
+                    exact = max(exact, float(np.abs(got - ref[:n]).max()))
+                    if n < RESNET_BATCH:
+                        alone = fm(torch.from_numpy(xb).cuda()).cpu().numpy()
+                        ragged = float(np.abs(got - alone).max()
+                                       / np.abs(alone).max())
+                    row += n
+            if (pred.shape != (RESNET_TEST, 10) or row != RESNET_TEST
+                    or exact != 0.0 or ragged > PREDICT_RTOL
+                    or not np.isfinite(logs["loss"]) or fm.training):
+                raise AssertionError(
+                    f"(c) {name}: predict {pred.shape} off the eval forward "
+                    f"by {exact:.3e}, the ragged batch off the forward of "
+                    f"its rows alone by {ragged:.3e} of the logits' size; "
+                    f"evaluate {logs}")
+            log(f"[22 resnet] (c) {name} evaluate over {RESNET_TEST} test "
+                f"images (last batch {RESNET_TEST % RESNET_BATCH} rows): "
+                f"loss {logs['loss']:.6f}, accuracy {logs['accuracy']:.4f}; "
+                f"predict {pred.shape} in {pred_s:.3f} s through one "
+                f"captured eval program ({pprog.calls} calls, "
+                f"{pprog.replays} replays): equal to the eval forward batch "
+                f"by batch exactly (the ragged one padded to "
+                f"{RESNET_BATCH} rows), and to the forward of its 16 rows "
+                f"alone within {ragged:.3e} of the logits' size (rtol "
+                f"{PREDICT_RTOL:g})")
+            out[name] = {"model": gm, "counts": fc, "k": k, "source": source,
+                         "batch": next(iter(_resnet_chain(source)))}
+            del fm, tm, nm, runs
+        # (d) ResNet-18 under mixed_bfloat16, the reference's TPU recipe:
+        # the k = 8 model fit again after set_policy, without recompiling,
+        # on the reference chain as it stands (its unseeded shuffle).
+        gm = out["resnet18"]["model"]
+        seen = []
+        hook = gm.conv2d.register_forward_hook(
+            lambda m, i, o: seen.append(i[0].dtype))
+        chain = _resnet_chain(out["resnet18"]["source"], shuffle=True)
+        before = policy()
+        try:
+            set_policy("mixed_bfloat16")
+            h = gm.fit(chain, epochs=RESNET_EPOCHS,
+                       steps_per_epoch=RESNET_STEPS, verbose=0).history
+            logits = gm.predict(out["resnet18"]["batch"][0][:64])
+        finally:
+            set_policy(before)
+            hook.remove()
+        if not isinstance(getattr(chain, "_device_promoted", None),
+                          DeviceDataset):
+            raise AssertionError("(d) the shuffled chain was not promoted")
+        keys = sorted(key[0] for key in gm._trainer._graphed)
+        (prog16, _), = [p for key, g in gm._trainer._graphed.items()
+                        if key[0] == "mixed_bfloat16"
+                        for p in g.programs.values()]
+        bf16_state = [b.dtype for b in gm.buffers()]
+        if (keys != ["float32", "mixed_bfloat16"] or prog16.replays < 1
+                or seen[:1] != [torch.bfloat16]
+                or not np.isfinite(h["loss"]).all()
+                or logits.dtype != np.float32
+                or set(bf16_state) != {torch.float32}
+                or not all(torch.isfinite(b).all() for b in gm.buffers())):
+            raise AssertionError(
+                f"(d) bf16 ResNet-18: programs {keys}, first conv input "
+                f"{seen[:1]}, losses {h['loss']}, logits {logits.dtype}, "
+                f"BN state {set(bf16_state)}")
+        log(f"[22 resnet] (d) resnet18 fit again under mixed_bfloat16 "
+            f"without recompiling: a new captured program (programs keyed "
+            f"{keys}; {prog16.calls} executions, {prog16.replays} replays), "
+            f"first conv input {seen[0]}, losses "
+            f"{[round(v, 6) for v in h['loss']]} (finite), logits "
+            f"{logits.dtype}, BN state {sorted(map(str, set(bf16_state)))}")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            flags
+    # (e) fused SGD at the ResNets' leaf tables.
+    sgd = {}
+    for name, _, shape, _, make_model in RESNETS:
+        params = [p.detach().to("cuda") for p in
+                  make_model(num_classes=10, input_shape=shape).parameters()]
+        gen = torch.Generator().manual_seed(3)
+        grads = [1e-2 * torch.randn(p.shape, generator=gen).to("cuda")
+                 for p in params]
+        sgd[name] = _sgd_times(params, grads)["plain"]
+        _log_optimizer_times("22", "fused SGD plain", name, sgd[name],
+                             "torch.optim.SGD(foreach=True).step()")
+        del params, grads
+    # (f) step times, fp32 (TF32 off, phase 1) and ResNet-18 bf16.
+    times = {}
+    for name, _, shape, k, make_model in RESNETS:
+        batch = tuple(torch.from_numpy(np.asarray(a)).cuda()
+                      for a in out[name]["batch"])
+        for kk in (1, k):
+            t = _resnet_step_times(make_model, shape, kk, batch,
+                                   FP32_FLOPS_PER_S)
+            times[name, "float32", kk] = t
+            _log_step(name, "float32", t, card)
+        if name == "resnet18":
+            before = policy()
+            try:
+                set_policy("mixed_bfloat16")
+                for kk in (1, k):
+                    t = _resnet_step_times(make_model, shape, kk, batch,
+                                           BF16_FLOPS_PER_S)
+                    times[name, "mixed_bfloat16", kk] = t
+                    _log_step(name, "mixed_bfloat16", t, card)
+            finally:
+                set_policy(before)
+    torch.cuda.empty_cache()
+    return {"launches": {name: out[name]["counts"] for name in out},
+            "sgd": sgd, "times": times}
+
+
 def main() -> int:
     t0 = time.monotonic()
     card = device_phase()
@@ -3023,6 +3489,16 @@ def main() -> int:
     graph_serve_phase(card, paged)
     graph_train_phase(card, slice3["cnn"]["k1"])
     data_phase(card)
+    resnets = resnet_phase(card)
+    # Rows 1-3 launch on the ResNets' fit too (the counts of phase 22 (a)),
+    # and row 3 runs at their leaf tables.
+    for rec, index in zip(new_records[:3], (3, 4, 5)):
+        for name, counts in resnets["launches"].items():
+            rec["launches_by_path"][f"{name}_fit"] = counts[index]
+    for name, t in resnets["sgd"].items():
+        new_records[2][f"{name}_shape"] = {k: t[k] for k in (
+            "n", "leaves", "ms", "host_us", "kernel_alone_ms", "update_ms",
+            "plain_ms", "library_ms", "builds")} | {"bound_ms": t["bound"][0]}
     # In the order of the TPU kernel table (PERF.md): rows 1-9.
     records = [*new_records, adam_record, record, *bwd_records]
     log(f"done in {time.monotonic() - t0:.1f} s")

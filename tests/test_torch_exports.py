@@ -24,13 +24,6 @@ PACKAGES = ("", "ops", "serve", "training", "observe", "models", "data",
 NOT_YET_PORTED = {
     "OptaxWrapper": "not ported, by decision (optax has no PyTorch "
                     "counterpart)",
-    # item 7: predict, summary, the Model container
-    "Model": "item 7",
-    # item 8: layers and ResNets
-    "Activation": "item 8", "AveragePooling2D": "item 8",
-    "BatchNormalization": "item 8", "Dropout": "item 8",
-    "GlobalAveragePooling2D": "item 8", "ReLU": "item 8",
-    "ResNet18": "item 8", "ResNet50": "item 8",
     # item 9: checkpoints, saved models, their callbacks
     "checkpoint": "item 9", "load_model": "item 9", "save_model": "item 9",
     "EarlyStopping": "item 9", "LambdaCallback": "item 9",

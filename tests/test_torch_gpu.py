@@ -1121,3 +1121,193 @@ def test_prefetch_to_device_equals_no_prefetch(cuda_device):
         losses.append(h.history["loss"])
         assert model._trainer._prefetcher is None   # closed by fit
     np.testing.assert_allclose(losses[1], losses[0], rtol=0, atol=1e-5)
+
+
+# -- the ResNets, BatchNorm state, Dropout, predict and the policy -------------
+
+
+@pytest.fixture
+def deterministic_cudnn():
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    yield
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        flags
+
+
+def _small_resnet(fused_on: bool, k: int, device, lr: float = 0.01):
+    """A narrow residual net from the ResNet helpers (BatchNorm in every
+    block, a projecting and an identity shortcut) on 12x12x1 images."""
+    from tpu_dist_torch.models import layers, resnet
+    from tpu_dist_torch.models.model import Sequential
+
+    model = Sequential([*resnet._conv_bn(16, 3),
+                        resnet._stage(resnet._basic_block, 16, 2, 2, True),
+                        layers.GlobalAveragePooling2D(), layers.Dense(10)],
+                       input_shape=(12, 12, 1), name="small_resnet", seed=3)
+    model.compile(optimizer=SGD(learning_rate=lr, fused=fused_on),
+                  loss=SparseCategoricalCrossentropy(from_logits=True,
+                                                     fused=fused_on),
+                  steps_per_execution=k, device=device)
+    return model
+
+
+def _small_batches(n=256, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((n, 12, 12, 1)).astype(np.float32),
+            rng.integers(0, 10, n))
+
+
+def _params(model) -> list:
+    return [p.detach().clone() for p in model.parameters()]
+
+
+def _variables(model) -> list:
+    return [t.detach().clone() for t in (*model.parameters(),
+                                         *model.buffers())]
+
+
+@pytest.mark.gpu
+def test_resnet18_fused_fit_equals_unfused_on_the_card(cuda_device,
+                                                        deterministic_cudnn):
+    # Full-width ResNet-18, one step at a batch of 32: the fused CE and SGD
+    # kernels launch, the loss and the BatchNorm update (the same forward)
+    # equal the unfused twin's, and the parameters stay within the CE
+    # kernel's rounding (~1e-7 of a gradient, times lr). Over many steps a
+    # BatchNorm net carries such rounding far (chip_smoke.py phase 22
+    # measures that drift against a twin started one ulp off).
+    from tpu_dist_torch.models import ResNet18
+
+    x, y = load_arrays("fashion_mnist", synthetic_size=64)
+    x = x.astype(np.float32) / 255.0
+    out = {}
+    for fused_on in (True, False):
+        model = ResNet18(input_shape=(28, 28, 1))
+        model.compile(optimizer=SGD(learning_rate=0.001, fused=fused_on),
+                      loss=SparseCategoricalCrossentropy(from_logits=True,
+                                                         fused=fused_on),
+                      device=cuda_device)
+        fused.fused_ce_fwd.launches = fused.fused_ce_bwd.launches = 0
+        fused.fused_sgd_apply.launches = 0
+        h = model.fit(Dataset.from_tensor_slices((x, y)).batch(32),
+                      epochs=1, steps_per_epoch=1, verbose=0)
+        out[fused_on] = (h.history["loss"], _params(model),
+                         [b.clone() for b in model.buffers()],
+                         (fused.fused_ce_fwd.launches,
+                          fused.fused_ce_bwd.launches,
+                          fused.fused_sgd_apply.launches))
+    assert out[True][3] == (1, 1, 1) and out[False][3] == (0, 0, 0)
+    np.testing.assert_allclose(out[True][0], out[False][0], rtol=0,
+                               atol=1e-5)
+    for a, b in zip(out[True][1], out[False][1]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+    assert all(torch.equal(a, b) for a, b in zip(out[True][2], out[False][2]))
+    assert not all(torch.equal(a, b) for a, b in zip(
+        out[True][1], ResNet18(input_shape=(28, 28, 1)).to(
+            cuda_device).parameters()))
+
+
+@pytest.mark.gpu
+def test_resnet_capture_k2_equals_eager_with_bn_state(cuda_device,
+                                                      deterministic_cudnn):
+    x, y = _small_batches()
+    out = {}
+    for k in (1, 2):
+        model = _small_resnet(True, k, cuda_device)
+        h = model.fit(Dataset.from_tensor_slices((x, y)).batch(32),
+                      epochs=2, steps_per_epoch=4, verbose=0)
+        out[k] = (h.history["loss"], _variables(model), model)
+    assert out[2][0] == out[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(out[2][1], out[1][1]))
+    # The running statistics moved inside the captured executions.
+    model = out[2][2]
+    assert not torch.equal(model.batchnormalization.mean,
+                           torch.zeros_like(model.batchnormalization.mean))
+    (graphed,) = model._trainer._graphed.values()
+    ((prog, _),) = graphed.programs.values()
+    assert prog.calls == 4 and prog.replays == 3
+
+
+@pytest.mark.gpu
+def test_dropout_masks_differ_across_replays(cuda_device):
+    from tpu_dist_torch.models import layers
+    from tpu_dist_torch.models.model import Sequential
+
+    model = Sequential([layers.Dense(64, activation="relu"),
+                        layers.Dropout(0.5), layers.Dense(3)],
+                       input_shape=(16,), name="dropout", seed=0)
+    model.compile(optimizer=SGD(learning_rate=0.0),
+                  loss=SparseCategoricalCrossentropy(from_logits=True),
+                  steps_per_execution=2, device=cuda_device)
+    fn, state = model.make_train_function(), model.train_state()
+    trainer = model._trainer
+    assert trainer._graph_generators() == (trainer.rng,)
+    assert trainer.rng.device.type == "cuda"
+    rng = np.random.default_rng(0)
+    xs = np.stack([rng.standard_normal((32, 16)).astype(np.float32)] * 2)
+    ys = np.stack([rng.integers(0, 3, 32)] * 2)
+    # lr 0: the weights never move, so a loss changes only with its mask.
+    losses = [float(fn(*state, xs, ys)) for _ in range(4)]
+    (prog, _), = fn.programs.values()
+    assert prog.replays == 3
+    assert len(set(losses)) == 4, losses
+
+
+@pytest.mark.gpu
+def test_predict_captures_one_program_for_a_ragged_pass(cuda_device,
+                                                        deterministic_cudnn):
+    model = _small_resnet(True, 1, cuda_device)
+    x, y = _small_batches(80)
+    model.fit(Dataset.from_tensor_slices((x, y)).batch(32), epochs=1,
+              steps_per_epoch=2, verbose=0)
+    batches = [(x[i:i + 32], y[i:i + 32]) for i in range(0, 80, 32)]
+    pred = model.predict(batches)
+    assert pred.shape == (80, 10) and pred.dtype == np.float32
+    ((key, (prog, _)),) = model._trainer._predict_programs.items()
+    assert key[0] == "float32"
+    assert prog.calls == 3 and prog.replays == 2
+    assert model.training is False
+    with torch.no_grad():
+        for i, (xb, _) in enumerate(batches):
+            ref = model(torch.from_numpy(xb).to(cuda_device)).cpu().numpy()
+            got = pred[32 * i:32 * i + len(xb)]
+            if len(xb) == 32:
+                np.testing.assert_array_equal(got, ref)
+            else:   # padded to 32 rows: cuDNN may choose otherwise
+                np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_fit_after_set_policy_captures_a_bf16_program(cuda_device):
+    import importlib
+
+    tpolicy = importlib.import_module("tpu_dist_torch.models.policy")
+    model = _small_resnet(True, 2, cuda_device)
+    x, y = _small_batches(128)
+    ds = Dataset.from_tensor_slices((x, y)).batch(32)
+    seen = []
+    model.conv2d.register_forward_hook(
+        lambda m, i, o: seen.append(i[0].dtype))
+    model.register_forward_hook(lambda m, i, o: seen.append(o.dtype))
+    model.fit(ds, epochs=1, steps_per_epoch=4, verbose=0)
+    before = tpolicy.policy()
+    try:
+        tpolicy.set_policy("mixed_bfloat16")
+        h = model.fit(ds, epochs=1, steps_per_epoch=4, verbose=0)
+    finally:
+        tpolicy.set_policy(before)
+    graphed = model._trainer._graphed
+    assert sorted(key[0] for key in graphed) == ["float32", "mixed_bfloat16"]
+    for key, g in graphed.items():
+        ((prog, _),) = g.programs.values()
+        assert prog.calls == 2 and prog.replays == 1, key
+    # Hooks fire on eager runs and captures (replays run no Python): the
+    # fp32 program's first call and capture (2 steps each), then the bf16
+    # program's.
+    conv_in, logits = seen[0::2], seen[1::2]
+    assert conv_in == [torch.float32] * 4 + [torch.bfloat16] * 4, conv_in
+    assert logits == [torch.float32] * 8
+    assert np.isfinite(h.history["loss"]).all()
+    assert all(b.dtype == torch.float32 for b in model.buffers())

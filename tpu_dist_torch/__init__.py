@@ -31,7 +31,8 @@ from tpu_dist_torch import (cluster, data, models, observe, ops, parallel,
                             training, utils)
 from tpu_dist_torch.cluster import ClusterConfig, barrier, initialize, is_chief
 from tpu_dist_torch.data import AutoShardPolicy, Dataset, Options
-from tpu_dist_torch.models import Sequential, build_and_compile_cnn_model
+from tpu_dist_torch.models import (Model, Sequential,
+                                   build_and_compile_cnn_model)
 from tpu_dist_torch.parallel import (CollectiveCommunication,
                                      MirroredStrategy,
                                      MultiWorkerMirroredStrategy, ReduceOp,
@@ -45,7 +46,7 @@ __all__ = [
     "utils",
     "ClusterConfig", "barrier", "initialize", "is_chief",
     "AutoShardPolicy", "Dataset", "Options",
-    "Sequential", "build_and_compile_cnn_model",
+    "Model", "Sequential", "build_and_compile_cnn_model",
     "CollectiveCommunication", "MirroredStrategy",
     "MultiWorkerMirroredStrategy", "ReduceOp", "Strategy", "get_strategy",
     "Callback", "History",

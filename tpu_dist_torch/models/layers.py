@@ -1,18 +1,24 @@
-"""Neural-net layers as ``nn.Module``s — the subset the transformer LM and
-the MNIST CNN need.
+"""Neural-net layers as ``nn.Module``s.
 
 Counterpart of ``tpu_dist/models/layers.py``. The reference's layers are
-immutable descriptions whose ``init(key, in_shape)`` returns a params tree;
-here a layer is an ``nn.Module`` whose ``init(gen, in_shape)`` creates its
-own parameters (shapes inferred from the input shape, as in the reference)
-and returns the output shape. Containers register their children under the
-reference's :func:`unique_layer_names`, so a parameter's dotted name in the
-port's ``state_dict`` is the path of the same leaf in the reference's params
-tree (``block.residual.main.multiheadattention.wq``), and kernels keep the
-reference's layouts: Dense ``[in, out]``, used as ``x @ W``, and Conv2D
-HWIO over NHWC activations (``F.conv2d`` sees them through permuted views;
-the JAX package leaves convolutions and pooling to XLA, so the port leaves
-them to PyTorch's own operators).
+immutable descriptions whose ``init(key, in_shape)`` returns a params and a
+state tree; here a layer is an ``nn.Module`` whose ``init(gen, in_shape)``
+creates its own parameters and state buffers (shapes inferred from the
+input shape, as in the reference) and returns the output shape. Containers
+register their children under the reference's :func:`unique_layer_names`,
+so a parameter's dotted name in the port's ``state_dict`` is the path of
+the same leaf in the reference's params tree
+(``block.residual.main.multiheadattention.wq``) and a buffer's is its path
+in the reference's state tree (``block.residual.main.batchnormalization.
+mean``). Kernels keep the reference's layouts: Dense ``[in, out]``, used as
+``x @ W``, and Conv2D HWIO over NHWC activations (``F.conv2d`` sees them
+through permuted views; the JAX package leaves convolutions, pooling and
+BatchNorm to XLA, so the port leaves them to PyTorch's own operators).
+
+Where the reference's ``apply`` takes ``training=``, a layer here follows
+``nn.Module.training`` (the trainer sets it: train mode in the step, eval
+mode in ``evaluate`` and ``predict``). Where it takes ``rng``, a Dropout
+draws from its ``generator``, which the trainer hands it.
 """
 
 from __future__ import annotations
@@ -65,6 +71,11 @@ class Layer(nn.Module):
     def _set_params(self, **tensors: torch.Tensor) -> None:
         for name, t in tensors.items():
             setattr(self, name, nn.Parameter(t))
+
+    def _set_state(self, **tensors: torch.Tensor) -> None:
+        """Register the reference's ``state`` leaves as buffers."""
+        for name, t in tensors.items():
+            self.register_buffer(name, t)
 
 
 class Dense(Layer):
@@ -190,6 +201,37 @@ class MaxPooling2D(Layer):
         return y.permute(0, 2, 3, 1)
 
 
+class AveragePooling2D(MaxPooling2D):
+    """Average pool over NHWC inputs. Under SAME padding each window is
+    divided by the count of its valid elements (Keras's rule), not by the
+    window's size."""
+
+    def forward(self, x):
+        xc = x.permute(0, 3, 1, 2)
+        if self.padding == "VALID":
+            return F.avg_pool2d(xc, self.pool_size,
+                                self.strides).permute(0, 2, 3, 1)
+        summed = F.avg_pool2d(_pad_same(xc, self.pool_size, self.strides),
+                              self.pool_size, self.strides,
+                              divisor_override=1)
+        ones = x.new_ones((1, 1, *xc.shape[2:]))
+        counts = F.avg_pool2d(_pad_same(ones, self.pool_size, self.strides),
+                              self.pool_size, self.strides,
+                              divisor_override=1)
+        return (summed / counts).permute(0, 2, 3, 1)
+
+
+class GlobalAveragePooling2D(Layer):
+    """``[B, H, W, C] -> [B, C]``, the mean over H and W."""
+
+    def init(self, gen, in_shape):
+        h, w, c = in_shape
+        return (c,)
+
+    def forward(self, x):
+        return x.mean(dim=(1, 2))
+
+
 class Flatten(Layer):
     """``[B, ...] -> [B, prod(...)]`` in the NHWC order of the activations,
     so the next Dense kernel's rows line up with the reference's."""
@@ -199,6 +241,147 @@ class Flatten(Layer):
 
     def forward(self, x):
         return x.reshape(x.shape[0], -1)
+
+
+class Activation(Layer):
+    """An activation by name, as its own layer."""
+
+    def __init__(self, activation: str = "relu"):
+        super().__init__()
+        self.activation = activation
+
+    def init(self, gen, in_shape):
+        return in_shape
+
+    def forward(self, x):
+        return _activation(self.activation)(x)
+
+
+def ReLU() -> Activation:
+    """``Activation("relu")``, the reference's factory."""
+    return Activation("relu")
+
+
+class _SyncMoments(torch.autograd.Function):
+    """BatchNorm's normalisation over the global batch of a process group
+    (the reference's one ``jit`` over the sharded batch takes its moments
+    over the whole batch). Forward: one all-reduce of ``[Σx, Σx², n]`` per
+    channel; backward: one of ``[Σdy, Σdy·x̂]``, so every process gets the
+    gradient of the summed losses with respect to its own rows. Returns
+    ``(x̂, mean, var)``; the moments are not differentiated (they only
+    update the running state)."""
+
+    @staticmethod
+    def forward(ctx, xf, epsilon):
+        from tpu_dist_torch.parallel import collectives
+
+        c = xf.shape[-1]
+        flat = xf.reshape(-1, c)
+        sums = torch.cat([flat.sum(0), (flat * flat).sum(0),
+                          flat.new_full((1,), flat.shape[0])])
+        collectives.all_reduce([sums], collectives.ReduceOp.SUM)
+        n = sums[2 * c:]
+        mean = sums[:c] / n
+        var = torch.clamp(sums[c:2 * c] / n - mean * mean, min=0.0)
+        inv = torch.rsqrt(var + epsilon)
+        xhat = (xf - mean) * inv
+        ctx.save_for_backward(xhat, inv, n)
+        ctx.mark_non_differentiable(mean, var)
+        return xhat, mean, var
+
+    @staticmethod
+    def backward(ctx, dxhat, _dmean, _dvar):
+        from tpu_dist_torch.parallel import collectives
+
+        xhat, inv, n = ctx.saved_tensors
+        c = xhat.shape[-1]
+        sums = torch.cat([dxhat.reshape(-1, c).sum(0),
+                          (dxhat * xhat).reshape(-1, c).sum(0)])
+        collectives.all_reduce([sums], collectives.ReduceOp.SUM)
+        dx = inv * (dxhat - sums[:c] / n - xhat * (sums[c:] / n))
+        return dx, None
+
+
+class BatchNormalization(Layer):
+    """Batch norm over the last (channel) axis with running statistics in
+    the buffers ``mean`` and ``var`` (float32 always).
+
+    Train mode normalises with the batch's moments over every other axis,
+    computed in float32 whatever the activation dtype, and updates the
+    running state as the reference does: ``m * old + (1 - m) * batch``,
+    with the biased variance (``F.batch_norm`` would update with the
+    unbiased one, and weight the batch by ``momentum``). Eval mode
+    normalises with the running state. The output is cast back to the
+    input's dtype. With ``synchronized`` set (the trainer sets it in a
+    process group), the moments and their gradients are the global
+    batch's (:class:`_SyncMoments`)."""
+
+    def __init__(self, momentum: float = 0.99, epsilon: float = 1e-3,
+                 center: bool = True, scale: bool = True):
+        super().__init__()
+        self.momentum = momentum
+        self.epsilon = epsilon
+        self.center = center
+        self.scale = scale
+        self.synchronized = False
+
+    def init(self, gen, in_shape):
+        c = in_shape[-1]
+        if self.scale:
+            self._set_params(gamma=torch.ones(c))
+        if self.center:
+            self._set_params(beta=torch.zeros(c))
+        self._set_state(mean=torch.zeros(c), var=torch.ones(c))
+        return in_shape
+
+    def forward(self, x):
+        xf = x.float()
+        if self.training:
+            if self.synchronized:
+                y, mean, var = _SyncMoments.apply(xf, self.epsilon)
+            else:
+                var, mean = torch.var_mean(xf, dim=tuple(range(x.dim() - 1)),
+                                           correction=0)
+                y = (xf - mean) * torch.rsqrt(var + self.epsilon)
+            m = self.momentum
+            with torch.no_grad():
+                self.mean.copy_(m * self.mean + (1 - m) * mean)
+                self.var.copy_(m * self.var + (1 - m) * var)
+        else:
+            y = (xf - self.mean) * torch.rsqrt(self.var + self.epsilon)
+        if self.scale:
+            y = y * self.gamma
+        if self.center:
+            y = y + self.beta
+        return y.to(x.dtype)
+
+
+class Dropout(Layer):
+    """Zeroes each element with probability ``rate`` in train mode and
+    scales the rest by ``1 / (1 - rate)``; the identity in eval mode. The
+    mask is drawn from :attr:`generator` (the trainer's, on the model's
+    device, seeded by ``fit(seed=)``)."""
+
+    def __init__(self, rate: float = 0.5):
+        super().__init__()
+        if not 0.0 <= rate < 1.0:
+            raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
+        self.rate = rate
+        self.generator: Optional[torch.Generator] = None
+
+    def init(self, gen, in_shape):
+        return in_shape
+
+    def forward(self, x):
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.generator is None:
+            raise ValueError("Dropout needs a generator during training; "
+                             "fit() hands it one")
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) < keep
+        return torch.where(mask, x / keep, 0.0).to(x.dtype)
 
 
 def unique_layer_names(layers: Sequence[Layer]) -> list[str]:

@@ -1,18 +1,28 @@
-"""Model container: ``Sequential`` — init, forward and the training surface.
+"""Model containers: ``Model`` and ``Sequential`` — init, forward and the
+training surface.
 
-Counterpart of ``tpu_dist/models/model.py`` (``Sequential``): init from a
-seed, the forward pass, and the Keras-style ``compile`` / ``fit`` /
-``evaluate`` / ``make_train_function`` / ``train_state`` surface over
-``training/trainer.py``. ``save``/``load_weights`` come with the port's
-checkpoint work. Children are registered under the reference's layer
-names, so the dotted names of :meth:`state_dict` are the reference's
-params-tree paths.
+Counterpart of ``tpu_dist/models/model.py``. ``Model`` is the reference's
+container: a named ``(init_fn, apply_fn)`` pair with the Keras-style
+``compile`` / ``fit`` / ``evaluate`` / ``predict`` / ``make_train_function``
+/ ``train_state`` surface over ``training/trainer.py``; ``Sequential``,
+the linear layer stack, is its subclass. Where the reference's model holds
+no arrays (the trainer owns its pytrees), the port's is an ``nn.Module``
+that owns its parameters and its state (BatchNorm's running statistics) as
+buffers, registered under the reference's tree paths, so the dotted names
+of :meth:`state_dict` are the reference's ``variables['params']`` and
+``variables['state']`` paths. A model is built in eval mode: like the
+reference's ``model(variables, x)``, a call outside the trainer is an
+inference call until the caller sets ``.train()``.
+``save``/``load_weights`` come with the port's checkpoint work.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import copy
+import math
+from typing import Callable, Optional, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -26,22 +36,67 @@ from tpu_dist_torch.utils.device import DeviceLike, resolve_device
 from tpu_dist_torch.utils.errors import unported
 
 
-class Sequential(nn.Module):
-    """Linear layer stack. Parameters are created at construction from
-    ``seed`` when ``input_shape`` is known (on the CPU; move the model with
+def _nest(named, detach: bool = True) -> dict:
+    """``(dotted name, tensor)`` pairs -> nested dicts of tensors (detached
+    unless asked otherwise), the reference's tree layout."""
+    tree: dict = {}
+    for dotted, t in named:
+        *path, leaf = dotted.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = t.detach() if detach else t
+    return tree
+
+
+def _flatten(tree: dict, prefix: str = "") -> dict:
+    """Nested dicts -> ``{dotted name: leaf}``."""
+    out = {}
+    for key, value in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(value, dict):
+            out.update(_flatten(value, name + "."))
+        else:
+            out[name] = value
+    return out
+
+
+class _Tree(nn.Module):
+    """One node of a functional model's params and state trees."""
+
+
+class Model(nn.Module):
+    """A named pair of functions plus the compile/fit surface:
+
+        init_fn(gen, input_shape) -> (params, state)
+        apply_fn(params, state, x, training, rng) -> (outputs, new_state)
+
+    ``params`` and ``state`` are nested dicts of tensors. :meth:`init`
+    registers the params as parameters and the state as buffers, under
+    their tree paths. The forward calls ``apply_fn`` on them with
+    ``training`` from the module's mode and ``rng`` from
+    :attr:`generator` (the trainer's), and copies ``new_state`` into the
+    buffers in place, so a captured program that ran the forward stays
+    valid. Parameters are created from ``seed`` at construction when
+    ``input_shape`` is known (on the CPU; move the model with
     ``.to(device)``)."""
 
-    def __init__(self, layers: Sequence[Layer], *,
-                 input_shape: Optional[tuple] = None,
-                 name: str = "sequential", seed: int = 0):
+    def __init__(self, init_fn: Optional[Callable] = None,
+                 apply_fn: Optional[Callable] = None,
+                 input_shape: Optional[tuple] = None, name: str = "model",
+                 *, seed: int = 0):
         super().__init__()
-        if not layers:
-            raise ValueError("Sequential needs at least one layer")
-        for lname, layer in zip(unique_layer_names(layers), layers):
-            self.add_module(lname, layer)
+        self._init_fn = init_fn
+        self._apply_fn = apply_fn
+        self._configure(input_shape, name, seed)
+
+    def _configure(self, input_shape, name: str, seed: int) -> None:
         self.input_shape = input_shape
         self.name = name
         self.output_shape = None
+        #: The trainer's random generator (``fit(seed=)``), read by the
+        #: functional forward's ``rng`` and handed to every Dropout.
+        self.generator: Optional[torch.Generator] = None
         # Set by compile():
         self.optimizer = None
         self.loss = None
@@ -52,56 +107,82 @@ class Sequential(nn.Module):
         self._trainer = None
         if input_shape is not None:
             self.init(seed)
-
-    @property
-    def layers(self) -> list[Layer]:
-        return list(self._modules.values())
-
-    @property
-    def layer_names(self) -> list[str]:
-        return list(self._modules.keys())
+        self.train(False)
 
     def init(self, seed: int = 0) -> dict:
-        """(Re)create every parameter from ``seed``; the model keeps the
-        device its parameters were on. Returns :attr:`variables`."""
+        """(Re)create every parameter and state buffer from ``seed``; the
+        model keeps the device its parameters were on. Returns
+        :attr:`variables`."""
         if self.input_shape is None:
             raise ValueError(f"{self.name}: input_shape unknown")
         device = next((p.device for p in self.parameters()), None)
-        gen = torch.Generator().manual_seed(int(seed))
-        self.output_shape = init_chain(self.layers, gen,
-                                       tuple(self.input_shape))
+        self._init_from(torch.Generator().manual_seed(int(seed)),
+                        tuple(self.input_shape))
         if device is not None:
             self.to(device)
         return self.variables
 
+    def _init_from(self, gen: torch.Generator, shape: tuple) -> None:
+        params, state = self._init_fn(gen, shape)
+        self._modules.clear()
+        self._parameters.clear()
+        self._buffers.clear()
+        self._attach(self, params, state)
+
+    @staticmethod
+    def _attach(node: nn.Module, params: dict, state: dict) -> None:
+        for key in dict.fromkeys([*params, *state]):
+            p, s = params.get(key), state.get(key)
+            if isinstance(p, dict) or isinstance(s, dict):
+                child = _Tree()
+                Model._attach(child, p or {}, s or {})
+                node.add_module(key, child)
+                continue
+            if p is not None:
+                node.register_parameter(key, nn.Parameter(torch.as_tensor(p)))
+            if s is not None:
+                node.register_buffer(key, torch.as_tensor(s))
+
     def forward(self, x):
-        # Mixed-precision entry/exit casts (policy.py): activations run in
-        # the compute dtype, the returned logits in float32.
-        dtype = compute_dtype()
-        if x.is_floating_point() and x.dtype != dtype:
-            x = x.to(dtype)
-        y = apply_chain(self.layers, x)
-        return y.float() if y.is_floating_point() else y
+        buffers = dict(self.named_buffers())
+        out, new_state = self._apply_fn(
+            _nest(self.named_parameters(), detach=False),
+            _nest(buffers.items()), x, self.training, self.generator)
+        with torch.no_grad():
+            for name, value in _flatten(new_state or {}).items():
+                if value is not buffers[name]:
+                    buffers[name].copy_(value)
+        return out
 
     @property
     def variables(self) -> dict:
-        """``{'params': nested dict of tensors, 'state': {}}`` — the
-        reference's variables layout."""
-        params: dict = {}
-        for dotted, p in self.named_parameters():
-            *path, leaf = dotted.split(".")
-            node = params
-            for key in path:
-                node = node.setdefault(key, {})
-            node[leaf] = p.detach()
-        return {"params": params, "state": {}}
+        """``{'params': …, 'state': …}``, nested dicts of (detached, live)
+        tensors in the reference's tree layout."""
+        return {"params": _nest(self.named_parameters()),
+                "state": _nest(self.named_buffers())}
+
+    def load_jax_variables(self, variables: dict) -> None:
+        """Load the reference model's ``variables`` (``{'params': …,
+        'state': …}``, nested dicts of numpy arrays) into this model, in
+        place; strict on names and shapes."""
+        from tpu_dist_torch.models.bridge import variables_from_jax
+
+        self.load_state_dict(variables_from_jax(variables), strict=True)
 
     def load_jax_params(self, tree: dict) -> None:
-        """Load the reference model's ``variables['params']`` (nested dicts
-        of numpy arrays) into this model, in place."""
+        """Load the reference model's ``variables['params']`` into this
+        model's parameters, in place, strict on names and shapes; the state
+        buffers keep their values."""
         from tpu_dist_torch.models.bridge import params_from_jax
 
-        self.load_state_dict(params_from_jax(tree), strict=True)
+        loaded = params_from_jax(tree)
+        names = {n for n, _ in self.named_parameters()}
+        if set(loaded) != names:
+            raise RuntimeError(
+                f"{self.name}: the params do not match the model's: missing "
+                f"{sorted(names - set(loaded))}, unexpected "
+                f"{sorted(set(loaded) - names)}")
+        self.load_state_dict(loaded, strict=False)
 
     # -- Keras-style training surface -----------------------------------------
 
@@ -196,6 +277,12 @@ class Sequential(nn.Module):
         return self._get_trainer("loss").evaluate(x, steps=steps,
                                                   verbose=verbose)
 
+    def predict(self, x) -> np.ndarray:
+        """Eval-mode outputs for an array (one batch) or an iterable of
+        batches or of ``(x, y)`` tuples, as one numpy array (see
+        ``Trainer.predict``)."""
+        return self._get_trainer("").predict(x)
+
     def make_train_function(self, steps_per_execution: Optional[int] = None):
         """The train step — see ``Trainer.make_train_function`` for the
         callable's contract and how it differs from the JAX package's."""
@@ -206,3 +293,83 @@ class Sequential(nn.Module):
         """The ``(params, state, opt, metrics, loss_acc)`` the
         ``make_train_function`` callable takes."""
         return self._get_trainer("loss optimizer").train_state()
+
+
+class Sequential(Model):
+    """Linear layer stack — the reference model container. Parameters are
+    created at construction from ``seed`` when ``input_shape`` is known (on
+    the CPU; move the model with ``.to(device)``)."""
+
+    def __init__(self, layers: Sequence[Layer], *,
+                 input_shape: Optional[tuple] = None,
+                 name: str = "sequential", seed: int = 0):
+        if not layers:
+            raise ValueError("Sequential needs at least one layer")
+        nn.Module.__init__(self)
+        for lname, layer in zip(unique_layer_names(layers), layers):
+            self.add_module(lname, layer)
+        self._init_fn = self._apply_fn = None
+        self._configure(input_shape, name, seed)
+
+    @property
+    def layers(self) -> list[Layer]:
+        return list(self._modules.values())
+
+    @property
+    def layer_names(self) -> list[str]:
+        return list(self._modules.keys())
+
+    def _init_from(self, gen: torch.Generator, shape: tuple) -> None:
+        self.output_shape = init_chain(self.layers, gen, shape)
+
+    def forward(self, x):
+        # Mixed-precision entry/exit casts (policy.py): activations run in
+        # the compute dtype, the returned logits in float32.
+        dtype = compute_dtype()
+        if x.is_floating_point() and x.dtype != dtype:
+            x = x.to(dtype)
+        y = apply_chain(self.layers, x)
+        return y.float() if y.is_floating_point() else y
+
+    def summary(self) -> str:
+        """Keras-style layer table: name, type, output shape, param count,
+        the reference's text. Shapes and counts need a known
+        ``input_shape``; each layer's are read off a dry ``init`` of a copy
+        of it on the ``meta`` device, which allocates nothing."""
+        header = (f"{'Layer (name)':<26}{'Type':<22}{'Output shape':<18}"
+                  f"{'Params':>10}")
+        lines = [f'Model: "{self.name}"', "=" * len(header), header,
+                 "-" * len(header)]
+        if self.input_shape is None:
+            for name, layer in zip(self.layer_names, self.layers):
+                lines.append(f"{name:<26}{type(layer).__name__:<22}"
+                             f"{'?':<18}{'?':>10}")
+            lines.append("-" * len(header))
+            lines.append("(input_shape unknown — shapes/params unavailable)")
+        else:
+            gen = torch.Generator().manual_seed(0)
+            shape = tuple(self.input_shape)
+            total = total_state = 0
+            for name, layer in zip(self.layer_names, self.layers):
+                # The copy takes meta stand-ins for the layer's tensors
+                # and shares its generators.
+                memo = {id(t): t.to("meta") for t in
+                        (*layer.parameters(), *layer.buffers())}
+                memo.update((id(g), g) for g in (
+                    getattr(m, "generator", None) for m in layer.modules())
+                    if g is not None)
+                dry = copy.deepcopy(layer, memo)
+                with torch.device("meta"):
+                    shape = dry.init(gen, shape)
+                n = sum(math.prod(p.shape) for p in dry.parameters())
+                total += n
+                total_state += sum(math.prod(b.shape) for b in dry.buffers())
+                lines.append(f"{name:<26}{type(layer).__name__:<22}"
+                             f"{str(tuple(shape)):<18}{n:>10,}")
+            lines.append("-" * len(header))
+            lines.append(f"Trainable params: {total:,}")
+            if total_state:
+                lines.append(f"Non-trainable state: {total_state:,}")
+        out = "\n".join(lines)
+        print(out)
+        return out

@@ -42,11 +42,25 @@ def glorot_uniform(gen: torch.Generator, shape, dtype=torch.float32):
                                                     generator=gen)
 
 
+def he_normal(gen: torch.Generator, shape, dtype=torch.float32):
+    fan_in, _ = _fans(tuple(shape))
+    std = math.sqrt(2.0 / fan_in)
+    return std * torch.empty(shape, dtype=dtype).normal_(generator=gen)
+
+
+def uniform_scaled(gen: torch.Generator, shape, scale: float,
+                   dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype).uniform_(-scale, scale,
+                                                    generator=gen)
+
+
 def get(name: str):
     table = {
         "zeros": zeros,
         "ones": ones,
         "glorot_uniform": glorot_uniform,
+        "he_normal": he_normal,
+        "uniform_scaled": uniform_scaled,
     }
     if name not in table:
         raise ValueError(

@@ -72,10 +72,24 @@ Epoch semantics are the JAX package's: one persistent iterator across
 epochs when ``steps_per_epoch`` is set, re-created on exhaustion; the epoch
 ``loss`` is the mean of the steps' losses, each metric the ratio of its
 totals over the epoch.
+
+State and modes: the JAX package threads ``variables['state']`` (BatchNorm's
+running statistics) through the step and passes ``training=``; here the
+state is the model's buffers, updated in place by the step (so a captured
+execution updates them too), and the trainer sets ``nn.Module.training``:
+train mode in the step, eval mode in ``evaluate`` and ``predict``, the
+caller's mode restored after ``fit``, ``evaluate`` and ``predict``. Where
+the JAX package folds a key per step for Dropout, the port's Dropout draws
+from :attr:`Trainer.rng`, a generator on the model's device seeded by
+``fit(seed=)``, which every capture registers so each replay draws anew. A
+captured program's identity starts with the compute policy
+(``_train_variant``, ``_eval_variant``), so a ``fit`` or ``predict`` after
+``set_policy`` captures anew, as the JAX package retraces.
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import logging
 import time
@@ -88,6 +102,8 @@ from tpu_dist_torch.data import vectorize
 from tpu_dist_torch.data.device import DeviceDataset
 from tpu_dist_torch.data.distribute import DistributedDataset
 from tpu_dist_torch.data.pipeline import Dataset, DevicePrefetcher
+from tpu_dist_torch.models.layers import BatchNormalization, Dropout
+from tpu_dist_torch.models.policy import policy
 from tpu_dist_torch.parallel import collectives
 from tpu_dist_torch.training.callbacks import (CallbackList, History,
                                                StopTraining)
@@ -170,6 +186,33 @@ def _tensors(tree) -> list:
     return [t for sub in tree for t in _tensors(sub)]
 
 
+@contextlib.contextmanager
+def _mode(model, training: bool):
+    """The model in train or eval mode for the block, then in the caller's
+    mode again."""
+    was = model.training
+    model.train(training)
+    try:
+        yield
+    finally:
+        model.train(was)
+
+
+def _run_program(programs: dict, key, held_tensors, make, inputs):
+    """Run the captured program of ``key`` on ``inputs``, made by
+    ``make()`` first when there is none, or when the tensors it holds
+    (``held_tensors``, whose addresses a program bakes in) are no longer
+    the ones it was made on."""
+    held = [(id(t), t.data_ptr()) for t in _tensors(held_tensors)]
+    prog, was = programs.get(key, (None, None))
+    if prog is None or was != held:
+        prog = make()
+        # The program's closure holds the tensors, so their ids stay
+        # theirs while it lives.
+        programs[key] = (prog, held)
+    return prog(**inputs)
+
+
 class _GraphedExecutions:
     """K-step executions as captured CUDA graphs: one
     :class:`~tpu_dist_torch.utils.graphs.CapturedProgram` per stacked batch
@@ -179,24 +222,21 @@ class _GraphedExecutions:
     call with other variable tensors (another ``loss_acc``, say) or
     another device-resident dataset replaces the shape's program."""
 
-    def __init__(self, multi, device, raw_x: bool):
+    def __init__(self, multi, device, raw_x: bool, generators=()):
         self.multi, self.device = multi, device
         self._x_dtype = _dtype_of if raw_x else _device_dtype
+        self.generators = tuple(generators)
         self.pool = torch.cuda.graph_pool_handle()
         self.programs: dict[tuple, tuple] = {}
 
     def _run(self, key, held_tensors, fn, specs, inputs):
-        held = [(id(t), t.data_ptr()) for t in _tensors(held_tensors)]
-        prog, was = self.programs.get(key, (None, None))
-        if prog is None or was != held:
-            prog = graphs.CapturedProgram(fn, specs, device=self.device,
-                                          pool=self.pool)
-            # The program's closure holds the tensors, so their ids stay
-            # theirs while it lives.
-            self.programs[key] = (prog, held)
+        make = lambda: graphs.CapturedProgram(
+            fn, specs, device=self.device, pool=self.pool,
+            generators=self.generators)
         # A replay's loss is the graph's own output, rewritten by the next
         # replay: the caller gets a copy.
-        return prog(**inputs).clone()
+        return _run_program(self.programs, key, held_tensors, make,
+                            inputs).clone()
 
     def __call__(self, params, state, opt_state, metric_states, loss_acc,
                  xs, ys, rng=None):
@@ -232,8 +272,14 @@ class Trainer:
         self._iterator_kind: Optional[str] = None  # "host" or "prefetch"
         self._prefetcher: Optional[DevicePrefetcher] = None
         self._fit_loss_acc: Optional[torch.Tensor] = None
-        # (class_weight, device transform) key -> _GraphedExecutions
+        # (policy, class_weight, device transform) -> _GraphedExecutions
         self._graphed: dict = {}
+        # (policy, device transform, input spec) -> (CapturedProgram, held)
+        self._predict_programs: dict = {}
+        self._predict_pool = None
+        #: The generator Dropout (and a functional model's ``rng``) draw
+        #: from, on the model's device; seeded by ``fit(seed=)``.
+        self.rng: Optional[torch.Generator] = None
 
     @property
     def device(self) -> torch.device:
@@ -247,26 +293,50 @@ class Trainer:
     # -- variables -----------------------------------------------------------
 
     def ensure_variables(self, seed: int = 0) -> None:
-        """Build the optimizer state for the model's parameters. Unlike the
-        JAX package, whose model holds no parameters until this call
-        initializes them from ``seed``, the port's model owns parameters
-        from its construction (or a weights load); they are used as they
-        are, and ``seed`` is accepted for the signature's sake."""
+        """Build the optimizer state for the model's parameters, and the
+        random generator (from ``seed``). Unlike the JAX package, whose
+        model holds no parameters until this call initializes them from
+        ``seed``, the port's model owns parameters and state from its
+        construction (or a weights load); they are used as they are. The
+        state is the model's buffers (BatchNorm's running statistics),
+        updated in place by the step. In a process group, process 0's
+        parameters and state are broadcast, and every BatchNorm takes its
+        moments over the global batch (``layers._SyncMoments``)."""
         if self.variables is not None:
             return
         params = list(self.model.parameters())
+        state = list(self.model.buffers())
         if self.distributed:
             # Mirrored variables start equal: process 0's values everywhere.
             collectives.broadcast(params, src=0)
+            for dtype in {b.dtype for b in state}:
+                collectives.broadcast([b for b in state if b.dtype == dtype],
+                                      src=0)
+        for m in self.model.modules():
+            if isinstance(m, BatchNormalization):
+                m.synchronized = self.distributed
+        self.rng = torch.Generator(device=self.device).manual_seed(seed)
+        for m in self.model.modules():
+            if hasattr(m, "generator"):
+                m.generator = self.rng
         optimizer = self.model.optimizer
         self.variables = {
             "params": params,
-            "state": {},
+            "state": state,
             "opt": optimizer.init(params) if optimizer else (),
             "metrics": self._init_metric_states(),
         }
         logger.info("%s: %d parameters on %s", self.model.name,
                     sum(p.numel() for p in params), self.device)
+
+    def _graph_generators(self) -> tuple:
+        """The generators a capture must register: the trainer's, when the
+        model draws from it (a Dropout, a functional model's ``rng``). A
+        registered generator advances its offset on every replay, so each
+        replay draws fresh numbers."""
+        draws = (getattr(self.model, "_apply_fn", None) is not None
+                 or any(isinstance(m, Dropout) for m in self.model.modules()))
+        return (self.rng,) if draws else ()
 
     def _init_metric_states(self) -> tuple:
         return tuple(m.init(self.device) for m in self.model.metrics)
@@ -301,15 +371,16 @@ class Trainer:
     def _step(self, class_weight: Optional[dict] = None,
               device_transform=None):
         """The train step: ``(params, state, opt, metrics, loss_acc, x, y,
-        rng=None) -> loss``. Forward, loss, backward (the flash backward
-        kernels on CUDA), optimizer update, metric update and the
-        device-side loss accumulator, all in place on the passed
-        variables; returns the step's loss as a 0-d device tensor without
-        reading it. ``params`` must be the model's own parameters (as
-        :meth:`train_state` gives them); ``rng`` is accepted for the JAX
-        signature's sake (the port's layers draw no random numbers).
-        ``device_transform`` (a dataset's) runs on x once it is on the
-        device."""
+        rng=None) -> loss``. Forward in train mode (BatchNorm updates its
+        running statistics, the model's buffers, in place), loss, backward
+        (the flash backward kernels on CUDA), optimizer update, metric
+        update and the device-side loss accumulator, all in place on the
+        passed variables; returns the step's loss as a 0-d device tensor
+        without reading it. ``params`` and ``state`` must be the model's
+        own parameters and buffers (as :meth:`train_state` gives them);
+        ``rng`` is accepted for the JAX signature's sake: a Dropout draws
+        from :attr:`rng`. ``device_transform`` (a dataset's) runs on x once
+        it is on the device."""
         model, optimizer = self.model, self.model.optimizer
         metrics = tuple(model.metrics)
         device = self.device
@@ -317,6 +388,8 @@ class Trainer:
 
         def step(params, state, opt_state, metric_states, loss_acc, x, y,
                  rng=None):
+            if not model.training:
+                model.train()
             x = _place(x, device, device_transform)
             y = _to_device(y, device)
             for p in params:
@@ -359,13 +432,29 @@ class Trainer:
 
         if self.device.type != "cuda" or self.distributed:
             return multi
-        key = (None if class_weight is None
-               else tuple(sorted(class_weight.items())),
-               _transform_key(device_transform))
+        key = self._train_variant(class_weight, device_transform)
         if key not in self._graphed:
             self._graphed[key] = _GraphedExecutions(
-                multi, self.device, raw_x=device_transform is not None)
+                multi, self.device, raw_x=device_transform is not None,
+                generators=self._graph_generators())
         return self._graphed[key]
+
+    @staticmethod
+    def _train_variant(class_weight, device_transform) -> tuple:
+        """The identity of a captured training program, the JAX package's
+        ``_train_variant``: the policy (a capture made under one compute
+        dtype is never replayed under another), the class weights and the
+        device transform."""
+        return (policy(),
+                None if class_weight is None
+                else tuple(sorted(class_weight.items())),
+                _transform_key(device_transform))
+
+    @staticmethod
+    def _eval_variant(device_transform) -> tuple:
+        """The identity of a captured eval-mode program (``predict``), the
+        JAX package's ``_eval_variant``: the policy and the transform."""
+        return policy(), _transform_key(device_transform)
 
     def make_train_function(self, steps_per_execution: Optional[int] = None):
         """The train step — public surface for benchmarks and custom loops
@@ -479,6 +568,7 @@ class Trainer:
         if checkpoint_dir is not None:
             raise unported("fit(checkpoint_dir=) (the v1 checkpoint path)")
         self.ensure_variables(seed)
+        self.rng.manual_seed(seed)
         if class_weight is not None:
             class_weight = {int(c): float(w) for c, w in class_weight.items()}
             if any(c < 0 for c in class_weight):
@@ -503,9 +593,10 @@ class Trainer:
         cbs = CallbackList([history, *callbacks], model=self.model)
         cbs.on_train_begin()
         try:
-            self._run_epochs(step, multi, batches, cbs, initial_epoch,
-                             epochs, steps_per_epoch, bool(verbose),
-                             val_batches, val_steps)
+            with _mode(self.model, True):
+                self._run_epochs(step, multi, batches, cbs, initial_epoch,
+                                 epochs, steps_per_epoch, bool(verbose),
+                                 val_batches, val_steps)
         except StopTraining as e:
             logger.info("training stopped early: %s", e)
         finally:
@@ -613,16 +704,16 @@ class Trainer:
         return logs
 
     def _evaluate_on(self, batches, steps: Optional[int]) -> dict:
-        """One evaluation pass (all batches, or the first ``steps``; a
-        DeviceDataset's from its own seed stream, which leaves the
-        training order as it was): the mean of the batches' losses and
-        each metric's ratio."""
+        """One evaluation pass in eval mode (all batches, or the first
+        ``steps``; a DeviceDataset's from its own seed stream, which leaves
+        the training order as it was): the mean of the batches' losses and
+        each metric's ratio. Eager on every device."""
         model, loss_obj = self.model, self.model.loss
         transform = getattr(batches, "device_transform", None)
         metric_states = self._init_metric_states()
         loss_acc = self._init_loss_acc()
         count = 0
-        with torch.no_grad():
+        with torch.no_grad(), _mode(model, False):
             for xb, yb in itertools.islice(iter(batches), steps):
                 xb = _place(xb, self.device, transform)
                 yb = _to_device(yb, self.device)
@@ -635,3 +726,55 @@ class Trainer:
         if count == 0:
             raise RuntimeError("evaluate: dataset yielded no batches")
         return self._results(loss_acc, metric_states)
+
+    # -- predict ---------------------------------------------------------------
+
+    def predict(self, x) -> np.ndarray:
+        """Eval-mode outputs, as numpy, for an array (one batch, as the JAX
+        package takes it) or an iterable of batches or of ``(x, y)``
+        tuples. Every batch is padded (by repeating its last row) to the
+        largest batch's size and its outputs trimmed, so the pass needs
+        one program: on CUDA one capture per policy, device transform and
+        input, whose first call runs eagerly and whose later ones replay;
+        on the CPU the forward itself."""
+        self.ensure_variables()
+        is_array = isinstance(x, np.ndarray) or hasattr(x, "__array__")
+        transform = None if is_array else getattr(x, "device_transform",
+                                                  None)
+        if is_array:
+            batches = [np.asarray(x)]
+        else:
+            batches = [np.asarray(b[0] if isinstance(b, tuple) else b)
+                       for b in x]
+        sizes = [len(b) for b in batches]
+        if not sizes:
+            return np.concatenate([], axis=0)
+        target = max(sizes)
+        outs = []
+        with torch.no_grad(), _mode(self.model, False):
+            for xb, n in zip(batches, sizes):
+                if n < target:
+                    xb = np.concatenate(
+                        [xb, np.repeat(xb[-1:], target - n, axis=0)])
+                outs.append(self._predict_batch(xb, transform)[:n])
+        return np.concatenate(outs, axis=0)
+
+    def _predict_batch(self, xb: np.ndarray, transform) -> np.ndarray:
+        model, device = self.model, self.device
+        if device.type != "cuda":
+            return model(_place(xb, device, transform)).cpu().numpy()
+        # The static input takes the dtype _place gives the batch (the
+        # wire dtype under a transform); the staging copy casts into it.
+        spec = (tuple(xb.shape),
+                _dtype_of(xb) if transform is not None else _device_dtype(xb))
+        if self._predict_pool is None:
+            self._predict_pool = torch.cuda.graph_pool_handle()
+        fn = ((lambda xb: model(transform(xb))) if transform is not None
+              else (lambda xb: model(xb)))
+        make = lambda: graphs.CapturedProgram(
+            fn, {"xb": spec}, device=device, pool=self._predict_pool)
+        key = (*self._eval_variant(transform), spec)
+        held = (list(model.parameters()), list(model.buffers()))
+        out = _run_program(self._predict_programs, key, held, make,
+                           {"xb": xb})
+        return out.cpu().numpy()

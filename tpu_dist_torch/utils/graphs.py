@@ -91,10 +91,14 @@ class CapturedProgram:
       device: a CUDA device; any other raises ``ValueError``.
       pool: the memory pool the owner's graphs share (``None``: a pool of
         this graph's own).
+      generators: private CUDA generators ``fn`` draws from. The capture
+        registers each (``CUDAGraph.register_generator_state``), so every
+        replay advances its offset and draws fresh numbers, as the default
+        generator's do.
     """
 
     def __init__(self, fn: Callable[..., Any], specs: dict[str, Spec], *,
-                 device, pool=None):
+                 device, pool=None, generators=()):
         device = torch.device(device)
         if device.type != "cuda":
             raise ValueError(
@@ -108,6 +112,7 @@ class CapturedProgram:
         self._views = {n: t.numpy() for n, t in self._staging.items()}
         self._copied = torch.cuda.Event()
         self._pool = pool
+        self._generators = tuple(generators)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.outputs = None
         self.calls = 0
@@ -153,6 +158,8 @@ class CapturedProgram:
         counters = _counters()
         before = [getattr(obj, attr) for obj, attr in counters]
         graph = torch.cuda.CUDAGraph()
+        for gen in self._generators:
+            graph.register_generator_state(gen)
         t0 = time.perf_counter()
         torch.cuda.synchronize()
         try:
