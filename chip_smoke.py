@@ -193,7 +193,10 @@ plain PyTorch version. Phases:
     ``evaluate`` and ``predict`` over 10,000 test images (a ragged last
     batch of 16): one captured eval program, equal to the eval forward
     batch by batch (the ragged one padded), and within ``PREDICT_RTOL`` of
-    the forward of its 16 rows alone; (d) ResNet-18 fit again under ``mixed_bfloat16``
+    the forward of its 16 rows alone; then ``predict`` over the test chain
+    without its ragged batch promoted to a ``DeviceDataset``: equal to the
+    host chain's ``predict`` exactly, and the card sends the host no copy
+    but the outputs; (d) ResNet-18 fit again under ``mixed_bfloat16``
     without recompiling, on the chain with its shuffle: a new captured
     program, bf16 into the first conv, finite losses, fp32 logits and
     BatchNorm state; (e) fused SGD at both leaf tables (phase 17's
@@ -201,7 +204,27 @@ plain PyTorch version. Phases:
     bf16: ms, images/s, device busy share, the top device kernels and
     operators and the layout work (SAME pads, copies, transposes;
     ``torch.profiler``), and the conv and Dense FLOPs' share of the card's
-    fp32 CUDA-core (bf16 tensor) peak.
+    fp32 CUDA-core (bf16 tensor) peak;
+23. checkpoints, resumed fits and serving a saved model at full width
+    (``training/checkpoint.py``, ``models/serialize.py``): (a) ResNet-18
+    (phase 22's, batch 256, seed 0) with ``SGD(0.001, momentum=0.9,
+    fused=True)`` and the fused CE on a promoted chain of exactly 4
+    batches a pass without a shuffle: ``fit(checkpoint_dir=D, epochs=2)``
+    on a fresh model, then ``fit(checkpoint_dir=D, epochs=4)`` on another,
+    which must resume at epoch 2; epochs 3-4's losses, the parameters, the
+    BatchNorm state and the velocity against an uninterrupted 4-epoch fit,
+    bit for bit when two uninterrupted fits are bit for bit, else within
+    their spread (the log says which); (b) the benchmark LM at batch 64 x
+    512 with ``Adam(fused=True)``, 2 epochs x 2 steps, resumed to 3: the
+    same, plus ``mu``, ``nu`` and the device step counter, every kernel's
+    launches counted; (c) ``save_model`` of phase 4's LM, ``load_model``
+    (the weights bit for bit), ``ServeEngine.from_saved`` on phase 4's 16
+    requests: phase 4's streams token for token and its flash forward
+    launches; then ``python -m tpu_dist_torch.serve --model-dir D --bench``
+    at phase 5's arguments exits 0; (d) for ResNet-18 and the LM: the sync
+    save's seconds and the directory's MB, the async save's stall at the
+    epoch end and its writer's seconds, restore seconds, and the resumed
+    fit's step beside the uninterrupted one's.
 
 Prints one JSON line of kernel records, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
@@ -246,7 +269,9 @@ from tpu_dist_torch.parallel import MultiWorkerMirroredStrategy
 from tpu_dist_torch.serve import cli, kv_cache
 from tpu_dist_torch.serve.engine import ServeEngine, _pad_to_pow2
 from tpu_dist_torch.serve.scheduler import DONE
-from tpu_dist_torch.training import Callback
+from tpu_dist_torch.data import vectorize
+from tpu_dist_torch.models.serialize import load_model, save_model
+from tpu_dist_torch.training import Callback, checkpoint
 
 #: bench.py's TRANSFORMER_LM at its 512-token sequence length.
 LM = dict(vocab_size=8192, seq_len=512, d_model=512, depth=4, num_heads=8)
@@ -2791,10 +2816,11 @@ def _numpy_loader():
         native._load = load
 
 
-def _htod_copies(fn) -> list | None:
+def _htod_copies(fn, kind: str = "HtoD") -> list | None:
     """The sizes in bytes of the copies the card received from the host
     while ``fn`` ran (the ``Memcpy HtoD`` records of a ``torch.profiler``
-    trace), or None when the trace gives no sizes."""
+    trace; with ``kind="DtoH"``, those it sent the host), or None when the
+    trace gives no sizes."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2806,7 +2832,7 @@ def _htod_copies(fn) -> list | None:
         path = pathlib.Path(tmp) / "trace.json"
         prof.export_chrome_trace(str(path))
         events = json.loads(path.read_text()).get("traceEvents", [])
-    copies = [e for e in events if "HtoD" in str(e.get("name", ""))
+    copies = [e for e in events if kind in str(e.get("name", ""))
               and e.get("ph") == "X"]
     if not copies or any("bytes" not in e.get("args", {}) for e in copies):
         return None
@@ -3225,6 +3251,46 @@ def _log_step(name: str, policy_name: str, t: dict, card: str) -> None:
             f"{n} {ms:.4f}" for n, ms in t["layout"].items()))
 
 
+def _device_predict_check(model, name: str, dataset: str) -> None:
+    """Phase 22 (c), F3: ``predict`` over the test chain promoted to a
+    ``DeviceDataset`` (the full batches: a promoted chain drops the ragged
+    one) equals the host chain's ``predict`` exactly, and sends the host
+    one copy, the outputs."""
+    source = td_data.load(dataset, split="test", synthetic_size=RESNET_TEST)
+
+    def chain():
+        return source.map(lambda i, l: (np.asarray(i, np.float32) / 255.0,
+                                        l)).cache().batch(
+            RESNET_BATCH, drop_remainder=True)
+
+    promoted = vectorize.try_promote_to_device(chain(), torch.device("cuda"))
+    if not isinstance(promoted, DeviceDataset):
+        raise AssertionError(f"(c) {name}: the test chain was not promoted")
+    host = model.predict(chain())
+    got = {}
+    copies = _htod_copies(lambda: got.update(out=model.predict(promoted)),
+                          kind="DtoH")
+    t0 = time.monotonic()
+    again = model.predict(promoted)
+    dev_s = time.monotonic() - t0
+    rows = (RESNET_TEST // RESNET_BATCH) * RESNET_BATCH
+    out = got["out"]
+    if not np.array_equal(again, out):
+        raise AssertionError(f"(c) {name}: two predicts over the "
+                             f"DeviceDataset differ")
+    if (out.shape != (rows, 10) or not np.array_equal(out, host)
+            or (copies is not None and copies != [out.nbytes])):
+        raise AssertionError(
+            f"(c) {name}: predict over the DeviceDataset {out.shape} off "
+            f"the host chain's by {np.abs(out - host).max():.3e}; "
+            f"device-to-host copies {copies}")
+    log(f"[22 resnet] (c) {name} predict over the test chain promoted to a "
+        f"DeviceDataset ({rows} images, the ragged batch dropped) in "
+        f"{dev_s:.3f} s (a second pass, not profiled): equal to the host "
+        f"chain's predict exactly; device-to-host copies of a profiled pass "
+        f"{'not read' if copies is None else copies} (the outputs only)")
+
+
 def resnet_phase(card: str) -> dict:
     """Phase 22: bench.py's two ResNets at full width and batch."""
     flags = (torch.backends.cudnn.deterministic,
@@ -3370,6 +3436,7 @@ def resnet_phase(card: str) -> dict:
                 f"{RESNET_BATCH} rows), and to the forward of its 16 rows "
                 f"alone within {ragged:.3e} of the logits' size (rtol "
                 f"{PREDICT_RTOL:g})")
+            _device_predict_check(fm, name, dataset)
             out[name] = {"model": gm, "counts": fc, "k": k, "source": source,
                          "batch": next(iter(_resnet_chain(source)))}
             del fm, tm, nm, runs
@@ -3455,6 +3522,276 @@ def resnet_phase(card: str) -> dict:
             "sgd": sgd, "times": times}
 
 
+# -- checkpoints, resumed fits, serving a saved model -------------------------
+
+#: Phase 23 (a): ResNet-18 on a chain of exactly 4 batches a pass, 2 epochs,
+#: then resumed to 4. (b): the LM on 2 batches a pass, 2 epochs, resumed to 3.
+RESUME_RESNET = dict(rows=4 * RESNET_BATCH, at=2, epochs=4)
+RESUME_LM = dict(rows=2 * TRAIN_BATCH, at=2, epochs=3)
+
+
+def _opt_tensors(model) -> list:
+    """The optimizer state's tensors (velocity; Adam's mu, nu and step), in
+    the checkpoint's key order."""
+    from tpu_dist_torch.models import bridge
+
+    names = [n for n, _ in model.named_parameters()]
+    keys = bridge.opt_keys(model._trainer.variables["opt"], names)
+    return [keys[k].detach().clone() for k in sorted(keys)]
+
+
+class _EpochClock(Callback):
+    """Each epoch's wall seconds, from its start to its logs: ``fit`` reads
+    the epoch's loss on the host before ``on_epoch_end``, so the device's
+    work is in it; a ``ModelCheckpoint`` that ``fit`` adds runs after this
+    callback, so its stall is not (the snapshot's device work, which
+    overlaps the next epoch, is)."""
+
+    def __init__(self):
+        self.seconds, self._t0 = [], None
+
+    def on_epoch_begin(self, epoch):
+        self._t0 = time.perf_counter()
+
+    def on_epoch_end(self, epoch, logs):
+        self.seconds.append(time.perf_counter() - self._t0)
+
+
+def _fit_record(model, history, clock: _EpochClock) -> dict:
+    return {"loss": history["loss"], "epoch_s": clock.seconds,
+            "params": _params(model), "state": _bn_state(model),
+            "opt": _opt_tensors(model), "counts": _counts()}
+
+
+def _gaps(a: dict, b: dict, skip: int = 0) -> dict:
+    """Largest |a - b| of the losses (``a``'s from epoch ``skip`` on),
+    parameters, BatchNorm state and optimizer state."""
+    la = a["loss"][skip:] if len(a["loss"]) > len(b["loss"]) else a["loss"]
+    lb = b["loss"][skip:] if len(b["loss"]) > len(a["loss"]) else b["loss"]
+    out = {"loss": max(abs(x - y) for x, y in zip(la, lb))}
+    for k in ("params", "state", "opt"):
+        out[k] = (_max_diff(a[k], b[k]) if a[k] else 0.0)
+    return out
+
+
+def _resumed_fit(label: str, make_model, make_data, at: int, epochs: int,
+                 steps: int, tmp: pathlib.Path) -> dict:
+    """Two uninterrupted fits, then one of ``at`` epochs with
+    ``checkpoint_dir`` and one resumed to ``epochs`` on a fresh model:
+    returns the records and the resumed fit's checkpoint metrics."""
+    runs = {}
+    for name in ("straight", "again"):
+        model = make_model()
+        _reset_counts()
+        clock = _EpochClock()
+        h = model.fit(make_data(), epochs=epochs, verbose=0,
+                      callbacks=[clock]).history
+        torch.cuda.synchronize()
+        runs[name] = _fit_record(model, h, clock)
+        del model
+    directory = tmp / label
+    # The checkpointed fits' saves (metrics: the async stall at each
+    # epoch's end, the writer's seconds).
+    metrics.get_registry().reset()
+    metrics.enable()
+    try:
+        model = make_model()
+        model.fit(make_data(), epochs=at, verbose=0,
+                  checkpoint_dir=str(directory))
+        del model
+        if checkpoint.all_steps(directory) != list(range(at)):
+            raise AssertionError(f"(23) {label}: steps written "
+                                 f"{checkpoint.all_steps(directory)}")
+        model = make_model()
+        _reset_counts()
+        clock = _EpochClock()
+        h = model.fit(make_data(), epochs=epochs, verbose=0,
+                      callbacks=[clock],
+                      checkpoint_dir=str(directory)).history
+        torch.cuda.synchronize()
+        dists = metrics.get_registry().snapshot()["distributions"]
+    finally:
+        metrics.disable()
+    runs["resumed"] = _fit_record(model, h, clock)
+    runs["model"], runs["metrics"], runs["dir"] = model, dists, directory
+    if len(h["loss"]) != epochs - at:
+        raise AssertionError(f"(23) {label}: the resumed fit ran "
+                             f"{len(h['loss'])} epochs; expected "
+                             f"{epochs - at} (epoch {at} on)")
+    want = tuple(c * (epochs - at) // epochs
+                 for c in runs["straight"]["counts"])
+    if runs["resumed"]["counts"] != want or not any(want):
+        raise AssertionError(f"(23) {label}: launches {runs['resumed']['counts']}"
+                             f"; expected {want}")
+    spread = _gaps(runs["straight"], runs["again"])
+    resumed = _gaps(runs["resumed"], runs["straight"], skip=at)
+    bitwise = all(v == 0.0 for v in spread.values())
+    limit = (dict.fromkeys(spread, 0.0) if bitwise else spread)
+    if any(resumed[k] > limit[k] for k in resumed) or not all(
+            np.isfinite(runs["resumed"]["loss"])):
+        raise AssertionError(
+            f"(23) {label}: resumed against uninterrupted {resumed}; two "
+            f"uninterrupted fits differ by {spread}")
+    runs["gaps"], runs["bitwise"] = resumed, bitwise
+    runs["steps"] = steps
+    return runs
+
+
+def _save_times(model, directory: pathlib.Path) -> dict:
+    """The sync save's and the restore's seconds, and the step directory's
+    MB (``model``'s live variables, on the card)."""
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    checkpoint.save(directory, model, step=0)
+    save_s = time.monotonic() - t0
+    mb = sum(f.stat().st_size for f in (directory / "ckpt-0").iterdir()) / 1e6
+    t0 = time.monotonic()
+    checkpoint.restore_model(directory, model, step=0)
+    torch.cuda.synchronize()
+    return {"save_s": save_s, "mb": mb, "restore_s": time.monotonic() - t0}
+
+
+def _log_resume(label: str, runs: dict, times: dict, card: str) -> None:
+    straight, resumed = runs["straight"], runs["resumed"]
+    at = len(straight["loss"]) - len(resumed["loss"])
+    ms = lambda seconds: [round(1e3 * v / runs["steps"], 4) for v in seconds]
+    dist = runs["metrics"]
+    fmt = lambda d: ("not measured" if not d else
+                     f"p50 {d['p50']:.4f} s, max {d['max']:.4f} s over "
+                     f"{d['count']}")
+    gaps = runs["gaps"]
+    log(f"[23 resume] {label}: resumed at epoch {at} (restored step "
+        f"{at - 1}); epochs {at + 1}-{len(straight['loss'])} losses "
+        f"{[round(v, 6) for v in resumed['loss']]} against the uninterrupted"
+        f" fit's {[round(v, 6) for v in straight['loss'][at:]]}; max |diff| "
+        f"losses {gaps['loss']:.3e}, params {gaps['params']:.3e}, BN state "
+        f"{gaps['state']:.3e}, optimizer state {gaps['opt']:.3e} ("
+        f"{'bit for bit, as two uninterrupted fits are' if runs['bitwise'] else 'within the spread of two uninterrupted fits'}"
+        f"); launches (flash fwd, flash bwd, Adam, CE fwd, CE bwd, SGD) "
+        f"{resumed['counts']}")
+    log(f"[23 times] {label}: sync save {times['save_s']:.4f} s for "
+        f"{times['mb']:.2f} MB; async save stall at the epoch end "
+        f"{fmt(dist.get('checkpoint.stall_s'))}, its writer "
+        f"{fmt(dist.get('checkpoint.write_s'))}; restore "
+        f"{times['restore_s']:.4f} s; ms a step, epoch by epoch (wall "
+        f"seconds of the epoch / its steps; a fit's first epoch warms up): "
+        f"resumed {ms(resumed['epoch_s'])}, uninterrupted "
+        f"{ms(straight['epoch_s'])} (epochs 1-{len(straight['loss'])}) "
+        f"({card})")
+
+
+def _saved_serve_check(contiguous_streams: list, tmp: pathlib.Path) -> int:
+    """Phase 23 (c): phase 4's LM through save_model, load_model and
+    ``ServeEngine.from_saved``; returns the flash forward launches."""
+    directory = tmp / "saved_lm"
+    model = _serve_lm()
+    t0 = time.monotonic()
+    save_model(model, directory)
+    save_s = time.monotonic() - t0
+    loaded = load_model(directory, compile=False)
+    want = model.state_dict()
+    if not all(torch.equal(v.cpu(), want[k].cpu())
+               for k, v in loaded.state_dict().items()):
+        raise AssertionError("(23 c) load_model: weights differ")
+    del loaded
+    engine = ServeEngine.from_saved(directory, max_batch=8,
+                                    max_len=LM["seq_len"])
+    fa.flash_attention_fwd.launches = 0
+    reqs = [engine.submit(p, max_new_tokens=m) for p, m in _serve_specs()]
+    engine.run_until_idle()
+    torch.cuda.synchronize()
+    launches = fa.flash_attention_fwd.launches
+    streams = [r.generated for r in reqs]
+    if streams != contiguous_streams or launches != LM["depth"] * len(reqs):
+        raise AssertionError(
+            f"(23 c) from_saved: {sum(a != b for a, b in zip(streams, contiguous_streams))}"
+            f" streams differ from phase 4's; {launches} flash launches")
+    # Phase 5's arguments; the saved model's own width wins over the
+    # demo LM's (--d-model, --depth, --num-heads).
+    argv = ["--bench", "--requests", "8", "--max-len", str(LM["seq_len"]),
+            "--vocab", str(LM["vocab_size"]), "--d-model",
+            str(LM["d_model"]), "--depth", str(LM["depth"]), "--num-heads",
+            str(LM["num_heads"]), "--min-new", "8", "--max-new", "16"]
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpu_dist_torch.serve", "--model-dir",
+         str(directory), *argv], capture_output=True, text=True,
+        timeout=300, cwd=pathlib.Path(__file__).resolve().parent)
+    cli_s = time.monotonic() - t0
+    report = json.loads(proc.stdout) if proc.returncode == 0 else {}
+    if proc.returncode != 0 or not report.get("ok") or \
+            report.get("completed") != 8:
+        raise AssertionError(f"(23 c) serve --model-dir: rc "
+                             f"{proc.returncode}, {proc.stderr[-2000:]}")
+    log(f"[23 saved] (c) save_model of phase 4's LM in {save_s:.3f} s, "
+        f"load_model (weights bit for bit), ServeEngine.from_saved on phase "
+        f"4's 16 requests: phase 4's streams token for token, flash "
+        f"launches {launches} = depth {LM['depth']} x 16 prefills; python -m"
+        f" tpu_dist_torch.serve --model-dir D --bench (phase 5's arguments) "
+        f"exit 0 in {cli_s:.1f} s: {report['throughput_tok_s']} tok/s, TTFT "
+        f"p50 {report['ttft_s']['p50']} s")
+    return launches
+
+
+def resume_phase(card: str, contiguous_streams: list) -> dict:
+    """Phase 23: resumed fits of ResNet-18 and the LM, and serving a saved
+    model; returns the launches of each path for the kernel line."""
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        try:
+            source = td_data.load("fashion_mnist", split="train",
+                                  synthetic_size=RESUME_RESNET["rows"])
+
+            def resnet():
+                model = ResNet18(num_classes=10, input_shape=(28, 28, 1))
+                model.compile(
+                    optimizer=SGD(learning_rate=0.001, momentum=0.9,
+                                  fused=True),
+                    loss=SparseCategoricalCrossentropy(from_logits=True,
+                                                       fused=True),
+                    metrics=[SparseCategoricalAccuracy()])
+                return model
+
+            r = RESUME_RESNET
+            runs = _resumed_fit("resnet18", resnet,
+                                lambda: _resnet_chain(source), r["at"],
+                                r["epochs"], r["rows"] // RESNET_BATCH, tmp)
+            times = _save_times(runs["model"], tmp / "resnet18_sync")
+            _log_resume("(a) resnet18 (11,172,810 parameters, batch 256, "
+                        "SGD momentum 0.9 fused, fused CE)", runs, times,
+                        card)
+            out["resnet18"] = runs["resumed"]["counts"]
+            del runs
+        finally:
+            torch.backends.cudnn.deterministic, \
+                torch.backends.cudnn.benchmark = flags
+        x, y = (t.cpu().numpy() for t in _bench_tokens(RESUME_LM["rows"]))
+        r = RESUME_LM
+        runs = _resumed_fit(
+            "lm", lambda: _compiled_lm(Adam(fused=True)),
+            lambda: td_data.Dataset.from_tensor_slices((x, y)).batch(
+                TRAIN_BATCH), r["at"], r["epochs"],
+            r["rows"] // TRAIN_BATCH, tmp)
+        times = _save_times(runs["model"], tmp / "lm_sync")
+        step = runs["model"]._trainer.variables["opt"].step
+        if int(step) != r["epochs"] * r["rows"] // TRAIN_BATCH:
+            raise AssertionError(f"(23 b) Adam's step counter {int(step)}")
+        _log_resume(f"(b) the benchmark LM (21,269,504 parameters, batch "
+                    f"{TRAIN_BATCH} x {LM['seq_len']}, Adam fused; device "
+                    f"step counter {int(step)})", runs, times, card)
+        out["lm"] = runs["resumed"]["counts"]
+        del runs
+        torch.cuda.empty_cache()
+        out["serve_from_saved"] = _saved_serve_check(contiguous_streams, tmp)
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     t0 = time.monotonic()
     card = device_phase()
@@ -3490,6 +3827,7 @@ def main() -> int:
     graph_train_phase(card, slice3["cnn"]["k1"])
     data_phase(card)
     resnets = resnet_phase(card)
+    resumed = resume_phase(card, contiguous_streams)
     # Rows 1-3 launch on the ResNets' fit too (the counts of phase 22 (a)),
     # and row 3 runs at their leaf tables.
     for rec, index in zip(new_records[:3], (3, 4, 5)):
@@ -3499,6 +3837,19 @@ def main() -> int:
         new_records[2][f"{name}_shape"] = {k: t[k] for k in (
             "n", "leaves", "ms", "host_us", "kernel_alone_ms", "update_ms",
             "plain_ms", "library_ms", "builds")} | {"bound_ms": t["bound"][0]}
+    # Phase 23's paths: the resumed ResNet-18 fit launches rows 1, 2 and 4
+    # (momentum), the resumed LM fit rows 5-9, serving from the saved
+    # directory row 6. Counts: (flash fwd, flash bwd, Adam, CE fwd, CE bwd,
+    # SGD).
+    res, lm = resumed["resnet18"], resumed["lm"]
+    for rec, count in zip(new_records, (res[3], res[4], 0, res[5])):
+        rec["launches_by_path"]["resnet18_resumed"] = count
+    adam_record.setdefault("launches_by_path", {})["lm_resumed"] = lm[2]
+    record["launches_by_path"]["lm_resumed"] = lm[0]
+    record["launches_by_path"]["serve_from_saved"] = \
+        resumed["serve_from_saved"]
+    for rec in bwd_records:
+        rec.setdefault("launches_by_path", {})["lm_resumed"] = lm[1]
     # In the order of the TPU kernel table (PERF.md): rows 1-9.
     records = [*new_records, adam_record, record, *bwd_records]
     log(f"done in {time.monotonic() - t0:.1f} s")

@@ -24,12 +24,8 @@ PACKAGES = ("", "ops", "serve", "training", "observe", "models", "data",
 NOT_YET_PORTED = {
     "OptaxWrapper": "not ported, by decision (optax has no PyTorch "
                     "counterpart)",
-    # item 9: checkpoints, saved models, their callbacks
-    "checkpoint": "item 9", "load_model": "item 9", "save_model": "item 9",
-    "EarlyStopping": "item 9", "LambdaCallback": "item 9",
-    "ModelCheckpoint": "item 9",
     # item 10: bucketed all-reduce and the missing collectives
-    "all_gather": "item 10", "broadcast_from_chief": "item 10",
+    "all_gather": "item 10",
     "bucketed_all_reduce": "item 10", "host_all_reduce_sum": "item 10",
     "partition_buckets": "item 10",
     # item 12: the rest of the strategy surface (meshes, axes)
@@ -50,8 +46,8 @@ NOT_YET_PORTED = {
     "PipelinedBlocks": "item 17", "gpipe_schedule": "item 17",
     "make_1f1b_train_step": "item 17", "one_f_one_b": "item 17",
     "MixtureOfExperts": "item 17",
-    # item 18: resilience, async checkpoints, liveness
-    "AsyncCheckpointer": "item 18", "LivenessMonitor": "item 18",
+    # item 18: resilience, liveness
+    "LivenessMonitor": "item 18",
     "PeerUnavailableError": "item 18", "check_peer_health": "item 18",
     # item 19: observability
     "JSONLogger": "item 19", "TensorBoard": "item 19",

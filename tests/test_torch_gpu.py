@@ -1311,3 +1311,118 @@ def test_fit_after_set_policy_captures_a_bf16_program(cuda_device):
     assert logits == [torch.float32] * 8
     assert np.isfinite(h.history["loss"]).all()
     assert all(b.dtype == torch.float32 for b in model.buffers())
+
+
+# -- checkpoints, resume, predict over a DeviceDataset ------------------------
+
+@pytest.mark.gpu
+def test_predict_over_a_cuda_device_dataset_equals_the_host_chain(
+        cuda_device, deterministic_cudnn):
+    # F3: a DeviceDataset's batches are CUDA tensors; predict takes them on
+    # the card (np.asarray on them raised) and equals predict over the
+    # same batches from the host.
+    from tpu_dist_torch.data.device import DeviceDataset
+
+    model = _small_resnet(True, 1, cuda_device)
+    x, y = _small_batches(96)
+    ds = DeviceDataset(x, y, global_batch_size=32, shuffle=False, scale=1.0,
+                       device=cuda_device)
+    got = model.predict(ds)
+    want = model.predict([(x[i:i + 32], y[i:i + 32])
+                          for i in range(0, 96, 32)])
+    assert got.shape == (96, 10) and got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+    one = model.predict(torch.from_numpy(x[:32]).to(cuda_device))
+    np.testing.assert_array_equal(one, want[:32])
+
+
+@pytest.mark.gpu
+def test_restore_onto_cuda_tensors_keeps_programs_and_leaf_tables(
+        cuda_device, deterministic_cudnn, tmp_path):
+    from tpu_dist_torch.models import bridge
+    from tpu_dist_torch.training import checkpoint
+
+    model = _small_resnet(True, 2, cuda_device)
+    model.compile(optimizer=SGD(learning_rate=0.01, momentum=0.9, fused=True),
+                  loss=SparseCategoricalCrossentropy(from_logits=True,
+                                                     fused=True),
+                  steps_per_execution=2, device=cuda_device)
+    trainer = model._get_trainer("")
+    x, y = _small_batches(128)
+    ds = Dataset.from_tensor_slices((x, y)).batch(32)
+    model.fit(ds, epochs=1, steps_per_epoch=4, verbose=0)
+    checkpoint.save(tmp_path, model, step=0)
+    saved = dict(np.load(tmp_path / "ckpt-0" / "arrays.npz"))
+    model.fit(ds, epochs=1, steps_per_epoch=4, verbose=0)
+    (graphed,) = trainer._graphed.values()
+    ((prog, _),) = graphed.programs.values()
+    builds, captured = model.optimizer._tables.builds, prog.capture_s
+    live = bridge.checkpoint_tensors(model, trainer.variables["opt"])
+    held = {k: (id(t), t.data_ptr()) for k, t in live.items()}
+    assert checkpoint.restore_model(tmp_path, model) == 0
+    for k, t in live.items():
+        assert t.is_cuda
+        np.testing.assert_array_equal(t.detach().cpu().numpy(), saved[k])
+    model.fit(ds, epochs=1, steps_per_epoch=4, verbose=0)
+    after = bridge.checkpoint_tensors(model, trainer.variables["opt"])
+    assert {k: (id(t), t.data_ptr()) for k, t in after.items()} == held
+    ((prog2, _),) = graphed.programs.values()
+    assert prog2 is prog and prog.capture_s == captured and prog.replays >= 4
+    assert model.optimizer._tables.builds == builds == 1
+
+
+@pytest.mark.gpu
+def test_resumed_fit_with_dropout_on_graphs_equals_the_uninterrupted_fit(
+        cuda_device, tmp_path):
+    # Each epoch reseeds the trainer's generator from (seed, epoch); the
+    # captured programs read its seed and offset at replay, so a resumed
+    # fit (whose first execution runs eagerly) draws what the uninterrupted
+    # one's replays draw.
+    from tpu_dist_torch.models import layers
+    from tpu_dist_torch.models.model import Sequential
+
+    def make():
+        model = Sequential([layers.Dense(64, activation="relu"),
+                            layers.Dropout(0.5), layers.Dense(3)],
+                           input_shape=(16,), name="dropout", seed=0)
+        model.compile(optimizer=Adam(0.01, fused=True),
+                      loss=SparseCategoricalCrossentropy(from_logits=True),
+                      steps_per_execution=2, device=cuda_device)
+        return model
+
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((128, 16)).astype(np.float32)
+    y = rng.integers(0, 3, 128)
+    data = lambda: Dataset.from_tensor_slices((x, y)).batch(32)
+    straight = make()
+    hs = straight.fit(data(), epochs=3, verbose=0, seed=4).history
+    make().fit(data(), epochs=2, verbose=0, seed=4,
+               checkpoint_dir=str(tmp_path))
+    resumed = make()
+    h = resumed.fit(data(), epochs=3, verbose=0, seed=4,
+                    checkpoint_dir=str(tmp_path)).history
+    assert h["loss"] == hs["loss"][2:]
+    assert all(torch.equal(a, b) for a, b in zip(resumed.parameters(),
+                                                 straight.parameters()))
+
+
+@pytest.mark.gpu
+def test_async_snapshot_holds_its_steps_values(cuda_device, tmp_path):
+    # The snapshot clones on the compute stream: a step queued after
+    # save_async changes the parameters in place, not the checkpoint.
+    from tpu_dist_torch.training import AsyncCheckpointer
+
+    model = build_transformer_lm(64, 32, d_model=64, depth=2, num_heads=2)
+    model.compile(optimizer=Adam(0.01, fused=True),
+                  loss=SparseCategoricalCrossentropy(from_logits=True),
+                  device=cuda_device)
+    want = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+    with AsyncCheckpointer(tmp_path) as ckpt:
+        ckpt.save_async(model, step=0)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.add_(1.0)
+    saved = np.load(tmp_path / "ckpt-0" / "arrays.npz")
+    for n, value in want.items():
+        key = "['params']" + "".join(f"[{part!r}]" for part in n.split("."))
+        np.testing.assert_array_equal(saved[key], value.numpy(), err_msg=n)

@@ -3,15 +3,15 @@
 The reference's default step is one ``jit`` over the globally sharded
 batch, so its BatchNorm moments are the global batch's. The port's
 trainer in a process group sets every BatchNorm ``synchronized``: the
-forward all-reduces ``[Σx, Σx², n]`` per channel and the backward
-``[Σdy, Σdy·x̂]``. Two workers (``MultiWorkerMirroredStrategy(device=
+forward all-reduces ``[Σx, n]`` and then the centred ``Σ(x − mean)²`` per
+channel, and the backward ``[Σdy, Σdy·x̂]``. Two workers (``MultiWorkerMirroredStrategy(device=
 "cpu")``, DATA sharding: each takes half of every global batch of 32)
 start from the reference's ``init(0)`` variables and fit 3 steps. They
 must agree with each other bit for bit (losses, parameters, running
 statistics) and with the reference's single-process ``fit`` on the same
 global batches at atol = rtol = 1e-5 (fp32; the moments sum in another
-order, and the port's variance is E[x²] - E[x]² over the group where the
-reference's is two-pass). Each run has its own timeout.
+order). ``test_torch_faults.py`` holds the variance on off-centre data.
+Each run has its own timeout.
 """
 
 import json

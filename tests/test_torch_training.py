@@ -32,7 +32,8 @@ from tpu_dist_torch.ops import fused
 from tpu_dist_torch.ops import losses, metrics
 from tpu_dist_torch.ops import optimizers as opt
 from tpu_dist_torch.parallel import MirroredStrategy
-from tpu_dist_torch.training.callbacks import Callback, StopTraining
+from tpu_dist_torch.training.callbacks import (Callback, ModelCheckpoint,
+                                               StopTraining)
 
 VOCAB, SEQ = 64, 16
 TOL = dict(atol=2e-5, rtol=2e-5)
@@ -173,7 +174,11 @@ def test_callbacks_see_batches_and_can_stop_training(capsys):
     ("strategy", lambda m: MirroredStrategy(axis_shapes={"data": 1},
                                             device="cpu")),
     ("profile_dir", lambda m: m.fit(_tokens(32, 0), profile_dir="p")),
-    ("checkpoint_dir", lambda m: m.fit(_tokens(32, 0), checkpoint_dir="c")),
+    # fit(checkpoint_dir=) is ported (test_torch_checkpoint.py); the
+    # sharded layout its ModelCheckpoint could take is not.
+    ("checkpoint_dir", lambda m: m.fit(
+        _tokens(32, 0), checkpoint_dir="c",
+        callbacks=[ModelCheckpoint("c", sharded=True)])),
     ("Dataset input", lambda m: m.fit(
         Dataset.from_tensor_slices(_tokens(32, 0)).batch(8),
         profile_dir="p")),

@@ -37,7 +37,9 @@ from tpu_dist_torch.parallel import (CollectiveCommunication,
                                      MirroredStrategy,
                                      MultiWorkerMirroredStrategy, ReduceOp,
                                      Strategy, get_strategy)
-from tpu_dist_torch.training import Callback, History
+from tpu_dist_torch.training import (Callback, EarlyStopping, History,
+                                     LambdaCallback, ModelCheckpoint,
+                                     checkpoint)
 
 __version__ = "0.1.0"
 
@@ -49,6 +51,7 @@ __all__ = [
     "Model", "Sequential", "build_and_compile_cnn_model",
     "CollectiveCommunication", "MirroredStrategy",
     "MultiWorkerMirroredStrategy", "ReduceOp", "Strategy", "get_strategy",
-    "Callback", "History",
+    "Callback", "EarlyStopping", "History", "LambdaCallback",
+    "ModelCheckpoint", "checkpoint",
     "__version__",
 ]

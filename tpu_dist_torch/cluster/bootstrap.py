@@ -116,6 +116,13 @@ def _shutdown() -> None:
         dist.destroy_process_group()
 
 
+def device_of_group() -> torch.device:
+    """The device of the process group's collectives: this process's card
+    under NCCL, the CPU under gloo (and with no group)."""
+    return _DEVICE if is_initialized() and _DEVICE is not None \
+        else torch.device("cpu")
+
+
 def is_initialized() -> bool:
     """True once a process group is up."""
     return dist.is_available() and dist.is_initialized()

@@ -10,6 +10,7 @@ from tpu_dist_torch.models.layers import (Activation, AveragePooling2D,
 from tpu_dist_torch.models.model import Model, Sequential
 from tpu_dist_torch.models.policy import compute_dtype, policy, set_policy
 from tpu_dist_torch.models.resnet import ResNet18, ResNet50
+from tpu_dist_torch.models.serialize import load_model, save_model
 from tpu_dist_torch.models.transformer import (Embedding, LayerNormalization,
                                                MultiHeadAttention,
                                                PositionalEmbedding,
@@ -23,5 +24,5 @@ __all__ = [
     "Embedding", "LayerNormalization", "MultiHeadAttention",
     "PositionalEmbedding", "TransformerBlock", "build_transformer_lm",
     "ResNet18", "ResNet50", "build_and_compile_cnn_model", "build_cnn_model",
-    "compute_dtype", "policy", "set_policy",
+    "compute_dtype", "policy", "set_policy", "load_model", "save_model",
 ]

@@ -8,6 +8,22 @@ in, out]``, embedding tables ``[vocab, dim]``, attention projections
 ``var``) as buffers at the state tree's paths, so the translation is the
 identity on layouts and a join of each tree's path with ``.`` on names.
 Reads numpy only.
+
+The optimizer state and the checkpoint keys are translated here too. The
+reference's checkpoint (``tpu_dist/training/checkpoint.py``) keys each
+array by its ``jax.tree_util.keystr`` path in ``{'params', 'state',
+'opt'}``: a dict key as ``['name']`` (dicts flatten in sorted key order),
+a NamedTuple field as ``.field``, a sequence entry as ``[i]``. So a kernel
+is ``['params']['conv2d']['kernel']``, a BatchNorm mean
+``['state'][...]['mean']``, Adam's first moment of it
+``['opt'].mu['conv2d']['kernel']`` and its step ``['opt'].step``; a
+constant-rate momentum SGD's velocity tree is the whole ``opt``
+(``['opt']['conv2d']['kernel']``), a scheduled SGD's is
+``['opt'].velocity[...]`` beside ``['opt'].step``, and plain SGD keeps no
+``opt`` leaf. The port keeps each per-parameter state as a list in its
+parameter order, so it is mapped to those keys by the parameters' names,
+never by position (the reference's sorted order puts ``conv2d_10`` before
+``conv2d_2``).
 """
 
 from __future__ import annotations
@@ -54,3 +70,90 @@ def variables_from_jax(variables: dict) -> dict[str, torch.Tensor]:
     port's whole ``state_dict``: parameters and buffers."""
     return {**params_from_jax(variables["params"]),
             **state_from_jax(variables.get("state") or {})}
+
+
+def keypath(dotted: str) -> str:
+    """A dotted port name as the reference's ``keystr`` of the same dict
+    path: ``"conv2d.kernel"`` -> ``"['conv2d']['kernel']"``."""
+    return "".join(f"[{part!r}]" for part in dotted.split("."))
+
+
+def flatten_keys(tree, prefix: str = "") -> dict:
+    """``{keystr path: leaf}`` of a tree of dicts, NamedTuples, lists and
+    tuples, in ``jax.tree_util.keystr``'s spelling (see the module
+    docstring); works on the reference's trees and on the port's alike."""
+    out: dict = {}
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            out.update(flatten_keys(tree[key], f"{prefix}[{key!r}]"))
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        for field in tree._fields:
+            out.update(flatten_keys(getattr(tree, field),
+                                    f"{prefix}.{field}"))
+    elif isinstance(tree, (list, tuple)):
+        for i, sub in enumerate(tree):
+            out.update(flatten_keys(sub, f"{prefix}[{i}]"))
+    else:
+        out[prefix] = tree
+    return out
+
+
+def opt_keys(opt_state, names: list[str], prefix: str = "") -> dict:
+    """``{keystr path: tensor}`` of the port's optimizer state (the
+    tensors themselves), in the reference's layout: every list of
+    per-parameter tensors becomes the params tree, keyed through
+    ``names`` (the parameters' dotted names, in the state's order); a
+    NamedTuple keeps its fields; ``()`` holds nothing."""
+    out: dict = {}
+    if isinstance(opt_state, tuple) and hasattr(opt_state, "_fields"):
+        for field in opt_state._fields:
+            out.update(opt_keys(getattr(opt_state, field), names,
+                                f"{prefix}.{field}"))
+    elif isinstance(opt_state, (list, tuple)):
+        if opt_state and len(opt_state) != len(names):
+            raise ValueError(
+                f"optimizer state holds {len(opt_state)} per-parameter "
+                f"tensors for {len(names)} parameters")
+        for name, t in zip(names, opt_state):
+            out[prefix + keypath(name)] = t
+    else:
+        out[prefix] = opt_state
+    return out
+
+
+def checkpoint_tensors(model, opt_state) -> dict[str, torch.Tensor]:
+    """The live tensors a checkpoint of ``model`` holds, keyed as the
+    reference's ``arrays.npz`` keys them: the parameters under
+    ``['params']``, the state buffers under ``['state']``, ``opt_state``
+    (the trainer's, for ``model.parameters()`` in order) under
+    ``['opt']``."""
+    names = [n for n, _ in model.named_parameters()]
+    out = {"['params']" + keypath(n): p for n, p in model.named_parameters()}
+    out.update(("['state']" + keypath(n), b)
+               for n, b in model.named_buffers())
+    out.update(opt_keys(opt_state, names, "['opt']"))
+    return out
+
+
+def opt_state_to_jax(opt_state, names: list[str]) -> dict[str, np.ndarray]:
+    """The port's optimizer state as ``{keystr: numpy array}``, the keys
+    ``jax.tree_util.keystr`` gives the reference's state of the same
+    optimizer over the same params."""
+    return {k: t.detach().cpu().numpy()
+            for k, t in opt_keys(opt_state, names).items()}
+
+
+def load_jax_opt_state(tree, opt_state, names: list[str]) -> None:
+    """Copy the reference's optimizer state ``tree`` (its NamedTuples and
+    dicts of arrays) into the port's ``opt_state`` in place, by key; the
+    key sets must be equal."""
+    want = opt_keys(opt_state, names)
+    got = flatten_keys(tree)
+    if set(got) != set(want):
+        raise KeyError(
+            f"optimizer state keys differ: missing "
+            f"{sorted(set(want) - set(got))[:3]}, unexpected "
+            f"{sorted(set(got) - set(want))[:3]}")
+    with torch.no_grad():
+        for key, t in want.items():
+            t.copy_(torch.from_numpy(np.array(got[key])))

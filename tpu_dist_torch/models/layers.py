@@ -23,6 +23,8 @@ draws from its ``generator``, which the trainer hands it.
 
 from __future__ import annotations
 
+import functools
+import inspect
 import math
 from typing import Callable, Iterable, Optional, Sequence
 
@@ -59,7 +61,35 @@ def _activation(name) -> Callable:
 
 class Layer(nn.Module):
     """A module that creates its parameters in :meth:`init` from the input
-    shape (batch dim excluded) and returns its output shape."""
+    shape (batch dim excluded) and returns its output shape.
+
+    Every subclass's constructor records the arguments it was called with
+    (defaults included): they are the reference layer's dataclass fields,
+    under the same names and with the values as given (``kernel_size=3``,
+    not the ``(3, 3)`` the layer computes with), which :meth:`config`
+    returns for ``models/serialize.py``."""
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        init = cls.__dict__.get("__init__")
+        if init is None:
+            return
+        signature = inspect.signature(init)
+
+        @functools.wraps(init)
+        def recording_init(self, *args, **kw):
+            init(self, *args, **kw)
+            bound = signature.bind(self, *args, **kw)
+            bound.apply_defaults()
+            # The most derived constructor records last, so its fields win.
+            self._fields = dict(list(bound.arguments.items())[1:])
+
+        cls.__init__ = recording_init
+
+    def config(self) -> dict:
+        """The reference layer's fields: ``{name: value}``, nested layers
+        as layers."""
+        return dict(getattr(self, "_fields", {}))
 
     def init(self, gen: torch.Generator, in_shape: Shape) -> Shape:
         raise NotImplementedError
@@ -265,11 +295,14 @@ def ReLU() -> Activation:
 class _SyncMoments(torch.autograd.Function):
     """BatchNorm's normalisation over the global batch of a process group
     (the reference's one ``jit`` over the sharded batch takes its moments
-    over the whole batch). Forward: one all-reduce of ``[Σx, Σx², n]`` per
-    channel; backward: one of ``[Σdy, Σdy·x̂]``, so every process gets the
-    gradient of the summed losses with respect to its own rows. Returns
-    ``(x̂, mean, var)``; the moments are not differentiated (they only
-    update the running state)."""
+    over the whole batch). Forward: one all-reduce of ``[Σx, n]`` per
+    channel for the mean, then one of the centred ``Σ(x − mean)²`` for the
+    variance, which centres first as the reference's ``jnp.var`` does
+    (``Σx²/n − mean²`` cancels in fp32 on off-centre data); backward: one
+    all-reduce of ``[Σdy, Σdy·x̂]``, so every process gets the gradient of
+    the summed losses with respect to its own rows. Returns ``(x̂, mean,
+    var)``; the moments are not differentiated (they only update the
+    running state)."""
 
     @staticmethod
     def forward(ctx, xf, epsilon):
@@ -277,12 +310,13 @@ class _SyncMoments(torch.autograd.Function):
 
         c = xf.shape[-1]
         flat = xf.reshape(-1, c)
-        sums = torch.cat([flat.sum(0), (flat * flat).sum(0),
-                          flat.new_full((1,), flat.shape[0])])
+        sums = torch.cat([flat.sum(0), flat.new_full((1,), flat.shape[0])])
         collectives.all_reduce([sums], collectives.ReduceOp.SUM)
-        n = sums[2 * c:]
+        n = sums[c:]
         mean = sums[:c] / n
-        var = torch.clamp(sums[c:2 * c] / n - mean * mean, min=0.0)
+        centred = (flat - mean).square().sum(0)
+        collectives.all_reduce([centred], collectives.ReduceOp.SUM)
+        var = centred / n
         inv = torch.rsqrt(var + epsilon)
         xhat = (xf - mean) * inv
         ctx.save_for_backward(xhat, inv, n)

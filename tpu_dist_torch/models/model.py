@@ -13,11 +13,20 @@ of :meth:`state_dict` are the reference's ``variables['params']`` and
 ``variables['state']`` paths. A model is built in eval mode: like the
 reference's ``model(variables, x)``, a call outside the trainer is an
 inference call until the caller sets ``.train()``.
-``save``/``load_weights`` come with the port's checkpoint work.
+
+The reference's functional core is here too, beside the module's own
+forward: ``init(seed, input_shape)`` returns fresh variables and leaves
+the model as it is, ``apply(params, state, x, training=, rng=)`` returns
+``(outputs, new_state)`` for the given trees without touching the model's
+tensors, and ``model(variables, x)`` is ``apply``'s output. ``apply`` with
+one callable and nothing else is still ``nn.Module.apply``.
+``save_weights``/``load_weights`` write and read ``training/checkpoint.py``
+directories, ``save`` a ``models/serialize.py`` one.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import math
 from typing import Callable, Optional, Sequence
@@ -65,6 +74,38 @@ class _Tree(nn.Module):
     """One node of a functional model's params and state trees."""
 
 
+def _detached_copy(layers, device: str = "meta") -> list:
+    """A deep copy of ``layers`` whose parameters and buffers are stand-ins
+    on ``device`` (nothing is copied for them) and which shares the
+    originals' random generators; its ``init`` makes new tensors."""
+    tensors = [t for layer in layers
+               for t in (*layer.parameters(), *layer.buffers())]
+    memo = {id(t): t.to(device) for t in tensors}
+    memo.update((id(g), g) for layer in layers for m in layer.modules()
+                if (g := getattr(m, "generator", None)) is not None)
+    return copy.deepcopy(list(layers), memo)
+
+
+@contextlib.contextmanager
+def _functional(model: nn.Module, training: bool, rng):
+    """The model in ``training`` mode, with every Dropout drawing from
+    ``rng`` when one is given, for the block; then as it was."""
+    was = model.training
+    draws = [m for m in model.modules() if hasattr(m, "generator")
+             and m is not model]
+    before = [m.generator for m in draws]
+    model.train(training)
+    if rng is not None:
+        for m in draws:
+            m.generator = rng
+    try:
+        yield
+    finally:
+        model.train(was)
+        for m, g in zip(draws, before):
+            m.generator = g
+
+
 class Model(nn.Module):
     """A named pair of functions plus the compile/fit surface:
 
@@ -105,22 +146,59 @@ class Model(nn.Module):
         self.prefetch_to_device = 0
         self.strategy = None
         self._trainer = None
+        #: The summed ``aux_loss`` leaves of the last forward's new state,
+        #: with their autograd graph (the trainer adds them to the loss).
+        self._aux_loss: Optional[torch.Tensor] = None
         if input_shape is not None:
-            self.init(seed)
+            self._init_from(torch.Generator().manual_seed(int(seed)),
+                            tuple(input_shape))
         self.train(False)
 
-    def init(self, seed: int = 0) -> dict:
-        """(Re)create every parameter and state buffer from ``seed``; the
-        model keeps the device its parameters were on. Returns
-        :attr:`variables`."""
-        if self.input_shape is None:
-            raise ValueError(f"{self.name}: input_shape unknown")
-        device = next((p.device for p in self.parameters()), None)
-        self._init_from(torch.Generator().manual_seed(int(seed)),
-                        tuple(self.input_shape))
-        if device is not None:
-            self.to(device)
-        return self.variables
+    # -- functional core -------------------------------------------------------
+
+    def init(self, seed: int = 0, input_shape: Optional[tuple] = None) -> dict:
+        """Fresh ``{'params': …, 'state': …}`` (nested dicts of CPU tensors)
+        from ``seed``, the values a model built with that seed starts
+        from; the model itself is left as it is (the reference's
+        ``Model.init``)."""
+        shape = input_shape or self.input_shape
+        if shape is None:
+            raise ValueError(
+                f"{self.name}: input_shape unknown; pass it to init() or set "
+                "it on the model")
+        params, state = self._fresh(torch.Generator().manual_seed(int(seed)),
+                                    tuple(shape))
+        return {"params": params, "state": state}
+
+    def _fresh(self, gen: torch.Generator, shape: tuple) -> tuple:
+        """New ``(params, state)`` trees from ``gen`` for ``shape``."""
+        return self._init_fn(gen, shape)
+
+    def apply(self, *args, **kwargs):
+        """The reference's functional apply, ``apply(params, state, x, *,
+        training=False, rng=None) -> (outputs, new_state)``: the forward
+        over the given trees (gradients flow to their tensors), in
+        ``training`` mode, Dropout drawing from ``rng`` (a generator); the
+        model's own tensors and mode are left as they were, and
+        ``new_state`` holds new tensors. Called with one callable and
+        nothing else, it is ``nn.Module.apply(fn)``."""
+        if len(args) == 1 and not kwargs and callable(args[0]):
+            return super().apply(args[0])
+        return self._apply_variables(*args, **kwargs)
+
+    def _apply_variables(self, params, state, x, *, training: bool = False,
+                         rng=None):
+        return self._apply_fn(params, state, x, training, rng)
+
+    def __call__(self, *args, **kwargs):
+        """``model(variables, x, *, training=False, rng=None)`` is the
+        reference's call, the outputs of :meth:`apply`; ``model(x)`` is the
+        module's forward."""
+        if args and isinstance(args[0], dict):
+            variables, x = args
+            return self.apply(variables["params"], variables["state"], x,
+                              **kwargs)[0]
+        return super().__call__(*args, **kwargs)
 
     def _init_from(self, gen: torch.Generator, shape: tuple) -> None:
         params, state = self._init_fn(gen, shape)
@@ -148,8 +226,14 @@ class Model(nn.Module):
         out, new_state = self._apply_fn(
             _nest(self.named_parameters(), detach=False),
             _nest(buffers.items()), x, self.training, self.generator)
+        new = _flatten(new_state or {})
+        # The reference adds every state leaf keyed ``aux_loss`` to the
+        # training objective; the buffers below keep only its value.
+        aux = [v for name, v in new.items()
+               if name.rsplit(".", 1)[-1] == "aux_loss"]
+        self._aux_loss = sum(v.float() for v in aux) if aux else None
         with torch.no_grad():
-            for name, value in _flatten(new_state or {}).items():
+            for name, value in new.items():
                 if value is not buffers[name]:
                     buffers[name].copy_(value)
         return out
@@ -203,8 +287,8 @@ class Model(nn.Module):
         ``training/trainer.py``). ``prefetch_to_device = d > 0`` places
         the host pipeline's next ``d`` batches on the device from a
         background thread (``data.DevicePrefetcher``) while a step runs.
-        ``gradient_bucket_bytes`` comes with a later slice of the port and
-        raises ``NotImplementedError`` until then."""
+        ``gradient_bucket_bytes`` comes with item 10 of ``ROADMAP.md``'s
+        queue 1 and raises ``NotImplementedError`` until then."""
         from tpu_dist_torch.parallel.strategy import get_strategy
 
         if steps_per_execution < 1:
@@ -218,7 +302,7 @@ class Model(nn.Module):
             raise ValueError(
                 f"prefetch_to_device must be >= 0, got {prefetch_to_device}")
         if gradient_bucket_bytes:
-            raise unported("compile(gradient_bucket_bytes=)")
+            raise unported("compile(gradient_bucket_bytes=)", 10)
         strategy = get_strategy()
         target = resolve_device(device if device is not None
                                 else strategy.device)
@@ -261,8 +345,10 @@ class Model(nn.Module):
         in order); returns the ``History``. ``validation_data`` runs a
         validation pass each epoch, reported as ``val_``-prefixed logs;
         ``class_weight`` scales each sample's loss by its class's weight.
-        ``profile_dir`` and ``checkpoint_dir`` raise
-        ``NotImplementedError`` until their slice (``ROADMAP.md``)."""
+        ``checkpoint_dir`` resumes from the newest complete checkpoint
+        there and saves every epoch (``training/trainer.py``).
+        ``profile_dir`` raises ``NotImplementedError`` until item 11 of
+        ``ROADMAP.md``'s queue 1."""
         return self._get_trainer("loss optimizer").fit(
             x, epochs=epochs, steps_per_epoch=steps_per_epoch,
             verbose=verbose, callbacks=callbacks, initial_epoch=initial_epoch,
@@ -294,6 +380,31 @@ class Model(nn.Module):
         ``make_train_function`` callable takes."""
         return self._get_trainer("loss optimizer").train_state()
 
+    # -- saving ----------------------------------------------------------------
+
+    def save(self, directory) -> None:
+        """Architecture, weights and (when it serializes) the compile
+        config in one directory, the reference's format; reload with
+        ``tpu_dist_torch.models.load_model``. Only the chief writes."""
+        from tpu_dist_torch.models import serialize
+
+        return serialize.save_model(self, directory)
+
+    def save_weights(self, directory, step: int = 0):
+        """Checkpoint ``step`` of the training variables (parameters,
+        state, optimizer state), written by the chief
+        (``training/checkpoint.py``); returns its path."""
+        from tpu_dist_torch.training import checkpoint
+
+        return checkpoint.save(directory, self, step=step)
+
+    def load_weights(self, directory, step: Optional[int] = None) -> int:
+        """Restore the training variables in place from the newest complete
+        (or the given) checkpoint step; returns the step."""
+        from tpu_dist_torch.training import checkpoint
+
+        return checkpoint.restore_model(directory, self, step=step)
+
 
 class Sequential(Model):
     """Linear layer stack — the reference model container. Parameters are
@@ -321,6 +432,23 @@ class Sequential(Model):
 
     def _init_from(self, gen: torch.Generator, shape: tuple) -> None:
         self.output_shape = init_chain(self.layers, gen, shape)
+
+    def _fresh(self, gen: torch.Generator, shape: tuple) -> tuple:
+        layers = nn.ModuleDict(zip(self.layer_names,
+                                   _detached_copy(self.layers)))
+        init_chain(layers.values(), gen, shape)
+        return _nest(layers.named_parameters()), _nest(layers.named_buffers())
+
+    def _apply_variables(self, params, state, x, *, training: bool = False,
+                         rng=None):
+        # BatchNorm updates its buffers in place: the forward gets copies
+        # of the state, which become the new state.
+        new_state = {name: t.clone() for name, t in _flatten(state).items()}
+        tensors = {**_flatten(params), **new_state}
+        with _functional(self, training, rng):
+            out = torch.func.functional_call(self, tensors, (x,),
+                                             strict=True)
+        return out, _nest(new_state.items(), detach=False)
 
     def forward(self, x):
         # Mixed-precision entry/exit casts (policy.py): activations run in
@@ -351,14 +479,7 @@ class Sequential(Model):
             shape = tuple(self.input_shape)
             total = total_state = 0
             for name, layer in zip(self.layer_names, self.layers):
-                # The copy takes meta stand-ins for the layer's tensors
-                # and shares its generators.
-                memo = {id(t): t.to("meta") for t in
-                        (*layer.parameters(), *layer.buffers())}
-                memo.update((id(g), g) for g in (
-                    getattr(m, "generator", None) for m in layer.modules())
-                    if g is not None)
-                dry = copy.deepcopy(layer, memo)
+                (dry,) = _detached_copy([layer])
                 with torch.device("meta"):
                     shape = dry.init(gen, shape)
                 n = sum(math.prod(p.shape) for p in dry.parameters())

@@ -15,7 +15,7 @@ slice of the port.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -24,6 +24,7 @@ from tpu_dist_torch.models.model import Sequential
 from tpu_dist_torch.models.policy import compute_dtype
 from tpu_dist_torch.ops import flash_attention as fa
 from tpu_dist_torch.ops import initializers
+from tpu_dist_torch.utils.errors import unported
 
 
 class Embedding(Layer):
@@ -106,20 +107,27 @@ def _default_attention(q, k, v, *, causal: bool, scale: float):
 
 class MultiHeadAttention(Layer):
     """Multi-head self-attention on a ``[.., L, D]`` stream; ``causal``
-    applies the autoregressive mask. ``attention_fn`` (default
-    :func:`_default_attention`) may be set to another function of the same
-    signature, e.g. :func:`_dense_attention` for a plain-attention twin."""
+    applies the autoregressive mask. ``attention_fn`` (``None``:
+    :func:`_default_attention`) may be another function of the same
+    signature, e.g. :func:`_dense_attention` for a plain-attention twin; as
+    in the reference, a model holding one does not serialize."""
 
     def __init__(self, num_heads: int, key_dim: int, causal: bool = False,
                  use_bias: bool = True,
-                 kernel_initializer: str = "glorot_uniform"):
+                 kernel_initializer: str = "glorot_uniform",
+                 attention_fn: Optional[Callable] = None):
         super().__init__()
-        self.attention_fn = _default_attention
+        self.attention_fn = attention_fn or _default_attention
         self.num_heads = num_heads
         self.key_dim = key_dim
         self.causal = causal
         self.use_bias = use_bias
         self.kernel_initializer = kernel_initializer
+
+    def config(self) -> dict:
+        fn = self.attention_fn
+        return {**super().config(),
+                "attention_fn": None if fn is _default_attention else fn}
 
     def init(self, gen, in_shape):
         d = in_shape[-1]
@@ -200,13 +208,9 @@ def build_transformer_lm(vocab_size: int, seq_len: int, *, d_model: int = 128,
     the CPU; ``compile`` (or a ``ServeEngine``) moves the model to the
     CUDA device unless the caller asks for the CPU."""
     if pipeline_stages:
-        raise NotImplementedError(
-            "pipeline_stages: pipelined blocks come with the port's "
-            "parallel-axes slice (ROADMAP.md, 'Slices of the port', item 4)")
+        raise unported("build_transformer_lm(pipeline_stages=)", 17)
     if moe_experts:
-        raise NotImplementedError(
-            "moe_experts: mixture-of-experts blocks come with the port's "
-            "parallel-axes slice (ROADMAP.md, 'Slices of the port', item 4)")
+        raise unported("build_transformer_lm(moe_experts=)", 17)
     ff_dim = ff_dim or 4 * d_model
     layers = [Embedding(vocab_size, d_model),
               PositionalEmbedding(max_len=seq_len)]

@@ -60,7 +60,6 @@ def get(name: str):
         "ones": ones,
         "glorot_uniform": glorot_uniform,
         "he_normal": he_normal,
-        "uniform_scaled": uniform_scaled,
     }
     if name not in table:
         raise ValueError(

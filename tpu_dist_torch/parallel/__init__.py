@@ -2,7 +2,7 @@
 
 from tpu_dist_torch.parallel.collectives import (CollectiveCommunication,
                                                  ReduceOp, all_reduce,
-                                                 broadcast)
+                                                 broadcast_from_chief)
 from tpu_dist_torch.parallel.strategy import (DefaultStrategy,
                                               MirroredStrategy,
                                               MultiWorkerMirroredStrategy,
@@ -10,7 +10,8 @@ from tpu_dist_torch.parallel.strategy import (DefaultStrategy,
                                               has_strategy)
 
 __all__ = [
-    "CollectiveCommunication", "ReduceOp", "all_reduce", "broadcast",
+    "CollectiveCommunication", "ReduceOp", "all_reduce",
+    "broadcast_from_chief",
     "DefaultStrategy", "MirroredStrategy", "MultiWorkerMirroredStrategy",
     "Strategy", "get_strategy", "has_strategy",
 ]

@@ -1,5 +1,5 @@
-"""Collectives: communication modes, reduce ops and the cross-process
-all-reduce over a list of tensors.
+"""Collectives: communication modes, reduce ops, the cross-process
+all-reduce over a list of tensors and the chief's broadcast of a tree.
 
 Counterpart of the part of ``tpu_dist/parallel/collectives.py`` the
 reference program reaches. There, XLA compiles the step's gradient
@@ -14,8 +14,9 @@ from __future__ import annotations
 
 import enum
 import logging
-from typing import Sequence
+from typing import Any, Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -90,18 +91,58 @@ def all_reduce(tensors: Sequence[torch.Tensor],
     return tensors
 
 
-def broadcast(tensors: Sequence[torch.Tensor],
-              src: int = 0) -> Sequence[torch.Tensor]:
-    """Every process's ``tensors`` become process ``src``'s, in place, in
-    one collective (the initial-weights broadcast of mirrored variables)."""
-    if bootstrap.process_count() == 1 or not tensors:
-        return tensors
-    flat = torch.cat([t.detach().reshape(-1) for t in tensors])
-    dist.broadcast(flat, src=src)
-    offset = 0
-    with torch.no_grad():
-        for t in tensors:
-            n = t.numel()
-            t.copy_(flat[offset:offset + n].view_as(t))
-            offset += n
-    return tensors
+def _leaves(tree, out: list) -> None:
+    if isinstance(tree, dict):
+        for key in tree:
+            _leaves(tree[key], out)
+    elif isinstance(tree, (list, tuple)):
+        for sub in tree:
+            _leaves(sub, out)
+    else:
+        out.append(tree)
+
+
+def _rebuild(tree, leaves):
+    if isinstance(tree, dict):
+        return {key: _rebuild(tree[key], leaves) for key in tree}
+    if isinstance(tree, (list, tuple)):
+        items = [_rebuild(sub, leaves) for sub in tree]
+        return (type(tree)(*items) if hasattr(tree, "_fields")
+                else type(tree)(items))
+    return next(leaves)
+
+
+def broadcast_from_chief(tree: Any) -> Any:
+    """Process 0's tree on every process (the checkpoint restore's
+    fan-out). ``tree`` nests dicts, lists and tuples over numpy arrays,
+    numpy scalars or tensors, the same structure, shapes and dtypes on
+    every process. Leaves are packed into one flat buffer per dtype, so a
+    tree mixing fp32 parameters with Adam's int32 step costs one broadcast
+    per dtype (the initial-weights broadcast of mirrored variables is one
+    too). Tensor leaves are written in place on their device; numpy
+    leaves come back as new arrays (sent through the process group's
+    device: the card under NCCL, the CPU under gloo). With one process the
+    tree comes back as it is."""
+    if bootstrap.process_count() == 1:
+        return tree
+    leaves: list = []
+    _leaves(tree, leaves)
+    wire = bootstrap.device_of_group()
+    tensors = [leaf if isinstance(leaf, torch.Tensor)
+               else torch.from_numpy(np.array(leaf)).to(wire)
+               for leaf in leaves]
+    for dtype in dict.fromkeys(t.dtype for t in tensors):
+        group = [t for t in tensors if t.dtype == dtype]
+        on = group[0].device
+        flat = torch.cat([t.detach().reshape(-1).to(on) for t in group])
+        dist.broadcast(flat, src=0)
+        offset = 0
+        with torch.no_grad():
+            for t in group:
+                n = t.numel()
+                t.copy_(flat[offset:offset + n].view_as(t))
+                offset += n
+    out = [leaf if isinstance(leaf, torch.Tensor) else
+           t.cpu().numpy().reshape(np.shape(leaf))
+           for leaf, t in zip(leaves, tensors)]
+    return _rebuild(tree, iter(out))

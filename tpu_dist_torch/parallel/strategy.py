@@ -94,13 +94,13 @@ class Strategy:
         return DistributedDataset(dataset, self, policy=policy)
 
     def distribute_datasets_from_function(self, dataset_fn, options=None):
-        raise unported("strategy.distribute_datasets_from_function")
+        raise unported("strategy.distribute_datasets_from_function", 12)
 
     experimental_distribute_datasets_from_function = \
         distribute_datasets_from_function
 
     def run(self, fn, args=(), kwargs=None):
-        raise unported("strategy.run")
+        raise unported("strategy.run", 12)
 
     def reduce(self, op: ReduceOp | str, value):
         """Reduction of per-replica values (a leading replica axis) to one
@@ -143,12 +143,12 @@ class MirroredStrategy(Strategy):
                  axis_shapes: Optional[dict] = None, *,
                  device: DeviceLike = None):
         if axis_shapes is not None:
-            raise unported("MirroredStrategy(axis_shapes=)")
+            raise unported("MirroredStrategy(axis_shapes=)", 12)
         if devices is not None:
             devices = list(devices)
             if len(devices) > 1:
                 raise unported("MirroredStrategy over several devices in "
-                               "one process")
+                               "one process", 12)
             device = devices[0] if devices else device
         super().__init__(resolve_device(device))
         logger.info("MirroredStrategy: 1 replica on %s", self._device)
@@ -166,7 +166,7 @@ class MultiWorkerMirroredStrategy(Strategy):
                  cluster_config=None, axis_shapes: Optional[dict] = None, *,
                  device: DeviceLike = None):
         if axis_shapes is not None:
-            raise unported("MultiWorkerMirroredStrategy(axis_shapes=)")
+            raise unported("MultiWorkerMirroredStrategy(axis_shapes=)", 12)
         self.communication = CollectiveCommunication.resolve(communication)
         super().__init__(bootstrap.initialize(cluster_config, device=device))
         bootstrap.barrier("MultiWorkerMirroredStrategy_init")

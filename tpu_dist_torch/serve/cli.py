@@ -14,7 +14,10 @@ Counterpart of ``tpu_dist/serve/cli.py`` (its demo and ``--bench`` modes):
 ``--paged`` serves from the paged KV pool with prefix caching
 (``--page-size``, ``--num-pages``, ``--budget-mb``, ``--kv-dtype int8``
 for quantized pages, ``--ragged`` for one full-capacity decode program);
-``--budget-mb`` alone guards the contiguous cache.
+``--budget-mb`` alone guards the contiguous cache. ``--model-dir D``
+serves a ``save_model`` directory (either package's) instead of the demo
+LM, its cache slots as long as the model's positions; ``--vocab`` and
+``--max-len`` still shape the workload, which must fit the saved model.
 Runs on the CUDA device unless ``--device cpu`` is given. The full width
 of the repo's benchmark LM is ``--vocab 8192 --d-model 512 --depth 4
 --num-heads 8 --max-len 512``.
@@ -54,6 +57,11 @@ def _build_engine(args):
             paged_kwargs["ragged"] = True
     if args.budget_mb is not None:
         paged_kwargs["budget_bytes"] = int(args.budget_mb * 2**20)
+    if args.model_dir:
+        return ServeEngine.from_saved(
+            args.model_dir, max_batch=args.max_batch, policy=args.policy,
+            temperature=args.temperature, seed=args.seed,
+            device=args.device, **paged_kwargs)
     model = build_transformer_lm(args.vocab, args.max_len,
                                  d_model=args.d_model, depth=args.depth,
                                  num_heads=args.num_heads, seed=args.seed)
@@ -167,6 +175,9 @@ def main(argv=None) -> int:
                     "(PyTorch/CUDA port)")
     p.add_argument("--bench", action="store_true",
                    help="seeded load-generator run, JSON report")
+    p.add_argument("--model-dir", default=None,
+                   help="serve a models.save_model directory instead of a "
+                        "freshly initialized demo LM")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; 'cpu' runs the "
                         "plain PyTorch path)")

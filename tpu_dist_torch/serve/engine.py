@@ -254,6 +254,17 @@ class ServeEngine:
         #: Seconds spent capturing graphs, apart from any request's time.
         self.capture_seconds = 0.0
 
+    @classmethod
+    def from_saved(cls, directory, **kwargs) -> "ServeEngine":
+        """Load a ``save_model`` directory, written by either package
+        (weights restored, no training compile), onto the engine's device
+        (``device=``, as the constructor takes it) and serve it."""
+        from tpu_dist_torch.models import serialize
+
+        model = serialize.load_model(directory, compile=False,
+                                     device=kwargs.get("device"))
+        return cls(model, **kwargs)
+
     def compiled_programs(self) -> dict:
         """``{'decode': [buckets...], 'prefill': [pad_lens...]}`` used so
         far — the reference's program families; on CUDA each key is one

@@ -1,0 +1,551 @@
+"""Checkpoint / resume: the chief writes, everyone restores.
+
+Counterpart of the v1 half of ``tpu_dist/training/checkpoint.py``, in its
+on-disk layout byte for byte, so a directory written by either package
+loads in the other:
+
+    <directory>/checkpoint            the latest step, as text
+    <directory>/ckpt-<step>/arrays.npz
+    <directory>/ckpt-<step>/manifest.json
+        {"step", "keys", "format": "tpu_dist.checkpoint.v1",
+         "process_count", "device_count"}
+
+``arrays.npz`` keys every array by the reference's ``keystr`` path in
+``{'params', 'state', 'opt'}`` (``models/bridge.py`` translates the port's
+parameter names, buffers and optimizer lists to those paths). A step is
+staged in a temporary directory, every file and the stage fsynced, then
+published with ``os.replace`` and the parent fsynced, then the pointer is
+replaced the same way: a crash leaves either the old step or the new one.
+
+Where the reference restores a host pytree and places it anew, the port
+restores in place: every parameter, buffer and optimizer tensor is
+``copy_``-ed on its own device and never replaced, so the trainer's
+captured programs (``Trainer._graphed``) and the fused optimizers' leaf
+tables (``ops/fused.py``), which hold those tensors, stay valid.
+
+Several processes: only the chief writes, and everyone meets at a barrier
+after the write (``cluster/bootstrap.py``); on restore the chief reads and
+``parallel/collectives.broadcast_from_chief`` sends its bytes to the
+others. :class:`AsyncCheckpointer` moves serialization and the publish to
+a background thread.
+
+The sharded v2 layout (``sharded=True``) and the write-fault hook come with
+item 18 of ``ROADMAP.md``'s queue 1 and raise until then.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import pathlib
+import shutil
+import tempfile
+import threading
+import time
+import zipfile
+from typing import Optional
+
+import numpy as np
+import torch
+
+from tpu_dist_torch.cluster import bootstrap
+from tpu_dist_torch.models import bridge
+from tpu_dist_torch.observe import metrics as metrics_lib
+from tpu_dist_torch.utils.errors import unported
+
+logger = logging.getLogger("tpu_dist_torch.checkpoint")
+
+_POINTER = "checkpoint"
+_MANIFEST = "manifest.json"
+_ARRAYS = "arrays.npz"
+_FORMAT_V1 = "tpu_dist.checkpoint.v1"
+_FORMAT_V2 = "tpu_dist.checkpoint.v2-sharded"
+
+
+def _no_sharded(sharded: bool) -> None:
+    if sharded:
+        raise unported("sharded checkpoints (the v2 layout)", 18)
+
+
+def _step_dir(directory: pathlib.Path, step: int) -> pathlib.Path:
+    return directory / f"ckpt-{step}"
+
+
+def _saveable(model_or_variables) -> dict:
+    """``{key: tensor or array}`` of what a checkpoint holds. A model gives
+    its live tensors (through its trainer, made if it has none, whose
+    optimizer state comes along); a variables dict (``{'params': …,
+    'state': …, 'opt': …}`` trees) is keyed as it stands."""
+    from tpu_dist_torch.models.model import Model
+
+    if isinstance(model_or_variables, Model):
+        return _live_tensors(model_or_variables)
+    if not isinstance(model_or_variables, dict):
+        raise TypeError(f"save takes a Model or a variables dict, not "
+                        f"{type(model_or_variables).__name__}")
+    return bridge.flatten_keys({k: model_or_variables[k]
+                                for k in ("params", "state", "opt")
+                                if k in model_or_variables})
+
+
+def _live_tensors(model, trainer=None) -> dict:
+    from tpu_dist_torch.training.trainer import Trainer
+
+    if trainer is None:
+        if model._trainer is None:
+            model._trainer = Trainer(model)
+        trainer = model._trainer
+    trainer.ensure_variables()
+    return bridge.checkpoint_tensors(model, trainer.variables["opt"])
+
+
+def _host(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().numpy()
+    return np.asarray(leaf)
+
+
+# -- durability: stage, fsync, rename, fsync the parent -------------------------
+
+def _fsync(path: pathlib.Path) -> None:
+    """fsync a file or a directory by path."""
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def _publish_stage(stage: pathlib.Path, target: pathlib.Path,
+                   directory: pathlib.Path, step: int) -> None:
+    """Durably publish a staged step (chief only): fsync every staged file
+    and the stage, rename it into place, fsync the parent, then replace the
+    ``checkpoint`` pointer the same way."""
+    for child in sorted(stage.iterdir()):
+        if child.is_file():
+            _fsync(child)
+    _fsync(stage)
+    if target.exists():
+        shutil.rmtree(target)
+    os.replace(stage, target)
+    _fsync(directory)
+    pointer_tmp = directory / (_POINTER + ".tmp")
+    pointer_tmp.write_text(str(step))
+    _fsync(pointer_tmp)
+    os.replace(pointer_tmp, directory / _POINTER)
+    _fsync(directory)
+
+
+def _write_v1_checkpoint(directory: pathlib.Path, flat: dict, *, step: int,
+                         max_to_keep: Optional[int]) -> str:
+    """Serialize and durably publish one v1 step from host arrays (chief
+    only; no collective, no barrier), shared by :func:`save` and the
+    :class:`AsyncCheckpointer`'s writer thread."""
+    directory.mkdir(parents=True, exist_ok=True)
+    target = _step_dir(directory, step)
+    with tempfile.TemporaryDirectory(dir=directory) as tmp:
+        stage = pathlib.Path(tmp) / "stage"
+        stage.mkdir()
+        np.savez(stage / _ARRAYS, **flat)
+        (stage / _MANIFEST).write_text(json.dumps({
+            "step": step,
+            "keys": sorted(flat),
+            "format": _FORMAT_V1,
+            # One device per process: the two counts agree.
+            "process_count": bootstrap.process_count(),
+            "device_count": bootstrap.process_count(),
+        }))
+        _publish_stage(stage, target, directory, step)
+    logger.info("checkpoint step %d written to %s", step, target)
+    if max_to_keep is not None:
+        _gc(directory, max_to_keep)
+    return str(target)
+
+
+def save(directory: str | os.PathLike, model_or_variables, *, step: int,
+         max_to_keep: Optional[int] = None,
+         sharded: bool = False) -> Optional[str]:
+    """Write checkpoint ``step`` synchronously; returns its path on the
+    chief, None elsewhere. Takes a model (its live training variables) or
+    a variables dict. Only the chief writes; every process meets at a
+    barrier after the write, and a write error is raised after it, so no
+    peer is left waiting. ``max_to_keep`` keeps that many newest steps."""
+    _no_sharded(sharded)
+    t0 = time.perf_counter()
+    saveable = _saveable(model_or_variables)
+    directory = pathlib.Path(directory)
+    try:
+        path = None
+        write_error: Optional[OSError] = None
+        if bootstrap.is_chief():
+            try:
+                flat = {k: _host(v) for k, v in saveable.items()}
+                path = _write_v1_checkpoint(directory, flat, step=step,
+                                            max_to_keep=max_to_keep)
+            except OSError as exc:
+                write_error = exc
+        bootstrap.barrier(f"checkpoint_save_{step}")
+        if write_error is not None:
+            raise write_error
+        return path
+    finally:
+        metrics_lib.inc("checkpoint.sync_saves")
+        metrics_lib.observe_value("checkpoint.stall_s",
+                                  time.perf_counter() - t0)
+
+
+# -- the async pipeline: snapshot now, write on a thread ----------------------------
+
+class _Snapshot:
+    """The values of a checkpoint's tensors at the moment it was taken. A
+    CUDA tensor is cloned on the current stream, so the clone holds the
+    value every step queued before it leaves and no later step can change
+    it; the clones are copied into pinned host memory on a side stream,
+    behind an event, while the next steps run. CPU tensors and arrays are
+    copied at once. :meth:`arrays` waits for the copies (on the writer's
+    thread)."""
+
+    def __init__(self, saveable: dict):
+        self._host: dict = {}
+        self._done: Optional[torch.cuda.Event] = None
+        cuda = {k: v for k, v in saveable.items()
+                if isinstance(v, torch.Tensor) and v.is_cuda}
+        for key, value in saveable.items():
+            if key not in cuda:
+                self._host[key] = _host(value).copy()
+        if not cuda:
+            return
+        clones = {k: v.detach().clone() for k, v in cuda.items()}
+        taken = torch.cuda.Event()
+        taken.record()
+        side = torch.cuda.Stream()
+        with torch.cuda.stream(side):
+            side.wait_event(taken)
+            for key, c in clones.items():
+                pinned = torch.empty(c.shape, dtype=c.dtype, pin_memory=True)
+                pinned.copy_(c, non_blocking=True)
+                self._host[key] = pinned
+            self._done = torch.cuda.Event()
+            self._done.record(side)
+        # The clones stay referenced until the copies are done.
+        self._clones = clones
+
+    def arrays(self) -> dict:
+        if self._done is not None:
+            self._done.synchronize()
+            self._clones = None
+        return {k: v.numpy() if isinstance(v, torch.Tensor) else v
+                for k, v in self._host.items()}
+
+
+class AsyncCheckpointer:
+    """Checkpoints whose serialization, fsync and publish run on a
+    background thread while training goes on (the v1 half of the
+    reference's ``AsyncCheckpointer``).
+
+    ``save_async(model, step=N)`` first commits the previous save (joins
+    its writer, meets the other processes at a barrier) and then takes a
+    :class:`_Snapshot` of step N and hands it to a new writer thread. The
+    reference's arrays are immutable; the port's step updates parameters in
+    place, so the snapshot clones them on the compute stream before the
+    next step is queued. At most one save is in flight; :meth:`wait` and
+    :meth:`close` are the other commit points. A write error surfaces at
+    the next commit point, tagged with ``exc.checkpoint_step``, after the
+    barrier (from ``save_async`` after the new snapshot is in flight), so
+    one failed write costs one checkpoint, not the run. Only the chief has
+    a writer; the writer joins no collective and no barrier."""
+
+    def __init__(self, directory: str | os.PathLike, *,
+                 max_to_keep: Optional[int] = None, sharded: bool = False):
+        _no_sharded(sharded)
+        self.directory = pathlib.Path(directory)
+        self.max_to_keep = max_to_keep
+        self.sharded = sharded
+        self._thread: Optional[threading.Thread] = None
+        self._pending_step: Optional[int] = None
+        self._error: Optional[BaseException] = None  # writer -> commit
+        self._last_path: Optional[str] = None
+
+    @property
+    def in_flight_step(self) -> Optional[int]:
+        """The step being written, or None when drained."""
+        return self._pending_step
+
+    def __enter__(self) -> "AsyncCheckpointer":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        if exc_type is None:
+            self.close()
+        else:
+            self._drain()  # already unwinding: keep the original error
+
+    def save_async(self, model_or_variables, *, step: int) -> None:
+        """Commit the previous save, snapshot the current state and hand it
+        to a writer thread; raises the previous save's error, if any, once
+        the new snapshot is in flight."""
+        t0 = time.perf_counter()
+        prev_error = self._drain()
+        saveable = _saveable(model_or_variables)
+        t_snap = time.perf_counter()
+        self._pending_step = step
+        if bootstrap.is_chief():
+            self._thread = threading.Thread(
+                target=self._write, args=(_Snapshot(saveable), step),
+                daemon=True, name=f"tpu-dist-ckpt-writer-{step}")
+            self._thread.start()
+        now = time.perf_counter()
+        metrics_lib.inc("checkpoint.async_saves")
+        metrics_lib.observe_value("checkpoint.snapshot_s", now - t_snap)
+        metrics_lib.observe_value("checkpoint.stall_s", now - t0)
+        if prev_error is not None:
+            raise prev_error
+
+    def wait(self) -> Optional[str]:
+        """Commit point: join the writer, meet at the barrier, raise any
+        stored error. Returns the last published path (the chief's)."""
+        error = self._drain()
+        if error is not None:
+            raise error
+        return self._last_path
+
+    def close(self) -> Optional[str]:
+        """Drain and commit (the checkpointer stays usable)."""
+        return self.wait()
+
+    def _write(self, snapshot: _Snapshot, step: int) -> None:
+        # _last_path and _error are handed over: _drain joins this thread
+        # before it reads them.
+        t0 = time.perf_counter()
+        try:
+            self._last_path = _write_v1_checkpoint(
+                self.directory, snapshot.arrays(), step=step,
+                max_to_keep=self.max_to_keep)
+        except Exception as exc:  # delivered at the next commit point
+            self._error = exc
+        finally:
+            metrics_lib.observe_value("checkpoint.write_s",
+                                      time.perf_counter() - t0)
+
+    def _drain(self) -> Optional[BaseException]:
+        """Join the writer and meet at the commit barrier; return (not
+        raise) the stored error."""
+        if self._pending_step is None:
+            return None
+        step, self._pending_step = self._pending_step, None
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        error, self._error = self._error, None
+        bootstrap.barrier(f"checkpoint_commit_{step}")
+        if error is not None:
+            metrics_lib.inc("checkpoint.write_errors")
+            error.checkpoint_step = step
+            logger.warning("async checkpoint step %d failed: %s", step, error)
+        return error
+
+
+# -- listing and validation --------------------------------------------------------
+
+def _manifest(target: pathlib.Path) -> dict:
+    mf = target / _MANIFEST
+    if mf.is_file():
+        try:
+            return json.loads(mf.read_text())
+        except ValueError:
+            pass
+    return {}
+
+
+def _gc(directory: pathlib.Path, max_to_keep: int) -> None:
+    steps = sorted(all_steps(directory))
+    for old in steps[:-max_to_keep]:
+        shutil.rmtree(_step_dir(directory, old), ignore_errors=True)
+
+
+def all_steps(directory: str | os.PathLike) -> list[int]:
+    """Every ``ckpt-<step>`` directory's step, ascending."""
+    directory = pathlib.Path(directory)
+    if not directory.is_dir():
+        return []
+    out = []
+    for child in directory.iterdir():
+        if child.is_dir() and child.name.startswith("ckpt-"):
+            try:
+                out.append(int(child.name.split("-", 1)[1]))
+            except ValueError:
+                continue
+    return sorted(out)
+
+
+def latest_step(directory: str | os.PathLike) -> Optional[int]:
+    """The pointer's step, else the newest step directory, else None."""
+    directory = pathlib.Path(directory)
+    pointer = directory / _POINTER
+    if pointer.is_file():
+        try:
+            return int(pointer.read_text().strip())
+        except ValueError:
+            pass
+    steps = all_steps(directory)
+    return steps[-1] if steps else None
+
+
+def _npz_names(path: pathlib.Path) -> Optional[set]:
+    """The member names of an npz, or None when it cannot be read (a
+    truncated write leaves a zip without its central directory)."""
+    try:
+        with np.load(path) as z:
+            return set(z.files)
+    except (OSError, ValueError, zipfile.BadZipFile):
+        return None
+
+
+def validate_step_dir(target: str | os.PathLike) -> Optional[str]:
+    """Why the step directory ``target`` is not safe to restore from, or
+    None when it is: the manifest parses, the arrays open, and their keys
+    are the manifest's. Structural, not a content hash: the threat is a
+    write cut short where the atomic publish was subverted."""
+    target = pathlib.Path(target)
+    if not target.is_dir():
+        return "missing checkpoint directory"
+    mf = target / _MANIFEST
+    if not mf.is_file():
+        return "missing manifest.json"
+    try:
+        manifest = json.loads(mf.read_text())
+    except ValueError:
+        return "manifest.json does not parse"
+    fmt = manifest.get("format")
+    if fmt == _FORMAT_V1:
+        names = _npz_names(target / _ARRAYS)
+        if names is None:
+            return f"{_ARRAYS} is unreadable (truncated write?)"
+        keys = manifest.get("keys")
+        if keys is not None and set(keys) != names:
+            missing = sorted(set(keys) - names)[:3]
+            return (f"{_ARRAYS} does not match manifest keys "
+                    f"(e.g. missing {missing})")
+        return None
+    if fmt == _FORMAT_V2:
+        return "a sharded (v2) checkpoint: not ported yet (ROADMAP.md, item 18)"
+    return f"unknown checkpoint format {fmt!r}"
+
+
+def is_complete(directory: str | os.PathLike, step: int) -> bool:
+    return validate_step_dir(_step_dir(pathlib.Path(directory), step)) is None
+
+
+def latest_complete_step(directory: str | os.PathLike, *,
+                         before: Optional[int] = None) -> Optional[int]:
+    """The newest step that passes :func:`validate_step_dir`, the resume
+    anchor: the pointer is a hint, and a corrupt step costs one interval,
+    never the run. ``before`` keeps only steps strictly earlier."""
+    directory = pathlib.Path(directory)
+    pointed = latest_step(directory)
+    if before is not None and pointed is not None and pointed >= before:
+        pointed = None
+    if pointed is not None and is_complete(directory, pointed):
+        return pointed
+    for step in reversed(all_steps(directory)):
+        if before is not None and step >= before:
+            continue
+        if step == pointed:
+            continue  # already rejected above
+        reason = validate_step_dir(_step_dir(directory, step))
+        if reason is None:
+            if pointed is not None:
+                logger.warning(
+                    "checkpoint step %s is incomplete (%s); resuming from "
+                    "step %d instead", pointed,
+                    validate_step_dir(_step_dir(directory, pointed)), step)
+            return step
+        logger.warning("skipping incomplete checkpoint step %d: %s",
+                       step, reason)
+    return None
+
+
+# -- restore ---------------------------------------------------------------------
+
+def _chief_choice(value: int) -> int:
+    """The chief's ``value`` on every process."""
+    from tpu_dist_torch.parallel.collectives import broadcast_from_chief
+
+    return int(broadcast_from_chief(np.int64(value)))
+
+
+def restore(directory: str | os.PathLike, template: dict, *,
+            step: Optional[int] = None) -> tuple[dict, int]:
+    """The arrays of checkpoint ``step`` (default: the latest complete one)
+    for the keys of ``template`` (``{key: tensor or array}``, whose shapes
+    they must have; keys the checkpoint holds beyond them are left out).
+    Returns ``({key: numpy array}, step)``. The chief chooses the step,
+    validates it and reads it; its bytes are broadcast to every process,
+    which need not see the files."""
+    directory = pathlib.Path(directory)
+    many = bootstrap.process_count() > 1
+    chief = bootstrap.process_index() == 0
+    if step is None:
+        local = latest_complete_step(directory) if chief else None
+        step = local if not many else _chief_choice(
+            -1 if local is None else local)
+        if step is not None and step < 0:
+            step = None
+        if step is None:
+            raise FileNotFoundError(
+                f"no complete checkpoints under {directory}")
+    target = _step_dir(directory, step)
+    reason = validate_step_dir(target) if chief else None
+    verdict = 0 if reason is None else -1
+    if many:
+        verdict = _chief_choice(verdict)
+    if verdict < 0:
+        raise ValueError(
+            f"checkpoint step {step} at {target} failed validation"
+            + (f": {reason}" if reason else "")
+            + "; refusing to restore from an incomplete checkpoint")
+    shapes = {k: (tuple(np.shape(v)), _np_dtype(v))
+              for k, v in template.items()}
+    if chief:
+        with np.load(target / _ARRAYS) as z:
+            arrays = {}
+            for key, (shape, _) in shapes.items():
+                if key not in z.files:
+                    raise KeyError(f"checkpoint missing array {key!r}; "
+                                   "checkpoint/model mismatch")
+                arr = z[key]
+                if tuple(arr.shape) != shape:
+                    raise ValueError(
+                        f"checkpoint array {key!r} has shape {arr.shape}, "
+                        f"model expects {shape}")
+                arrays[key] = arr
+    else:
+        arrays = {k: np.zeros(shape, dtype) for k, (shape, dtype)
+                  in shapes.items()}
+    if many:
+        from tpu_dist_torch.parallel.collectives import broadcast_from_chief
+
+        arrays = broadcast_from_chief(arrays)
+    logger.info("restored checkpoint step %d from %s", step, target)
+    return arrays, step
+
+
+def _np_dtype(leaf) -> np.dtype:
+    if isinstance(leaf, torch.Tensor):
+        return torch.empty(0, dtype=leaf.dtype).numpy().dtype
+    return np.asarray(leaf).dtype
+
+
+def restore_model(directory: str | os.PathLike, model, *,
+                  step: Optional[int] = None, trainer=None) -> int:
+    """Restore a model's training variables in place (resume): its
+    parameters, its state buffers and the optimizer state of ``trainer``
+    (default: the model's own, made if it has none), each ``copy_``-ed on
+    its device from the checkpoint (module docstring). Returns the step."""
+    live = _live_tensors(model, trainer)
+    arrays, step = restore(directory, live, step=step)
+    with torch.no_grad():
+        for key, t in live.items():
+            t.copy_(torch.from_numpy(arrays[key]))
+    return step

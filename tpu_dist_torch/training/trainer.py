@@ -44,9 +44,17 @@ batch crosses to the device and its scale (the dataset's
 ``device_transform``) runs inside the step, and so inside a captured
 execution too. ``prefetch_to_device = d`` places the host pipeline's next
 ``d`` batches on the card from a background thread. ``gradient_bucket_
-bytes``, ``checkpoint_dir`` and ``profile_dir`` come with later slices of
-the port, the integrity ``health`` vector with the resilience slice
-(``ROADMAP.md``); each raises ``NotImplementedError``.
+bytes`` and ``profile_dir`` come with items 10 and 11 of ``ROADMAP.md``'s
+queue 1, the integrity ``health`` vector with item 18; each raises
+``NotImplementedError``.
+
+``fit(checkpoint_dir=)`` is the JAX package's resume: it restores the
+newest complete checkpoint there (or ``TPU_DIST_RESTORE_STEP``: a step, or
+``none``) in place (``training/checkpoint.py``), starts at the epoch after
+it, and saves every epoch through a ``ModelCheckpoint`` unless one for the
+same directory was passed. The random generator is seeded per epoch from
+``(seed, epoch)``, as the JAX package folds its keys from the epoch, so a
+resumed fit draws the uninterrupted fit's numbers.
 
 ``steps_per_execution = k > 1`` runs k train steps per execution, the JAX
 package's ``lax.scan`` of k steps in one compiled program: the k batches
@@ -84,7 +92,9 @@ from :attr:`Trainer.rng`, a generator on the model's device seeded by
 ``fit(seed=)``, which every capture registers so each replay draws anew. A
 captured program's identity starts with the compute policy
 (``_train_variant``, ``_eval_variant``), so a ``fit`` or ``predict`` after
-``set_policy`` captures anew, as the JAX package retraces.
+``set_policy`` captures anew, as the JAX package retraces. A functional
+model's state leaves keyed ``aux_loss`` join the training objective under
+autograd (the JAX package's ``_aux_loss_total``).
 """
 
 from __future__ import annotations
@@ -92,6 +102,7 @@ from __future__ import annotations
 import contextlib
 import itertools
 import logging
+import os
 import time
 from typing import Optional, Sequence
 
@@ -154,6 +165,20 @@ def _place(x, device, transform):
     return transform(torch.as_tensor(x).to(device, non_blocking=True))
 
 
+def _batch_array(b):
+    """A batch as ``predict`` takes it: a tensor as it is (on its device),
+    anything else as a numpy array."""
+    return b if isinstance(b, torch.Tensor) else np.asarray(b)
+
+
+def _pad_rows(b, target: int):
+    """``b`` (an array or a tensor) padded to ``target`` rows by repeating
+    its last row."""
+    if isinstance(b, torch.Tensor):
+        return torch.cat([b, b[-1:].expand(target - len(b), *b.shape[1:])])
+    return np.concatenate([b, np.repeat(b[-1:], target - len(b), axis=0)])
+
+
 def _dtype_of(a) -> torch.dtype:
     return (a.dtype if isinstance(a, torch.Tensor) else
             torch.from_numpy(np.empty(0, np.asarray(a).dtype)).dtype)
@@ -175,6 +200,28 @@ def _transform_key(t):
         return None
     op, k = getattr(t, "_op", None), getattr(t, "_scale", None)
     return ("scale", op, k) if k is not None else id(t)
+
+
+def _epoch_seed(seed: int, epoch: int) -> int:
+    """The random generator's seed for ``epoch`` of a ``fit(seed=)``: a
+    function of the two alone, as the JAX package folds each step's key
+    from its root key and the epoch, so a resumed fit draws what the
+    uninterrupted one draws."""
+    state = np.random.SeedSequence([seed % 2**64, epoch]).generate_state(
+        1, np.uint64)
+    return int(state[0] >> np.uint64(1))
+
+
+def _aux_loss_total(models):
+    """The summed ``aux_loss`` state leaves of the last forward of each
+    functional model in ``models`` (with their autograd graph), or None
+    when there are none; each model's record is taken."""
+    total = None
+    for m in models:
+        aux, m._aux_loss = m._aux_loss, None
+        if aux is not None:
+            total = aux if total is None else total + aux
+    return total
 
 
 def _tensors(tree) -> list:
@@ -308,10 +355,7 @@ class Trainer:
         state = list(self.model.buffers())
         if self.distributed:
             # Mirrored variables start equal: process 0's values everywhere.
-            collectives.broadcast(params, src=0)
-            for dtype in {b.dtype for b in state}:
-                collectives.broadcast([b for b in state if b.dtype == dtype],
-                                      src=0)
+            collectives.broadcast_from_chief([params, state])
         for m in self.model.modules():
             if isinstance(m, BatchNormalization):
                 m.synchronized = self.distributed
@@ -381,10 +425,14 @@ class Trainer:
         ``rng`` is accepted for the JAX signature's sake: a Dropout draws
         from :attr:`rng`. ``device_transform`` (a dataset's) runs on x once
         it is on the device."""
+        from tpu_dist_torch.models.model import Model
+
         model, optimizer = self.model, self.model.optimizer
         metrics = tuple(model.metrics)
         device = self.device
         distributed = self.distributed
+        functional = [m for m in model.modules()
+                      if isinstance(m, Model) and m._apply_fn is not None]
 
         def step(params, state, opt_state, metric_states, loss_acc, x, y,
                  rng=None):
@@ -396,6 +444,9 @@ class Trainer:
                 p.grad = None
             logits = model(x)
             loss = self._loss(logits, y, class_weight)
+            aux = _aux_loss_total(functional)
+            if aux is not None:
+                loss = loss + aux
             loss.backward()
             grads = [p.grad for p in params]
             loss = loss.detach()
@@ -564,11 +615,8 @@ class Trainer:
             class_weight: Optional[dict] = None) -> History:
         if profile_dir is not None:
             raise unported("fit(profile_dir=) (utils/profiler.py on "
-                           "torch.profiler)")
-        if checkpoint_dir is not None:
-            raise unported("fit(checkpoint_dir=) (the v1 checkpoint path)")
+                           "torch.profiler)", 11)
         self.ensure_variables(seed)
-        self.rng.manual_seed(seed)
         if class_weight is not None:
             class_weight = {int(c): float(w) for c, w in class_weight.items()}
             if any(c < 0 for c in class_weight):
@@ -584,6 +632,10 @@ class Trainer:
             if steps_per_epoch is None:
                 raise ValueError("the dataset's cardinality is unknown; "
                                  "pass steps_per_epoch")
+        callbacks = list(callbacks)
+        if checkpoint_dir is not None:
+            initial_epoch = self._resume(checkpoint_dir, initial_epoch)
+            callbacks = self._with_checkpoints(checkpoint_dir, callbacks)
         val_batches = val_steps = None
         if validation_data is not None:
             val_batches = self._distribute(validation_data)
@@ -596,13 +648,49 @@ class Trainer:
             with _mode(self.model, True):
                 self._run_epochs(step, multi, batches, cbs, initial_epoch,
                                  epochs, steps_per_epoch, bool(verbose),
-                                 val_batches, val_steps)
+                                 val_batches, val_steps, seed)
         except StopTraining as e:
             logger.info("training stopped early: %s", e)
         finally:
             self._close_prefetcher()
             cbs.on_train_end()
         return history
+
+    def _resume(self, checkpoint_dir, initial_epoch: int) -> int:
+        """Restore the newest complete checkpoint of ``checkpoint_dir`` in
+        place, or the step ``TPU_DIST_RESTORE_STEP`` names (``none``:
+        none); a restored step N means epoch N finished. Returns the epoch
+        to start at."""
+        from tpu_dist_torch.training import checkpoint
+
+        forced = os.environ.get("TPU_DIST_RESTORE_STEP")
+        try:
+            if forced == "none":
+                return initial_epoch
+            restored = checkpoint.restore_model(
+                checkpoint_dir, self.model, trainer=self,
+                step=int(forced) if forced else None)
+        except FileNotFoundError:
+            return initial_epoch
+        start = max(initial_epoch, restored + 1)
+        logger.info("resumed from checkpoint step %d; starting at epoch %d",
+                    restored, start)
+        return start
+
+    @staticmethod
+    def _with_checkpoints(checkpoint_dir, callbacks: list) -> list:
+        """``callbacks`` and a ``ModelCheckpoint`` of ``checkpoint_dir``,
+        unless one for that directory is among them already."""
+        from tpu_dist_torch.training.callbacks import ModelCheckpoint
+
+        def same_dir(cb):
+            d = getattr(cb, "directory", None)
+            return d is not None and os.fspath(d) == os.fspath(checkpoint_dir)
+
+        if any(isinstance(cb, ModelCheckpoint) and same_dir(cb)
+               for cb in callbacks):
+            return callbacks
+        return [*callbacks, ModelCheckpoint(checkpoint_dir)]
 
     def _reset_accumulators(self) -> torch.Tensor:
         """Zero the epoch's accumulators in place and return the loss
@@ -646,10 +734,13 @@ class Trainer:
                      np.stack([y for _, y in window]))
 
     def _run_epochs(self, step, multi, batches, cbs, initial_epoch, epochs,
-                    steps_per_epoch, show, val_batches, val_steps):
+                    steps_per_epoch, show, val_batches, val_steps, seed):
         v = self.variables
         k = self.model.steps_per_execution
         for epoch in range(initial_epoch, epochs):
+            # A replay of a captured program reads the registered
+            # generator's seed and offset as they stand.
+            self.rng.manual_seed(_epoch_seed(seed, epoch))
             cbs.on_epoch_begin(epoch)
             if show:
                 print(f"Epoch {epoch + 1}/{epochs}")
@@ -730,21 +821,26 @@ class Trainer:
     # -- predict ---------------------------------------------------------------
 
     def predict(self, x) -> np.ndarray:
-        """Eval-mode outputs, as numpy, for an array (one batch, as the JAX
-        package takes it) or an iterable of batches or of ``(x, y)``
-        tuples. Every batch is padded (by repeating its last row) to the
-        largest batch's size and its outputs trimmed, so the pass needs
-        one program: on CUDA one capture per policy, device transform and
-        input, whose first call runs eagerly and whose later ones replay;
-        on the CPU the forward itself."""
+        """Eval-mode outputs, as numpy, for an array or a tensor (one
+        batch, as the JAX package takes it) or an iterable of batches or of
+        ``(x, y)`` tuples (a ``DeviceDataset``'s batches stay on its device:
+        nothing is copied to the host but the outputs, once). A dataset's
+        device transform (``device_transform``, else a plain ``Dataset``'s
+        ``_device_transform``, as the JAX package reads it) runs on each
+        batch on the device. Every batch is padded (by repeating its last
+        row) to the largest batch's size and its outputs trimmed, so the
+        pass needs one program: on CUDA one capture per policy, device
+        transform and input, whose first call runs eagerly and whose later
+        ones replay; on the CPU the forward itself."""
         self.ensure_variables()
-        is_array = isinstance(x, np.ndarray) or hasattr(x, "__array__")
-        transform = None if is_array else getattr(x, "device_transform",
-                                                  None)
+        is_array = (isinstance(x, (np.ndarray, torch.Tensor))
+                    or hasattr(x, "__array__"))
+        transform = None if is_array else getattr(
+            x, "device_transform", getattr(x, "_device_transform", None))
         if is_array:
-            batches = [np.asarray(x)]
+            batches = [x if isinstance(x, torch.Tensor) else np.asarray(x)]
         else:
-            batches = [np.asarray(b[0] if isinstance(b, tuple) else b)
+            batches = [_batch_array(b[0] if isinstance(b, tuple) else b)
                        for b in x]
         sizes = [len(b) for b in batches]
         if not sizes:
@@ -754,15 +850,18 @@ class Trainer:
         with torch.no_grad(), _mode(self.model, False):
             for xb, n in zip(batches, sizes):
                 if n < target:
-                    xb = np.concatenate(
-                        [xb, np.repeat(xb[-1:], target - n, axis=0)])
-                outs.append(self._predict_batch(xb, transform)[:n])
-        return np.concatenate(outs, axis=0)
+                    xb = _pad_rows(xb, target)
+                # A replay's output is rewritten by the next replay: keep
+                # a device copy of the rows wanted.
+                outs.append(self._predict_batch(xb, transform)[:n].clone())
+        return torch.cat(outs).cpu().numpy()
 
-    def _predict_batch(self, xb: np.ndarray, transform) -> np.ndarray:
+    def _predict_batch(self, xb, transform) -> torch.Tensor:
+        """The eval forward of one batch (an array or a tensor), as a tensor
+        on the model's device."""
         model, device = self.model, self.device
         if device.type != "cuda":
-            return model(_place(xb, device, transform)).cpu().numpy()
+            return model(_place(xb, device, transform))
         # The static input takes the dtype _place gives the batch (the
         # wire dtype under a transform); the staging copy casts into it.
         spec = (tuple(xb.shape),
@@ -775,6 +874,5 @@ class Trainer:
             fn, {"xb": spec}, device=device, pool=self._predict_pool)
         key = (*self._eval_variant(transform), spec)
         held = (list(model.parameters()), list(model.buffers()))
-        out = _run_program(self._predict_programs, key, held, make,
-                           {"xb": xb})
-        return out.cpu().numpy()
+        return _run_program(self._predict_programs, key, held, make,
+                            {"xb": xb})

@@ -1,8 +1,9 @@
 """Errors shared by every layer of the port."""
 
 
-def unported(what: str, slice_name: str = "3b") -> NotImplementedError:
-    """The error for a knob of the JAX package that the port lacks yet."""
+def unported(what: str, item: int) -> NotImplementedError:
+    """The error for a knob of the JAX package that the port lacks yet,
+    naming the ``ROADMAP.md`` queue-1 item that ports it."""
     return NotImplementedError(
-        f"{what} is not ported yet: it comes with slice {slice_name} of the "
-        f"port (ROADMAP.md, 'Slices of the port')")
+        f"{what} is not ported yet: it comes with item {item} of queue 1 in "
+        f"ROADMAP.md ('Modules still to port')")
