@@ -225,6 +225,34 @@ plain PyTorch version. Phases:
     save's seconds and the directory's MB, the async save's stall at the
     epoch end and its writer's seconds, restore seconds, and the resumed
     fit's step beside the uninterrupted one's.
+24. the data-parallel surface and the profiler: two worker processes
+    (``chip_smoke.py --dp-worker DIR``, each with one of
+    ``make_local_cluster(2)``'s TF_CONFIGs and its own timeout) share the
+    card through ``MultiWorkerMirroredStrategy(communication="ring")``,
+    gloo on CUDA tensors (NCCL cannot put two ranks on one device), with
+    the kernels phase 2 built. (a) phase 22's ResNet-18 at global batch
+    256 (128 a worker, DATA sharding), fused CE + SGD(0.001), 2 x 4
+    steps with ``gradient_bucket_bytes=262144``: the workers bit for bit
+    (losses, parameters, BatchNorm state after the first step and the
+    last), rows 1-3 launched 8 times a worker, the bucket collectives
+    ``len(partition_buckets(...))`` x 8; against a single-process twin
+    (each global batch's halves through the model with local moments from
+    the same state, losses, gradients and states averaged, unfused SGD)
+    within phase 22's ``RESNET_*`` tolerances after one step and its drift
+    rule after 8 (a one-ulp-nudged twin's drift, x ``RESNET_DRIFT``); (b)
+    the same with ``gradient_bucket_bytes=0``: sync-BN over gloo, against
+    one process fitting the global batch; (c) ``fit(profile_dir=D)`` of
+    phase 9's LM, 4 SGD steps after one untraced: one trace in D whose
+    flash forward, dQ, dK/dV and delta kernels number depth x 4, the top
+    ten device kernels and the kernel families with their share of the
+    step; the CNN at k = 4 fit on its captured program inside a trace and
+    outside, bit for bit; (d) ``examples/custom_training_loop.py`` on the
+    two workers, 100 steps: ``strategy.run``'s per-replica losses the
+    same on both, ``reduce("mean")`` their mean, the parameters bit for
+    bit and within ``CNN_LOSS_ATOL`` of a single-process twin on the
+    global batch, the loss falling; (e) ms a step on each schedule, the
+    gradient reduction alone, the bucket count and bytes: gloo staging
+    through the host on a shared card, not NCCL.
 
 Prints one JSON line of kernel records, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
@@ -235,9 +263,12 @@ from __future__ import annotations
 
 import contextlib
 import io
+import itertools
 import json
+import os
 import pathlib
 import runpy
+import socket
 import statistics
 import subprocess
 import sys
@@ -249,9 +280,11 @@ import torch
 import torch.nn.functional as F
 
 from tpu_dist_torch import data as td_data
+from tpu_dist_torch.cluster import bootstrap, make_local_cluster
 from tpu_dist_torch.data import native
 from tpu_dist_torch.data.device import DeviceDataset
 from tpu_dist_torch.models.cnn import build_cnn_model
+from tpu_dist_torch.models.model import _flatten, _nest
 from tpu_dist_torch.models.policy import policy, set_policy
 from tpu_dist_torch.models.resnet import ResNet18, ResNet50
 from tpu_dist_torch.models.transformer import (MultiHeadAttention,
@@ -265,7 +298,8 @@ from tpu_dist_torch.ops.losses import SparseCategoricalCrossentropy
 from tpu_dist_torch.ops.metrics import SparseCategoricalAccuracy
 from tpu_dist_torch.ops.optimizers import SGD, Adam
 from tpu_dist_torch.ops.schedules import ExponentialDecay
-from tpu_dist_torch.parallel import MultiWorkerMirroredStrategy
+from tpu_dist_torch.parallel import (MultiWorkerMirroredStrategy,
+                                     collectives, shard_batch)
 from tpu_dist_torch.serve import cli, kv_cache
 from tpu_dist_torch.serve.engine import ServeEngine, _pad_to_pow2
 from tpu_dist_torch.serve.scheduler import DONE
@@ -3151,7 +3185,8 @@ def _resnet_chain(source, *, shuffle: bool = False):
     return ds.batch(RESNET_BATCH)
 
 
-def _resnet(make_model, shape, *, fused_on: bool = True, k: int = 1):
+def _resnet(make_model, shape, *, fused_on: bool = True, k: int = 1,
+            bucket_bytes: int = 0):
     """``bench.py:build_model``'s ResNet: SparseCategoricalCrossentropy(
     from_logits=True), SGD(0.001) and SparseCategoricalAccuracy, with the
     kernels' flags; random weights from seed 0, so two builds start equal."""
@@ -3160,7 +3195,7 @@ def _resnet(make_model, shape, *, fused_on: bool = True, k: int = 1):
                   loss=SparseCategoricalCrossentropy(from_logits=True,
                                                      fused=fused_on),
                   metrics=[SparseCategoricalAccuracy()],
-                  steps_per_execution=k)
+                  steps_per_execution=k, gradient_bucket_bytes=bucket_bytes)
     return model
 
 
@@ -3792,7 +3827,573 @@ def resume_phase(card: str, contiguous_streams: list) -> dict:
     return out
 
 
+# -- the data-parallel surface: two workers on one card ----------------------
+
+#: Phase 24: ResNet-18 (phase 22's) at global batch 256 over two workers
+#: (128 rows each), 2 epochs x 4 steps, bucketed at
+#: benchmarks/step_bench.py:140's default and on the default schedule; the
+#: custom loop's 100 steps. Each worker has its own timeout.
+DP_WORKERS, DP_EPOCHS, DP_STEPS = 2, 2, 4
+DP_BUCKET_BYTES = 262144
+DP_LOOP_STEPS = 100
+DP_TIMEOUT_S = 420
+#: (d): at lr 0.01 a batch of 16 carries rounding far: on the CPU the
+#: workers' loss (the mean of two 8-row means) and a single process's
+#: (one 16-row mean) agree to 7e-7 for the first 33 steps and then part
+#: by up to 1e-3 by step 100. The first LOOP_CLOSE_STEPS steps are held to
+#: CNN_LOSS_ATOL; all 100 and the parameters to RESNET_DRIFT times a
+#: one-ulp-nudged twin's drift, phase 22's rule.
+LOOP_CLOSE_STEPS = 20
+DP_TIMED = 10
+#: Phase 24 (c): the profiled LM fit's steps.
+PROFILE_STEPS = 4
+
+
+def _cpu(obj):
+    """``obj`` with every tensor moved to the CPU (nested lists, tuples and
+    dicts)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: _cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_cpu(v) for v in obj)
+    return obj
+
+
+def _ms(fn, calls: int) -> float:
+    """Host ms a call of ``fn`` over ``calls`` calls, after two more; the
+    card is synchronised at both ends."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / calls
+
+
+def _dp_fit(strategy, source, bucket_bytes: int) -> dict:
+    """One worker's fit of ResNet-18 on its half of every global batch of
+    256: the first step's and the end's values, the kernels' and the
+    buckets' launches; then the step's ms and its gradient reduction's."""
+    with strategy.scope():
+        model = _resnet(ResNet18, (28, 28, 1), bucket_bytes=bucket_bytes)
+    first = _FirstStep()
+    _reset_counts()
+    collectives.bucketed_all_reduce.launches = 0
+    h = model.fit(_resnet_chain(source), epochs=DP_EPOCHS,
+                  steps_per_epoch=DP_STEPS, verbose=0, callbacks=[first])
+    torch.cuda.synchronize()
+    out = {"loss": h.history["loss"], "counts": _counts(),
+           "bucket_launches": collectives.bucketed_all_reduce.launches,
+           "first": first.taken, "params": _params(model),
+           "state": _bn_state(model),
+           "synced": [m.synchronized for m in model.modules()
+                      if hasattr(m, "synchronized")]}
+    names = [n for n, _ in model.named_parameters()]
+    tree = _nest(model.named_parameters())
+    leaves = collectives.tree_leaves(tree)
+    out["bucket_bytes"] = [
+        sum(leaves[i].numel() * leaves[i].element_size() for i in b)
+        for b in collectives.partition_buckets(tree, bucket_bytes)]
+    x, y = next(iter(_resnet_chain(source)))
+    x, y = (t.cuda() for t in shard_batch((x, y), strategy.mesh))
+    fn, st = model.make_train_function(), model.train_state()
+    out["step_ms"] = _ms(lambda: fn(*st, x, y), DP_TIMED)
+    grads = [p.grad for p in model.parameters()]
+    loss = torch.zeros((), device="cuda")
+    if bucket_bytes:
+        reduce = lambda: collectives.bucketed_all_reduce(
+            _nest(zip(names, grads)), "mean", bucket_bytes=bucket_bytes)
+    else:
+        reduce = lambda: collectives.all_reduce([*grads, loss], "mean")
+    out["reduce_ms"] = _ms(reduce, DP_TIMED)
+    return out
+
+
+def dp_worker(outdir: pathlib.Path) -> int:
+    """Phase 24's worker (``chip_smoke.py --dp-worker DIR``, TF_CONFIG in
+    the environment): ``MultiWorkerMirroredStrategy(communication="ring")``,
+    gloo over CUDA tensors on the one card, the kernels phase 2 built;
+    (a) the bucketed fit, (b) the default one with sync-BN, (d) the custom
+    loop. Writes ``worker<rank>.pt`` into ``outdir``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    strategy = MultiWorkerMirroredStrategy(communication="ring")
+    for source in SOURCES:
+        _build.load(source)
+    fashion = td_data.load("fashion_mnist", split="train")
+    out = {"device": str(strategy.device),
+           "backend": torch.distributed.get_backend()}
+    for label, bucket_bytes in (("bucketed", DP_BUCKET_BYTES),
+                                ("default", 0)):
+        out[label] = _dp_fit(strategy, fashion, bucket_bytes)
+        torch.cuda.empty_cache()
+    from tpu_dist_torch.examples import custom_training_loop
+
+    t0 = time.monotonic()
+    out["loop"] = custom_training_loop.main(["--steps", str(DP_LOOP_STEPS)])
+    out["loop_s"] = time.monotonic() - t0
+    torch.save(_cpu(out), outdir / f"worker{bootstrap.process_index()}.pt")
+    return 0
+
+
+def _spawn_dp_workers(tmp: pathlib.Path) -> list:
+    """Both workers to their end, each within DP_TIMEOUT_S; a failure or a
+    hang raises with the tail of its log. Returns their records."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = pathlib.Path(__file__).resolve().parent
+    procs, logs = [], []
+    try:
+        for rank, cfg in enumerate(make_local_cluster(DP_WORKERS,
+                                                      base_port=port)):
+            logs.append(open(tmp / f"worker{rank}.log", "w"))
+            env = dict(os.environ, TF_CONFIG=json.dumps(cfg),
+                       PYTHONPATH=os.pathsep.join(
+                           filter(None, [str(root),
+                                         os.environ.get("PYTHONPATH")])))
+            procs.append(subprocess.Popen(
+                [sys.executable, str(root / "chip_smoke.py"), "--dp-worker",
+                 str(tmp)], cwd=root, env=env, stdout=logs[-1],
+                stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + DP_TIMEOUT_S
+        for rank, p in enumerate(procs):
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                pass
+            if p.returncode != 0:
+                for q in procs:
+                    if q.poll() is None:
+                        q.kill()
+                tail = (tmp / f"worker{rank}.log").read_text()[-3000:]
+                raise AssertionError(
+                    f"(24) worker {rank} exit {p.returncode} (timeout "
+                    f"{DP_TIMEOUT_S} s):\n{tail}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    return [torch.load(tmp / f"worker{r}.pt", weights_only=False)
+            for r in range(DP_WORKERS)]
+
+
+def _equal(a, b) -> bool:
+    """Bit for bit: floats, tensors and nests of them."""
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_equal(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def _epoch_means(losses: list) -> list:
+    """Per-epoch means of per-step float32 losses, summed in float32 in
+    order as the trainer's device accumulator sums them."""
+    out = []
+    for e in range(DP_EPOCHS):
+        acc = np.float32(0.0)
+        for v in losses[e * DP_STEPS:(e + 1) * DP_STEPS]:
+            acc = np.float32(acc + np.float32(v))
+        out.append(float(acc / np.float32(DP_STEPS)))
+    return out
+
+
+def _bucketed_twin(batches, nudge: bool) -> dict:
+    """The bucketed step's plain version in one process: each global
+    batch's two halves through the model with local moments from the same
+    state, their losses, gradients and states averaged, then unfused
+    SGD."""
+    model = _resnet(ResNet18, (28, 28, 1), fused_on=False)
+    model.train()
+    params, bufs = list(model.parameters()), list(model.buffers())
+    if nudge:   # every weight one ulp up
+        with torch.no_grad():
+            for p in params:
+                p.copy_(torch.nextafter(p, torch.full_like(p, float("inf"))))
+    opt_state = model.optimizer.init(params)
+    losses, first = [], None
+    for xb, yb in batches:
+        xb, yb = (torch.from_numpy(np.asarray(a)).cuda() for a in (xb, yb))
+        half = len(xb) // DP_WORKERS
+        start = [b.clone() for b in bufs]
+        parts = []
+        for h in range(DP_WORKERS):
+            rows = slice(h * half, (h + 1) * half)
+            with torch.no_grad():
+                for b, s in zip(bufs, start):
+                    b.copy_(s)
+            for p in params:
+                p.grad = None
+            loss = model.loss(model(xb[rows]), yb[rows])
+            loss.backward()
+            parts.append((loss.detach(), [p.grad for p in params],
+                          [b.clone() for b in bufs]))
+        (l0, g0, s0), (l1, g1, s1) = parts
+        with torch.no_grad():
+            for b, u, v in zip(bufs, s0, s1):
+                b.copy_((u + v) / DP_WORKERS)
+        grads = [(u + v) / DP_WORKERS for u, v in zip(g0, g1)]
+        model.optimizer.update(grads, opt_state, params)
+        losses.append(float((l0 + l1) / DP_WORKERS))
+        if first is None:
+            first = (losses[0], _params(model), _bn_state(model))
+    return _cpu({"loss": _epoch_means(losses), "first": first,
+                 "params": _params(model), "state": _bn_state(model)})
+
+
+def _global_fit_twin(source, nudge: bool) -> dict:
+    """The default schedule's plain version: one process fits the global
+    batch of 256 unfused (its BatchNorm's moments are the batch's)."""
+    model = _resnet(ResNet18, (28, 28, 1), fused_on=False)
+    if nudge:
+        with torch.no_grad():
+            for p in model.parameters():
+                p.copy_(torch.nextafter(p, torch.full_like(p, float("inf"))))
+    first = _FirstStep()
+    h = model.fit(_resnet_chain(source), epochs=DP_EPOCHS,
+                  steps_per_epoch=DP_STEPS, verbose=0, callbacks=[first])
+    return _cpu({"loss": h.history["loss"], "first": first.taken,
+                 "params": _params(model), "state": _bn_state(model)})
+
+
+def _dp_check(label: str, workers: list, twin: dict, nudged: dict) -> tuple:
+    """Both workers bit for bit; against the twin, phase 22's tolerances
+    after the first step and its drift rule after the last. Returns the
+    gaps (first, end, one-ulp twin's)."""
+    a, b = (w[label] for w in workers)
+    for key in ("loss", "first", "params", "state", "counts",
+                "bucket_launches"):
+        if not _equal(a[key], b[key]):
+            raise AssertionError(f"(24) {label}: the workers' {key} differ")
+
+    def gaps(x, y):
+        return (max(abs(u - v) for u, v in zip(x["loss"], y["loss"])),
+                _max_diff(x["params"], y["params"]),
+                _state_diff(x["state"], y["state"]))
+
+    first = (abs(a["first"][0] - twin["first"][0]),
+             _max_diff(a["first"][1], twin["first"][1]),
+             _state_diff(a["first"][2], twin["first"][2]))
+    end, ulp = gaps(a, twin), gaps(nudged, twin)
+    if (first[0] > RESNET_LOSS_ATOL or first[1] > RESNET_PARAM_ATOL
+            or first[2] > RESNET_STATE_TOL
+            or any(f > RESNET_DRIFT * u for f, u in zip(end, ulp))
+            or not np.isfinite(a["loss"]).all()):
+        raise AssertionError(
+            f"(24) {label} against its twin: after one step losses, params, "
+            f"BN state {first} (limits {RESNET_LOSS_ATOL:g}, "
+            f"{RESNET_PARAM_ATOL:g}, {RESNET_STATE_TOL:g}); after "
+            f"{DP_EPOCHS * DP_STEPS} {end} against the one-ulp twin's {ulp} "
+            f"(x {RESNET_DRIFT:g}); losses {a['loss']}")
+    return first, end, ulp
+
+
+def _loop_twin(steps: int, nudge: bool = False) -> dict:
+    """The custom loop in one process on the global batch: both workers'
+    pipelines (seeded by their ids) side by side, the example's step on
+    ``Model.apply`` and SGD(0.01); ``nudge`` starts every weight one ulp
+    up."""
+    from tpu_dist_torch.ops.losses import sparse_categorical_crossentropy
+    from tpu_dist_torch.parallel import InputContext
+
+    model = build_cnn_model()
+    variables = model.init(seed=0)
+    state = collectives.tree_map(lambda t: t.cuda(), variables["state"])
+    params = collectives.tree_map(lambda t: t.cuda(), variables["params"])
+    leaves = [p.requires_grad_() for p in collectives.tree_leaves(params)]
+    if nudge:
+        with torch.no_grad():
+            for p in leaves:
+                p.copy_(torch.nextafter(p, torch.full_like(p, float("inf"))))
+    opt = SGD(learning_rate=0.01)
+    opt_state = opt.init(leaves)
+    streams = []
+    for i in range(DP_WORKERS):
+        ctx = InputContext(DP_WORKERS, i, DP_WORKERS)
+        ds = td_data.load("mnist", split="train", synthetic_size=4096).map(
+            lambda x, y: (np.asarray(x, np.float32) / 255.0, y))
+        streams.append(iter(ds.shuffle(1024, seed=i).batch(
+            ctx.get_per_replica_batch_size(8 * DP_WORKERS)).repeat()))
+    losses = []
+    for _ in range(steps):
+        halves = [next(s) for s in streams]
+        x, y = (torch.from_numpy(np.concatenate([h[j] for h in halves]))
+                .cuda() for j in (0, 1))
+        logits, _ = model.apply(params, state, x, training=True)
+        loss = sparse_categorical_crossentropy(logits, y).mean()
+        grads = list(torch.autograd.grad(loss, leaves))
+        opt.update(grads, opt_state, leaves)
+        losses.append(float(loss.detach()))
+    return {"losses": losses,
+            "params": {k: v.detach().cpu().numpy()
+                       for k, v in _flatten(params).items()}}
+
+
+def _trace_kernels(directory: pathlib.Path) -> dict:
+    """``{kernel name: (calls, device us)}`` of the one trace file in
+    ``directory``."""
+    (trace,) = directory.glob("*.pt.trace.json")
+    events = json.loads(trace.read_text())["traceEvents"]
+    out: dict = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            calls, us = out.get(e["name"], (0, 0.0))
+            out[e["name"]] = (calls + 1, us + float(e.get("dur", 0.0)))
+    return out
+
+
+def _kernel_family(name: str) -> str:
+    n = name.lower()
+    if "flash" in n:
+        return "flash attention (rows 6-9)"
+    if any(s in n for s in ("gemm", "xmma", "cutlass", "cublas")):
+        return "matmuls (cuBLAS fp32)"
+    if "softmax" in n:
+        return "softmax"
+    if "reduce" in n:
+        return "reductions"
+    if any(s in n for s in ("elementwise", "vectorized", "unrolled")):
+        return "elementwise"
+    return "other"
+
+
+def profile_phase(card: str, sgd_step_ms: float) -> dict:
+    """Phase 24 (c): ``fit(profile_dir=)`` of phase 9's LM, the trace's
+    flash launches and top kernels; and a captured CNN program inside a
+    trace against one outside it. Returns the flash launches."""
+    depth = LM["depth"]
+    model = _compiled_lm(SGD(learning_rate=0.001))
+    x, y = (t.cpu().numpy() for t in _bench_tokens(
+        TRAIN_BATCH * (PROFILE_STEPS + 1)))
+    data = td_data.Dataset.from_tensor_slices((x, y)).batch(TRAIN_BATCH)
+    model.fit(data, epochs=1, steps_per_epoch=1, verbose=0)   # warm-up
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        _reset_counts()
+        t0 = time.monotonic()
+        h = model.fit(data, epochs=1, steps_per_epoch=PROFILE_STEPS,
+                      verbose=0, profile_dir=tmp / "lm")
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        counts = _counts()
+        kernels = _trace_kernels(tmp / "lm")
+        calls = lambda key: sum(c for n, (c, _) in kernels.items()
+                                if key in n)
+        want = depth * PROFILE_STEPS
+        seen = {k: calls(k) for k in ("flash_fwd_kernel",
+                                      "flash_bwd_dq_kernel",
+                                      "flash_bwd_dkv_kernel",
+                                      "flash_bwd_delta_kernel")}
+        if (counts[:2] != (want, want) or set(seen.values()) != {want}
+                or not np.isfinite(h.history["loss"]).all()):
+            raise AssertionError(f"(24 c) profiled LM fit: launches "
+                                 f"{counts[:2]}, in the trace {seen}; "
+                                 f"expected {want} each")
+        total = sum(us for _, us in kernels.values())
+        step_ms = total / 1e3 / PROFILE_STEPS
+        log(f"[24 profile] (c) fit(profile_dir=D) of the LM at batch "
+            f"{TRAIN_BATCH} x {LM['seq_len']}, SGD, {PROFILE_STEPS} steps "
+            f"in {wall:.3f} s (traced): one trace in D; flash launches "
+            f"{counts[0]} fwd, {counts[1]} bwd = depth {depth} x "
+            f"{PROFILE_STEPS}, in the trace {seen}; device kernel time "
+            f"{step_ms:.4f} ms a step against phase 11's untraced step "
+            f"{sgd_step_ms:.4f} ms ({card})")
+        for name, (c, us) in sorted(kernels.items(),
+                                    key=lambda r: -r[1][1])[:10]:
+            log(f"    {us / 1e3 / PROFILE_STEPS:9.4f} ms a step "
+                f"({us / 1e3 / PROFILE_STEPS / sgd_step_ms * 100:5.1f} % of "
+                f"the step, {us / total * 100:5.1f} % of its kernel time), "
+                f"{c // PROFILE_STEPS} calls a step: {name[:110]}")
+        families: dict = {}
+        for name, (_, us) in kernels.items():
+            f = _kernel_family(name)
+            families[f] = families.get(f, 0.0) + us
+        log("[24 profile] (c) by family, ms a step: " + "; ".join(
+            f"{f} {us / 1e3 / PROFILE_STEPS:.4f} ({us / total * 100:.1f} %)"
+            for f, us in sorted(families.items(), key=lambda r: -r[1])))
+        # A captured program inside a trace: the CNN at k = 4 (phase 20's
+        # family) traced and untraced, bit for bit (cuDNN deterministic).
+        runs = []
+        flags = (torch.backends.cudnn.deterministic,
+                 torch.backends.cudnn.benchmark)
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        for profile_dir in (None, tmp / "cnn"):
+            strategy = MultiWorkerMirroredStrategy()
+            with strategy.scope():
+                cnn = build_cnn_model()
+                cnn.compile(optimizer=SGD(learning_rate=0.001, fused=True),
+                            loss=SparseCategoricalCrossentropy(
+                                from_logits=True, fused=True),
+                            steps_per_execution=4)
+            _reset_counts()
+            hc = cnn.fit(_chain(False), epochs=2, steps_per_epoch=CNN_STEPS,
+                         verbose=0, profile_dir=profile_dir).history
+            (graphed,) = cnn._trainer._graphed.values()
+            (prog, _), = graphed.programs.values()
+            runs.append((hc["loss"], _params(cnn), prog.replays, _counts()))
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = flags
+        sgd_in_trace = sum(c for n, (c, _) in _trace_kernels(
+            tmp / "cnn").items() if "fused_sgd_kernel" in n)
+        if (runs[0][0] != runs[1][0] or not _equal(runs[0][1], runs[1][1])
+                or runs[1][2] < 1):
+            raise AssertionError(f"(24 c) captured inside a trace: losses "
+                                 f"{runs[1][0]} vs {runs[0][0]}, replays "
+                                 f"{runs[1][2]}")
+        log(f"[24 profile] (c) the CNN at k = 4 on its captured program "
+            f"inside a trace: losses and parameters equal an untraced fit's "
+            f"bit for bit, {runs[1][2]} replays; fused SGD launches "
+            f"{runs[1][3][5]}, in the trace {sgd_in_trace} (a replay's "
+            f"kernels {'are' if sgd_in_trace == runs[1][3][5] else 'are not all'}"
+            f" in the trace)")
+    del model
+    torch.cuda.empty_cache()
+    return {"fwd": counts[0], "bwd": counts[1]}
+
+
+def dp_phase(card: str) -> dict:
+    """Phase 24 (a), (b), (d), (e): two workers on the card over gloo
+    (``communication="ring"``) against single-process twins. Returns the
+    workers' launches of rows 1-3 on each path."""
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.monotonic()
+        workers = _spawn_dp_workers(pathlib.Path(tmp))
+        workers_s = time.monotonic() - t0
+    if {w["device"] for w in workers} != {"cuda:0"} or \
+            {w["backend"] for w in workers} != {"gloo"}:
+        raise AssertionError(f"(24) workers on {[w['device'] for w in workers]}"
+                             f" over {[w['backend'] for w in workers]}")
+    steps = DP_EPOCHS * DP_STEPS
+    want = (0, 0, 0, steps, steps, steps)
+    source = td_data.load("fashion_mnist", split="train")
+    batches = list(itertools.islice(iter(_resnet_chain(source)), steps))
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        twins = {"bucketed": (_bucketed_twin(batches, False),
+                              _bucketed_twin(batches, True)),
+                 "default": (_global_fit_twin(source, False),
+                             _global_fit_twin(source, True))}
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = flags
+    out = {}
+    for label, schedule in (("bucketed", f"gradient_bucket_bytes="
+                                         f"{DP_BUCKET_BYTES}: local moments,"
+                                         f" buckets, the state averaged"),
+                            ("default", "gradient_bucket_bytes=0: sync-BN "
+                                        "over gloo on CUDA tensors, one "
+                                        "flat all-reduce")):
+        w = workers[0][label]
+        n_buckets = len(w["bucket_bytes"])
+        launches = n_buckets * steps if label == "bucketed" else 0
+        synced = set(w["synced"])
+        if (w["counts"] != want or w["bucket_launches"] != launches
+                or synced != {label == "default"}):
+            raise AssertionError(
+                f"(24) {label}: launches {w['counts']} (expected {want}), "
+                f"bucket launches {w['bucket_launches']} (expected "
+                f"{launches}), BatchNorm synchronized {synced}")
+        first, end, ulp = _dp_check(label, workers, *twins[label])
+        log(f"[24 dp] ({'a' if label == 'bucketed' else 'b'}) resnet18, two "
+            f"workers on one card (communication=ring: gloo on CUDA "
+            f"tensors), {schedule}; {DP_EPOCHS} x {DP_STEPS} steps of "
+            f"{RESNET_BATCH} ({RESNET_BATCH // DP_WORKERS} a worker): losses "
+            f"{[round(v, 6) for v in w['loss']]}, the workers bit for bit "
+            f"(losses, parameters, BN state after one step and after "
+            f"{steps}); against the single-process twin after one step "
+            f"{first[0]:.3e}, {first[1]:.3e}, {first[2]:.3e} (limits "
+            f"{RESNET_LOSS_ATOL:g}, {RESNET_PARAM_ATOL:g}, "
+            f"{RESNET_STATE_TOL:g}), after {steps} {end[0]:.3e}, "
+            f"{end[1]:.3e}, {end[2]:.3e}, where the one-ulp twin drifts "
+            f"{ulp[0]:.3e}, {ulp[1]:.3e}, {ulp[2]:.3e} (limit "
+            f"{RESNET_DRIFT:g} x); launches CE fwd {w['counts'][3]}, CE bwd "
+            f"{w['counts'][4]}, SGD {w['counts'][5]} a worker; bucket "
+            f"collectives {w['bucket_launches']}"
+            + (f" = {n_buckets} buckets x {steps} steps" if launches
+               else " (one flat all-reduce a step)"))
+        out[label] = w["counts"]
+    # (d) the custom training loop.
+    a, b = (w["loop"] for w in workers)
+    means = a["mean_of_replicas"]
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        twin, nudged = (_loop_twin(DP_LOOP_STEPS, nudge)
+                        for nudge in (False, True))
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = flags
+
+    def gaps(x, y):
+        loss = [abs(u - v) for u, v in zip(x["losses"], y["losses"])]
+        return (max(loss[:LOOP_CLOSE_STEPS]), max(loss),
+                max(float(np.abs(x["params"][k] - v).max())
+                    for k, v in y["params"].items()))
+
+    if sorted(a["params"]) != sorted(twin["params"]):
+        raise AssertionError(f"(24 d) parameter names {sorted(a['params'])}")
+    gap, ulp = gaps(a, twin), gaps(nudged, twin)
+    falls = np.mean(a["losses"][-10:]) < np.mean(a["losses"][:10])
+    if (a["per_replica"] != b["per_replica"] or a["losses"] != b["losses"]
+            or any(not np.array_equal(a["params"][k], b["params"][k])
+                   for k in a["params"])
+            or any(abs(means[s] - np.float32(sum(np.float32(v) for v in r))
+                       / np.float32(len(r))) > 1e-6
+                   for s, r in a["per_replica"].items())
+            or gap[0] > CNN_LOSS_ATOL
+            or any(g > RESNET_DRIFT * u for g, u in zip(gap[1:], ulp[1:]))
+            or not falls):
+        raise AssertionError(
+            f"(24 d) custom loop: per-replica {a['per_replica']} vs "
+            f"{b['per_replica']}, means {means}; against the twin: losses "
+            f"of the first {LOOP_CLOSE_STEPS} steps {gap[0]:.3e}, all "
+            f"{gap[1]:.3e}, params {gap[2]:.3e}, the one-ulp twin's "
+            f"{ulp[1]:.3e}, {ulp[2]:.3e}; falls {falls}")
+    log(f"[24 dp] (d) examples/custom_training_loop.py on two workers, "
+        f"{DP_LOOP_STEPS} steps of 8 a replica in {workers[0]['loop_s']:.2f}"
+        f" s: loss {a['losses'][0]:.4f} -> {a['losses'][-1]:.4f}; "
+        f"strategy.run's per-replica losses identical on both workers "
+        f"{ {s: [round(v, 4) for v in r] for s, r in a['per_replica'].items()} }, "
+        f"reduce('mean') their mean; parameters bit for bit across workers;"
+        f" against the single-process twin on the global batch: losses of "
+        f"the first {LOOP_CLOSE_STEPS} steps {gap[0]:.3e} (limit "
+        f"{CNN_LOSS_ATOL:g}), of all {gap[1]:.3e}, parameters {gap[2]:.3e},"
+        f" where the twin started one ulp off drifts {ulp[1]:.3e}, "
+        f"{ulp[2]:.3e} (limit {RESNET_DRIFT:g} x)")
+    # (e) times.
+    for label in ("bucketed", "default"):
+        w = [x[label] for x in workers]
+        sizes = w[0]["bucket_bytes"]
+        log(f"[24 times] (e) resnet18 at two workers, {label}: "
+            f"{[round(x['step_ms'], 4) for x in w]} ms a step (workers 0, "
+            f"1; {DP_TIMED} steps of 128 rows each after 2), the gradient "
+            f"reduction alone {[round(x['reduce_ms'], 4) for x in w]} ms "
+            f"({len(sizes)} collective(s) over {sum(sizes)} bytes; buckets "
+            f"{min(sizes)}-{max(sizes)} bytes). These time gloo staging "
+            f"each collective through the host, two processes sharing one "
+            f"card, not NCCL ({card})")
+    log(f"[24 dp] the workers ran in {workers_s:.1f} s")
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--dp-worker"]:
+        return dp_worker(pathlib.Path(sys.argv[2]))
     t0 = time.monotonic()
     card = device_phase()
     build_phase()
@@ -3850,6 +4451,17 @@ def main() -> int:
         resumed["serve_from_saved"]
     for rec in bwd_records:
         rec.setdefault("launches_by_path", {})["lm_resumed"] = lm[1]
+    # Phase 24's paths: each worker's bucketed and default ResNet-18 fits
+    # launch rows 1-3; the profiled LM fit rows 6-9.
+    dp = dp_phase(card)
+    profiled = profile_phase(card, sgd_step_ms)
+    for rec, index in zip(new_records[:3], (3, 4, 5)):
+        for label, counts in dp.items():
+            rec["launches_by_path"][f"resnet18_two_workers_{label}"] = \
+                counts[index]
+    record["launches_by_path"]["lm_profiled"] = profiled["fwd"]
+    for rec in bwd_records:
+        rec["launches_by_path"]["lm_profiled"] = profiled["bwd"]
     # In the order of the TPU kernel table (PERF.md): rows 1-9.
     records = [*new_records, adam_record, record, *bwd_records]
     log(f"done in {time.monotonic() - t0:.1f} s")

@@ -142,8 +142,14 @@ def test_tf_config_parses_like_reference(tf_config):
 
 def test_strategy_surface_in_one_process():
     strategy = parallel.MultiWorkerMirroredStrategy("ring", device="cpu")
-    # RING is accepted and logged; the transport follows the device.
+    # RING is TF's collective implementation without NCCL: gloo, on the
+    # CPU as on CUDA; NCCL needs CUDA.
     assert strategy.communication is parallel.CollectiveCommunication.RING
+    cpu = torch.device("cpu")
+    assert bootstrap.backend_for(strategy.communication.name, cpu) == "gloo"
+    assert bootstrap.backend_for("AUTO", cpu) == "gloo"
+    with pytest.raises(ValueError, match="needs a CUDA device"):
+        bootstrap.backend_for("NCCL", cpu)
     assert strategy.num_replicas_in_sync == 1 and strategy.is_chief
     assert strategy.device.type == "cpu"
     assert not parallel.has_strategy()
@@ -162,8 +168,9 @@ def test_strategy_surface_in_one_process():
         np.testing.assert_allclose(got["a"], want["a"])
         np.testing.assert_allclose(got["b"][0], want["b"][0])
         assert float(got["b"][1]) == float(want["b"][1])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        strategy.run(lambda: None)
+    # run() on the one replica: its result stacked on a replica axis.
+    out = strategy.run(lambda a: a * 2.0, args=(np.ones(3, np.float32),))
+    assert out.shape == (1, 3) and out.tolist() == [[2.0, 2.0, 2.0]]
     with pytest.raises(ValueError, match="unknown CollectiveCommunication"):
         parallel.CollectiveCommunication.resolve("gossip")
     # One process: a collective is the identity.
@@ -196,3 +203,17 @@ def test_cuda_device_maps_tasks_onto_cards_and_refuses_a_shared_card(
     assert bootstrap._cuda_device(cfgs[1]) == torch.device("cuda", 1)
     with pytest.raises(RuntimeError, match="two ranks on one device"):
         bootstrap._cuda_device(cfgs[2])
+
+
+def test_gloo_workers_share_the_cards_in_turn(monkeypatch):
+    # Under gloo (communication="ring") several workers may share a card:
+    # a worker takes the card of its index on the host modulo their count.
+    cfgs = [config.ClusterConfig.from_json(c)
+            for c in config.make_local_cluster(3)]
+    monkeypatch.setattr(bootstrap.torch.cuda, "device_count", lambda: 2)
+    assert [bootstrap._cuda_device(c, "gloo") for c in cfgs] == [
+        torch.device("cuda", i) for i in (0, 1, 0)]
+    assert bootstrap.backend_for("ring", torch.device("cuda")) == "gloo"
+    assert bootstrap.backend_for("AUTO", torch.device("cuda")) == "nccl"
+    with pytest.raises(ValueError, match="unknown"):
+        bootstrap.backend_for("gossip", torch.device("cpu"))

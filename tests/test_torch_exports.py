@@ -24,17 +24,6 @@ PACKAGES = ("", "ops", "serve", "training", "observe", "models", "data",
 NOT_YET_PORTED = {
     "OptaxWrapper": "not ported, by decision (optax has no PyTorch "
                     "counterpart)",
-    # item 10: bucketed all-reduce and the missing collectives
-    "all_gather": "item 10",
-    "bucketed_all_reduce": "item 10", "host_all_reduce_sum": "item 10",
-    "partition_buckets": "item 10",
-    # item 12: the rest of the strategy surface (meshes, axes)
-    "InputContext": "item 12", "make_mesh": "item 12",
-    "replicate": "item 12", "replicated": "item 12",
-    "shard_batch": "item 12", "batch_sharded": "item 12",
-    "CANONICAL_AXES": "item 12", "DATA_AXIS": "item 12",
-    "MODEL_AXIS": "item 12", "SEQ_AXIS": "item 12", "PIPE_AXIS": "item 12",
-    "EXPERT_AXIS": "item 12",
     # item 14: sharded-file sources
     "write_sharded": "item 14",
     # item 15: serving resilience

@@ -1426,3 +1426,118 @@ def test_async_snapshot_holds_its_steps_values(cuda_device, tmp_path):
     for n, value in want.items():
         key = "['params']" + "".join(f"[{part!r}]" for part in n.split("."))
         np.testing.assert_array_equal(saved[key], value.numpy(), err_msg=n)
+
+
+@pytest.mark.gpu
+def test_profiler_records_cuda_kernels_and_captures_inside_a_trace(
+        cuda_device, tmp_path):
+    # fit(profile_dir=) at k = 2: the second execution captures a CUDA
+    # graph inside the trace and the later ones replay it; the losses and
+    # the parameters equal an untraced fit's, and the trace holds the
+    # card's kernels.
+    import json
+
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((128, 16)).astype(np.float32)
+    y = rng.integers(0, 3, 128)
+    runs = []
+    for profile_dir in (None, tmp_path / "p"):
+        from tpu_dist_torch.models.layers import Dense
+        from tpu_dist_torch.models.model import Sequential
+
+        model = Sequential([Dense(32, activation="relu"), Dense(3)],
+                           input_shape=(16,))
+        model.compile(optimizer=SGD(0.1, fused=True),
+                      loss=SparseCategoricalCrossentropy(from_logits=True),
+                      steps_per_execution=2, device=cuda_device)
+        h = model.fit(Dataset.from_tensor_slices((x, y)).batch(16),
+                      epochs=2, verbose=0, profile_dir=profile_dir).history
+        (graphed,) = model._trainer._graphed.values()
+        (prog, _), = graphed.programs.values()
+        assert prog.replays >= 1
+        runs.append((h["loss"], [p.detach().clone()
+                                 for p in model.parameters()]))
+    assert runs[0][0] == runs[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+    (trace,) = (tmp_path / "p").glob("*.pt.trace.json")
+    events = json.loads(trace.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    assert any("sgd" in e["name"].lower() for e in kernels), \
+        sorted({e["name"] for e in kernels})[:20]
+
+
+@pytest.mark.gpu
+def test_bucketed_all_reduce_on_cuda_tensors_at_world_size_one(cuda_device):
+    from tpu_dist_torch.parallel import collectives
+
+    tree = {"w": torch.randn(7, 5, device=cuda_device),
+            "b": [torch.randn(3, device=cuda_device, dtype=torch.float64)]}
+    want = [t.clone() for t in collectives.tree_leaves(tree)]
+    before = collectives.bucketed_all_reduce.launches
+    assert collectives.bucketed_all_reduce(tree, "mean",
+                                           bucket_bytes=16) is tree
+    assert collectives.bucketed_all_reduce.launches == before
+    assert all(torch.equal(a, b) for a, b in
+               zip(collectives.tree_leaves(tree), want))
+    stacked = collectives.all_gather(tree["w"])
+    assert stacked.device.type == "cuda" and stacked.shape == (1, 7, 5)
+
+
+@pytest.mark.gpu
+def test_two_ring_workers_reduce_cuda_tensors_on_one_card(cuda_device,
+                                                          tmp_path):
+    # CollectiveCommunication.RING is gloo: two processes share the card
+    # and reduce, gather and broadcast CUDA tensors.
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from tpu_dist_torch.cluster import make_local_cluster
+
+    script = tmp_path / "worker.py"
+    script.write_text('''
+import json
+import torch
+import tpu_dist_torch as td
+from tpu_dist_torch.parallel import collectives as c
+
+strategy = td.MultiWorkerMirroredStrategy(communication="ring")
+rank = td.cluster.process_index()
+t = {"a": torch.full((5,), rank + 1.0, device="cuda"),
+     "b": torch.full((3,), rank + 1.0, device="cuda", dtype=torch.float64)}
+c.bucketed_all_reduce(t, "mean", bucket_bytes=8)
+g = c.all_gather(torch.tensor([rank], device="cuda"))
+p = c.broadcast_from_chief([torch.full((2,), rank + 7.0, device="cuda")])
+print(json.dumps({"rank": rank, "device": str(strategy.device),
+                  "a": t["a"].tolist(), "b": t["b"].tolist(),
+                  "g": g.tolist(), "p": p[0].tolist(),
+                  "host": int(c.host_all_reduce_sum(rank + 1))}))
+''')
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = Path(__file__).resolve().parent.parent
+    procs = [subprocess.Popen(
+        [sys.executable, str(script)], cwd=tmp_path, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        env=dict(os.environ, TF_CONFIG=json.dumps(cfg), PYTHONPATH=str(root)))
+        for cfg in make_local_cluster(2, base_port=port)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=180)
+            assert p.returncode == 0, err[-3000:]
+            outs.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, o in enumerate(outs):
+        assert o["rank"] == rank and o["device"] == "cuda:0"
+        assert o["a"] == [1.5] * 5 and o["b"] == [1.5] * 3
+        assert o["g"] == [[0], [1]] and o["p"] == [7.0, 7.0]
+        assert o["host"] == 3

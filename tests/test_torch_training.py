@@ -167,26 +167,75 @@ def test_callbacks_see_batches_and_can_stop_training(capsys):
     assert "Epoch 1/5" in out and "2/2" in out
 
 
-@pytest.mark.parametrize("knob,call", [
-    ("gradient_bucket_bytes", lambda m: m.compile(
-        optimizer="sgd", loss="mse", gradient_bucket_bytes=1024,
-        device="cpu")),
-    ("strategy", lambda m: MirroredStrategy(axis_shapes={"data": 1},
-                                            device="cpu")),
-    ("profile_dir", lambda m: m.fit(_tokens(32, 0), profile_dir="p")),
+@pytest.mark.parametrize("knob,call,item", [
+    # A parallel axis of size > 1 comes with the parallel modules.
+    ("strategy", lambda m: MirroredStrategy(axis_shapes={"data": 1, "seq": 2},
+                                            device="cpu"), "item 17"),
     # fit(checkpoint_dir=) is ported (test_torch_checkpoint.py); the
     # sharded layout its ModelCheckpoint could take is not.
     ("checkpoint_dir", lambda m: m.fit(
         _tokens(32, 0), checkpoint_dir="c",
-        callbacks=[ModelCheckpoint("c", sharded=True)])),
-    ("Dataset input", lambda m: m.fit(
-        Dataset.from_tensor_slices(_tokens(32, 0)).batch(8),
-        profile_dir="p")),
+        callbacks=[ModelCheckpoint("c", sharded=True)]), "item 18"),
 ])
-def test_unported_knobs_raise_naming_the_roadmap(knob, call):
+def test_unported_knobs_raise_naming_the_roadmap(knob, call, item):
     _, model = _compiled_pair(OPTIMIZERS["sgd"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md") as err:
         call(model)
+    assert item in str(err.value)
+
+
+def test_gradient_bucket_bytes_fit_matches_the_references_bucketed_fit():
+    # One process: the bucketed schedule's collectives are the identity,
+    # as the reference's shard_map over one device is.
+    jmodel, model = _compiled_pair(OPTIMIZERS["sgd"])
+    with pytest.raises(ValueError, match="gradient_bucket_bytes"):
+        model.compile(optimizer="sgd", loss="mse", gradient_bucket_bytes=-1,
+                      device="cpu")
+    jmodel.compile(optimizer=jopt.SGD(learning_rate=0.1),
+                   loss=jlosses.SparseCategoricalCrossentropy(
+                       from_logits=True), gradient_bucket_bytes=1024)
+    model.compile(optimizer=opt.SGD(learning_rate=0.1),
+                  loss=losses.SparseCategoricalCrossentropy(from_logits=True),
+                  gradient_bucket_bytes=1024, device="cpu")
+    x, y = _tokens(64, seed=16)
+    want = jmodel.fit((x, y), epochs=2, verbose=0).history
+    got = model.fit((x, y), epochs=2, verbose=0).history
+    assert model.gradient_bucket_bytes == model._trainer._bucket_bytes == 1024
+    np.testing.assert_allclose(got["loss"], want["loss"], **TOL)
+    _assert_params_close(model, jmodel.variables["params"], steps=4)
+
+
+def test_axis_shapes_of_the_data_axis_alone_are_accepted():
+    strategy = MirroredStrategy(axis_shapes={"data": 1, "model": 1},
+                                device="cpu")
+    assert strategy.num_replicas_in_sync == 1
+    assert dict(strategy.mesh.shape) == {"data": 1, "model": 1}
+    with pytest.raises(ValueError, match="data"):
+        MirroredStrategy(axis_shapes={"seq": 1}, device="cpu")
+    with pytest.raises(ValueError, match="needs 2 devices"):
+        MirroredStrategy(axis_shapes={"data": 2}, device="cpu")
+    with strategy.scope():
+        _, model = _compiled_pair(OPTIMIZERS["sgd"])
+    assert model.strategy is strategy
+    history = model.fit(_tokens(32, 0), epochs=1, verbose=0).history
+    assert np.isfinite(history["loss"]).all()
+
+
+@pytest.mark.parametrize("as_dataset", [False, True],
+                         ids=["arrays", "Dataset input"])
+def test_fit_with_profile_dir_writes_a_trace_and_trains_alike(tmp_path,
+                                                              as_dataset):
+    x, y = _tokens(32, 0)
+    data = (Dataset.from_tensor_slices((x, y)).batch(8) if as_dataset
+            else (x, y))
+    histories = []
+    for profile_dir in (None, tmp_path / "p"):
+        _, model = _compiled_pair(OPTIMIZERS["sgd"])
+        histories.append(model.fit(data, epochs=1, verbose=0,
+                                   profile_dir=profile_dir).history)
+    (trace,) = (tmp_path / "p").glob("*.pt.trace.json")
+    assert trace.stat().st_size > 0
+    assert histories[0]["loss"] == histories[1]["loss"]
 
 
 def test_fit_refuses_an_iterator_with_type_error():

@@ -33,7 +33,7 @@ from tpu_dist_torch.cluster import ClusterConfig, barrier, initialize, is_chief
 from tpu_dist_torch.data import AutoShardPolicy, Dataset, Options
 from tpu_dist_torch.models import (Model, Sequential,
                                    build_and_compile_cnn_model)
-from tpu_dist_torch.parallel import (CollectiveCommunication,
+from tpu_dist_torch.parallel import (CollectiveCommunication, InputContext,
                                      MirroredStrategy,
                                      MultiWorkerMirroredStrategy, ReduceOp,
                                      Strategy, get_strategy)
@@ -49,7 +49,7 @@ __all__ = [
     "ClusterConfig", "barrier", "initialize", "is_chief",
     "AutoShardPolicy", "Dataset", "Options",
     "Model", "Sequential", "build_and_compile_cnn_model",
-    "CollectiveCommunication", "MirroredStrategy",
+    "CollectiveCommunication", "InputContext", "MirroredStrategy",
     "MultiWorkerMirroredStrategy", "ReduceOp", "Strategy", "get_strategy",
     "Callback", "EarlyStopping", "History", "LambdaCallback",
     "ModelCheckpoint", "checkpoint",

@@ -9,11 +9,15 @@ and calls ``torch.distributed.init_process_group``:
 * the rendezvous is process 0's declared address
   (``init_method="tcp://host:port"``), the rank is the task's global
   process id, the world size the number of tasks;
-* the backend is NCCL when the process trains on CUDA and gloo when it
-  trains on the CPU (``device="cpu"``), never switched silently;
+* the backend follows the communication mode (:func:`backend_for`): AUTO is NCCL when the process
+  trains on CUDA and gloo when it trains on the CPU (``device="cpu"``),
+  RING is gloo on either (gloo takes CUDA tensors, staging them through
+  the host), NCCL is NCCL and raises on the CPU; never switched silently;
 * on CUDA a process takes the local device whose index is the number of
-  tasks declared before it on its host; NCCL cannot place two ranks on one
-  device, so more ranks on a host than it has cards raises;
+  tasks declared before it on its host. NCCL cannot place two ranks on one
+  device, so under NCCL more ranks on a host than it has cards raises;
+  under gloo they share the cards in turn (index modulo the card count),
+  which is how two workers train on one card;
 * one process without a cluster (no TF_CONFIG, or a single task) creates no
   process group: the one-worker local mode, where every collective is the
   identity.
@@ -52,26 +56,51 @@ def local_device_index(config: ClusterConfig) -> int:
                if a.rsplit(":", 1)[0] == mine)
 
 
-def _cuda_device(config: ClusterConfig) -> torch.device:
+def backend_for(communication: str, device: torch.device) -> str:
+    """The ``torch.distributed`` backend of a ``CollectiveCommunication``
+    mode (by name) for a process training on ``device``: RING is TF's
+    collective implementation that does not use NCCL, here gloo (on CUDA
+    tensors too); NCCL needs CUDA; AUTO is NCCL on CUDA, gloo on the CPU."""
+    mode = communication.upper()
+    if mode == "RING":
+        return "gloo"
+    if mode == "NCCL":
+        if device.type != "cuda":
+            raise ValueError(
+                f"CollectiveCommunication.NCCL needs a CUDA device; this "
+                f"process trains on {device} (use AUTO or RING for gloo)")
+        return "nccl"
+    if mode != "AUTO":
+        raise ValueError(f"unknown CollectiveCommunication {communication!r}")
+    return "nccl" if device.type == "cuda" else "gloo"
+
+
+def _cuda_device(config: ClusterConfig,
+                 backend: str = "nccl") -> torch.device:
     index = local_device_index(config)
     count = torch.cuda.device_count()
+    if backend == "gloo":
+        return torch.device("cuda", index % count)
     if index >= count:
         raise RuntimeError(
             f"task ({config.task.type}, {config.task.index}) is rank "
             f"{index + 1} on host {config.task_address.rsplit(':', 1)[0]}, "
             f"which has {count} CUDA device(s): NCCL cannot run two ranks on "
             f"one device. Declare at most one worker per card on each host, "
-            f"or train on the CPU (device='cpu', the gloo backend)")
+            f"or use the gloo backend (communication='ring', or "
+            f"device='cpu')")
     return torch.device("cuda", index)
 
 
 def initialize(config: ClusterConfig | None = None, *,
-               device: DeviceLike = None) -> torch.device:
+               device: DeviceLike = None,
+               communication: str = "AUTO") -> torch.device:
     """Bring up the cluster runtime and return the device this process
     trains on. ``config`` defaults to ``TF_CONFIG``; ``device`` is the
-    entry points' rule (CUDA unless ``"cpu"``). With more than one task a
-    process group is created once (later calls return its device); with
-    one task or none, nothing is brought up."""
+    entry points' rule (CUDA unless ``"cpu"``); ``communication`` names a
+    ``CollectiveCommunication`` mode, which chooses the backend. With more
+    than one task a process group is created once (later calls return its
+    device); with one task or none, nothing is brought up."""
     global _CONFIG, _DEVICE
     with _STATE_LOCK:
         if dist.is_available() and dist.is_initialized():
@@ -89,10 +118,10 @@ def initialize(config: ClusterConfig | None = None, *,
             logger.info("tpu_dist_torch: single-process local mode on %s",
                         dev)
             return dev
+        backend = backend_for(communication, dev)
         if dev.type == "cuda":
-            dev = _cuda_device(config)
+            dev = _cuda_device(config, backend)
             torch.cuda.set_device(dev)
-        backend = "nccl" if dev.type == "cuda" else "gloo"
         logger.info(
             "tpu_dist_torch: initializing %d-process cluster from TF_CONFIG; "
             "task=(%s, %d) rank=%d chief=%s rendezvous=%s backend=%s "
@@ -116,11 +145,19 @@ def _shutdown() -> None:
         dist.destroy_process_group()
 
 
+def group_device() -> Optional[torch.device]:
+    """The device this process trains on in its process group (None
+    without a group)."""
+    return _DEVICE if is_initialized() else None
+
+
 def device_of_group() -> torch.device:
-    """The device of the process group's collectives: this process's card
-    under NCCL, the CPU under gloo (and with no group)."""
-    return _DEVICE if is_initialized() and _DEVICE is not None \
-        else torch.device("cpu")
+    """The device host data crosses in the process group's collectives:
+    this process's card under NCCL, the CPU under gloo (and with no
+    group)."""
+    if is_initialized() and dist.get_backend() == "nccl":
+        return _DEVICE
+    return torch.device("cpu")
 
 
 def is_initialized() -> bool:

@@ -42,7 +42,6 @@ from tpu_dist_torch.ops import losses as losses_lib
 from tpu_dist_torch.ops import metrics as metrics_lib
 from tpu_dist_torch.ops import optimizers as optimizers_lib
 from tpu_dist_torch.utils.device import DeviceLike, resolve_device
-from tpu_dist_torch.utils.errors import unported
 
 
 def _nest(named, detach: bool = True) -> dict:
@@ -143,6 +142,7 @@ class Model(nn.Module):
         self.loss = None
         self.metrics: list = []
         self.steps_per_execution = 1
+        self.gradient_bucket_bytes = 0
         self.prefetch_to_device = 0
         self.strategy = None
         self._trainer = None
@@ -287,8 +287,16 @@ class Model(nn.Module):
         ``training/trainer.py``). ``prefetch_to_device = d > 0`` places
         the host pipeline's next ``d`` batches on the device from a
         background thread (``data.DevicePrefetcher``) while a step runs.
-        ``gradient_bucket_bytes`` comes with item 10 of ``ROADMAP.md``'s
-        queue 1 and raises ``NotImplementedError`` until then."""
+        ``gradient_bucket_bytes``: 0 (default) keeps the step's one flat
+        all-reduce of the gradients; > 0 switches a multi-process step to
+        the JAX package's bucketed schedule: each process's BatchNorm
+        takes its own shard's moments, the gradients are reduced in
+        reverse-order buckets of about this many bytes
+        (``collectives.bucketed_all_reduce``) and the running state is
+        averaged after the step (``training/trainer.py``). Without
+        BatchNorm the two schedules take the same mean of the same
+        gradients; with it, the moments are the shard's, not the global
+        batch's, as in the JAX package's bucketed step."""
         from tpu_dist_torch.parallel.strategy import get_strategy
 
         if steps_per_execution < 1:
@@ -301,8 +309,6 @@ class Model(nn.Module):
         if prefetch_to_device < 0:
             raise ValueError(
                 f"prefetch_to_device must be >= 0, got {prefetch_to_device}")
-        if gradient_bucket_bytes:
-            raise unported("compile(gradient_bucket_bytes=)", 10)
         strategy = get_strategy()
         target = resolve_device(device if device is not None
                                 else strategy.device)
@@ -318,6 +324,7 @@ class Model(nn.Module):
         self.loss = losses_lib.get(loss) if loss is not None else None
         self.metrics = [metrics_lib.get(m) for m in metrics]
         self.steps_per_execution = int(steps_per_execution)
+        self.gradient_bucket_bytes = int(gradient_bucket_bytes)
         self.prefetch_to_device = int(prefetch_to_device)
         self._trainer = None
 
@@ -347,8 +354,8 @@ class Model(nn.Module):
         ``class_weight`` scales each sample's loss by its class's weight.
         ``checkpoint_dir`` resumes from the newest complete checkpoint
         there and saves every epoch (``training/trainer.py``).
-        ``profile_dir`` raises ``NotImplementedError`` until item 11 of
-        ``ROADMAP.md``'s queue 1."""
+        ``profile_dir`` records a ``torch.profiler`` trace of the epochs
+        there, on the chief (``utils/profiler.py``)."""
         return self._get_trainer("loss optimizer").fit(
             x, epochs=epochs, steps_per_epoch=steps_per_epoch,
             verbose=verbose, callbacks=callbacks, initial_epoch=initial_epoch,

@@ -1,17 +1,32 @@
-"""Parallelism layer: collectives and distribution strategies."""
+"""Parallelism layer: axis names, meshes, collectives and distribution
+strategies."""
 
+from tpu_dist_torch.parallel.axes import (CANONICAL_AXES, DATA_AXIS,
+                                          EXPERT_AXIS, MODEL_AXIS, PIPE_AXIS,
+                                          SEQ_AXIS)
 from tpu_dist_torch.parallel.collectives import (CollectiveCommunication,
-                                                 ReduceOp, all_reduce,
-                                                 broadcast_from_chief)
-from tpu_dist_torch.parallel.strategy import (DefaultStrategy,
+                                                 ReduceOp, all_gather,
+                                                 all_reduce,
+                                                 broadcast_from_chief,
+                                                 bucketed_all_reduce,
+                                                 host_all_reduce_sum,
+                                                 partition_buckets)
+from tpu_dist_torch.parallel.mesh import (batch_sharded, make_mesh,
+                                          replicate, replicated, shard_batch)
+from tpu_dist_torch.parallel.strategy import (DefaultStrategy, InputContext,
                                               MirroredStrategy,
                                               MultiWorkerMirroredStrategy,
                                               Strategy, get_strategy,
                                               has_strategy)
 
 __all__ = [
-    "CollectiveCommunication", "ReduceOp", "all_reduce",
-    "broadcast_from_chief",
-    "DefaultStrategy", "MirroredStrategy", "MultiWorkerMirroredStrategy",
-    "Strategy", "get_strategy", "has_strategy",
+    "CANONICAL_AXES", "DATA_AXIS", "EXPERT_AXIS", "MODEL_AXIS", "PIPE_AXIS",
+    "SEQ_AXIS",
+    "batch_sharded", "make_mesh", "replicate", "replicated", "shard_batch",
+    "CollectiveCommunication", "ReduceOp", "all_gather", "all_reduce",
+    "broadcast_from_chief", "bucketed_all_reduce", "host_all_reduce_sum",
+    "partition_buckets",
+    "DefaultStrategy", "InputContext", "MirroredStrategy",
+    "MultiWorkerMirroredStrategy", "Strategy", "get_strategy",
+    "has_strategy",
 ]

@@ -1,19 +1,27 @@
-"""Collectives: communication modes, reduce ops, the cross-process
-all-reduce over a list of tensors and the chief's broadcast of a tree.
+"""Collectives: communication modes, reduce ops and the cross-process
+collectives over tensors, trees of tensors and host arrays.
 
-Counterpart of the part of ``tpu_dist/parallel/collectives.py`` the
-reference program reaches. There, XLA compiles the step's gradient
-all-reduce into the program; here the trainer calls :func:`all_reduce` on
-the step's gradients once per step, packed into one flat buffer (the
-reference's single end-of-step all-reduce), over the process group that
-``cluster/bootstrap.py`` brought up (NCCL on CUDA, gloo on the CPU). With
-one process every collective is the identity.
+Counterpart of ``tpu_dist/parallel/collectives.py``. There, XLA compiles
+the step's gradient all-reduce into the program; here the trainer calls
+:func:`all_reduce` on the step's gradients once per step, packed into one
+flat buffer (the reference's single end-of-step all-reduce), or
+:func:`bucketed_all_reduce` in size buckets under
+``compile(gradient_bucket_bytes=)``, over the process group that
+``cluster/bootstrap.py`` brought up. The axis every collective here runs
+over is the process group's: the data axis (``parallel/axes.py``), one
+replica per process. With one process every collective is the identity.
+
+Trees are nests of dicts, lists, tuples and NamedTuples, flattened as
+``jax.tree_util`` flattens them: dicts in sorted key order, ``None`` holds
+no leaf. So :func:`partition_buckets` gives the reference's index lists on
+the same tree of the same shapes, and every process builds the same
+sequence of collectives from the shapes alone (a rank-divergent order
+would deadlock).
 """
 
 from __future__ import annotations
 
 import enum
-import logging
 from typing import Any, Sequence
 
 import numpy as np
@@ -22,14 +30,13 @@ import torch.distributed as dist
 
 from tpu_dist_torch.cluster import bootstrap
 
-logger = logging.getLogger("tpu_dist_torch.collectives")
-
 
 class CollectiveCommunication(enum.Enum):
-    """Communication-implementation hint — TF's ``AUTO``/``RING``/``NCCL``.
-    The port's transport follows the device (NCCL on CUDA, gloo on the
-    CPU), so RING and NCCL are accepted and logged, as the JAX package
-    accepts and logs them, and act as AUTO."""
+    """Communication implementation — TF's ``AUTO``/``RING``/``NCCL``, and
+    the process group's backend in the port (``bootstrap.backend_for``):
+    RING is TF's collective implementation that does not use NCCL, here
+    gloo, on CUDA tensors too (gloo stages them through the host); NCCL is
+    NCCL, which needs CUDA; AUTO is NCCL on CUDA and gloo on the CPU."""
 
     AUTO = "AUTO"
     RING = "RING"
@@ -46,11 +53,6 @@ class CollectiveCommunication(enum.Enum):
                 raise ValueError(
                     f"unknown CollectiveCommunication {value!r}; valid: "
                     f"{[m.name for m in cls]}") from None
-        if value in (cls.RING, cls.NCCL):
-            logger.info(
-                "CollectiveCommunication.%s has no effect: the port uses "
-                "NCCL on CUDA and gloo on the CPU (treating as AUTO)",
-                value.name)
         return value
 
 
@@ -67,18 +69,14 @@ _DIST_OPS = {ReduceOp.SUM: "SUM", ReduceOp.MEAN: "SUM", ReduceOp.MAX: "MAX",
              ReduceOp.MIN: "MIN"}
 
 
-def all_reduce(tensors: Sequence[torch.Tensor],
-               op: ReduceOp | str = ReduceOp.SUM) -> Sequence[torch.Tensor]:
-    """Reduce every tensor across the processes, in place, in one
-    collective: the tensors (one dtype, one device) are packed into a flat
-    buffer, reduced, and copied back. Returns ``tensors``."""
-    op = ReduceOp(op) if not isinstance(op, ReduceOp) else op
-    world = bootstrap.process_count()
-    if world == 1 or not tensors:
-        return tensors
-    dtypes = {t.dtype for t in tensors}
-    if len(dtypes) != 1:
-        raise ValueError(f"all_reduce packs one dtype, got {sorted(map(str, dtypes))}")
+def _reduce_op(op) -> ReduceOp:
+    return ReduceOp(op) if not isinstance(op, ReduceOp) else op
+
+
+def _reduce_flat(tensors: Sequence[torch.Tensor], op: ReduceOp,
+                 world: int) -> None:
+    """One collective over ``tensors`` (one dtype, one device), packed into
+    a flat buffer, reduced and copied back in place."""
     flat = torch.cat([t.reshape(-1) for t in tensors])
     dist.all_reduce(flat, op=getattr(dist.ReduceOp, _DIST_OPS[op]))
     if op is ReduceOp.MEAN:
@@ -88,12 +86,36 @@ def all_reduce(tensors: Sequence[torch.Tensor],
         n = t.numel()
         t.copy_(flat[offset:offset + n].view_as(t))
         offset += n
+
+
+def all_reduce(tensors: Sequence[torch.Tensor],
+               op: ReduceOp | str = ReduceOp.SUM) -> Sequence[torch.Tensor]:
+    """Reduce every tensor across the processes, in place, in one
+    collective: the tensors (one dtype, one device) are packed into a flat
+    buffer, reduced, and copied back. Returns ``tensors``."""
+    op = _reduce_op(op)
+    world = bootstrap.process_count()
+    if world == 1 or not tensors:
+        return tensors
+    dtypes = {t.dtype for t in tensors}
+    if len(dtypes) != 1:
+        raise ValueError(f"all_reduce packs one dtype, got {sorted(map(str, dtypes))}")
+    _reduce_flat(tensors, op, world)
     return tensors
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of ``tree`` in ``jax.tree_util.tree_leaves`` order."""
+    out: list = []
+    _leaves(tree, out)
+    return out
+
+
 def _leaves(tree, out: list) -> None:
+    if tree is None:
+        return
     if isinstance(tree, dict):
-        for key in tree:
+        for key in sorted(tree):
             _leaves(tree[key], out)
     elif isinstance(tree, (list, tuple)):
         for sub in tree:
@@ -103,8 +125,13 @@ def _leaves(tree, out: list) -> None:
 
 
 def _rebuild(tree, leaves):
+    """``tree``'s structure over the next leaves of ``leaves``, taken in
+    :func:`tree_leaves` order."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
-        return {key: _rebuild(tree[key], leaves) for key in tree}
+        built = {key: _rebuild(tree[key], leaves) for key in sorted(tree)}
+        return {key: built[key] for key in tree}
     if isinstance(tree, (list, tuple)):
         items = [_rebuild(sub, leaves) for sub in tree]
         return (type(tree)(*items) if hasattr(tree, "_fields")
@@ -112,21 +139,150 @@ def _rebuild(tree, leaves):
     return next(leaves)
 
 
+def tree_map(fn, tree):
+    """``fn`` of every leaf of ``tree``, in ``tree``'s structure."""
+    return _rebuild(tree, iter([fn(leaf) for leaf in tree_leaves(tree)]))
+
+
+def _leaf_nbytes(leaf: Any) -> int:
+    """Payload bytes of one leaf (a tensor or an array); anything without
+    a size and a dtype counts 0, as in the reference."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.numel() * leaf.element_size()
+    size, dtype = getattr(leaf, "size", None), getattr(leaf, "dtype", None)
+    if size is None or dtype is None:
+        return 0
+    try:
+        return int(size) * np.dtype(dtype).itemsize
+    except TypeError:
+        return 0
+
+
+def partition_buckets(tree: Any, bucket_bytes: int) -> list[list[int]]:
+    """Size buckets of a tree's leaves for the reduction: a list of
+    buckets, each a list of indices into :func:`tree_leaves`. Leaves are
+    walked in reverse flatten order (the backward pass makes the last
+    layer's gradients first); a bucket flushes once its bytes reach
+    ``bucket_bytes``, so a leaf larger than the budget gets a bucket of
+    its own. ``bucket_bytes <= 0`` gives one bucket of every leaf (still
+    reversed). The partition depends on the leaves' shapes and dtypes
+    alone, so every process computes the same one."""
+    leaves = tree_leaves(tree)
+    if not leaves:
+        return []
+    indices = list(range(len(leaves)))[::-1]
+    if bucket_bytes <= 0:
+        return [indices]
+    buckets: list[list[int]] = []
+    current: list[int] = []
+    current_bytes = 0
+    for i in indices:
+        current.append(i)
+        current_bytes += _leaf_nbytes(leaves[i])
+        if current_bytes >= bucket_bytes:
+            buckets.append(current)
+            current, current_bytes = [], 0
+    if current:
+        buckets.append(current)
+    return buckets
+
+
+def bucketed_all_reduce(tree: Any, op: ReduceOp | str = ReduceOp.MEAN, *,
+                        bucket_bytes: int = 0) -> Any:
+    """Reduce a tree of tensors across the processes in size buckets, in
+    place: the leaves of each :func:`partition_buckets` bucket are grouped
+    by dtype (first-occurrence order, the same on every process) and each
+    group is one packed ``dist.all_reduce`` (MEAN divides by the world
+    size). Packing is a concatenation and a split, so the result equals a
+    per-leaf :func:`all_reduce` of the same inputs bit for bit. MAX and
+    MIN delegate to :func:`all_reduce` per dtype. With one process the
+    tree comes back as it is. Returns ``tree``.
+
+    ``bucketed_all_reduce.launches`` counts the packed collectives, one
+    per (bucket, dtype) group. The buckets are reduced one after another
+    once the backward pass has ended; launching each as its last gradient
+    lands is ROADMAP's K8."""
+    op = _reduce_op(op)
+    world = bootstrap.process_count()
+    leaves = tree_leaves(tree)
+    if world == 1 or not leaves:
+        return tree
+    if op in (ReduceOp.MAX, ReduceOp.MIN):
+        for dtype in dict.fromkeys(t.dtype for t in leaves):
+            all_reduce([t for t in leaves if t.dtype == dtype], op)
+        return tree
+    for bucket in partition_buckets(tree, bucket_bytes):
+        by_dtype: dict = {}
+        for i in bucket:
+            by_dtype.setdefault(leaves[i].dtype, []).append(leaves[i])
+        for group in by_dtype.values():
+            bucketed_all_reduce.launches += 1
+            _reduce_flat(group, op, world)
+    return tree
+
+
+bucketed_all_reduce.launches = 0
+
+
+def all_gather(x: Any, *, tiled: bool = False) -> Any:
+    """Every process's value of each leaf of ``x`` (tensors, or numbers
+    made tensors), identical on every process: stacked on a new leading
+    axis ``[process_count, ...]``, or concatenated along the first axis
+    with ``tiled=True``. With one process, ``x[None]`` (``x`` tiled)."""
+    world = bootstrap.process_count()
+
+    def gather(t):
+        t = torch.as_tensor(t)
+        if tiled and t.dim() == 0:
+            raise ValueError("a tiled all_gather needs at least one axis")
+        if world == 1:
+            return t if tiled else t.unsqueeze(0)
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(world)]
+        dist.all_gather(parts, t)
+        return torch.cat(parts) if tiled else torch.stack(parts)
+
+    return tree_map(gather, x)
+
+
+def host_all_gather(x) -> np.ndarray:
+    """Host-level gather across processes: every process's value (a numpy
+    array or scalar) stacked on a new leading axis ``[process_count,
+    ...]``, identical everywhere, as numpy. One process gives
+    ``np.asarray(x)[None]``."""
+    a = np.asarray(x)
+    if bootstrap.process_count() == 1:
+        return a[None]
+    t = torch.from_numpy(np.array(a)).to(bootstrap.device_of_group())
+    parts = [torch.empty_like(t) for _ in range(bootstrap.process_count())]
+    dist.all_gather(parts, t)
+    return torch.stack(parts).cpu().numpy()
+
+
+def host_all_reduce_sum(x) -> Any:
+    """Host-level SUM across processes of a numpy array or scalar, outside
+    any step: the sum over :func:`host_all_gather`'s leading axis, in
+    process order (the reference's ``process_allgather(x).sum(0)``). One
+    process gives ``x`` as it is."""
+    if bootstrap.process_count() == 1:
+        return x
+    return host_all_gather(x).sum(axis=0)
+
+
 def broadcast_from_chief(tree: Any) -> Any:
     """Process 0's tree on every process (the checkpoint restore's
-    fan-out). ``tree`` nests dicts, lists and tuples over numpy arrays,
-    numpy scalars or tensors, the same structure, shapes and dtypes on
-    every process. Leaves are packed into one flat buffer per dtype, so a
-    tree mixing fp32 parameters with Adam's int32 step costs one broadcast
-    per dtype (the initial-weights broadcast of mirrored variables is one
-    too). Tensor leaves are written in place on their device; numpy
-    leaves come back as new arrays (sent through the process group's
-    device: the card under NCCL, the CPU under gloo). With one process the
-    tree comes back as it is."""
+    fan-out, the mirrored variables' initial broadcast). ``tree`` nests
+    dicts, lists and tuples over numpy arrays, numpy scalars or tensors,
+    the same structure, shapes and dtypes on every process. Leaves are
+    packed into one flat buffer per dtype, so a tree mixing fp32
+    parameters with Adam's int32 step costs one broadcast per dtype.
+    Tensor leaves are written in place on their device; numpy leaves come
+    back as new arrays (sent through the process group's device: the card
+    under NCCL, the CPU under gloo). With one process the tree comes back
+    as it is."""
     if bootstrap.process_count() == 1:
         return tree
-    leaves: list = []
-    _leaves(tree, leaves)
+    leaves = tree_leaves(tree)
     wire = bootstrap.device_of_group()
     tensors = [leaf if isinstance(leaf, torch.Tensor)
                else torch.from_numpy(np.array(leaf)).to(wire)

@@ -1,0 +1,182 @@
+"""Meshes and placements for one device per process.
+
+Counterpart of ``tpu_dist/parallel/mesh.py``. The JAX package builds a
+named ``jax.sharding.Mesh`` over every device and places arrays on it with
+``NamedSharding``s. The port runs one replica per process, each on its own
+device, so a mesh here is a small record: the ordered axis names and sizes
+over the processes, and this process's device. A placement is a record of
+a mesh and a partition spec; placing a tree puts this process's part of it
+on this process's device:
+
+* replicated (``replicate``): the whole tree, process 0's values when
+  several processes start from different ones (the reference's
+  initial-value broadcast of mirrored variables);
+* batch-sharded (``shard_batch``): this process's contiguous rows of a
+  global batch, the rows the DATA auto-shard gives it
+  (``data/sharding.py``).
+
+No process group is started here: the mesh reads the one
+``cluster/bootstrap.py`` brought up, or none (one process).
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import math
+from typing import Mapping, Sequence
+
+import numpy as np
+import torch
+
+from tpu_dist_torch.cluster import bootstrap
+from tpu_dist_torch.parallel.axes import DATA_AXIS
+from tpu_dist_torch.parallel.collectives import (broadcast_from_chief,
+                                                 tree_map)
+from tpu_dist_torch.utils.device import DeviceLike, resolve_device
+from tpu_dist_torch.utils.errors import unported
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """Ordered ``axis_names`` with their ``sizes`` over the processes (one
+    device each); ``device`` is this process's."""
+
+    axis_names: tuple
+    sizes: tuple
+    device: torch.device
+
+    @property
+    def shape(self) -> "collections.OrderedDict[str, int]":
+        """``{axis: size}`` in axis order, as ``jax.sharding.Mesh.shape``."""
+        return collections.OrderedDict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.sizes)
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """A mesh and a partition spec: ``()`` replicated, ``(axis,)`` the
+    leading (batch) axis split over ``axis``."""
+
+    mesh: Mesh
+    spec: tuple = ()
+
+
+def make_mesh(axis_shapes: Mapping[str, int] | None = None, *,
+              devices: Sequence | None = None, local: bool = False,
+              device: DeviceLike = None) -> Mesh:
+    """A named mesh over the processes, one device each.
+
+    ``axis_shapes`` is an ordered ``{axis: size}``; at most one size may be
+    ``-1`` (inferred, as in numpy's reshape); default ``{'data': -1}``.
+    The sizes must multiply to the number of processes (``local=True``:
+    this process alone). ``devices`` may name at most this process's one
+    device; several devices in one process are ROADMAP item 12b.
+    ``device`` follows the entry points' rule (CUDA unless ``"cpu"``); in
+    a process group it defaults to the group's device."""
+    if devices is not None:
+        devices = list(devices)
+        if len(devices) > 1:
+            raise unported("a mesh over several devices in one process",
+                           "12b")
+        if not devices:
+            raise ValueError("no devices available for mesh construction")
+        device = devices[0]
+    if device is None and bootstrap.is_initialized():
+        device = bootstrap.group_device()
+    device = resolve_device(device)
+    n = 1 if local else bootstrap.process_count()
+    if axis_shapes is None:
+        axis_shapes = {DATA_AXIS: -1}
+    axis_shapes = collections.OrderedDict(axis_shapes)
+    for name, size in axis_shapes.items():
+        if size != -1 and size < 1:
+            raise ValueError(
+                f"axis {name!r} must have size >= 1 or -1, got {size}")
+    known = [s for s in axis_shapes.values() if s != -1]
+    n_inferred = len(axis_shapes) - len(known)
+    if n_inferred > 1:
+        raise ValueError(f"at most one axis may be -1, got {dict(axis_shapes)}")
+    known_prod = math.prod(known)
+    if n_inferred:
+        if n % known_prod:
+            raise ValueError(
+                f"cannot infer axis size: {n} devices not divisible by "
+                f"{known_prod} ({dict(axis_shapes)})")
+        axis_shapes = collections.OrderedDict(
+            (k, n // known_prod if s == -1 else s)
+            for k, s in axis_shapes.items())
+    elif known_prod != n:
+        raise ValueError(
+            f"mesh shape {dict(axis_shapes)} needs {known_prod} devices, "
+            f"have {n}")
+    return Mesh(tuple(axis_shapes), tuple(axis_shapes.values()), device)
+
+
+def replicated(mesh: Mesh) -> Placement:
+    """Fully replicated: one identical copy on every process's device."""
+    return Placement(mesh)
+
+
+def batch_sharded(mesh: Mesh, axis: str = DATA_AXIS) -> Placement:
+    """The leading (batch) axis split across ``axis``."""
+    if axis not in mesh.axis_names:
+        raise ValueError(f"mesh has axes {mesh.axis_names}, no {axis!r}")
+    return Placement(mesh, (axis,))
+
+
+def coordinate(mesh: Mesh, axis: str) -> int:
+    """This process's coordinate on ``axis``: the processes fill the mesh
+    in row-major order of its axes, as the reference reshapes its
+    process-ordered devices."""
+    k = mesh.axis_names.index(axis)
+    inner = math.prod(mesh.sizes[k + 1:])
+    return (bootstrap.process_index() // inner) % mesh.sizes[k]
+
+
+def _rows(a, shards: int, index: int):
+    """Shard ``index`` of ``shards`` contiguous row blocks of ``a`` (the
+    DATA auto-shard's slice of a batch); a batch the shard count does not
+    divide raises, as there."""
+    b = a.shape[0]
+    if b % shards:
+        raise ValueError(
+            f"global batch {b} not divisible by {shards} data shards; make "
+            f"the global batch a multiple of the replica count")
+    per = b // shards
+    return a[index * per:(index + 1) * per]
+
+
+def _tensor(a) -> torch.Tensor:
+    return a.detach() if isinstance(a, torch.Tensor) else torch.as_tensor(
+        np.asarray(a))
+
+
+def shard_batch(batch, mesh: Mesh, axis: str = DATA_AXIS):
+    """This process's rows of a global batch (a tree of arrays or tensors),
+    as tensors on the mesh's device: the contiguous block of rows its
+    coordinate on ``axis`` selects, in the DATA auto-shard's order. Dtypes
+    are kept."""
+    batch_sharded(mesh, axis)
+    shards, index = mesh.shape[axis], coordinate(mesh, axis)
+    return tree_map(
+        lambda a: _rows(_tensor(a), shards, index).to(mesh.device), batch)
+
+
+def replicate(tree, mesh: Mesh, *, broadcast: bool = False):
+    """A tree of arrays or tensors as new tensors on the mesh's device;
+    with ``broadcast`` in a process group, process 0's values on every
+    process (``broadcast_from_chief``)."""
+    placed = tree_map(lambda a: _tensor(a).to(mesh.device, copy=True), tree)
+    if broadcast and bootstrap.process_count() > 1:
+        broadcast_from_chief(placed)
+    return placed
+
+
+def place_batch(batch, device: torch.device):
+    """A process-local batch (a tree of arrays or tensors) as tensors on
+    ``device``, rows as they are."""
+    return tree_map(lambda a: _tensor(a).to(device), batch)

@@ -2,23 +2,29 @@
 
 Counterpart of ``tpu_dist/parallel/strategy.py`` for one device per
 process. In the JAX package a strategy is a factory for a named device
-mesh; here it names the device its process trains on and how many
-processes train in sync:
+mesh; here it names the device its process trains on, how many processes
+train in sync, and a mesh record of them (``parallel/mesh.py``):
 
 * :class:`DefaultStrategy` — no distribution; the implicit strategy when
   none is scoped; the model trains where ``compile`` puts it;
 * :class:`MirroredStrategy` — synchronous data parallelism over one host's
-  devices; the port drives one device per process, so it is one replica;
+  devices; the port drives one device per process, so it is one replica
+  (several devices in one process are ROADMAP item 12b);
 * :class:`MultiWorkerMirroredStrategy` — the same across every process of
   the cluster: construction brings the cluster up (``bootstrap.initialize``
-  from TF_CONFIG) and waits at the startup barrier; the trainer then
-  all-reduces every step's gradients. With one process and no cluster it
-  behaves like MirroredStrategy.
+  from TF_CONFIG, on the backend its ``communication`` names) and waits at
+  the startup barrier; the trainer then all-reduces every step's
+  gradients. With one process and no cluster it behaves like
+  MirroredStrategy.
 
 ``scope()`` pins the active strategy so that ``compile`` captures it
-(:func:`get_strategy`), as in the reference program. ``run``,
-``distribute_datasets_from_function``, ``axis_shapes`` (extra mesh axes)
-and the liveness monitor come with later slices of the port and raise.
+(:func:`get_strategy`), as in the reference program. The custom-loop
+surface is the reference's: ``distribute_datasets_from_function`` with an
+:class:`InputContext`, ``replicate``, ``distribute_batch``, ``run`` and
+``reduce``. ``axis_shapes`` may name only the data axis (other axes of
+size 1 are accepted); a parallel axis of size > 1 is ROADMAP item 17.
+``ParameterServerStrategy`` and the liveness monitor come with later
+slices of the port.
 """
 
 from __future__ import annotations
@@ -31,6 +37,9 @@ import numpy as np
 import torch
 
 from tpu_dist_torch.cluster import bootstrap
+from tpu_dist_torch.parallel import collectives
+from tpu_dist_torch.parallel import mesh as mesh_lib
+from tpu_dist_torch.parallel.axes import DATA_AXIS
 from tpu_dist_torch.parallel.collectives import (CollectiveCommunication,
                                                  ReduceOp)
 from tpu_dist_torch.utils.device import DeviceLike, resolve_device
@@ -45,6 +54,58 @@ def _strategy_stack() -> list:
     if not hasattr(_LOCAL, "stack"):
         _LOCAL.stack = []
     return _LOCAL.stack
+
+
+class InputContext:
+    """Per-process input-pipeline context handed to ``dataset_fn`` by
+    :meth:`Strategy.distribute_datasets_from_function`, the analog of
+    ``tf.distribute.InputContext``: which input pipeline this process is
+    (``input_pipeline_id`` of ``num_input_pipelines``) and how to derive a
+    per-replica batch from a global one."""
+
+    def __init__(self, num_input_pipelines: int, input_pipeline_id: int,
+                 num_replicas_in_sync: int):
+        self.num_input_pipelines = num_input_pipelines
+        self.input_pipeline_id = input_pipeline_id
+        self.num_replicas_in_sync = num_replicas_in_sync
+
+    def get_per_replica_batch_size(self, global_batch_size: int) -> int:
+        if global_batch_size % self.num_replicas_in_sync:
+            raise ValueError(
+                f"global batch {global_batch_size} not divisible by "
+                f"{self.num_replicas_in_sync} replicas")
+        return global_batch_size // self.num_replicas_in_sync
+
+    def __repr__(self) -> str:
+        return (f"InputContext(pipeline {self.input_pipeline_id}/"
+                f"{self.num_input_pipelines}, "
+                f"replicas={self.num_replicas_in_sync})")
+
+
+def _check_axis_shapes(axis_shapes: Optional[dict]) -> None:
+    """The reference's rule (the data axis must be there), and the port's:
+    every other axis has size 1 (a parallel axis is item 17)."""
+    if axis_shapes is None:
+        return
+    if DATA_AXIS not in axis_shapes:
+        raise ValueError(
+            f"axis_shapes must include the {DATA_AXIS!r} axis (batches "
+            f"shard over it), got {axis_shapes}")
+    extra = {k: v for k, v in axis_shapes.items()
+             if k != DATA_AXIS and v != 1}
+    if extra:
+        raise unported(f"axis_shapes={dict(axis_shapes)} (the parallel "
+                       f"axes {sorted(extra)})", 17)
+
+
+def _as_tensor(leaf, device) -> torch.Tensor:
+    """A result leaf of ``run`` as a detached tensor (a Python number in
+    torch's default dtype, as ``jnp.asarray`` takes it in JAX's)."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach()
+    if isinstance(leaf, (np.ndarray, np.generic)):
+        return torch.from_numpy(np.asarray(leaf)).to(device)
+    return torch.as_tensor(leaf, device=device)
 
 
 class _Scope:
@@ -63,14 +124,33 @@ class _Scope:
 
 class Strategy:
     """Base: the device this process trains on (``None`` lets ``compile``
-    choose) and the number of replicas training in sync."""
+    choose), the number of replicas training in sync, and their mesh."""
 
-    def __init__(self, device: Optional[torch.device] = None):
+    def __init__(self, device: Optional[torch.device] = None,
+                 axis_shapes: Optional[dict] = None):
         self._device = device
+        self._axis_shapes = axis_shapes
+        self._mesh: Optional[mesh_lib.Mesh] = None
+        if device is not None:  # the mesh checks axis_shapes
+            self._mesh = self.mesh
 
     @property
     def device(self) -> Optional[torch.device]:
         return self._device
+
+    @property
+    def mesh(self) -> mesh_lib.Mesh:
+        """The replicas' mesh: ``axis_shapes`` (default ``{'data': -1}``)
+        over this strategy's processes, one device each."""
+        if self._mesh is None:
+            self._mesh = mesh_lib.make_mesh(
+                self._axis_shapes, local=self.num_replicas_in_sync == 1,
+                device=self._device)
+        return self._mesh
+
+    @property
+    def data_axis(self) -> str:
+        return DATA_AXIS
 
     @property
     def num_replicas_in_sync(self) -> int:
@@ -93,14 +173,74 @@ class Strategy:
 
         return DistributedDataset(dataset, self, policy=policy)
 
+    def input_shard_info(self) -> tuple[int, int]:
+        """``(num_input_shards, shard_id)`` for the host input pipeline:
+        one pipeline per replica, so per process (the reference's
+        data-axis process structure, which the port's meshes keep)."""
+        if self.num_replicas_in_sync == 1:
+            return 1, 0
+        return self.num_replicas_in_sync, bootstrap.process_index()
+
+    def replicate(self, tree, *, broadcast: Optional[bool] = None):
+        """A tree of arrays or tensors as new tensors on this process's
+        device; in a process group, process 0's values (the mirrored
+        variables' initial broadcast) unless ``broadcast=False``."""
+        if broadcast is None:
+            broadcast = bootstrap.process_count() > 1
+        return mesh_lib.replicate(tree, self.mesh, broadcast=broadcast)
+
+    def distribute_batch(self, batch):
+        """This process's batch (a tree of host arrays, as a distributed
+        dataset yields it) as tensors on its device: the process's part of
+        the global batch, which the JAX package assembles into one sharded
+        array."""
+        return mesh_lib.place_batch(batch, self.mesh.device)
+
     def distribute_datasets_from_function(self, dataset_fn, options=None):
-        raise unported("strategy.distribute_datasets_from_function", 12)
+        """Per-worker dataset construction, TF's
+        ``strategy.distribute_datasets_from_function``:
+        ``dataset_fn(InputContext)`` builds this process's stream, batched
+        to the per-replica size (``ctx.get_per_replica_batch_size(
+        global)``). Pipelines follow the processes, one replica each, so
+        each step takes one element of the stream and the global batch is
+        ``per_replica_batch x num_replicas_in_sync``. The fn already did
+        any cross-worker sharding (it knows its ``input_pipeline_id``), so
+        the result is a ``DistributedDataset`` under
+        ``AutoShardPolicy.OFF``; it yields host batches
+        (:meth:`distribute_batch` puts one on the device)."""
+        from tpu_dist_torch.data.distribute import DistributedDataset
+        from tpu_dist_torch.data.pipeline import AutoShardPolicy
+
+        num_pipelines, pipeline_id = self.input_shard_info()
+        ctx = InputContext(num_input_pipelines=num_pipelines,
+                           input_pipeline_id=pipeline_id,
+                           num_replicas_in_sync=self.num_replicas_in_sync)
+        return DistributedDataset(dataset_fn(ctx), self,
+                                  policy=AutoShardPolicy.OFF)
 
     experimental_distribute_datasets_from_function = \
         distribute_datasets_from_function
 
     def run(self, fn, args=(), kwargs=None):
-        raise unported("strategy.run", 12)
+        """Run ``fn`` on this process's replica, TF's ``strategy.run``:
+        ``fn(*args, **kwargs)`` sees the arguments as they are (a batch from
+        :meth:`distribute_batch` is this replica's rows). Every leaf of the
+        result (tensors, or numbers made tensors on this device) comes back
+        detached and stacked on a leading replica axis
+        ``[num_replicas_in_sync, ...]`` through ``collectives.all_gather``,
+        identical on every process, so ``strategy.reduce("mean",
+        run(...))`` is the global mean, as in the reference.
+
+        Gradients differ from the reference. There, ``run`` is one SPMD
+        program, and differentiating with respect to a replicated argument
+        sums the cotangents across the replicas. Here ``fn`` runs eagerly
+        on one replica, and a gradient taken inside it is this replica's
+        alone: a custom loop means its gradients across the replicas
+        explicitly, with ``collectives.all_reduce(grads, "mean")``."""
+        out = fn(*args, **(kwargs or {}))
+        device = self.mesh.device
+        return collectives.all_gather(
+            collectives.tree_map(lambda t: _as_tensor(t, device), out))
 
     def reduce(self, op: ReduceOp | str, value):
         """Reduction of per-replica values (a leading replica axis) to one
@@ -120,7 +260,11 @@ class Strategy:
                 return v
             if op is ReduceOp.SUM:
                 return v.sum(0) if torch.is_tensor(v) else v.sum(axis=0)
-            return v.mean(0) if torch.is_tensor(v) else v.mean(axis=0)
+            if not torch.is_tensor(v):
+                return v.mean(axis=0)
+            # The mean of integers is a float, as in jnp.
+            return (v if v.is_floating_point()
+                    else v.to(torch.get_default_dtype())).mean(0)
 
         return red(value)
 
@@ -136,21 +280,21 @@ class DefaultStrategy(Strategy):
 
 class MirroredStrategy(Strategy):
     """Synchronous data parallelism over one host's devices. The port
-    drives one device per process: ``devices`` may name at most one, and
-    the strategy is one replica on ``device`` (CUDA unless ``"cpu"``)."""
+    drives one device per process: ``devices`` may name at most one (more
+    is ROADMAP item 12b), and the strategy is one replica on ``device``
+    (CUDA unless ``"cpu"``)."""
 
     def __init__(self, devices: Sequence | None = None,
                  axis_shapes: Optional[dict] = None, *,
                  device: DeviceLike = None):
-        if axis_shapes is not None:
-            raise unported("MirroredStrategy(axis_shapes=)", 12)
+        _check_axis_shapes(axis_shapes)
         if devices is not None:
             devices = list(devices)
             if len(devices) > 1:
                 raise unported("MirroredStrategy over several devices in "
-                               "one process", 12)
+                               "one process", "12b")
             device = devices[0] if devices else device
-        super().__init__(resolve_device(device))
+        super().__init__(resolve_device(device), axis_shapes)
         logger.info("MirroredStrategy: 1 replica on %s", self._device)
 
 
@@ -158,17 +302,22 @@ class MultiWorkerMirroredStrategy(Strategy):
     """Synchronous data parallelism across all cluster processes, one
     replica each. Construction brings the cluster up where the reference
     does (``bootstrap.initialize``: TF_CONFIG -> process group, blocking
-    until every process has joined), then passes the startup barrier. With
-    one process and no cluster it is one local replica."""
+    until every process has joined) on the backend ``communication``
+    names (AUTO: NCCL on CUDA, gloo on the CPU; RING: gloo, on CUDA
+    tensors too, which lets several workers share one card; NCCL), then
+    passes the startup barrier. With one process and no cluster it is one
+    local replica."""
 
     def __init__(self,
                  communication: CollectiveCommunication | str | None = None,
                  cluster_config=None, axis_shapes: Optional[dict] = None, *,
                  device: DeviceLike = None):
-        if axis_shapes is not None:
-            raise unported("MultiWorkerMirroredStrategy(axis_shapes=)", 12)
+        _check_axis_shapes(axis_shapes)
         self.communication = CollectiveCommunication.resolve(communication)
-        super().__init__(bootstrap.initialize(cluster_config, device=device))
+        super().__init__(
+            bootstrap.initialize(cluster_config, device=device,
+                                 communication=self.communication.name),
+            axis_shapes)
         bootstrap.barrier("MultiWorkerMirroredStrategy_init")
         cfg = bootstrap.cluster_config()
         logger.info(

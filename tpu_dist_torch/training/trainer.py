@@ -30,6 +30,19 @@ only for equal shards: DATA sharding slices every global batch into equal
 parts (and raises on a batch the process count does not divide); under
 OFF every process brings its own equally sized local batch.
 
+``compile(gradient_bucket_bytes=b > 0)`` switches a multi-process step to
+the JAX package's bucketed schedule (``_pure_step_bucketed``): each
+process's BatchNorm takes its own shard's moments (no synchronisation in
+the forward or the backward), the loss is averaged across the processes,
+the gradients go through ``collectives.bucketed_all_reduce`` in
+reverse-order buckets of about ``b`` bytes over the JAX package's flatten
+order of the parameter tree (sorted names), and after the update the
+running state is averaged across the processes, as the JAX package
+``pmean``s its new state. The default schedule (``b = 0``) synchronises
+BatchNorm's moments over the global batch instead. The buckets are reduced
+after the backward pass has ended; overlapping them with it is ROADMAP's
+K8.
+
 ``fit``/``evaluate`` take a ``DeviceDataset``, a ``Dataset``, a
 ``DistributedDataset`` or ``(x, y)`` arrays (batches of 32 in order),
 taken in the JAX package's ``_distribute`` order; anything else raises
@@ -43,10 +56,14 @@ the synthetic MNIST, where the JAX package's scale detection declines its
 batch crosses to the device and its scale (the dataset's
 ``device_transform``) runs inside the step, and so inside a captured
 execution too. ``prefetch_to_device = d`` places the host pipeline's next
-``d`` batches on the card from a background thread. ``gradient_bucket_
-bytes`` and ``profile_dir`` come with items 10 and 11 of ``ROADMAP.md``'s
-queue 1, the integrity ``health`` vector with item 18; each raises
-``NotImplementedError``.
+``d`` batches on the card from a background thread. The integrity
+``health`` vector comes with item 18 of ``ROADMAP.md``'s queue 1.
+
+``fit(profile_dir=D)`` records a ``torch.profiler`` trace of the epochs
+into ``D`` on the chief (``utils/profiler.py``), each execution marked
+with a step annotation, as the JAX package traces its fit. Captured
+programs capture and replay inside the trace as outside it (the card
+records the replayed kernels).
 
 ``fit(checkpoint_dir=)`` is the JAX package's resume: it restores the
 newest complete checkpoint there (or ``TPU_DIST_RESTORE_STEP``: a step, or
@@ -68,8 +85,9 @@ unrolled steps is chosen over one graph of a step replayed k times: the
 host then pays one launch an execution, as the reference pays one
 dispatch, where a replayed step needs k replays and k device copies of
 its slice of the batch. The CPU, and a process group (whose all-reduce
-NCCL would have to capture, ROADMAP queue item 10), run the k steps one
-after another with the same kernels. On a ``DeviceDataset`` the gather
+a graph would have to capture, which waits for a machine with several
+cards: ROADMAP queue 1), run the k steps one after another with the same
+kernels. On a ``DeviceDataset`` the gather
 runs inside the captured program: the execution's ``[k, B]`` index vector
 is its only input, one pinned copy of a few KB, and the gathers and the
 scale replay with the steps (an eager gather before the replay would add
@@ -118,8 +136,7 @@ from tpu_dist_torch.models.policy import policy
 from tpu_dist_torch.parallel import collectives
 from tpu_dist_torch.training.callbacks import (CallbackList, History,
                                                StopTraining)
-from tpu_dist_torch.utils import graphs
-from tpu_dist_torch.utils.errors import unported
+from tpu_dist_torch.utils import graphs, profiler
 from tpu_dist_torch.utils.progbar import ProgressBar
 
 logger = logging.getLogger("tpu_dist_torch.trainer")
@@ -224,6 +241,15 @@ def _aux_loss_total(models):
     return total
 
 
+def _mean_floats(tensors) -> None:
+    """Average the floating-point tensors across the processes, in place,
+    one collective per dtype."""
+    floats = [t for t in tensors if t.is_floating_point()]
+    for dtype in dict.fromkeys(t.dtype for t in floats):
+        collectives.all_reduce([t for t in floats if t.dtype == dtype],
+                               collectives.ReduceOp.MEAN)
+
+
 def _tensors(tree) -> list:
     """The tensors of a nest of lists, tuples and dicts, in order."""
     if isinstance(tree, torch.Tensor):
@@ -319,6 +345,8 @@ class Trainer:
         self._iterator_kind: Optional[str] = None  # "host" or "prefetch"
         self._prefetcher: Optional[DevicePrefetcher] = None
         self._fit_loss_acc: Optional[torch.Tensor] = None
+        #: The model's ``gradient_bucket_bytes`` the steps are built with.
+        self._bucket_bytes = 0
         # (policy, class_weight, device transform) -> _GraphedExecutions
         self._graphed: dict = {}
         # (policy, device transform, input spec) -> (CapturedProgram, held)
@@ -337,6 +365,16 @@ class Trainer:
         """True when the step all-reduces across processes."""
         return self.strategy.num_replicas_in_sync > 1
 
+    def _sync_step_knobs(self) -> None:
+        """Adopt the model's ``gradient_bucket_bytes`` (the JAX package's
+        ``_sync_step_knobs``): the steps built from here on take its
+        schedule, and BatchNorm synchronises its moments across the
+        processes only under the default one."""
+        self._bucket_bytes = int(self.model.gradient_bucket_bytes or 0)
+        for m in self.model.modules():
+            if isinstance(m, BatchNormalization):
+                m.synchronized = self.distributed and not self._bucket_bytes
+
     # -- variables -----------------------------------------------------------
 
     def ensure_variables(self, seed: int = 0) -> None:
@@ -347,8 +385,10 @@ class Trainer:
         construction (or a weights load); they are used as they are. The
         state is the model's buffers (BatchNorm's running statistics),
         updated in place by the step. In a process group, process 0's
-        parameters and state are broadcast, and every BatchNorm takes its
-        moments over the global batch (``layers._SyncMoments``)."""
+        parameters and state are broadcast, and under the default schedule
+        every BatchNorm takes its moments over the global batch
+        (``layers._SyncMoments``)."""
+        self._sync_step_knobs()
         if self.variables is not None:
             return
         params = list(self.model.parameters())
@@ -356,9 +396,6 @@ class Trainer:
         if self.distributed:
             # Mirrored variables start equal: process 0's values everywhere.
             collectives.broadcast_from_chief([params, state])
-        for m in self.model.modules():
-            if isinstance(m, BatchNormalization):
-                m.synchronized = self.distributed
         self.rng = torch.Generator(device=self.device).manual_seed(seed)
         for m in self.model.modules():
             if hasattr(m, "generator"):
@@ -425,12 +462,14 @@ class Trainer:
         ``rng`` is accepted for the JAX signature's sake: a Dropout draws
         from :attr:`rng`. ``device_transform`` (a dataset's) runs on x once
         it is on the device."""
-        from tpu_dist_torch.models.model import Model
+        from tpu_dist_torch.models.model import Model, _nest
 
         model, optimizer = self.model, self.model.optimizer
         metrics = tuple(model.metrics)
         device = self.device
         distributed = self.distributed
+        bucket_bytes = self._bucket_bytes
+        names = [n for n, _ in model.named_parameters()]
         functional = [m for m in model.modules()
                       if isinstance(m, Model) and m._apply_fn is not None]
 
@@ -450,7 +489,16 @@ class Trainer:
             loss.backward()
             grads = [p.grad for p in params]
             loss = loss.detach()
-            if distributed:
+            if distributed and bucket_bytes:
+                # The JAX package's bucketed schedule: the mean loss, the
+                # gradients in buckets over its flatten order, the mean of
+                # the state each shard's BatchNorm moved.
+                collectives.all_reduce([loss], collectives.ReduceOp.MEAN)
+                collectives.bucketed_all_reduce(
+                    _nest(zip(names, grads)), collectives.ReduceOp.MEAN,
+                    bucket_bytes=bucket_bytes)
+                _mean_floats(state)
+            elif distributed:
                 # One flat all-reduce of the gradients and the loss: the
                 # mean over the processes is the global batch's.
                 collectives.all_reduce([*grads, loss],
@@ -613,9 +661,6 @@ class Trainer:
             validation_data=None, validation_steps: Optional[int] = None,
             checkpoint_dir: Optional[str] = None,
             class_weight: Optional[dict] = None) -> History:
-        if profile_dir is not None:
-            raise unported("fit(profile_dir=) (utils/profiler.py on "
-                           "torch.profiler)", 11)
         self.ensure_variables(seed)
         if class_weight is not None:
             class_weight = {int(c): float(w) for c, w in class_weight.items()}
@@ -644,8 +689,10 @@ class Trainer:
         history = History()
         cbs = CallbackList([history, *callbacks], model=self.model)
         cbs.on_train_begin()
+        trace = (profiler.trace(profile_dir) if profile_dir is not None
+                 else contextlib.nullcontext())
         try:
-            with _mode(self.model, True):
+            with trace, _mode(self.model, True):
                 self._run_epochs(step, multi, batches, cbs, initial_epoch,
                                  epochs, steps_per_epoch, bool(verbose),
                                  val_batches, val_steps, seed)
@@ -755,7 +802,9 @@ class Trainer:
             step_i = executions = 0
             while step_i < steps_per_epoch:
                 kk = min(k, steps_per_epoch - step_i)
-                loss = self._execute(step, multi, batches, kk)
+                with profiler.step_annotation(epoch * steps_per_epoch
+                                              + step_i):
+                    loss = self._execute(step, multi, batches, kk)
                 step_i += kk
                 executions += 1
                 if eager_loss:

@@ -1,7 +1,7 @@
 """Errors shared by every layer of the port."""
 
 
-def unported(what: str, item: int) -> NotImplementedError:
+def unported(what: str, item: int | str) -> NotImplementedError:
     """The error for a knob of the JAX package that the port lacks yet,
     naming the ``ROADMAP.md`` queue-1 item that ports it."""
     return NotImplementedError(
