@@ -253,6 +253,37 @@ plain PyTorch version. Phases:
     global batch, the loss falling; (e) ms a step on each schedule, the
     gradient reduction alone, the bucket count and bytes: gloo staging
     through the host on a shared card, not NCCL.
+25. sharded files and ``AutoShardPolicy.FILE``: ``write_sharded`` splits
+    the synthetic MNIST (8,192 images) into 8 npz files, which
+    ``load("mnist")`` finds through ``TPU_DIST_DATA_DIR``; two workers
+    (``chip_smoke.py --file-worker DIR``, phase 24's harness) run the
+    reference program's chain (load -> map(scale) -> cache -> shuffle,
+    seeded -> batch(128)) with AUTO, which resolves to FILE: each worker's
+    element stream equals a direct read of files i, i+2, ... bit for bit,
+    the two are disjoint and their union is the dataset; the CNN with the
+    fused CE and ``SGD(fused=True)`` fits 2 x 20 steps of 64 a worker on
+    the host-fed path, the workers bit for bit, rows 1-3 launched 40 times
+    a worker, and a single-process twin on the same per-worker batches
+    (gradients averaged, unfused) within ``CNN_LOSS_ATOL``; the host ms a
+    batch of the file-backed element path beside the in-memory one;
+26. serving resilience on phase 4's LM at full width: (a) phase 4's 16
+    requests through a journaled engine abandoned after CRASH_STEPS steps
+    with its unflushed tail dropped, a second engine recovering from the
+    journal: every request done, the replay naming the active and queued
+    requests the journal held, the streams equal the uninterrupted ones
+    (phase 4's; an uninterrupted int8 run's for the pool) but for ties
+    certified by the full forward (counted), the flash forward's launches
+    depth x prefills, re-prefills included; on the contiguous cache and
+    the paged int8 ragged pool; (b) ``python -m tpu_dist_torch.serve
+    --chaos --plan engine_crash@req6`` and then ``decode_stall@req6:S``
+    with ``--stall-timeout-s`` above three times the slowest step of the
+    first run's fresh worker (captures included) and S beyond it, both at
+    phase 5's arguments, each exiting 0 with every gate true: restarts,
+    ``replay_s``, seconds from each restart to its first token; (c) the
+    storm ``request_storm@req0`` at full width on the virtual clock:
+    shedding within the p99 target and shedding something, the control
+    past it; (d) decode tok/s and the captured decode step's ms with the
+    journal and without it (off, on, on, off), the flush's ms and bytes.
 
 Prints one JSON line of kernel records, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
@@ -3125,7 +3156,7 @@ def data_phase(card: str) -> None:
             f"pinned copy and transfer): {ds.upload_seconds:.4f} s ({card})")
 
 
-# -- slice 10: the ResNets of bench.py at full width ---------------------------
+# -- slice 10: the ResNets of bench.py at full width --------------------------
 
 #: bench.py:59-60 (dataset, input shape) and :1045-1047 (steps_per_execution)
 #: of its two ResNet configurations; both at global batch 256, built and
@@ -3942,9 +3973,11 @@ def dp_worker(outdir: pathlib.Path) -> int:
     return 0
 
 
-def _spawn_dp_workers(tmp: pathlib.Path) -> list:
-    """Both workers to their end, each within DP_TIMEOUT_S; a failure or a
-    hang raises with the tail of its log. Returns their records."""
+def _spawn_dp_workers(tmp: pathlib.Path, flag: str = "--dp-worker",
+                      env: dict | None = None) -> list:
+    """Both workers (``chip_smoke.py <flag> DIR``) to their end, each within
+    DP_TIMEOUT_S; a failure or a hang raises with the tail of its log.
+    Returns their records."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
@@ -3954,13 +3987,14 @@ def _spawn_dp_workers(tmp: pathlib.Path) -> list:
         for rank, cfg in enumerate(make_local_cluster(DP_WORKERS,
                                                       base_port=port)):
             logs.append(open(tmp / f"worker{rank}.log", "w"))
-            env = dict(os.environ, TF_CONFIG=json.dumps(cfg),
-                       PYTHONPATH=os.pathsep.join(
-                           filter(None, [str(root),
-                                         os.environ.get("PYTHONPATH")])))
+            worker_env = dict(os.environ, **(env or {}),
+                              TF_CONFIG=json.dumps(cfg),
+                              PYTHONPATH=os.pathsep.join(
+                                  filter(None, [str(root), os.environ.get(
+                                      "PYTHONPATH")])))
             procs.append(subprocess.Popen(
-                [sys.executable, str(root / "chip_smoke.py"), "--dp-worker",
-                 str(tmp)], cwd=root, env=env, stdout=logs[-1],
+                [sys.executable, str(root / "chip_smoke.py"), flag,
+                 str(tmp)], cwd=root, env=worker_env, stdout=logs[-1],
                 stderr=subprocess.STDOUT))
         deadline = time.monotonic() + DP_TIMEOUT_S
         for rank, p in enumerate(procs):
@@ -3974,7 +4008,7 @@ def _spawn_dp_workers(tmp: pathlib.Path) -> list:
                         q.kill()
                 tail = (tmp / f"worker{rank}.log").read_text()[-3000:]
                 raise AssertionError(
-                    f"(24) worker {rank} exit {p.returncode} (timeout "
+                    f"({flag}) worker {rank} exit {p.returncode} (timeout "
                     f"{DP_TIMEOUT_S} s):\n{tail}")
     finally:
         for p in procs:
@@ -3996,15 +4030,16 @@ def _equal(a, b) -> bool:
     return a == b
 
 
-def _epoch_means(losses: list) -> list:
+def _epoch_means(losses: list, epochs: int = DP_EPOCHS,
+                 steps: int = DP_STEPS) -> list:
     """Per-epoch means of per-step float32 losses, summed in float32 in
     order as the trainer's device accumulator sums them."""
     out = []
-    for e in range(DP_EPOCHS):
+    for e in range(epochs):
         acc = np.float32(0.0)
-        for v in losses[e * DP_STEPS:(e + 1) * DP_STEPS]:
+        for v in losses[e * steps:(e + 1) * steps]:
             acc = np.float32(acc + np.float32(v))
-        out.append(float(acc / np.float32(DP_STEPS)))
+        out.append(float(acc / np.float32(steps)))
     return out
 
 
@@ -4391,9 +4426,479 @@ def dp_phase(card: str) -> dict:
     return out
 
 
+# -- phase 25: sharded files and AutoShardPolicy.FILE -------------------------
+
+FILE_SHARDS, FILE_BATCH, FILE_SEED = 8, 128, 5
+FILE_EPOCHS, FILE_STEPS = 2, 20
+
+
+def _file_chain():
+    """The reference program's chain over the shard files under
+    ``$TPU_DIST_DATA_DIR`` (load -> map(scale) -> cache -> shuffle ->
+    batch(GLOBAL)), AUTO as left by default, the shuffle seeded so that a
+    twin can rebuild each worker's batches."""
+    return (td_data.load("mnist", split="train").map(_scale_div).cache()
+            .shuffle(10000, seed=FILE_SEED).batch(FILE_BATCH))
+
+
+def _shard_files(directory) -> list:
+    return sorted(pathlib.Path(directory).glob("mnist-train.shard-*.npz"))
+
+
+def _direct_read(files) -> tuple:
+    """The files' images and labels read with numpy, file after file."""
+    xs, ys = [], []
+    for f in files:
+        with np.load(f) as z:
+            xs.append(z["images"])
+            ys.append(z["labels"].astype(np.int64))
+    return np.concatenate(xs), np.concatenate(ys)
+
+
+def file_worker(outdir: pathlib.Path) -> int:
+    """Phase 25's worker (``chip_smoke.py --file-worker DIR``, TF_CONFIG
+    and ``TPU_DIST_DATA_DIR`` in the environment): its element stream under
+    AUTO (FILE over the shard files), then the reference program's CNN
+    with the fused CE and ``SGD(fused=True)`` fit on the FILE-sharded
+    chain. Writes ``worker<rank>.pt`` into ``outdir``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    strategy = MultiWorkerMirroredStrategy(communication="ring")
+    for source in SOURCES:
+        _build.load(source)
+    rank, n = bootstrap.process_index(), bootstrap.process_count()
+    source = td_data.load("mnist", split="train")
+    local = td_data.shard_dataset(source, n, rank)
+    xs = np.stack([x for x, _ in local])
+    ys = np.array([y for _, y in local])
+    dist = td_data.DistributedDataset(_file_chain(), strategy, prefetch=None)
+    with strategy.scope():
+        model = build_cnn_model()
+        model.compile(optimizer=SGD(learning_rate=0.001, fused=True),
+                      loss=SparseCategoricalCrossentropy(from_logits=True,
+                                                         fused=True),
+                      metrics=[SparseCategoricalAccuracy()])
+    _reset_counts()
+    t0 = time.monotonic()
+    h = model.fit(_file_chain(), epochs=FILE_EPOCHS,
+                  steps_per_epoch=FILE_STEPS, verbose=0)
+    torch.cuda.synchronize()
+    out = {"rank": rank, "policy": dist.auto_shard_policy.name,
+           "num_files": source.num_files,
+           "local_batches": dist.cardinality(),
+           "stream": (xs, ys), "loss": h.history["loss"],
+           "counts": _counts(), "params": _params(model),
+           "fit_s": time.monotonic() - t0}
+    torch.save(_cpu(out), outdir / f"worker{rank}.pt")
+    return 0
+
+
+def _file_twin(per_worker: list) -> dict:
+    """The plain version in one process: each step's two per-worker
+    batches through the unfused CNN, their losses and gradients averaged,
+    then unfused SGD."""
+    model = build_cnn_model()
+    model.compile(optimizer=SGD(learning_rate=0.001),
+                  loss=SparseCategoricalCrossentropy(from_logits=True),
+                  metrics=[SparseCategoricalAccuracy()])
+    model.train()
+    params = list(model.parameters())
+    opt_state = model.optimizer.init(params)
+    losses = []
+    for step in zip(*per_worker):
+        parts = []
+        for xb, yb in step:
+            xb, yb = (torch.from_numpy(np.asarray(a)).cuda()
+                      for a in (xb, yb))
+            for p in params:
+                p.grad = None
+            loss = model.loss(model(xb), yb)
+            loss.backward()
+            parts.append((loss.detach(), [p.grad for p in params]))
+        (l0, g0), (l1, g1) = parts
+        grads = [(u + v) / DP_WORKERS for u, v in zip(g0, g1)]
+        model.optimizer.update(grads, opt_state, params)
+        losses.append(float((l0 + l1) / DP_WORKERS))
+    return {"loss": _epoch_means(losses, FILE_EPOCHS, FILE_STEPS),
+            "params": _params(model)}
+
+
+def file_phase(card: str) -> tuple:
+    """Phase 25: ``write_sharded`` splits the synthetic MNIST into
+    FILE_SHARDS files, two workers fit the reference program's CNN on
+    the AUTO (= FILE) sharded chain over gloo. Returns each worker's
+    (CE fwd, CE bwd, SGD) launches."""
+    images, labels = td_data.load_arrays("mnist")
+    steps = FILE_EPOCHS * FILE_STEPS
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        td_data.write_sharded(tmp / "data", "mnist", "train", images, labels,
+                              FILE_SHARDS)
+        write_s = time.perf_counter() - t0
+        env = {td_data.sources.DATA_DIR_ENV: str(tmp / "data")}
+        old = os.environ.get(td_data.sources.DATA_DIR_ENV)
+        os.environ.update(env)
+        try:
+            t0 = time.monotonic()
+            workers = _spawn_dp_workers(tmp, "--file-worker", env)
+            workers_s = time.monotonic() - t0
+            direct = [_direct_read(_shard_files(tmp / "data")[i::DP_WORKERS])
+                      for i in range(DP_WORKERS)]
+            # Each worker's batches as an independent construction gives
+            # them: the chain, sharded for worker i of 2.
+            per_worker = [list(itertools.islice(iter(td_data.shard_dataset(
+                _file_chain(), DP_WORKERS, i, pre_batched=True)), steps))
+                for i in range(DP_WORKERS)]
+            # Host ms a batch of the file-backed element path: the first
+            # pass reads the files, later passes the cache.
+            chain = (td_data.load("mnist", split="train").map(_scale_div)
+                     .cache().shuffle(10000, seed=1).batch(CNN_BATCH))
+            n = len(images) // CNN_BATCH - 2
+            t0 = time.perf_counter()
+            first_pass = list(chain)
+            first_ms = (time.perf_counter() - t0) / len(first_pass) * 1e3
+            file_ms = _host_ms_per_batch(chain, n)
+        finally:
+            if old is None:
+                os.environ.pop(td_data.sources.DATA_DIR_ENV)
+            else:
+                os.environ[td_data.sources.DATA_DIR_ENV] = old
+    memory_ms = _host_ms_per_batch(_chain(shuffle=True, seed=1), n)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        twin = _file_twin(per_worker)
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = flags
+    want_counts = (0, 0, 0, steps, steps, steps)
+    streams = []
+    for rank, w in enumerate(workers):
+        dx, dy = direct[rank]
+        sx, sy = w["stream"]
+        if not (np.array_equal(sx, dx) and np.array_equal(sy, dy)):
+            raise AssertionError(f"(25) worker {rank}'s element stream is "
+                                 f"not files {rank}, {rank + 2}, ... read "
+                                 "directly")
+        if (w["policy"] != "FILE" or w["num_files"] != FILE_SHARDS
+                or w["local_batches"] != len(images) // FILE_BATCH
+                or w["counts"] != want_counts):
+            raise AssertionError(
+                f"(25) worker {rank}: policy {w['policy']}, "
+                f"{w['num_files']} files, {w['local_batches']} local "
+                f"batches, launches {w['counts']} (expected {want_counts})")
+        streams.append(sx.reshape(len(sx), -1))
+    ids = [{row.tobytes() for row in s} for s in streams]
+    union = {row.tobytes() for row in images.reshape(len(images), -1)}
+    if ids[0] & ids[1] or (ids[0] | ids[1]) != union or \
+            sum(len(s) for s in streams) != len(images):
+        raise AssertionError("(25) the workers' streams are not a disjoint "
+                             "split of the dataset")
+    a, b = workers
+    if a["loss"] != b["loss"] or not _equal(a["params"], b["params"]):
+        raise AssertionError(f"(25) the workers part: {a['loss']} vs "
+                             f"{b['loss']}")
+    loss_gap = max(abs(u - v) for u, v in zip(a["loss"], twin["loss"]))
+    param_gap = _max_diff(a["params"], [p.cpu() for p in twin["params"]])
+    if loss_gap > CNN_LOSS_ATOL:
+        raise AssertionError(f"(25) losses {a['loss']} vs the twin's "
+                             f"{twin['loss']}: {loss_gap:.3e}")
+    log(f"[25 file] write_sharded: {len(images)} synthetic MNIST images in "
+        f"{FILE_SHARDS} files in {write_s:.4f} s; load('mnist') found "
+        f"{a['num_files']} files through {td_data.sources.DATA_DIR_ENV}; "
+        f"AUTO resolved to {a['policy']} on both workers, each reads files "
+        f"i, i+2, ... ({a['local_batches']} batches of "
+        f"{FILE_BATCH // DP_WORKERS}), bit for bit a direct read; the two "
+        f"streams disjoint, their union the dataset")
+    log(f"[25 file] reference program's CNN on the FILE-sharded chain, two "
+        f"workers (communication=ring, gloo), global batch {FILE_BATCH}, "
+        f"fused CE + SGD(fused=True), {FILE_EPOCHS} x {FILE_STEPS} steps in "
+        f"{a['fit_s']:.2f} s / {b['fit_s']:.2f} s (workers ran "
+        f"{workers_s:.1f} s): losses {[round(v, 6) for v in a['loss']]}, "
+        f"the workers bit for bit (losses, parameters); launches CE fwd "
+        f"{a['counts'][3]}, CE bwd {a['counts'][4]}, SGD {a['counts'][5]} "
+        f"a worker; against the single-process twin on the same per-worker "
+        f"batches (gradients averaged, unfused): losses {loss_gap:.3e} "
+        f"(limit {CNN_LOSS_ATOL:g}), parameters {param_gap:.3e}")
+    log(f"[25 times] host input, file-backed element path (8 npz files): "
+        f"first pass {first_ms:.4f} ms a batch of {CNN_BATCH} (reads the "
+        f"files), cached {file_ms:.4f} ms; phase 21's in-memory element "
+        f"path {memory_ms:.4f} ms ({card})")
+    return tuple(w["counts"][3:] for w in workers)
+
+
+# -- phase 26: serving resilience ---------------------------------------------
+
+#: Steps the first journaled engine serves before it is abandoned.
+CRASH_STEPS = 6
+#: Phase 5's full-width CLI arguments (8 seeded requests).
+SERVE_ARGS = ["--requests", "8", "--max-len", str(LM["seq_len"]),
+              "--vocab", str(LM["vocab_size"]), "--d-model",
+              str(LM["d_model"]), "--depth", str(LM["depth"]),
+              "--num-heads", str(LM["num_heads"]), "--min-new", "8",
+              "--max-new", "16"]
+CHAOS_TIMEOUT_S = 400
+#: Journal-cost workload: 8 requests of 64 prompt tokens and 128 new ones,
+#: so every step after the admitting one decodes the full bucket of 8.
+COST_PROMPT, COST_NEW = 64, 128
+
+
+def _recovered_streams(model, specs, kw: dict) -> tuple:
+    """Phase 4's requests through a journaled engine abandoned after
+    CRASH_STEPS steps with its unflushed tail dropped, then a second engine
+    recovering from the journal. Returns (requests as the journal ends
+    them, the replay, the pending rids at the crash, prefills, flash
+    launches, seconds to build the recovering engine, its run's seconds)."""
+    from types import SimpleNamespace
+
+    from tpu_dist_torch.serve import journal
+
+    metrics.get_registry().reset()
+    metrics.enable()
+    fa.flash_attention_fwd.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        first = ServeEngine(model, max_batch=8, max_len=LM["seq_len"],
+                            journal=tmp, **kw)
+        for p, m in specs:
+            first.submit(p, max_new_tokens=m)
+        for _ in range(CRASH_STEPS):
+            first.step()
+        first.journal._buf.clear()
+        del first
+        torch.cuda.synchronize()
+        active, queued = journal.load(pathlib.Path(tmp) /
+                                      journal.JOURNAL_NAME).pending()
+        t0 = time.perf_counter()
+        second = ServeEngine(model, max_batch=8, max_len=LM["seq_len"],
+                             journal=tmp, **kw)
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        second.run_until_idle()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        second.close()
+        state = journal.load(pathlib.Path(tmp) / journal.JOURNAL_NAME)
+    metrics.disable()
+    prefills = metrics.get_registry().counter("serve.prefills").value
+    reqs = [SimpleNamespace(rid=rid, prompt=jr.prompt, generated=jr.tokens,
+                            finished=jr.finished, budget=jr.max_new_tokens)
+            for rid, jr in sorted(state.requests.items())]
+    pending = ([r.rid for r in active], [r.rid for r in queued])
+    return (reqs, second.last_replay, pending, prefills,
+            fa.flash_attention_fwd.launches, build_s, run_s)
+
+
+def _chaos_cli(args: list, tmp: pathlib.Path) -> dict:
+    """``python -m tpu_dist_torch.serve --chaos ARGS`` as a subprocess to
+    its end; its report, which must pass every gate."""
+    root = pathlib.Path(__file__).resolve().parent
+    report_path = tmp / "report.json"
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, [str(root), os.environ.get("PYTHONPATH")])))
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpu_dist_torch.serve", "--chaos", *args,
+         "--workdir", str(tmp / "work"), "--report", str(report_path)],
+        cwd=root, env=env, capture_output=True, text=True,
+        timeout=CHAOS_TIMEOUT_S)
+    wall = time.monotonic() - t0
+    if proc.returncode != 0 or not report_path.exists():
+        logs = "".join(p.read_text()[-1500:] for p in sorted(
+            (tmp / "work" / "logs").glob("*.log"))) \
+            if (tmp / "work" / "logs").is_dir() else ""
+        raise AssertionError(f"(26) --chaos {args[:2]} exit "
+                             f"{proc.returncode}:\n{proc.stdout[-2000:]}\n"
+                             f"{proc.stderr[-2000:]}\n{logs}")
+    report = json.loads(report_path.read_text())
+    eng = report.get("engine")
+    if not report["ok"] or (eng is not None and not (
+            eng["success"] and eng["faults_fired"] and eng["restarts"] >= 1
+            and eng["journal_replays"] and eng.get("parity_ok"))):
+        raise AssertionError(f"(26) --chaos {args[:2]}: {report}")
+    report["wall_s"] = wall
+    return report
+
+
+def _journal_cost(model, card: str) -> None:
+    """(d): decode tok/s and the decode step's ms with the journal (one
+    write and one fsync a step) and without it, in turns off, on, on,
+    off; the flush's ms and bytes a step."""
+    rng = np.random.default_rng(11)
+    specs = [(rng.integers(0, LM["vocab_size"], size=COST_PROMPT).tolist(),
+              COST_NEW) for _ in range(8)]
+    warm = [(p, 4) for p, _ in specs]
+    runs = {"off": [], "on": []}
+    flushes = []
+    for label in ("off", "on", "on", "off"):
+        with tempfile.TemporaryDirectory() as tmp:
+            engine = ServeEngine(model, max_batch=8, max_len=LM["seq_len"],
+                                 journal=tmp if label == "on" else None)
+            for _ in range(2):      # the programs run eagerly, then capture
+                for p, m in warm:
+                    engine.submit(p, max_new_tokens=m)
+                engine.run_until_idle()
+            if engine.journal is not None:
+                flush, path = engine.journal.flush, engine.journal.path
+
+                def timed_flush(flush=flush, path=path):
+                    size = path.stat().st_size if path.exists() else 0
+                    t0 = time.perf_counter()
+                    n = flush()
+                    flushes.append(((time.perf_counter() - t0) * 1e3,
+                                    path.stat().st_size - size, n))
+                    return n
+
+                engine.journal.flush = timed_flush
+                flushes.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            reqs = [engine.submit(p, max_new_tokens=m) for p, m in specs]
+            engine.step()
+            steps = []
+            while not engine.scheduler.idle():
+                t1 = time.perf_counter()
+                engine.step()
+                steps.append((time.perf_counter() - t1) * 1e3)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            engine.close()
+        if not all(len(r.generated) == COST_NEW for r in reqs):
+            raise AssertionError("(26 d) a request missed its budget")
+        runs[label].append((8 * COST_NEW / wall,
+                            statistics.median(steps[:-1])))
+        if label == "on":
+            decode = [f for f in flushes if f[2] == 8]
+            # Steps 2 .. COST_NEW - 1 flush a token record a request (the
+            # first also the submits, the last the finishes).
+            if len(decode) != COST_NEW - 3:
+                raise AssertionError(f"(26 d) {len(decode)} flushes of 8 "
+                                     "token records")
+            log(f"[26 times] (d) journal flush (one write + one fsync of a "
+                f"step's 8 token records): median "
+                f"{statistics.median(f[0] for f in decode):.4f} ms, max "
+                f"{max(f[0] for f in decode):.4f} ms, "
+                f"{statistics.median(f[1] for f in decode):.0f} bytes a "
+                f"step ({card})")
+    for label, values in runs.items():
+        log(f"[26 times] (d) decode, 8 requests x {COST_NEW} tokens at "
+            f"full width, journal {label}: "
+            f"{[round(v[0], 2) for v in values]} tok/s; decode step "
+            f"(bucket 8, captured) median "
+            f"{[round(v[1], 4) for v in values]} ms ({card})")
+
+
+def resilience_phase(card: str, contiguous_streams: list) -> dict:
+    """Phase 26: journal recovery in process (contiguous and int8 ragged
+    pool), the chaos CLI's crash and stall runs, the storm, the journal's
+    cost. Returns the flash forward's launches on each path."""
+    model = _serve_lm()
+    specs = _serve_specs()
+    out = {}
+    # (a) In process.
+    paged_kw = dict(paged=True, page_size=16, kv_dtype="int8", ragged=True)
+    base = ServeEngine(model, max_batch=8, max_len=LM["seq_len"],
+                       **paged_kw)
+    int8_streams = [r.generated for r in _drain(base, specs)[0]]
+    del base
+    for label, kw, want in (("contiguous", {}, contiguous_streams),
+                            ("int8 ragged pool", paged_kw, int8_streams)):
+        (reqs, replay, pending, prefills, launches, build_s,
+         run_s) = _recovered_streams(model, specs, kw)
+        if not all(r.finished and len(r.generated) == r.budget
+                   for r in reqs) or len(reqs) != len(specs):
+            raise AssertionError(f"(26 a) {label}: not every request "
+                                 "finished with its budget")
+        if (replay["active"], replay["queued"]) != pending or \
+                not replay["active"]:
+            raise AssertionError(f"(26 a) {label}: the replay names "
+                                 f"{replay}, the journal held {pending}")
+        ties = _ties(model, reqs, want, f"(26 a) {label}")
+        want_launches = 0 if kw else LM["depth"] * prefills
+        if launches != want_launches or prefills <= len(specs):
+            raise AssertionError(
+                f"(26 a) {label}: flash launches {launches} for {prefills} "
+                f"prefills (expected {want_launches})")
+        out[f"resilient_serve_{'paged' if kw else 'contiguous'}"] = launches
+        log(f"[26 resilience] (a) {label}: 16 requests, the engine "
+            f"abandoned after {CRASH_STEPS} steps with its unflushed journal "
+            f"tail dropped; the recovering engine's replay names active "
+            f"{replay['active']} and queued {replay['queued']} as the "
+            f"journal held them, finished {replay['completed']}; every "
+            f"request done; streams equal the uninterrupted run's with "
+            f"{ties} certified ties; prefills {prefills} (16 + "
+            f"{prefills - 16} re-prefills), flash launches {launches}"
+            f"{' = depth x prefills' if not kw else ' (dense attention)'}; "
+            f"replay_s {replay['replay_s']:.6f} s, recovering engine built "
+            f"in {build_s:.4f} s, served the rest in {run_s:.4f} s ({card})")
+    # (b) The chaos CLI: a crash, then a stall past a timeout above the
+    # slowest step a fresh worker took.
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        crash = _chaos_cli(["--plan", "engine_crash@req6", *SERVE_ARGS],
+                           tmp / "crash")
+        final = crash["engine"]["final_result"]
+        timeout = round(max(2.0, 3 * final["max_step_s"]), 1)
+        stall_s = timeout + 2.0
+        log(f"[26 resilience] (b) a fresh worker captured graphs for "
+            f"{final['capture_seconds']:.4f} s and its slowest step took "
+            f"{final['max_step_s']:.4f} s: stall timeout {timeout} s, "
+            f"decode_stall {stall_s} s")
+        stall = _chaos_cli(["--plan", f"decode_stall@req6:{stall_s}s",
+                            "--stall-timeout-s", str(timeout), *SERVE_ARGS],
+                           tmp / "stall")
+    for label, rep in (("engine_crash@req6", crash),
+                       (f"decode_stall@req6:{stall_s}s", stall)):
+        e = rep["engine"]
+        log(f"[26 resilience] (b) python -m tpu_dist_torch.serve --chaos "
+            f"--plan {label} (phase 5's arguments): exit 0, every gate true;"
+            f" exit kinds {e['exit_kinds']}, restarts {e['restarts']}, "
+            f"replay_s {[m['replay_s'] for m in e['journal_replays']]}, "
+            f"restart to first token {e['restart_to_first_token_s']} s, "
+            f"certified ties {len(e['certified_ties'])}, whole run "
+            f"{rep['wall_s']:.1f} s ({card})")
+    # (c) The storm at full width, in process (flash launches counted).
+    buf = io.StringIO()
+    fa.flash_attention_fwd.launches = 0
+    with contextlib.redirect_stdout(buf), \
+            contextlib.redirect_stderr(io.StringIO()):
+        rc = cli.main(["--chaos", "--plan", "request_storm@req0",
+                       *SERVE_ARGS])
+    report = json.loads(buf.getvalue())
+    storm = report["storm"]
+    sh, ctl = storm["shedding"], storm["control"]
+    prefills = sh["completed"] + ctl["completed"]
+    if rc != 0 or not storm.get("ok") or sh["shed"] <= 0 or \
+            sh["p99_latency_virtual_s"] > storm["p99_target_s"] or \
+            ctl["p99_latency_virtual_s"] <= storm["p99_target_s"] or \
+            fa.flash_attention_fwd.launches != LM["depth"] * prefills:
+        raise AssertionError(f"(26 c) storm: rc {rc}, {storm}, flash "
+                             f"launches {fa.flash_attention_fwd.launches}")
+    out["storm"] = fa.flash_attention_fwd.launches
+    log(f"[26 resilience] (c) request_storm@req0 at full width, "
+        f"{sh['requests']} requests on the virtual clock (target p99 "
+        f"{storm['p99_target_s']} virtual s, BENCH_SERVE.json's config): "
+        f"shedding completed {sh['completed']}, shed {sh['shed']} "
+        f"{sh['shed_causes']}, p99 {sh['p99_latency_virtual_s']} s; control "
+        f"completed {ctl['completed']}, p99 {ctl['p99_latency_virtual_s']} "
+        f"s; flash launches {fa.flash_attention_fwd.launches} = depth x "
+        f"{prefills} prefills")
+    # (d) The journal's cost.
+    _journal_cost(model, card)
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--dp-worker"]:
         return dp_worker(pathlib.Path(sys.argv[2]))
+    if sys.argv[1:2] == ["--file-worker"]:
+        return file_worker(pathlib.Path(sys.argv[2]))
     t0 = time.monotonic()
     card = device_phase()
     build_phase()
@@ -4462,6 +4967,15 @@ def main() -> int:
     record["launches_by_path"]["lm_profiled"] = profiled["fwd"]
     for rec in bwd_records:
         rec["launches_by_path"]["lm_profiled"] = profiled["bwd"]
+    # Phase 25's path: each worker's FILE-sharded fit launches rows 1-3;
+    # phase 26's resilient serving row 6.
+    files = file_phase(card)
+    for i, rec in enumerate(new_records[:3]):
+        for rank, counts in enumerate(files):
+            rec["launches_by_path"][f"mnist_file_sharded_worker{rank}"] = \
+                counts[i]
+    record["launches_by_path"].update(resilience_phase(
+        card, contiguous_streams))
     # In the order of the TPU kernel table (PERF.md): rows 1-9.
     records = [*new_records, adam_record, record, *bwd_records]
     log(f"done in {time.monotonic() - t0:.1f} s")

@@ -17,18 +17,13 @@ jpolicy = importlib.import_module("tpu_dist.models.policy")
 tpolicy = importlib.import_module("tpu_dist_torch.models.policy")
 
 PACKAGES = ("", "ops", "serve", "training", "observe", "models", "data",
-            "parallel", "cluster")
+            "parallel", "cluster", "resilience")
 
 #: Reference names the port does not have yet -> the ROADMAP.md queue-1
 #: item (or decision) that covers them.
 NOT_YET_PORTED = {
     "OptaxWrapper": "not ported, by decision (optax has no PyTorch "
                     "counterpart)",
-    # item 14: sharded-file sources
-    "write_sharded": "item 14",
-    # item 15: serving resilience
-    "RequestJournal": "item 15", "JournalState": "item 15",
-    "ServeSupervisor": "item 15",
     # item 17: parallel axes
     "RingAttention": "item 17", "ring_attention": "item 17",
     "sequence_sharding": "item 17", "tensor_parallel_specs": "item 17",
@@ -36,6 +31,9 @@ NOT_YET_PORTED = {
     "make_1f1b_train_step": "item 17", "one_f_one_b": "item 17",
     "MixtureOfExperts": "item 17",
     # item 18: resilience, liveness
+    "FaultInjector": "item 18", "maybe_injector_from_env": "item 18",
+    "GangReform": "item 18", "StepRejoinGate": "item 18",
+    "maybe_step_rejoin_gate": "item 18",
     "LivenessMonitor": "item 18",
     "PeerUnavailableError": "item 18", "check_peer_health": "item 18",
     # item 19: observability

@@ -16,6 +16,8 @@ graphs, ``utils/graphs.py``) replay as their eager functions, bit for bit,
 and their replays count the kernels they launch.
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -623,7 +625,7 @@ def test_cnn_fused_fit_launches_the_kernels(cuda_device):
                                atol=1e-4)
 
 
-# -- the fused optimizers' vector and scalar paths, cache and CUDA graphs ------
+# -- the fused optimizers' vector and scalar paths, cache and CUDA graphs -----
 
 #: (shape, columns starting one float past a 16-byte boundary): whole
 #: chunks, ragged last chunks, lengths that are not a multiple of 4 (the
@@ -994,7 +996,7 @@ def test_cnn_fit_on_graphs_equals_k1_and_counts_replays(cuda_device):
     assert prog.calls == 6 and prog.replays == 5
 
 
-# -- the input pipeline (data/) on the card ------------------------------------
+# -- the input pipeline (data/) on the card -----------------------------------
 
 
 def _scale_div(image, label):
@@ -1123,7 +1125,7 @@ def test_prefetch_to_device_equals_no_prefetch(cuda_device):
     np.testing.assert_allclose(losses[1], losses[0], rtol=0, atol=1e-5)
 
 
-# -- the ResNets, BatchNorm state, Dropout, predict and the policy -------------
+# -- the ResNets, BatchNorm state, Dropout, predict and the policy ------------
 
 
 @pytest.fixture
@@ -1541,3 +1543,96 @@ print(json.dumps({"rank": rank, "device": str(strategy.device),
         assert o["a"] == [1.5] * 5 and o["b"] == [1.5] * 3
         assert o["g"] == [[0], [1]] and o["p"] == [7.0, 7.0]
         assert o["host"] == 3
+
+
+_RESILIENT_KINDS = {"contiguous": {},
+                    "int8_ragged": dict(paged=True, page_size=16,
+                                        kv_dtype="int8", ragged=True)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", sorted(_RESILIENT_KINDS))
+def test_journal_recovery_on_the_card_under_the_tie_rule(cuda_device,
+                                                         tmp_path, kind):
+    """An engine abandoned mid-run with its unflushed journal tail lost,
+    then a second one recovering from the journal: every request finishes
+    and each stream equals the uninterrupted one, or leaves it only at a
+    certified tie of the full forward (recovery batches requests in other
+    buckets and re-prefills the replayed ones). The contiguous engines'
+    flash forward launches equal depth x the prefills, re-prefills
+    included."""
+    from tpu_dist_torch.observe import metrics
+    from tpu_dist_torch.serve import chaos, journal
+
+    kw = _RESILIENT_KINDS[kind]
+    model = build_transformer_lm(64, 128, d_model=64, depth=2, num_heads=2)
+    rng = np.random.default_rng(3)
+    specs = [(rng.integers(0, 64, size=int(rng.integers(3, 40))).tolist(),
+              int(rng.integers(4, 12))) for _ in range(8)]
+    base = ServeEngine(model, max_batch=4, max_len=128, **kw)
+    want = [base.submit(p, max_new_tokens=m) for p, m in specs]
+    base.run_until_idle()
+    metrics.get_registry().reset()
+    metrics.enable()
+    try:
+        fa.flash_attention_fwd.launches = 0
+        first = ServeEngine(model, max_batch=4, max_len=128,
+                            journal=tmp_path / "j", **kw)
+        for p, m in specs:
+            first.submit(p, max_new_tokens=m)
+        for _ in range(4):
+            first.step()
+        first.journal._buf.clear()
+        del first
+        second = ServeEngine(model, max_batch=4, max_len=128,
+                             journal=tmp_path / "j", **kw)
+        assert second.last_replay["active"]
+        second.run_until_idle()
+        second.close()
+        prefills = metrics.get_registry().counter("serve.prefills").value
+    finally:
+        metrics.disable()
+    state = journal.load(tmp_path / "j" / journal.JOURNAL_NAME)
+    ties = 0
+    for r in want:
+        jr = state.requests[r.rid]
+        assert jr.finished and len(jr.tokens) == len(r.generated)
+        if jr.tokens != r.generated:
+            assert chaos._certified_tie(model, cuda_device, r.prompt,
+                                        r.generated, jr.tokens) is not None
+            ties += 1
+    assert ties <= 1
+    assert prefills > len(specs)   # the replayed requests re-prefilled
+    assert fa.flash_attention_fwd.launches == (
+        0 if kw else 2 * prefills)
+
+
+@pytest.mark.gpu
+def test_stall_watchdog_fires_around_a_captured_decode_replay(cuda_device):
+    """The watchdog's window spans a decode step that replays its captured
+    graph: a stall injected between the replay and the host read of the
+    logits trips the (injected) stall action once, with the step's bucket;
+    healthy eager, capturing and replaying steps do not."""
+    tripped, seen = [], []
+    engine = None
+
+    class StallOnReplay:
+        def on_decode(self):
+            prog = engine.programs.get(("decode", 1))
+            if prog is not None and prog.replays == 2 and not seen:
+                seen.append(prog.replays)
+                time.sleep(3.0)
+
+        def on_step_end(self, done_count):
+            pass
+
+    model = build_transformer_lm(64, 128, d_model=64, depth=2, num_heads=2)
+    engine = ServeEngine(model, max_batch=1, max_len=128,
+                         stall_timeout_s=2.0, stall_action=tripped.append,
+                         fault_injector=StallOnReplay())
+    req = engine.submit([5, 6, 7], max_new_tokens=8)
+    engine.run_until_idle()
+    assert req.status == "done" and len(req.generated) == 8
+    assert seen == [2]
+    assert tripped == [{"timeout_s": 2.0, "bucket": 1, "active": 1}]
+    assert engine.programs[("decode", 1)].graph is not None

@@ -8,11 +8,13 @@ from tpu_dist_torch.data.pipeline import (AutoShardPolicy, Dataset,
 from tpu_dist_torch.data.sharding import resolve_policy, shard_dataset
 from tpu_dist_torch.data.sources import (DatasetInfo, SplitInfo,
                                          disable_progress_bar, image_shape,
-                                         load, load_arrays, num_classes)
+                                         load, load_arrays, num_classes,
+                                         write_sharded)
 
 __all__ = [
     "AutoShardPolicy", "Dataset", "DatasetInfo", "DeviceDataset",
     "DevicePrefetcher", "DistributedDataset", "Options", "SplitInfo",
     "device_pipeline", "disable_progress_bar", "image_shape", "load",
     "load_arrays", "num_classes", "resolve_policy", "shard_dataset",
+    "write_sharded",
 ]

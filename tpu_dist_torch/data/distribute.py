@@ -11,7 +11,10 @@ delivery modes are the reference's:
   own unseeded shuffle, a different order per worker); the effective
   global batch is ``local batch x workers`` samples;
 * AUTO / DATA: the user batches to the global batch size and each process
-  keeps its ``1/num_processes`` slice of every batch.
+  keeps its ``1/num_processes`` slice of every batch;
+* FILE (or AUTO over a file-backed source whose files divide evenly): each
+  process reads its strided subset of the files, and the chain's last
+  ``batch(GLOBAL)`` becomes ``batch(GLOBAL / num_processes)``.
 
 As in the reference, the local stream is first offered to the vectorized
 chain rewrite (``data/vectorize.py``) and then prefetched on a host

@@ -1,9 +1,9 @@
 """Host-side input pipeline: a tf.data-shaped ``Dataset`` of numpy elements.
 
 Counterpart of ``tpu_dist/data/pipeline.py``: the constructors
-``from_tensor_slices``, ``from_generator`` and ``range``; the combinators
-``map``, ``filter``, ``cache``, ``shuffle``, ``batch``, ``repeat``,
-``take``, ``skip``, ``shard``, ``interleave``, ``unbatch``,
+``from_tensor_slices``, ``from_generator``, ``from_files`` and ``range``;
+the combinators ``map``, ``filter``, ``cache``, ``shuffle``, ``batch``,
+``repeat``, ``take``, ``skip``, ``shard``, ``interleave``, ``unbatch``,
 ``concatenate``, ``zip``, ``prefetch`` and ``with_options``; ``Options``
 carrying ``experimental_distribute.auto_shard_policy`` with TF's
 ``AutoShardPolicy`` values; and :class:`DevicePrefetcher`. A copy kept in
@@ -116,6 +116,10 @@ class Dataset:
         self._transform: tuple[str, dict] | None = None
         #: The source arrays of a from_tensor_slices dataset.
         self._tensor_source = None
+        #: A from_files source's per-file counts and its
+        #: ``(num_shards, index) -> Dataset`` strided-subset constructor.
+        self._file_cardinalities: list[int] | None = None
+        self._file_shard_fn: Callable[[int, int], "Dataset"] | None = None
         #: A function the trainer applies to the x batch on its device
         #: (data/vectorize.py): a uint8 batch crosses to the card and is
         #: scaled there.
@@ -149,6 +153,48 @@ class Dataset:
     def from_generator(gen_factory: Callable[[], Iterable]) -> "Dataset":
         """Elements of ``gen_factory()``, called anew on every pass."""
         return Dataset(lambda: iter(gen_factory()))
+
+    @staticmethod
+    def from_files(files: Sequence, reader: Callable[[Any], Iterable], *,
+                   cardinality: int | None = None,
+                   file_cardinalities: Sequence[int] | None = None
+                   ) -> "Dataset":
+        """A file-backed source: ``reader(file)``'s elements, file by file,
+        in the given order — the source AutoShardPolicy.FILE strides across
+        workers. ``file_cardinalities`` (per-file element counts, when
+        known) lets a worker's strided subset keep a known cardinality."""
+        files = list(files)
+        if not files:
+            raise ValueError("from_files requires at least one file")
+        if file_cardinalities is not None:
+            file_cardinalities = list(file_cardinalities)
+            if len(file_cardinalities) != len(files):
+                raise ValueError(
+                    f"file_cardinalities has {len(file_cardinalities)} "
+                    f"entries for {len(files)} files")
+            total = sum(file_cardinalities)
+            if cardinality is None:
+                cardinality = total
+            elif cardinality != total:
+                raise ValueError(
+                    f"cardinality {cardinality} != sum(file_cardinalities) "
+                    f"{total}")
+
+        def factory():
+            for f in files:
+                yield from reader(f)
+
+        ds = Dataset(factory, cardinality=cardinality, num_files=len(files))
+        #: Per-file counts: the FILE guard checks that every worker's
+        #: strided subset carries the same element total.
+        ds._file_cardinalities = file_cardinalities
+        # Worker i of n reads files i, i+n, ...; the subset keeps its own
+        # file count and (with per-file counts) its own cardinality.
+        ds._file_shard_fn = lambda n, i: Dataset.from_files(
+            files[i::n], reader,
+            file_cardinalities=(None if file_cardinalities is None
+                                else file_cardinalities[i::n]))
+        return ds
 
     @staticmethod
     def range(n: int) -> "Dataset":

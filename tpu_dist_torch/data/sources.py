@@ -1,15 +1,18 @@
 """Dataset sources: MNIST / Fashion-MNIST / CIFAR-10 with a tfds-like loader.
 
-Counterpart of ``tpu_dist/data/sources.py`` (without its sharded-file
-sources, which serve the FILE shard policy). ``load(name, split,
+Counterpart of ``tpu_dist/data/sources.py``. ``load(name, split,
 as_supervised=True)`` returns a :class:`~tpu_dist_torch.data.pipeline.
 Dataset` of ``(image, label)`` tuples. Resolution order per dataset, as in
 the reference:
 
-1. local files — idx/npz archives under ``$TPU_DIST_DATA_DIR``,
+1. sharded npz files (``{name}-{split}.shard-00002-of-00008.npz``, written
+   by :func:`write_sharded` — by either package, the layout is the same)
+   as a file-backed Dataset that AutoShardPolicy.FILE strides across
+   workers;
+2. local files — idx/npz archives under ``$TPU_DIST_DATA_DIR``,
    ``~/.keras/datasets`` or ``~/tensorflow_datasets`` (nothing is ever
    downloaded);
-2. deterministic synthetic data with the real shapes and dtypes and
+3. deterministic synthetic data with the real shapes and dtypes and
    class-separable structure (a fixed per-class template plus noise), the
    reference's ``_synthetic`` bit for bit, so both packages train on the
    same images.
@@ -25,7 +28,7 @@ import os
 import pathlib
 import struct
 import zlib
-from typing import Mapping
+from typing import Iterable, Mapping
 
 import numpy as np
 
@@ -161,6 +164,102 @@ def load_arrays(name: str, split: str = "train", *,
     return x, y
 
 
+def _find_shard_files(name: str, split: str) -> list[pathlib.Path]:
+    """Sharded npz archives of ``name``/``split`` in the search dirs.
+
+    Files are grouped by their ``-of-NNNNN`` generation and only a complete
+    generation (all NNNNN files present) is served: re-sharding with
+    another count leaves the old generation on disk, and mixing the two
+    would duplicate every sample. Of several complete generations the most
+    recently written wins."""
+    pattern = f"{name}-{split}.shard-*-of-*.npz"
+    for base in _search_dirs():
+        for sub in (base, base / name):
+            found = sorted(sub.glob(pattern)) if sub.is_dir() else []
+            if not found:
+                continue
+            groups: dict[int, list[pathlib.Path]] = {}
+            for p in found:
+                try:
+                    n = int(p.stem.rsplit("-of-", 1)[1])
+                except (IndexError, ValueError):
+                    continue
+                groups.setdefault(n, []).append(p)
+            complete = {n: fs for n, fs in groups.items() if len(fs) == n}
+            if not complete:
+                logger.warning(
+                    "shard files under %s form no complete generation "
+                    "(found %s); ignoring them",
+                    sub, {n: len(fs) for n, fs in groups.items()})
+                continue
+            if len(complete) > 1:
+                newest = max(
+                    complete,
+                    key=lambda n: max(p.stat().st_mtime for p in complete[n]))
+                logger.warning(
+                    "multiple complete shard generations for %s/%s under %s "
+                    "(%s); using the newest (-of-%05d)", name, split, sub,
+                    sorted(complete), newest)
+                return complete[newest]
+            return next(iter(complete.values()))
+    return []
+
+
+def _read_shard(path) -> Iterable[tuple[np.ndarray, np.int64]]:
+    with np.load(path, allow_pickle=False) as z:
+        images, labels = z["images"], z["labels"]
+    for i in range(len(labels)):
+        yield images[i], np.int64(labels[i])
+
+
+def write_sharded(directory, name: str, split: str, images: np.ndarray,
+                  labels: np.ndarray, num_shards: int) -> list[pathlib.Path]:
+    """Split (images, labels) into ``num_shards`` npz files (shard ``s``
+    holds rows ``s::num_shards``) that ``load`` finds and serves as a
+    file-backed Dataset: the preparation step of an AutoShardPolicy.FILE
+    job, where each worker then reads a disjoint subset of the files."""
+    directory = pathlib.Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    if not 1 <= num_shards <= len(labels):
+        raise ValueError(
+            f"num_shards must be in [1, {len(labels)}], got {num_shards}")
+    paths = []
+    for s in range(num_shards):
+        p = directory / f"{name}-{split}.shard-{s:05d}-of-{num_shards:05d}.npz"
+        np.savez(p, images=images[s::num_shards], labels=labels[s::num_shards])
+        paths.append(p)
+    logger.info("wrote %d shard files for %s/%s under %s",
+                num_shards, name, split, directory)
+    return paths
+
+
+def _one_split(name: str, split: str, as_supervised: bool,
+               synthetic_size: int | None) -> tuple[Dataset, bool]:
+    """(dataset, served_synthetic) for one split: shard files first (per-
+    file counts read from the npz headers, so a FILE-sharded worker still
+    knows its cardinality), then single-file local copies, then synthetic
+    data."""
+    shards = _find_shard_files(name, split)
+    if shards:
+        counts = []
+        for p in shards:
+            with np.load(p, allow_pickle=False) as z:
+                counts.append(len(z["labels"]))
+        logger.info("loaded %s/%s from %d shard file(s) (%d samples)",
+                    name, split, len(shards), sum(counts))
+        if as_supervised:
+            return Dataset.from_files(shards, _read_shard,
+                                      file_cardinalities=counts), False
+        return Dataset.from_files(
+            shards,
+            lambda p: ({"image": x, "label": y} for x, y in _read_shard(p)),
+            file_cardinalities=counts), False
+    x, y, found = _resolve_arrays(name, split, synthetic_size)
+    ds = Dataset.from_tensor_slices(
+        (x, y) if as_supervised else {"image": x, "label": y})
+    return ds, not found
+
+
 @dataclasses.dataclass(frozen=True)
 class SplitInfo:
     """One entry of :attr:`DatasetInfo.splits`."""
@@ -181,10 +280,8 @@ class _SplitBuilder:
 
     def get(self, split: str, *, serve: bool = True) -> tuple[Dataset, bool]:
         if split not in self._cache:
-            x, y, found = _resolve_arrays(self.name, split, self._size)
-            ds = Dataset.from_tensor_slices(
-                (x, y) if self._as_supervised else {"image": x, "label": y})
-            self._cache[split] = (ds, not found)
+            self._cache[split] = _one_split(
+                self.name, split, self._as_supervised, self._size)
         if serve:
             self._served.add(split)
         return self._cache[split]
@@ -263,7 +360,8 @@ def load(name: str, split: str | None = None, *, as_supervised: bool = True,
     """``tfds.load``-shaped entry point: ``load('mnist', split='train')`` is
     one Dataset of ``(image, label)`` tuples (dicts without
     ``as_supervised``); without a split, ``{'train': ..., 'test': ...}``;
-    ``with_info=True`` adds a :class:`DatasetInfo`."""
+    ``with_info=True`` adds a :class:`DatasetInfo`. Over sharded files a
+    split is file-backed (``num_files > 1``) and open to FILE sharding."""
     if name not in _SPECS:
         raise ValueError(
             f"unknown dataset {name!r}; available: {sorted(_SPECS)}")

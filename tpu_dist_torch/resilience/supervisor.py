@@ -1,0 +1,405 @@
+"""Supervisor: launch, watch, restart.
+
+Counterpart of ``tpu_dist/resilience/supervisor.py``: a parent process that
+
+* launches the job as ``num_workers`` subprocesses (with ``num_workers >
+  1`` each rank gets its TF_CONFIG from ``cluster.make_local_cluster`` on
+  fresh loopback ports every attempt: rank 0 hosted the rendezvous and
+  took it down with itself);
+* watches exit codes and classifies them against the resilience protocol
+  (:func:`~tpu_dist_torch.resilience.faults.classify_exit_code`);
+* gang-restarts on failure — synchronous data parallelism cannot run a
+  partial cluster, so when one rank dies the rest get the
+  :class:`GracePolicy` (exit grace, then SIGTERM, then SIGKILL) and the
+  whole gang relaunches — with exponential backoff, a restart budget,
+  ``no_restart_exits`` and a per-attempt wall-clock deadline that turns a
+  hang into a restart.
+
+Worker stdout/stderr stream to per-(attempt, rank) log files (a PIPE
+would deadlock once a killed worker stops draining it), and every
+lifecycle event lands in the shared :mod:`~tpu_dist_torch.resilience.
+events` JSONL log. The reference's elastic and reform arguments
+(``worker_schedule``, ``device_schedule``, ``rejoin_window_s > 0``,
+``step_rejoin_dir``) come with ROADMAP.md queue 1, item 18, and
+``observe_dir`` with item 19: each raises ``unported``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import logging
+import os
+import pathlib
+import subprocess
+import time
+from typing import Optional, Sequence
+
+from tpu_dist_torch.resilience import events
+from tpu_dist_torch.resilience.faults import (EXIT_INTEGRITY, EXIT_PREEMPTED,
+                                              classify_exit_code)
+from tpu_dist_torch.utils.errors import unported
+
+logger = logging.getLogger("tpu_dist_torch.resilience")
+
+#: How long a surviving rank gets to exit on its own after a gang member
+#: died, before the supervisor escalates (see :class:`GracePolicy`).
+GANG_GRACE_S = 5.0
+
+_POLL_S = 0.1
+
+
+@dataclasses.dataclass(frozen=True)
+class BackoffPolicy:
+    """Exponential restart backoff: ``min(max_s, initial_s * multiplier**n)``
+    before restart attempt ``n`` (0-based over *restarts*, so the first
+    restart waits ``initial_s``)."""
+
+    initial_s: float = 0.5
+    multiplier: float = 2.0
+    max_s: float = 30.0
+
+    def delay(self, restart: int) -> float:
+        if restart < 0:
+            raise ValueError(f"restart index must be >= 0, got {restart}")
+        return min(self.max_s, self.initial_s * self.multiplier ** restart)
+
+
+@dataclasses.dataclass(frozen=True)
+class GracePolicy:
+    """How a condemned gang is taken down: wait ``exit_grace_s`` for the
+    survivors to exit on their own, then SIGTERM, wait ``term_grace_s``,
+    then SIGKILL. A deadline-hit (hung) attempt goes straight to SIGKILL:
+    its main thread is wedged and could not answer SIGTERM."""
+
+    exit_grace_s: float = GANG_GRACE_S
+    term_grace_s: float = 10.0
+
+
+@dataclasses.dataclass
+class AttemptOutcome:
+    attempt: int
+    exit_codes: list
+    duration_s: float
+    deadline_hit: bool = False
+    #: Gang shape this attempt ran at (the reference's elastic schedules
+    #: vary these; here the shape is fixed and device_count stays None).
+    num_workers: Optional[int] = None
+    device_count: Optional[int] = None
+    #: Per-rank relaunches and mid-epoch reforms absorbed within the
+    #: attempt: always 0 until the elastic supervisor is ported (item 18);
+    #: kept so the report's schema is the reference's.
+    rejoins: int = 0
+    #: Longest SIGTERM-to-drained duration any rank of this attempt
+    #: reported (``preempt_drained`` events); None when nothing drained.
+    drain_s: Optional[float] = None
+    gang_reforms: int = 0
+    #: ``time.monotonic()`` when this attempt's first worker death was
+    #: detected: the zero point of ``recovery_wall_s``.
+    first_failure_t: Optional[float] = None
+
+    @property
+    def succeeded(self) -> bool:
+        return (not self.deadline_hit
+                and all(c == 0 for c in self.exit_codes))
+
+    @property
+    def preempted(self) -> bool:
+        """True when every nonzero exit was a clean SIGTERM drain."""
+        nonzero = [c for c in self.exit_codes if c != 0]
+        return bool(nonzero) and all(c == EXIT_PREEMPTED for c in nonzero)
+
+
+@dataclasses.dataclass
+class SupervisorReport:
+    success: bool
+    attempts: int
+    restarts: int
+    outcomes: list
+    wall_time_s: float
+    #: Wall-clock from the first detected failure to final success; None
+    #: when nothing failed.
+    recovery_wall_s: Optional[float] = None
+
+    def to_json(self) -> dict:
+        return {
+            "success": self.success,
+            "attempts": self.attempts,
+            "restarts": self.restarts,
+            "wall_time_s": round(self.wall_time_s, 3),
+            "recovery_wall_s": (None if self.recovery_wall_s is None
+                                else round(self.recovery_wall_s, 3)),
+            "exit_codes": [o.exit_codes for o in self.outcomes],
+            "exit_kinds": [[classify_exit(c) for c in o.exit_codes]
+                           for o in self.outcomes],
+            "gang_shapes": [{"num_workers": o.num_workers,
+                             "device_count": o.device_count}
+                            for o in self.outcomes],
+            "rejoins": [o.rejoins for o in self.outcomes],
+            "drain_s": [None if o.drain_s is None else round(o.drain_s, 3)
+                        for o in self.outcomes],
+            "gang_reforms": [o.gang_reforms for o in self.outcomes],
+        }
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def classify_exit(code: Optional[int]) -> str:
+    """Name a worker's exit for reports: the protocol registry of
+    :mod:`~tpu_dist_torch.resilience.faults`, plus the process-never-
+    exited case (None)."""
+    if code is None:
+        return "crash"
+    return classify_exit_code(code)
+
+
+class Supervisor:
+    """Run ``cmd`` as a supervised (optionally multi-worker) job.
+
+    ``cmd`` is the worker argv; every worker of every attempt runs the
+    same argv and is told apart through the environment: a per-rank
+    ``TF_CONFIG`` (only when ``num_workers > 1``),
+    ``TPU_DIST_RESILIENCE_ATTEMPT``, and whatever the caller passes in
+    ``env``. ``rank_scoped_env_keys`` names env vars whose values get a
+    ``/rank{r}`` suffix per worker (a checkpoint directory, say).
+    """
+
+    def __init__(self, cmd: Sequence[str], *, num_workers: int = 1,
+                 max_restarts: int = 3,
+                 attempt_deadline_s: Optional[float] = None,
+                 backoff: BackoffPolicy = BackoffPolicy(),
+                 grace: GracePolicy = GracePolicy(),
+                 env: Optional[dict] = None,
+                 log_dir: str | os.PathLike = "resilience-logs",
+                 event_log: Optional[events.EventLog] = None,
+                 observe_dir: Optional[str | os.PathLike] = None,
+                 worker_schedule: Optional[Sequence[int]] = None,
+                 device_schedule: Optional[Sequence[int]] = None,
+                 rejoin_window_s: float = 0.0,
+                 max_rejoins: int = 4,
+                 no_restart_exits: Sequence[int] = (EXIT_INTEGRITY,),
+                 step_rejoin_dir: Optional[str | os.PathLike] = None,
+                 reform_ack_timeout_s: float = 60.0,
+                 rank_scoped_env_keys: Sequence[str] = ()):
+        for name, value in (("worker_schedule", worker_schedule),
+                            ("device_schedule", device_schedule),
+                            ("step_rejoin_dir", step_rejoin_dir)):
+            if value is not None:
+                raise unported(f"Supervisor({name}=...)", 18)
+        if rejoin_window_s > 0:
+            raise unported("Supervisor(rejoin_window_s > 0)", 18)
+        if observe_dir is not None:
+            raise unported("Supervisor(observe_dir=...)", 19)
+        if num_workers < 1:
+            raise ValueError("num_workers must be >= 1")
+        if max_restarts < 0:
+            raise ValueError("max_restarts must be >= 0")
+        self.cmd = list(cmd)
+        self.num_workers = num_workers
+        self.max_restarts = max_restarts
+        self.attempt_deadline_s = attempt_deadline_s
+        self.backoff = backoff
+        self.grace = grace
+        self.env = dict(env or {})
+        self.log_dir = pathlib.Path(log_dir)
+        self.events = event_log
+        #: Exit codes that stop supervision instead of triggering a
+        #: restart: the worker declared its failure non-recoverable (by
+        #: default ``integrity_abort``). Serve supervision empties it.
+        self.no_restart_exits = frozenset(int(c) for c in no_restart_exits)
+        self.rank_scoped_env_keys = tuple(rank_scoped_env_keys)
+
+    # -- launching -----------------------------------------------------------
+
+    def _worker_env(self, rank: int, attempt: int) -> dict:
+        env = dict(os.environ)
+        env.update(self.env)
+        env[events.ATTEMPT_ENV] = str(attempt)
+        if self.num_workers > 1:
+            from tpu_dist_torch.cluster.config import make_local_cluster
+
+            # Fresh ports every attempt: rank 0 hosted the rendezvous and
+            # took it down with itself; the old port may sit in TIME_WAIT.
+            if rank == 0:
+                self._base_port = _free_port()
+            cfg = make_local_cluster(self.num_workers,
+                                     base_port=self._base_port)[rank]
+            env["TF_CONFIG"] = json.dumps(cfg)
+        for key in self.rank_scoped_env_keys:
+            if env.get(key):
+                env[key] = str(pathlib.Path(env[key]) / f"rank{rank}")
+        return env
+
+    def worker_log(self, attempt: int, rank: int) -> pathlib.Path:
+        return self.log_dir / f"attempt{attempt}-rank{rank}.log"
+
+    def _spawn(self, rank: int, attempt: int) -> subprocess.Popen:
+        # The file object can close right after the spawn; the child holds
+        # its own descriptor.
+        with open(self.worker_log(attempt, rank), "wb") as log:
+            return subprocess.Popen(
+                self.cmd, env=self._worker_env(rank, attempt),
+                stdout=log, stderr=subprocess.STDOUT)
+
+    def _launch(self, attempt: int) -> list:
+        self.log_dir.mkdir(parents=True, exist_ok=True)
+        procs = [self._spawn(rank, attempt)
+                 for rank in range(self.num_workers)]
+        self._log("attempt_start", attempt=attempt,
+                  pids=[p.pid for p in procs],
+                  num_workers=self.num_workers, device_count=None)
+        return procs
+
+    def _log(self, event: str, **fields) -> None:
+        if self.events is not None:
+            try:
+                self.events.append(event, **fields)
+            except OSError:
+                pass
+
+    # -- watching ------------------------------------------------------------
+
+    def _watch(self, procs: list, attempt: int) -> AttemptOutcome:
+        """Block until the gang exits, a member fails, or the deadline hits.
+        The first nonzero exit (or the deadline) condemns the attempt; the
+        survivors then get the :class:`GracePolicy` escalation."""
+        t0 = time.monotonic()
+        deadline = (t0 + self.attempt_deadline_s
+                    if self.attempt_deadline_s else None)
+        failed = False
+        deadline_hit = False
+        first_failure_t: Optional[float] = None
+        reported: set = set()
+        while True:
+            live = [p for p in procs if p.poll() is None]
+            for rank, p in enumerate(procs):
+                code = p.poll()
+                if code is None or rank in reported:
+                    continue
+                reported.add(rank)
+                self._log("worker_exit", attempt=attempt, rank=rank,
+                          code=code, kind=classify_exit(code))
+                logger.info("supervisor: rank %d exited %s (%s)",
+                            rank, code, classify_exit(code))
+                if code != 0:
+                    failed = True
+                    if first_failure_t is None:
+                        first_failure_t = time.monotonic()
+            if failed or not live:
+                break
+            if deadline is not None and time.monotonic() > deadline:
+                deadline_hit = True
+                self._log("attempt_deadline", attempt=attempt,
+                          deadline_s=self.attempt_deadline_s)
+                logger.warning("supervisor: attempt %d exceeded its %.1fs "
+                               "deadline", attempt, self.attempt_deadline_s)
+                break
+            time.sleep(_POLL_S)
+        if deadline_hit:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        else:
+            grace_end = time.monotonic() + self.grace.exit_grace_s
+            while (any(p.poll() is None for p in procs)
+                   and time.monotonic() < grace_end):
+                time.sleep(_POLL_S)
+            termed = [rank for rank, p in enumerate(procs)
+                      if p.poll() is None]
+            if termed:
+                for rank in termed:
+                    procs[rank].terminate()
+                self._log("gang_sigterm", attempt=attempt, ranks=termed,
+                          term_grace_s=self.grace.term_grace_s)
+                logger.info("supervisor: SIGTERM to rank(s) %s; waiting "
+                            "%.1fs", termed, self.grace.term_grace_s)
+                term_end = time.monotonic() + self.grace.term_grace_s
+                while (any(p.poll() is None for p in procs)
+                       and time.monotonic() < term_end):
+                    time.sleep(_POLL_S)
+            for rank, p in enumerate(procs):
+                if p.poll() is None:
+                    self._log("gang_sigkill", attempt=attempt, rank=rank)
+                    p.kill()
+        codes = []
+        for rank, p in enumerate(procs):
+            code = p.wait()
+            codes.append(code)
+            if rank not in reported:
+                self._log("worker_exit", attempt=attempt, rank=rank,
+                          code=code, kind=classify_exit(code))
+        return AttemptOutcome(attempt=attempt, exit_codes=codes,
+                              duration_s=time.monotonic() - t0,
+                              deadline_hit=deadline_hit,
+                              num_workers=self.num_workers,
+                              first_failure_t=first_failure_t)
+
+    def _attempt_drain_s(self, attempt: int) -> Optional[float]:
+        """Longest drain any rank of ``attempt`` reported, from the shared
+        event log's ``preempt_drained`` records; None without the log."""
+        if self.events is None:
+            return None
+        drained = [e.get("drain_s") for e in
+                   events.read_events(self.events.path,
+                                      event="preempt_drained")
+                   if e.get("attempt") == attempt
+                   and isinstance(e.get("drain_s"), (int, float))]
+        return max(drained) if drained else None
+
+    # -- the supervision loop ------------------------------------------------
+
+    def run(self) -> SupervisorReport:
+        t_start = time.monotonic()
+        t_first_failure: Optional[float] = None
+        outcomes: list = []
+        attempt = 0
+        while True:
+            outcome = self._watch(self._launch(attempt), attempt)
+            outcome.drain_s = self._attempt_drain_s(attempt)
+            outcomes.append(outcome)
+            if t_first_failure is None:
+                t_first_failure = outcome.first_failure_t
+            if outcome.succeeded:
+                if attempt > 0:
+                    self._log("recovered", attempt=attempt,
+                              restarts=attempt, rejoins=0, gang_reforms=0)
+                break
+            if t_first_failure is None:
+                t_first_failure = time.monotonic()
+            fatal = [c for c in outcome.exit_codes
+                     if c is not None and c in self.no_restart_exits]
+            if fatal:
+                logger.error("supervisor: worker exited %s (%s) — "
+                             "restarting cannot help; stopping",
+                             fatal[0], classify_exit(fatal[0]))
+                self._log("no_restart_stop", attempt=attempt,
+                          exit_codes=outcome.exit_codes,
+                          kinds=[classify_exit(c) for c in fatal])
+                break
+            if attempt >= self.max_restarts:
+                logger.error("supervisor: restart budget (%d) exhausted",
+                             self.max_restarts)
+                break
+            delay = self.backoff.delay(attempt)
+            self._log("restart", attempt=attempt + 1, backoff_s=delay,
+                      prior_exit_codes=outcome.exit_codes)
+            logger.info("supervisor: restarting (attempt %d) after %.2fs "
+                        "backoff", attempt + 1, delay)
+            time.sleep(delay)
+            attempt += 1
+        wall = time.monotonic() - t_start
+        success = outcomes[-1].succeeded
+        recovery = (time.monotonic() - t_first_failure
+                    if success and t_first_failure is not None else None)
+        report = SupervisorReport(
+            success=success, attempts=len(outcomes),
+            restarts=len(outcomes) - 1, outcomes=outcomes,
+            wall_time_s=wall, recovery_wall_s=recovery)
+        self._log("run_complete", **report.to_json())
+        return report

@@ -1,6 +1,6 @@
 """``python -m tpu_dist_torch.serve`` — demo + seeded load generator.
 
-Counterpart of ``tpu_dist/serve/cli.py`` (its demo and ``--bench`` modes):
+Counterpart of ``tpu_dist/serve/cli.py`` (all but ``--fleet``):
 
 * default (demo): build the causal LM from ``--seed``, serve a handful of
   prompts through the continuous-batching engine, print the generations
@@ -10,6 +10,17 @@ Counterpart of ``tpu_dist/serve/cli.py`` (its demo and ``--bench`` modes):
   or **open-loop** (``--arrival-rate R``: exponential interarrivals at R
   req/s). Prints a JSON report with p50/p95/p99 request latency, TTFT,
   throughput and batch occupancy; exits 1 when no request completed.
+* ``--chaos --plan P``: the gated serve chaos run (``serve/chaos.py``):
+  ``engine_crash@reqN`` / ``decode_stall@reqN:Ss`` against a supervised
+  ``--worker`` subprocess that recovers from its journal, and
+  ``request_storm@reqN`` with and without load shedding on a virtual
+  clock. Exits 0 iff every gate holds, 2 without a serve fault.
+* ``--worker``: one supervised attempt of a chaos run (journal and fault
+  plan from the environment, a ``RESULT:{...}`` line on stdout).
+
+``--journal-dir``, ``--max-queue``, ``--max-ttft-s``, ``--retry-budget``
+and ``--stall-timeout-s`` arm the engine's journal, load shedding and
+stall watchdog in every mode.
 
 ``--paged`` serves from the paged KV pool with prefix caching
 (``--page-size``, ``--num-pages``, ``--budget-mb``, ``--kv-dtype int8``
@@ -34,6 +45,7 @@ from typing import Optional
 import numpy as np
 
 from tpu_dist_torch.observe import metrics
+from tpu_dist_torch.utils.errors import unported
 
 
 def _quantile(vals, p: float) -> Optional[float]:
@@ -43,32 +55,36 @@ def _quantile(vals, p: float) -> Optional[float]:
     return round(metrics.quantile(sorted(float(v) for v in vals), p), 6)
 
 
-def _build_engine(args):
+def _build_engine(args, *, policy: Optional[str] = None, **engine_kwargs):
+    """Build the demo/bench engine; ``engine_kwargs`` forward the
+    resilience knobs (journal, max_queue, stall watchdog, ...) straight to
+    :class:`~tpu_dist_torch.serve.engine.ServeEngine`."""
     from tpu_dist_torch.models.transformer import build_transformer_lm
     from tpu_dist_torch.serve.engine import ServeEngine
 
     paged_kwargs = {}
-    if args.paged:
+    if getattr(args, "paged", False):
         paged_kwargs = {"paged": True, "page_size": args.page_size,
                         "num_pages": args.num_pages}
-        if args.kv_dtype is not None:
+        if getattr(args, "kv_dtype", None) is not None:
             paged_kwargs["kv_dtype"] = args.kv_dtype
-        if args.ragged:
+        if getattr(args, "ragged", False):
             paged_kwargs["ragged"] = True
-    if args.budget_mb is not None:
+    if getattr(args, "budget_mb", None) is not None:
         paged_kwargs["budget_bytes"] = int(args.budget_mb * 2**20)
     if args.model_dir:
         return ServeEngine.from_saved(
-            args.model_dir, max_batch=args.max_batch, policy=args.policy,
-            temperature=args.temperature, seed=args.seed,
-            device=args.device, **paged_kwargs)
+            args.model_dir, max_batch=args.max_batch,
+            policy=policy or args.policy, temperature=args.temperature,
+            seed=args.seed, device=args.device, **paged_kwargs,
+            **engine_kwargs)
     model = build_transformer_lm(args.vocab, args.max_len,
                                  d_model=args.d_model, depth=args.depth,
                                  num_heads=args.num_heads, seed=args.seed)
     return ServeEngine(model, max_batch=args.max_batch,
-                       max_len=args.max_len, policy=args.policy,
+                       max_len=args.max_len, policy=policy or args.policy,
                        temperature=args.temperature, seed=args.seed,
-                       device=args.device, **paged_kwargs)
+                       device=args.device, **paged_kwargs, **engine_kwargs)
 
 
 def _workload(args) -> list[dict]:
@@ -86,11 +102,16 @@ def _workload(args) -> list[dict]:
 
 
 def _summary(engine, *, wall_s: float) -> dict:
-    from tpu_dist_torch.serve.scheduler import DONE, EVICTED
+    from tpu_dist_torch.serve.scheduler import DONE, EVICTED, SHED
     from tpu_dist_torch.utils.device import device_name
 
+    # Terminal states are exclusive and exhaustive: every finished request
+    # is exactly one of done / evicted / shed.
     done = [r for r in engine.finished if r.status == DONE]
     evicted = [r for r in engine.finished if r.status == EVICTED]
+    shed = [r for r in engine.finished if r.status == SHED]
+    assert len(done) + len(evicted) + len(shed) == len(engine.finished), \
+        "finished request with a non-terminal status"
     tokens = sum(len(r.generated) for r in engine.finished)
     q = _quantile
     lat = [r.latency_s for r in done if r.latency_s is not None]
@@ -102,6 +123,7 @@ def _summary(engine, *, wall_s: float) -> dict:
         "device": device_name(engine.device),
         "completed": len(done),
         "evicted": len(evicted),
+        "shed": len(shed),
         "tokens_generated": tokens,
         "wall_s": round(wall_s, 4),
         "throughput_tok_s": (round(tokens / wall_s, 2) if wall_s > 0
@@ -218,17 +240,68 @@ def main(argv=None) -> int:
     p.add_argument("--ragged", action="store_true",
                    help="one full-capacity decode program with per-slot "
                         "masking instead of pow2 buckets (with --paged)")
+    p.add_argument("--worker", action="store_true",
+                   help="supervised serve worker: journal + fault plan "
+                        "from the environment, RESULT line on stdout")
+    p.add_argument("--chaos", action="store_true",
+                   help="serve chaos run: baseline, supervised faults, "
+                        "gated JSON report")
+    p.add_argument("--plan", default=None,
+                   help="fault plan for --chaos (engine_crash@reqN / "
+                        "decode_stall@reqN:Ss / request_storm@reqN)")
+    p.add_argument("--journal-dir", default=None,
+                   help="durable request journal directory (recovery "
+                        "replays an existing journal)")
+    p.add_argument("--max-queue", type=int, default=None,
+                   help="bounded admission queue: shed past this depth")
+    p.add_argument("--max-ttft-s", type=float, default=None,
+                   help="shed when projected TTFT exceeds this bound")
+    p.add_argument("--retry-budget", type=int, default=3,
+                   help="max crash replays before a request is shed")
+    p.add_argument("--stall-timeout-s", type=float, default=None,
+                   help="decode-stall watchdog bound (None = disabled)")
+    p.add_argument("--max-restarts", type=int, default=3)
+    p.add_argument("--deadline", type=float, default=120.0, metavar="S",
+                   help="per-attempt wall-clock deadline for --chaos")
+    p.add_argument("--storm-requests", type=int, default=300)
+    p.add_argument("--storm-burst", type=int, default=25,
+                   help="storm submissions between decode rounds")
+    p.add_argument("--virtual-step-s", type=float, default=0.05,
+                   help="virtual decode-step seconds for the storm gate")
+    p.add_argument("--p99-target-s", type=float, default=None,
+                   help="storm p99 gate (default: BENCH_SERVE.json)")
+    p.add_argument("--workdir", default=None)
+    p.add_argument("--report", default=None,
+                   help="also write the chaos JSON report to this path")
+    p.add_argument("--fleet", action="store_true",
+                   help="multi-replica fleet run (not ported yet)")
     args = p.parse_args(argv)
+
+    if args.fleet:
+        raise unported("python -m tpu_dist_torch.serve --fleet", 16)
+    if args.worker:
+        from tpu_dist_torch.serve.chaos import run_worker
+
+        return run_worker(args)
+    if args.chaos:
+        from tpu_dist_torch.serve.chaos import run_chaos
+
+        return run_chaos(args)
 
     metrics.get_registry().reset()
     metrics.enable()
     try:
-        engine = _build_engine(args)
+        engine = _build_engine(args, journal=args.journal_dir,
+                               max_queue=args.max_queue,
+                               max_ttft_s=args.max_ttft_s,
+                               retry_budget=args.retry_budget,
+                               stall_timeout_s=args.stall_timeout_s)
         if args.bench:
             summary = run_load(engine, _workload(args),
                                clients=args.clients,
                                arrival_rate=args.arrival_rate,
                                seed=args.seed, deadline_s=args.deadline_s)
+            engine.close()
             report = {
                 "bench": "serve.load",
                 "mode": ("open-loop" if args.arrival_rate > 0
@@ -250,7 +323,8 @@ def main(argv=None) -> int:
             print(json.dumps(report, indent=2))
             if not report["ok"]:
                 print(f"VACUOUS: no request completed "
-                      f"({report['evicted']} evicted)", file=sys.stderr)
+                      f"({report['shed']} shed, {report['evicted']} "
+                      f"evicted)", file=sys.stderr)
                 return 1
             return 0
 
@@ -263,6 +337,7 @@ def main(argv=None) -> int:
                 for _ in range(min(args.requests, 6))]
         t0 = time.monotonic()
         engine.run_until_idle()
+        engine.close()
         for r in reqs:
             print(f"req {r.rid}: prompt[{len(r.prompt)}] -> "
                   f"{r.generated} ({r.finish_reason}, "

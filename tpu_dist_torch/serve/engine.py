@@ -1,7 +1,7 @@
 """ServeEngine: the continuous-batching inference loop on one device.
 
-Counterpart of ``tpu_dist/serve/engine.py`` without its journal, load
-shedding, stall watchdog and jobs runtime. Scheduling stays
+Counterpart of ``tpu_dist/serve/engine.py`` (without its jobs runtime,
+ROADMAP.md queue 1, item 20). Scheduling stays
 host-side in ``scheduler.py`` (and ``paging.py`` for the paged pool), math
 in ``kv_cache.py``; the engine owns the model on its device, the KV cache
 or page pool and the host mirrors of per-slot decode state:
@@ -34,6 +34,16 @@ the keys used, the reference's program families, and
 :attr:`ServeEngine.capture_seconds` the time spent capturing, which is
 no request's. Every step emits host-side metrics (``observe/metrics.py``)
 under the reference's names.
+
+Resilience, as in the reference (``serve/journal.py``): an optional
+durable request journal makes a supervised restart replay queued and
+in-flight requests with token-identical greedy continuations; a bounded
+admission queue and projected-TTFT/deadline feasibility checks shed load
+the engine cannot serve (``finish_reason="shed"``); a decode-stall
+watchdog turns a hung decode step — its dispatch and the host read of its
+logits, which waits for the device — into a classified fault
+(:data:`~tpu_dist_torch.resilience.faults.EXIT_SERVE_ABORT`) instead of
+blocking the serving loop forever.
 """
 
 from __future__ import annotations
@@ -41,6 +51,8 @@ from __future__ import annotations
 import collections
 import functools
 import logging
+import os
+import threading
 import time
 from typing import Optional, Sequence
 
@@ -49,8 +61,11 @@ import torch
 
 from tpu_dist_torch.models.model import Sequential
 from tpu_dist_torch.observe import metrics
+from tpu_dist_torch.resilience import events
+from tpu_dist_torch.resilience.faults import EXIT_SERVE_ABORT
+from tpu_dist_torch.serve import journal as journal_lib
 from tpu_dist_torch.serve import kv_cache, paging
-from tpu_dist_torch.serve.scheduler import DONE, Request, Scheduler
+from tpu_dist_torch.serve.scheduler import DONE, SHED, Request, Scheduler
 from tpu_dist_torch.utils import graphs
 from tpu_dist_torch.utils.device import resolve_device
 
@@ -61,6 +76,24 @@ _MIN_PROMPT_PAD = 8
 #: ``kv_dtype`` names and the pool dtypes they select.
 _KV_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16,
               "int8": torch.int8}
+
+#: EMA smoothing for the decode-step wall-time estimate behind the
+#: projected-TTFT admission check.
+_EMA_ALPHA = 0.3
+
+
+def _default_stall_action(info: dict) -> None:
+    """What a production engine does about a hung decode step: classify it
+    as a fault and die with the registered serve exit code — the
+    ServeSupervisor restarts the engine and the journal replays the work.
+    ``os._exit`` on purpose: the main thread is wedged inside the device
+    call, so no Python-level unwind can run."""
+    logger.error("serve: decode step stalled > %.3fs (bucket %s) — "
+                 "exiting %d (serve_abort) for supervised restart",
+                 info.get("timeout_s", -1.0), info.get("bucket"),
+                 EXIT_SERVE_ABORT)
+    events.maybe_log("serve_stall", **info)
+    os._exit(EXIT_SERVE_ABORT)
 
 
 def _pad_to_pow2(n: int, *, lo: int = _MIN_PROMPT_PAD, hi: int) -> int:
@@ -89,6 +122,36 @@ class ServeEngine:
       cache_dtype: KV cache dtype.
       clock: a monotonic clock in seconds (``time.monotonic`` by
         default); tests inject one to pin deadlines and latencies.
+      journal: a :class:`~tpu_dist_torch.serve.journal.RequestJournal`, or
+        a directory to open one in (its rotation threshold from
+        ``$TPU_DIST_SERVE_JOURNAL_MAX_BYTES``). When the directory already
+        holds a journal — either package's — the engine RECOVERS before
+        serving: unfinished requests are re-admitted under their journaled
+        ids in arrival order, the formerly active ones re-prefilled with
+        ``prompt + tokens_emitted_so_far``.
+      max_queue: bounded admission queue — submissions past this depth are
+        shed (``finish_reason="shed"``, cause ``queue_full``).
+      max_ttft_s: shed a submission whose projected time-to-first-token
+        (the tokens owed ahead of it over ``max_batch`` lanes, at the EMA
+        decode-step time) exceeds this bound (cause ``projected_ttft``).
+      retry_budget: a journal-replayed request found ACTIVE in more than
+        this many crashes is shed instead of re-admitted (cause
+        ``retry_budget``) — poison-pill protection.
+      stall_timeout_s: decode-stall watchdog — a decode step (dispatch
+        through the host read of its logits) exceeding this wall bound
+        calls ``stall_action`` (default: exit ``EXIT_SERVE_ABORT`` for a
+        supervised restart). None disables the watchdog. On CUDA a
+        program's first two calls (eager, then the capture) sit inside
+        the window too: size the bound above them.
+      stall_action: the watchdog's action (tests record instead of
+        exiting); receives an info dict.
+      fault_injector: serve chaos seam — an object with ``on_decode`` /
+        ``on_step_end`` hooks (:class:`~tpu_dist_torch.resilience.
+        injector.ServeFaultInjector`).
+      virtual_step_s: when > 0 and ``clock`` has an ``advance`` method, the
+        engine advances the clock by this much per decode step — a
+        deterministic stand-in for a model's step time (the request-storm
+        gate measures queueing delay in these virtual seconds).
       paged: serve from the paged KV pool (``serve/paging.py``): memory
         is carved into fixed-size pages addressed through per-slot page
         tables, admission consults free-page headroom as well as slots,
@@ -134,6 +197,11 @@ class ServeEngine:
                  buckets: Optional[tuple[int, ...]] = None,
                  policy: str = "continuous", temperature: float = 0.0,
                  seed: int = 0, cache_dtype=torch.float32, clock=None,
+                 journal=None, max_queue: Optional[int] = None,
+                 max_ttft_s: Optional[float] = None, retry_budget: int = 3,
+                 stall_timeout_s: Optional[float] = None,
+                 stall_action=None, fault_injector=None,
+                 virtual_step_s: float = 0.0,
                  paged: bool = False, page_size: int = 16,
                  num_pages: Optional[int] = None,
                  budget_bytes: Optional[int] = None,
@@ -239,7 +307,7 @@ class ServeEngine:
                                       dtype=cache_dtype) / 2**20,
                 buckets or "pow2")
         self.scheduler = Scheduler(self.max_batch, buckets=buckets,
-                                   policy=policy)
+                                   policy=policy, max_queue=max_queue)
         # Host mirrors of per-slot decode state (compacted with the
         # scheduler's slot moves).
         self._tokens = np.zeros(self.max_batch, np.int64)
@@ -253,6 +321,101 @@ class ServeEngine:
                             if self.device.type == "cuda" else None)
         #: Seconds spent capturing graphs, apart from any request's time.
         self.capture_seconds = 0.0
+
+        # -- resilience state --------------------------------------------
+        self.max_ttft_s = None if max_ttft_s is None else float(max_ttft_s)
+        self.retry_budget = int(retry_budget)
+        self.stall_timeout_s = (None if stall_timeout_s is None
+                                else float(stall_timeout_s))
+        self.stall_action = stall_action or _default_stall_action
+        self.fault_injector = fault_injector
+        self.virtual_step_s = float(virtual_step_s)
+        self._step_ema_s: Optional[float] = None
+        self._done_count = 0
+        self._closed = False
+        #: What the last journal recovery did (None: nothing recovered).
+        self.last_replay: Optional[dict] = None
+        #: Request ids the journal knew at start-up (resubmission skips
+        #: them: the replay owns those requests).
+        self.known_rids: set = set()
+        if journal is None:
+            self.journal: Optional[journal_lib.RequestJournal] = None
+        elif isinstance(journal, journal_lib.RequestJournal):
+            self.journal = journal
+        else:
+            self.journal = journal_lib.RequestJournal(
+                journal, max_bytes=journal_lib.journal_max_bytes_from_env())
+        if self.journal is not None:
+            self._recover_from_journal()
+        metrics.set_gauge("serve.ready", 1.0)
+
+    # -- crash recovery -------------------------------------------------------
+
+    def _recover_from_journal(self) -> None:
+        """Replay an existing journal into the scheduler: formerly active
+        requests first (arrival order, re-prefilled with their journaled
+        tokens), then the queued ones; requests whose journaled tokens
+        already satisfy their stop condition finish here; actives past the
+        retry budget are shed."""
+        t0 = time.monotonic()
+        state = journal_lib.load(self.journal.path)
+        self.known_rids = state.known_rids
+        # Seed id allocation from the whole id space, rotated-away ids
+        # included: a fresh submit must never reuse one.
+        self.scheduler._next_rid = max(self.scheduler._next_rid,
+                                       state.next_rid)
+        if not state.requests:
+            return
+        active, queued = state.pending()
+        completed, replayed, shed = [], [], []
+        for jr in active + queued:
+            req = Request(prompt=list(jr.prompt),
+                          max_new_tokens=jr.max_new_tokens,
+                          eos_id=jr.eos_id, deadline_s=jr.deadline_s,
+                          generated=list(jr.tokens), replays=jr.replays)
+            if jr.stop_satisfied():
+                # The work survived the crash; only its terminal record
+                # was lost. Finish it now, never re-admit.
+                req.rid = jr.rid
+                req.status = DONE
+                req.finish_reason = jr.implied_finish_reason()
+                self.finished.append(req)
+                self.journal.record_finish(req)
+                self._done_count += 1
+                metrics.inc("serve.requests.completed")
+                completed.append(jr.rid)
+                continue
+            if jr.tokens and jr.replays + 1 > self.retry_budget:
+                req.rid = jr.rid
+                self._shed(req, "retry_budget", journaled=True)
+                shed.append(jr.rid)
+                continue
+            # Deadlines re-arm relative to re-submission: the original
+            # submit time is from a dead process.
+            self.scheduler.submit(req, now=self.clock(), rid=jr.rid)
+            replayed.append(jr.rid)
+        replay_s = time.monotonic() - t0
+        attempt = len(state.replay_markers) + 1
+        self.last_replay = {
+            "attempt": attempt,
+            "active": [r.rid for r in active],
+            "queued": [r.rid for r in queued],
+            "replayed": replayed, "completed": completed, "shed": shed,
+            "replay_s": replay_s,
+        }
+        self.journal.record_replay(
+            attempt=attempt, queued=[r.rid for r in queued],
+            active=[r.rid for r in active], completed=completed,
+            replay_s=replay_s)
+        metrics.observe_value("serve.journal.replay_s", replay_s)
+        events.maybe_log("serve_replay", attempt=attempt,
+                         replayed=len(replayed), completed=len(completed),
+                         shed=len(shed), replay_s=round(replay_s, 6))
+        logger.info(
+            "serve: journal replay #%d — %d re-admitted (%d were active), "
+            "%d finished from journaled tokens, %d shed, %.3fs",
+            attempt, len(replayed), len(active), len(completed),
+            len(shed), replay_s)
 
     @classmethod
     def from_saved(cls, directory, **kwargs) -> "ServeEngine":
@@ -298,8 +461,118 @@ class ServeEngine:
                 min(len(prompt) + int(max_new_tokens), self.max_len))
         req = Request(prompt=prompt, max_new_tokens=int(max_new_tokens),
                       eos_id=eos_id, deadline_s=deadline_s)
+        cause = self._shed_cause(req)
+        if cause is not None:
+            return self._shed(req, cause)
         self.scheduler.submit(req, now=self.clock())
         metrics.inc("serve.requests.submitted")
+        if self.journal is not None:
+            self.journal.record_submit(req)
+        return req
+
+    def adopt_request(self, prompt: Sequence[int], *,
+                      generated: Sequence[int] = (),
+                      max_new_tokens: int = 32,
+                      eos_id: Optional[int] = None,
+                      deadline_s: Optional[float] = None,
+                      replays: int = 0) -> Request:
+        """Adopt another engine's in-flight request (fleet failover).
+
+        The caller hands over the prompt plus every token the other engine
+        already emitted. The request gets a FRESH id from this engine's
+        :meth:`Scheduler.reserve_rid` (two engines' id spaces overlap), its
+        submit and token trail is re-journaled so a later crash here
+        replays it like native work, and the greedy continuation
+        re-prefills ``prompt + generated``. As in journal recovery, tokens
+        that already meet the stop condition finish here without a slot,
+        and a request seen ACTIVE in more than ``retry_budget`` crashes is
+        shed (cause ``retry_budget``)."""
+        prompt = [int(t) for t in prompt]
+        if len(prompt) > self.max_len - 1:
+            raise ValueError(
+                f"prompt of {len(prompt)} tokens does not fit a "
+                f"{self.max_len}-position cache slot (need >= 1 free)")
+        if self.paged:
+            self._paging.check_fits(
+                min(len(prompt) + int(max_new_tokens), self.max_len))
+        req = Request(prompt=prompt, max_new_tokens=int(max_new_tokens),
+                      eos_id=eos_id, deadline_s=deadline_s,
+                      generated=[int(t) for t in generated],
+                      replays=int(replays))
+        req.rid = self.scheduler.reserve_rid()
+        if self.journal is not None:
+            self.journal.record_submit(req)
+            for t in req.generated:
+                self.journal.record_token(req.rid, t)
+        hit_eos = req.eos_id is not None and req.eos_id in req.generated
+        if hit_eos or len(req.generated) >= req.max_new_tokens:
+            now = self.clock()
+            req.status = DONE
+            req.finish_reason = "eos" if hit_eos else "length"
+            req.submit_s = now
+            req.finish_s = now
+            self.finished.append(req)
+            if self.journal is not None:
+                self.journal.record_finish(req)
+            self._done_count += 1
+            metrics.inc("serve.requests.completed")
+            return req
+        if req.generated and req.replays + 1 > self.retry_budget:
+            return self._shed(req, "retry_budget", journaled=True)
+        self.scheduler.submit(req, now=self.clock(), rid=req.rid)
+        metrics.inc("serve.requests.adopted")
+        return req
+
+    # -- overload protection --------------------------------------------------
+
+    def _projected_ttft_s(self) -> float:
+        """Conservative time-to-first-token estimate for a request joining
+        the queue now: every token owed by work ahead of it (active
+        remainders and whole queued requests), spread over ``max_batch``
+        lanes, at the EMA decode-step time. 0.0 until the first decode step
+        has been measured."""
+        if self._step_ema_s is None:
+            return 0.0
+        owed = sum(max(r.max_new_tokens - len(r.generated), 0)
+                   for r in self.scheduler.active())
+        owed += sum(r.max_new_tokens for r in self.scheduler.queue)
+        return (owed / self.max_batch) * self._step_ema_s
+
+    def _shed_cause(self, req: Request) -> Optional[str]:
+        """Admission control, cheapest check first: queue bound, then
+        deadline feasibility (could this request meet its deadline even if
+        admitted now?), then projected TTFT."""
+        if self.scheduler.full():
+            return "queue_full"
+        projected = self._projected_ttft_s()
+        if req.deadline_s is not None and self._step_ema_s is not None:
+            need = projected + req.max_new_tokens * self._step_ema_s
+            if need > req.deadline_s:
+                return "deadline_unmeetable"
+        if self.max_ttft_s is not None and projected > self.max_ttft_s:
+            return "projected_ttft"
+        return None
+
+    def _shed(self, req: Request, cause: str, *,
+              journaled: bool = False) -> Request:
+        """Reject ``req`` at admission: terminal SHED state, never a slot.
+        Journaled (submit and finish) so a post-crash replay does not
+        resurrect it — shed is an answer, not a loss."""
+        if req.rid < 0:
+            req.rid = self.scheduler.reserve_rid()
+        req.status = SHED
+        req.finish_reason = "shed"
+        req.shed_cause = cause
+        now = self.clock()
+        req.submit_s = req.submit_s or now
+        req.finish_s = now
+        self.finished.append(req)
+        metrics.inc("serve.requests.shed")
+        if self.journal is not None:
+            if not journaled:
+                self.journal.record_submit(req)
+            self.journal.record_finish(req)
+        logger.info("serve: shed request %d (%s)", req.rid, cause)
         return req
 
     # -- sampling (host-side) -------------------------------------------------
@@ -378,7 +651,10 @@ class ServeEngine:
         self._release_pages(req)
         self._apply_swap(swap)
         self.finished.append(req)
+        if self.journal is not None:
+            self.journal.record_finish(req)
         if status == DONE:
+            self._done_count += 1
             metrics.inc("serve.requests.completed")
             if req.latency_s is not None:
                 metrics.observe_value("serve.request.latency_s",
@@ -429,6 +705,8 @@ class ServeEngine:
         now = self.clock()
         done = self.scheduler.record_token(req, token, now=now)
         metrics.inc("serve.tokens.generated")
+        if self.journal is not None:
+            self.journal.record_token(req.rid, token)
         self._tokens[req.slot] = token
         self._lengths[req.slot] = plen
         if done or plen >= self.max_len:
@@ -520,13 +798,20 @@ class ServeEngine:
         """One scheduling round: deadline evictions -> admissions (each
         pays its prefill and emits its first token, or joins the chunk
         queue) -> up to ``prefill_interleave`` prefill chunks -> one decode
-        step for the bucket. Returns the number of still-active requests."""
+        step for the bucket. Returns the number of still-active requests.
+
+        Durability: everything journaled this round (submits, tokens,
+        finishes) is flushed — one append and one fsync — at the END of
+        the round, after the fault injector's seams, so an injected crash
+        loses the unflushed tail and recovery must regenerate it."""
         now = self.clock()
         for req, swap in self.scheduler.evict_deadline(now=now):
             self._release_pages(req)
             self._apply_swap(swap)
             self.finished.append(req)
             metrics.inc("serve.requests.evicted")
+            if self.journal is not None:
+                self.journal.record_finish(req)
         gate = self._admission_gate if self.paged else None
         for req in self.scheduler.admit(gate=gate):
             self._prefill(req)
@@ -544,6 +829,8 @@ class ServeEngine:
         # chunking is off).
         ready = self.scheduler.ready()
         if not ready:
+            if self.journal is not None:
+                self.journal.flush()
             return n
         # A ragged engine decodes every slot in one program, so occupancy
         # is measured against the whole capacity.
@@ -557,35 +844,33 @@ class ServeEngine:
                 for req in ready:
                     self._copy_pages(self._paging.prepare_append(
                         req.slot, int(self._lengths[req.slot])))
-                decode = dict(page_tables=self._paging.allocator.table,
-                              tokens=self._tokens,
-                              lengths=self._lengths)
-                if self.ragged:
-                    # Only fully prefilled slots write their real tail
-                    # pages: empty slots and slots in the middle of a
-                    # chunked prefill (whose rows hold real pages) write
-                    # to the scratch page.
-                    active = np.zeros(self.max_batch, bool)
-                    active[[r.slot for r in ready]] = True
-                    logits = self._run(
-                        "paged_decode", bucket,
-                        functools.partial(kv_cache.paged_decode_ragged,
-                                          self.plan, self.cache),
-                        active=active, **decode)
-                else:
-                    logits = self._run(
-                        "paged_decode", bucket,
-                        functools.partial(kv_cache.paged_decode_step,
-                                          self.plan, self.cache,
-                                          bucket=bucket), **decode)
-            else:
-                logits = self._run(
-                    "decode", bucket,
-                    functools.partial(kv_cache.decode_step, self.plan,
-                                      self.cache, bucket=bucket),
-                    tokens=self._tokens, lengths=self._lengths)
-            logits = logits.cpu().numpy()  # waits for the device
+            t0 = self.clock()
+            timer = None
+            if self.stall_timeout_s is not None:
+                info = {"timeout_s": self.stall_timeout_s, "bucket": bucket,
+                        "active": n}
+                timer = threading.Timer(self.stall_timeout_s,
+                                        self.stall_action, args=(info,))
+                timer.daemon = True
+                timer.start()
+            try:
+                logits = self._decode(bucket, ready)
+                if self.fault_injector is not None:
+                    # Inside the watchdog window on purpose: a decode_stall
+                    # fault must look exactly like a hung device call.
+                    self.fault_injector.on_decode()
+                logits = logits.cpu().numpy()  # waits for the device
+            finally:
+                if timer is not None:
+                    timer.cancel()
         metrics.inc("serve.decode.steps")
+        if self.virtual_step_s > 0.0 and hasattr(self.clock, "advance"):
+            self.clock.advance(self.virtual_step_s)
+        dt = self.clock() - t0
+        if dt > 0.0:
+            self._step_ema_s = (dt if self._step_ema_s is None else
+                                _EMA_ALPHA * dt
+                                + (1.0 - _EMA_ALPHA) * self._step_ema_s)
         now = self.clock()
         completed = []
         for req in ready:
@@ -594,12 +879,45 @@ class ServeEngine:
             self._tokens[req.slot] = token
             done = self.scheduler.record_token(req, token, now=now)
             metrics.inc("serve.tokens.generated")
+            if self.journal is not None:
+                self.journal.record_token(req.rid, token)
             if done or self._lengths[req.slot] >= self.max_len:
                 completed.append(req)
         # Highest slot first: each swap moves the (untouched) last slot.
         for req in sorted(completed, key=lambda r: r.slot, reverse=True):
             self._retire(req, now=now, status=DONE)
+        if self.fault_injector is not None:
+            self.fault_injector.on_step_end(self._done_count)
+        if self.journal is not None:
+            self.journal.flush()
         return self.scheduler.num_active
+
+    def _decode(self, bucket: int, ready: list) -> torch.Tensor:
+        """Dispatch one decode step over ``bucket`` slots; returns the
+        logits on the device (on CUDA the replay may still be running)."""
+        if not self.paged:
+            return self._run(
+                "decode", bucket,
+                functools.partial(kv_cache.decode_step, self.plan,
+                                  self.cache, bucket=bucket),
+                tokens=self._tokens, lengths=self._lengths)
+        decode = dict(page_tables=self._paging.allocator.table,
+                      tokens=self._tokens, lengths=self._lengths)
+        if self.ragged:
+            # Only fully prefilled slots write their real tail pages: empty
+            # slots and slots in the middle of a chunked prefill (whose
+            # rows hold real pages) write to the scratch page.
+            active = np.zeros(self.max_batch, bool)
+            active[[r.slot for r in ready]] = True
+            return self._run(
+                "paged_decode", bucket,
+                functools.partial(kv_cache.paged_decode_ragged, self.plan,
+                                  self.cache),
+                active=active, **decode)
+        return self._run(
+            "paged_decode", bucket,
+            functools.partial(kv_cache.paged_decode_step, self.plan,
+                              self.cache, bucket=bucket), **decode)
 
     def run_until_idle(self, *, max_steps: int = 100_000) -> list[Request]:
         """Drive :meth:`step` until queue and batch drain; returns all
@@ -622,3 +940,21 @@ class ServeEngine:
                           eos_id=eos_id)
         self.run_until_idle()
         return req.generated
+
+    # -- lifecycle ------------------------------------------------------------
+
+    def close(self) -> None:
+        """Flush and close the journal and drop readiness. Idempotent; a
+        crash skips it by definition — that is what recovery is for."""
+        if self._closed:
+            return
+        self._closed = True
+        metrics.set_gauge("serve.ready", 0.0)
+        if self.journal is not None:
+            self.journal.close()
+
+    def __enter__(self) -> "ServeEngine":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

@@ -27,9 +27,8 @@ between device steps, never inside them. This is the port's own copy of
 the contiguous-engine subset of ``tpu_dist/serve/scheduler.py`` (the port
 imports nothing of ``tpu_dist``); the two must stay behaviourally
 identical, which ``tests/test_torch_serve.py`` checks. It carries the
-paged engine's admission gate and the chunked-prefill queue; the
-reference's bounded queue and journal request ids come with the port's
-shedding and journal.
+paged engine's admission gate, the chunked-prefill queue, the bounded
+admission queue and the journal's pinned request ids.
 """
 
 from __future__ import annotations
@@ -40,7 +39,8 @@ from typing import Optional
 
 #: Request lifecycle states. SHED is terminal like DONE/EVICTED but
 #: mutually exclusive with both: a shed request was rejected at admission
-#: and never occupied a slot (the port's engine does not shed yet).
+#: (queue bound, projected-TTFT/deadline infeasibility, or retry-budget
+#: exhaustion on journal replay) and never occupied a slot.
 QUEUED, ACTIVE, DONE, EVICTED, SHED = ("queued", "active", "done",
                                        "evicted", "shed")
 
@@ -60,7 +60,13 @@ class Request:
     submit_s: float = 0.0
     first_token_s: Optional[float] = None
     finish_s: Optional[float] = None
-    finish_reason: Optional[str] = None  #: eos | length | deadline
+    finish_reason: Optional[str] = None  #: eos | length | deadline | shed
+    #: Why a SHED request was rejected: queue_full | projected_ttft |
+    #: deadline_unmeetable | retry_budget (finish_reason stays "shed").
+    shed_cause: Optional[str] = None
+    #: Crash-recovery replays this request has survived (journal replay
+    #: counts it each time the request was ACTIVE when the engine died).
+    replays: int = 0
     #: The slot this request occupied when :meth:`Scheduler.finish`
     #: released it (``slot`` itself is cleared to -1 there). The paged
     #: engine reads this to free the right page-table row; None until
@@ -104,13 +110,19 @@ class Scheduler:
 
     def __init__(self, max_batch: int, *,
                  buckets: Optional[tuple[int, ...]] = None,
-                 policy: str = "continuous"):
+                 policy: str = "continuous",
+                 max_queue: Optional[int] = None):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         if policy not in ("continuous", "static"):
             raise ValueError(f"unknown policy {policy!r}")
+        if max_queue is not None and max_queue < 0:
+            raise ValueError(f"max_queue must be >= 0, got {max_queue}")
         self.max_batch = max_batch
         self.policy = policy
+        #: Bounded admission queue: ``submit`` raises past this depth (the
+        #: engine sheds before it gets there). None = unbounded.
+        self.max_queue = max_queue
         #: Decode batch sizes, sorted and unique; the largest is max_batch.
         self.buckets = tuple(sorted(set(buckets or
                                         default_buckets(max_batch))))
@@ -134,16 +146,37 @@ class Scheduler:
 
     # -- intake ---------------------------------------------------------------
 
-    def submit(self, req: Request, *, now: float) -> Request:
-        """Queue a request under the next sequential id."""
+    def submit(self, req: Request, *, now: float,
+               rid: Optional[int] = None) -> Request:
+        """Queue a request. ``rid`` pins a journal-recovered request to its
+        original id (the id counter jumps past it); fresh submissions get
+        the next sequential id."""
         if not req.prompt:
             raise ValueError("empty prompt")
-        req.rid = self._next_rid
-        self._next_rid += 1
+        if self.full():
+            raise RuntimeError(
+                f"admission queue full ({len(self.queue)} >= "
+                f"{self.max_queue}); shed before submitting")
+        if rid is None:
+            rid = self._next_rid
+        req.rid = rid
+        self._next_rid = max(self._next_rid, rid + 1)
         req.submit_s = now
         req.status = QUEUED
         self.queue.append(req)
         return req
+
+    def reserve_rid(self) -> int:
+        """Consume the next request id without queueing anything: a shed
+        request still needs a stable id for the journal and the report."""
+        rid = self._next_rid
+        self._next_rid += 1
+        return rid
+
+    def full(self) -> bool:
+        """True when the bounded admission queue is at capacity."""
+        return (self.max_queue is not None
+                and len(self.queue) >= self.max_queue)
 
     # -- admission ------------------------------------------------------------
 
