@@ -292,6 +292,7 @@ last line.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import io
 import itertools
@@ -4894,11 +4895,506 @@ def resilience_phase(card: str, contiguous_streams: list) -> dict:
     return out
 
 
+# -- phase 27: the serving fleet ----------------------------------------------
+
+#: ``serve --fleet`` at phase 4's LM: 2 replicas, 4 sessions, 32 requests.
+FLEET_ARGS = ["--fleet", "--fleet-replicas", "2", "--fleet-sessions", "4",
+              "--requests", "32", "--max-len", str(LM["seq_len"]),
+              "--vocab", str(LM["vocab_size"]), "--d-model",
+              str(LM["d_model"]), "--depth", str(LM["depth"]),
+              "--num-heads", str(LM["num_heads"])]
+#: (b)'s plan: replica 0 dies at its 2nd completion, a 16-request burst
+#: enters the router at the first submission.
+FLEET_PLAN = "replica_kill@req2:replica0,router_storm@req0:x16"
+
+
+def _fleet_cli(extra: list, deaths: list) -> tuple:
+    """``python -m tpu_dist_torch.serve`` with FLEET_ARGS + ``extra``, in
+    this process: (report, flash launches, prefills, wall s). Every gate
+    must hold, and the replicas that died must be ``deaths``, a list of
+    (replica, killed by the plan): a replica whose engine raised (a failed
+    capture, a CUDA error) dies too, and its work fails over unseen by the
+    gates."""
+    out = io.StringIO()
+    fa.flash_attention_fwd.launches = 0
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(FLEET_ARGS + extra)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = fa.flash_attention_fwd.launches
+    text = out.getvalue()
+    report = json.loads(text[text.index("\n{") + 1:text.rindex("\n}") + 2])
+    prefills = metrics.get_registry().counter("serve.prefills").value
+    metrics.disable()
+    died = [(d["replica"], d["killed"]) for d in report["deaths"]]
+    if (rc != 0 or not report["ok"] or not all(report["gates"].values())
+            or died != deaths):
+        raise AssertionError(f"(27) serve {' '.join(extra)}: rc {rc}, "
+                             f"gates {report['gates']}, deaths "
+                             f"{report['deaths']}, expected {deaths}")
+    if launches != LM["depth"] * prefills:
+        raise AssertionError(
+            f"(27) serve --fleet {' '.join(extra)}: flash launched "
+            f"{launches} times for {prefills} prefills; expected depth x "
+            "prefills")
+    graphs = report["graphs"]
+    if not graphs or not all(g["captured"] > 0 and g["replays"] > 0
+                             for g in graphs.values()):
+        raise AssertionError(f"(27) a replica did not capture and replay: "
+                             f"{graphs}")
+    return report, launches, prefills, wall
+
+
+def _fleet_workload(requests: int = 32) -> list:
+    """The CLI's sessioned workload at FLEET_ARGS's arguments."""
+    from types import SimpleNamespace
+
+    from tpu_dist_torch.serve import fleet
+
+    args = SimpleNamespace(seed=0, vocab=LM["vocab_size"],
+                           max_len=LM["seq_len"], requests=requests,
+                           min_new=4, max_new=24)
+    return fleet._fleet_workload(args, sessions=4, page_size=16)
+
+
+def _pool_bytes(engine) -> int | None:
+    """Bytes of the segments of ``engine``'s graph pool, or None when the
+    allocator's snapshot does not name pools."""
+    segs = torch.cuda.memory_snapshot()
+    if not segs or "segment_pool_id" not in segs[0]:
+        return None
+    pool = tuple(engine._graph_pool)
+    return sum(s["total_size"] for s in segs
+               if tuple(s["segment_pool_id"]) == pool)
+
+
+def _fleet_run(model, work: list, replicas: int, *, passes: int = 2,
+               autoscale=None, waves: int = 1, **engine_kw) -> tuple:
+    """``work`` through a ServeFleet of ``replicas`` engines sharing
+    ``model``, ``passes`` times (the first warms up: captures); returns
+    (the fleet, the last pass's FleetRequests, its wall s, its route
+    counts). ``waves > 1``
+    submits the last pass in that many waves, an autoscale tick after
+    each but the last."""
+    from tpu_dist_torch.serve.fleet import ServeFleet
+
+    def factory(i, *, journal, fault_injector):
+        return ServeEngine(model, max_batch=8, max_len=LM["seq_len"],
+                           seed=0, journal=journal,
+                           fault_injector=fault_injector, **engine_kw)
+
+    tmp = tempfile.mkdtemp(prefix="fleet-")
+    fleet = ServeFleet(factory, replicas=replicas, page_size=16,
+                       journal_root=tmp, autoscale=None)
+    fleet.start()
+    for k in range(passes):
+        last = k == passes - 1
+        if last:
+            fleet._autoscale = autoscale
+            before = dict(fleet.route_counts)
+        size = -(-len(work) // (waves if last else 1))
+        # No torch.cuda.synchronize() while replicas run: a device-wide
+        # wait would invalidate a capture under way on a replica's thread.
+        # A drained pass has read every token on the host.
+        t0 = time.monotonic()
+        frs = []
+        for start in range(0, len(work), size):
+            frs += [fleet.submit(w["prompt"],
+                                 max_new_tokens=w["max_new_tokens"])
+                    for w in work[start:start + size]]
+            if last and autoscale is not None and start + size < len(work):
+                fleet.autoscale_tick()
+        fleet.drain(timeout_s=300.0)
+        wall = time.monotonic() - t0
+    fleet.close()
+    if fleet.deaths or not all(fr.status == DONE for fr in frs):
+        raise AssertionError(f"(27) fleet of {replicas}: deaths "
+                             f"{fleet.deaths}; statuses "
+                             f"{[fr.status for fr in frs]}")
+    routes = {k: v - before[k] for k, v in fleet.route_counts.items()}
+    return fleet, frs, wall, routes
+
+
+def _solo_streams(model, work: list, **engine_kw) -> list:
+    engine = ServeEngine(model, max_batch=8, max_len=LM["seq_len"], seed=0,
+                         **engine_kw)
+    reqs = [engine.submit(w["prompt"], max_new_tokens=w["max_new_tokens"])
+            for w in work]
+    engine.run_until_idle()
+    engine.close()
+    return reqs
+
+
+def _as_reqs(frs) -> list:
+    from types import SimpleNamespace
+
+    return [SimpleNamespace(rid=fr.frid, prompt=fr.prompt,
+                            generated=fr.tokens) for fr in frs]
+
+
+def fleet_phase(card: str) -> dict:
+    """Phase 27: (a) the fleet CLI at full width, every gate, flash
+    launches depth x prefills (solo and replicas), each replica captured
+    and replayed; (b) the same with a kill and a storm; (c) int8 ragged
+    paged replicas scaled up mid-run (a capture during another replica's
+    decode); (d) one replica against two on the same workload, in turns.
+    Returns the flash launches by path."""
+    from tpu_dist_torch.serve.fleet import AutoscalePolicy
+
+    out = {}
+    report, launches, prefills, wall = _fleet_cli([], deaths=[])
+    out["fleet_cli"] = launches
+    log(f"[27 fleet] (a) serve {' '.join(FLEET_ARGS[:9])} at phase 4's LM in "
+        f"{wall:.3f} s: gates {report['gates']}; routes {report['route']}; "
+        f"flash launches {launches} = depth {LM['depth']} x {prefills} "
+        f"prefills (solo 32 + fleet 32); graphs {report['graphs']}; "
+        f"certified ties {len(report['certified_ties'])}; p99 latency "
+        f"{report['p99_latency_s']} s ({card})")
+    report, launches, prefills, wall = _fleet_cli(["--plan", FLEET_PLAN],
+                                                  deaths=[(0, True)])
+    out["fleet_cli_kill_storm"] = launches
+    g = report["gates"]
+    if not (g.get("kill_fired") and g.get("storm_settled")
+            and report["failover_replayed"] >= 1):
+        raise AssertionError(f"(27) kill and storm: {report}")
+    log(f"[27 fleet] (b) --plan {FLEET_PLAN} in {wall:.3f} s: gates {g}; "
+        f"failover_replayed {report['failover_replayed']}; deaths "
+        f"{[(d['replica'], d['fired']) for d in report['deaths']]}; storm "
+        f"{report['storm_fired']}; chaff {report['chaff']}; routes "
+        f"{report['route']}; flash launches {launches} = depth x {prefills} "
+        f"prefills; certified ties {report['certified_ties']} ({card})")
+
+    model = _serve_lm()
+    work = _fleet_workload()
+    # (c) int8 ragged replicas: one at first; the second wave finds every
+    # request on replica 0 and scales up, so replica 1 builds and captures
+    # while replica 0 decodes.
+    quant = dict(paged=True, page_size=16, kv_dtype="int8", ragged=True)
+    solo = _solo_streams(model, work, **quant)
+    fa.flash_attention_fwd.launches = 0
+    policy = AutoscalePolicy(min_replicas=1, max_replicas=2,
+                             scale_up_outstanding=8, idle_ticks_down=10**9)
+    fleet, frs, wall, _ = _fleet_run(model, work, 1, passes=1, waves=2,
+                                     autoscale=policy, **quant)
+    ups = [e for e in fleet.autoscale_events if e["action"] == "up"]
+    stats = fleet.graph_stats()
+    by = collections.Counter(fr.replica for fr in frs)
+    if not ups or by[1] == 0 or not all(
+            s["captured"] > 0 and s["replays"] > 0 for s in stats.values()):
+        raise AssertionError(f"(27 c) no scale-up capture: {ups}, {by}, "
+                             f"{stats}")
+    ties = _ties(model, _as_reqs(frs), [r.generated for r in solo],
+                 "(27 c) int8 fleet")
+    out["fleet_int8_autoscale"] = fa.flash_attention_fwd.launches
+    log(f"[27 fleet] (c) int8 ragged pool, autoscale {ups}: requests by "
+        f"replica {dict(by)}, graphs {stats}, programs "
+        f"{fleet.compiled_programs()}; streams equal the solo int8 run's, "
+        f"{ties} certified ties; flash launches "
+        f"{fa.flash_attention_fwd.launches} (paged: none) in {wall:.3f} s "
+        f"({card})")
+    del fleet
+
+    # (d) one replica against two, in turns 1, 2, 2, 1; each fleet's
+    # second pass is timed (the first captures).
+    solo = _solo_streams(model, work)
+    runs = {1: [], 2: []}
+    fa.flash_attention_fwd.launches = 0
+    for n in (1, 2, 2, 1):
+        fleet, frs, wall, routes = _fleet_run(model, work, n)
+        ties = _ties(model, _as_reqs(frs), [r.generated for r in solo],
+                     f"(27 d) {n} replicas")
+        tokens = sum(len(fr.tokens) for fr in frs)
+        lat = sorted(fr.latency_s for fr in frs)
+        runs[n].append({
+            "wall_s": wall, "tok_s": tokens / wall,
+            "p50": statistics.median(lat),
+            "p99": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+            "routes": routes, "ties": ties,
+            "pool_mib": [None if b is None else b / 2**20 for b in
+                         (_pool_bytes(w.engine)
+                          for w in fleet._workers.values())]})
+        del fleet
+        torch.cuda.empty_cache()
+    out["fleet_1_vs_2"] = fa.flash_attention_fwd.launches
+    for n, rs in runs.items():
+        log(f"[27 fleet] (d) {n} replica(s), 32 requests, captured: " + "; "
+            .join(f"wall {r['wall_s']:.4f} s, {r['tok_s']:.2f} tok/s, "
+                  f"latency p50 {r['p50']:.4f} s p99 {r['p99']:.4f} s, "
+                  f"routes {r['routes']}, ties {r['ties']}, graph pool MiB "
+                  f"{r['pool_mib']}" for r in rs) + f" ({card})")
+    ratio = [b["tok_s"] / a["tok_s"] for a, b in zip(runs[1], runs[2])]
+    log(f"[27 fleet] (d) two replicas' tok/s over one's: "
+        f"{', '.join(f'{r:.3f}' for r in ratio)} ({card})")
+    return out
+
+
+# -- phase 28: the observe layer ----------------------------------------------
+
+#: (c): rank 1's input pipeline sleeps this long a sample (32 ms a batch).
+OBSERVE_SLEEP_S = 0.0005
+#: Epoch 0 carries rank 0's warm-up (its first steps build and load), so
+#: only the later epochs must flag rank 1.
+OBSERVE_EPOCHS, OBSERVE_STEPS = 3, 10
+
+
+def _observe_cli(argv: list) -> tuple:
+    from tpu_dist_torch.observe import cli as observe_cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = observe_cli.main(argv)
+    return rc, json.loads(out.getvalue())
+
+
+def _split_sums(snap: dict) -> tuple:
+    d = snap["distributions"]
+    return (d["step.total_s"]["sum"],
+            sum(d[f"step.{p}_s"]["sum"]
+                for p in ("data_wait", "dispatch", "device_block")),
+            d["step.total_s"]["count"])
+
+
+def _observed_fit(make_model, data, telemetry: bool, **fit_kw) -> tuple:
+    """(launch counts, registry snapshot or None, History dict) of one fit,
+    with a Telemetry callback or without."""
+    from tpu_dist_torch.observe.metrics import MetricsRegistry
+    from tpu_dist_torch.observe.telemetry import Telemetry
+
+    model = make_model()
+    reg = MetricsRegistry(enabled=False)
+    cbs = [Telemetry(registry=reg)] if telemetry else []
+    _reset_counts()
+    h = model.fit(data, verbose=0, callbacks=cbs, **fit_kw)
+    torch.cuda.synchronize()
+    return _counts(), (reg.snapshot() if telemetry else None), h.history
+
+
+def observe_worker(outdir: pathlib.Path) -> int:
+    """Phase 28 (c)'s worker (``chip_smoke.py --observe-worker DIR`` under
+    a ``Supervisor(observe_dir=)``): the process group over gloo carries
+    the telemetry exchange only; each rank fits the fused CNN on its own
+    (so a slow rank slows no one else), rank 1's host pipeline sleeping
+    OBSERVE_SLEEP_S a sample. Of two ranks the median is their mean, so
+    the chief flags at 1.5 (a rank 3x its peer). Writes the launch counts
+    to ``worker<rank>.json``."""
+    from tpu_dist_torch.observe.telemetry import maybe_telemetry_from_env
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    bootstrap.initialize(communication="ring")
+    rank = bootstrap.process_index()
+    for source in SOURCES:
+        _build.load(source)
+    sleep_s = OBSERVE_SLEEP_S if rank == 1 else 0.0
+
+    def slow(image, label):
+        if sleep_s:
+            time.sleep(sleep_s)
+        return True
+
+    ds = (td_data.load("mnist", split="train").map(_scale_div).cache()
+          .filter(slow).batch(CNN_BATCH))
+    model = build_cnn_model()
+    model.compile(optimizer=SGD(learning_rate=0.001, fused=True),
+                  loss=SparseCategoricalCrossentropy(from_logits=True,
+                                                     fused=True),
+                  metrics=[SparseCategoricalAccuracy()])
+    telemetry = maybe_telemetry_from_env()
+    telemetry.straggler_threshold = 1.5
+    _reset_counts()
+    model.fit(ds, epochs=OBSERVE_EPOCHS, steps_per_epoch=OBSERVE_STEPS,
+              verbose=0, callbacks=[telemetry])
+    torch.cuda.synchronize()
+    (outdir / f"worker{rank}.json").write_text(json.dumps(
+        {"counts": _counts(),
+         "device": str(next(model.parameters()).device)}))
+    return 0
+
+
+def observe_phase(card: str) -> dict:
+    """Phase 28: (a) the observe CLI's demo and bench; (b) Telemetry on the
+    fused CNN fit (k = 1, 20) and the LM fit with fused Adam against the
+    same fits without it; (c) two gloo ranks under a Supervisor with
+    ``observe_dir``. Returns the launch counts by path."""
+    from tpu_dist_torch.observe import exporters
+    from tpu_dist_torch.resilience import events
+    from tpu_dist_torch.resilience.supervisor import Supervisor
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        t0 = time.monotonic()
+        rc, demo = _observe_cli(["demo", "--epochs", "4",
+                                 "--steps-per-epoch", "4", "--batch", "256",
+                                 "--out", str(tmp / "demo")])
+        demo_s = time.monotonic() - t0
+        summary = demo["summary"]
+        if rc != 0 or not demo["ok"] or summary["steps"] != 16:
+            raise AssertionError(f"(28 a) observe demo: rc {rc}, {demo}")
+        # The bench as a user runs it: a fresh interpreter, whose heap and
+        # threads are its own.
+        t0 = time.monotonic()
+        root = pathlib.Path(__file__).resolve().parent
+        proc = subprocess.run(
+            [sys.executable, "-m", "tpu_dist_torch.observe", "bench",
+             "--workdir", str(tmp / "bench")], cwd=root,
+            env=dict(os.environ, PYTHONPATH=os.pathsep.join(filter(
+                None, [str(root), os.environ.get("PYTHONPATH")]))),
+            capture_output=True, text=True, timeout=600)
+        bench_s = time.monotonic() - t0
+        rc = proc.returncode
+        try:
+            bench = json.loads(proc.stdout)
+        except json.JSONDecodeError:
+            raise AssertionError(f"(28 a) observe bench: rc {rc}, "
+                                 f"{proc.stderr[-2000:]}") from None
+        log(f"[28 observe] (a) demo (CNN, batch 256, 4 x 4) in {demo_s:.2f}"
+            f" s: {summary['steps']} steps, {summary['steps_per_s']} "
+            f"steps/s, step p50/p95/p99 {summary['step_total_s']} s, phases "
+            f"p50 {summary['step_phase_p50_s']}, collectives "
+            f"{summary['collective_calls']}; bench in {bench_s:.2f} s: off "
+            f"{bench['telemetry_off_steps_per_s']} steps/s, on "
+            f"{bench['telemetry_on_steps_per_s']} (mean of "
+            f"{bench['rounds']} runs a side), overhead "
+            f"{bench['overhead_pct']} % (gate {bench['max_overhead_pct']} "
+            f"%), exit {rc} ({card})")
+        if rc != 0 or not bench["ok"]:
+            raise AssertionError(f"(28 a) observe bench: rc {rc}, {bench}")
+
+    # (b) Telemetry on the fused paths, launch for launch.
+    def cnn(k):
+        def make():
+            model = build_cnn_model()
+            model.compile(optimizer=SGD(learning_rate=0.001, fused=True),
+                          loss=SparseCategoricalCrossentropy(
+                              from_logits=True, fused=True),
+                          metrics=[SparseCategoricalAccuracy()],
+                          steps_per_execution=k)
+            return model
+        return make
+
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        for k in (1, 20):
+            steps = CNN_EPOCHS * CNN_STEPS
+            runs = [_observed_fit(cnn(k), _chain(True, seed=0), tel,
+                                  epochs=CNN_EPOCHS,
+                                  steps_per_epoch=CNN_STEPS)
+                    for tel in (False, True)]
+            (plain, _, h0), (counts, snap, h1) = runs
+            total, parts, execs = _split_sums(snap)
+            if (counts != plain or counts[3:] != (steps,) * 3
+                    or snap["counters"]["step.count"] != steps
+                    or execs != CNN_EPOCHS * -(-CNN_STEPS // k)
+                    or abs(total - parts) > 1e-9 * max(total, 1.0)
+                    or h0["loss"] != h1["loss"]):
+                raise AssertionError(
+                    f"(28 b) CNN k = {k}: launches {counts} vs {plain}, "
+                    f"steps {snap['counters']['step.count']}, executions "
+                    f"{execs}, split {parts} vs total {total}")
+            out[f"cnn_fit_telemetry_k{k}"] = counts
+            d = snap["distributions"]
+            log(f"[28 observe] (b) fused CNN fit, k = {k}, {steps} steps "
+                f"under Telemetry: launches {counts} = without it; "
+                f"step.count {steps}; {execs} executions, their split sums "
+                f"to the total ({total:.6f} s); per step p50 total "
+                f"{d['step.total_s']['p50'] * 1e3:.4f} ms = data "
+                f"{d['step.data_wait_s']['p50'] * 1e3:.4f} + dispatch "
+                f"{d['step.dispatch_s']['p50'] * 1e3:.4f} + device "
+                f"{d['step.device_block_s']['p50'] * 1e3:.4f} (medians); "
+                f"losses equal ({card})")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = flags
+    x, y = _bench_tokens(4 * 32)
+    xy = (x.cpu().numpy(), y.cpu().numpy())
+    runs = [_observed_fit(lambda: _compiled_lm(Adam(fused=True)), xy, tel,
+                          epochs=1, steps_per_epoch=4)
+            for tel in (False, True)]
+    (plain, _, _), (counts, snap, _) = runs
+    want = (LM["depth"] * 4, LM["depth"] * 4, 4, 0, 0, 0)
+    total, parts, execs = _split_sums(snap)
+    d = snap["distributions"]
+    # The LM step is device-bound: the timer's wait on each execution's
+    # end must hold most of it.
+    if (counts != plain or counts != want
+            or snap["counters"]["step.count"] != 4
+            or abs(total - parts) > 1e-9 * max(total, 1.0)
+            or d["step.device_block_s"]["p50"]
+            <= d["step.dispatch_s"]["p50"]):
+        raise AssertionError(f"(28 b) LM: launches {counts} vs {plain} "
+                             f"(want {want}), split {parts} vs {total}, "
+                             f"distributions {d}")
+    out["lm_fit_telemetry"] = counts
+    log(f"[28 observe] (b) LM fit, Adam(fused=True), 4 steps of 32 x 512 "
+        f"under Telemetry: launches {counts} = without it; per step p50 "
+        f"total {d['step.total_s']['p50'] * 1e3:.3f} ms = data "
+        f"{d['step.data_wait_s']['p50'] * 1e3:.3f} + dispatch "
+        f"{d['step.dispatch_s']['p50'] * 1e3:.3f} + device "
+        f"{d['step.device_block_s']['p50'] * 1e3:.3f} ({card})")
+
+    # (c) two gloo ranks under the Supervisor, telemetry armed per rank.
+    root = pathlib.Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        env = {"PYTHONPATH": os.pathsep.join(
+                   filter(None, [str(root), os.environ.get("PYTHONPATH")])),
+               events.EVENT_LOG_ENV: str(tmp / "events.jsonl")}
+        sup = Supervisor([sys.executable, str(root / "chip_smoke.py"),
+                          "--observe-worker", str(tmp)], num_workers=2,
+                         max_restarts=0, attempt_deadline_s=DP_TIMEOUT_S,
+                         env=env, log_dir=tmp / "logs",
+                         observe_dir=tmp / "obs")
+        t0 = time.monotonic()
+        rep = sup.run()
+        wall = time.monotonic() - t0
+        if not rep.success:
+            tail = "".join(p.read_text()[-2000:]
+                           for p in sorted((tmp / "logs").glob("*.log")))
+            raise AssertionError(f"(28 c) workers: {rep.to_json()}\n{tail}")
+        gauges = [exporters.read_series(tmp / "obs" / f"rank{r}"
+                                        / "metrics.jsonl")[-1]["metrics"]
+                  ["gauges"] for r in (0, 1)]
+        flagged = events.read_events(tmp / "events.jsonl",
+                                     "straggler_detected")
+        timing = events.read_events(tmp / "events.jsonl", "step_timing")
+        workers = [json.loads((tmp / f"worker{r}.json").read_text())
+                   for r in (0, 1)]
+    per_rank = [(g["rank0.step_time_s"], g["rank1.step_time_s"])
+                for g in gauges]
+    steps = OBSERVE_EPOCHS * OBSERVE_STEPS
+    if (per_rank[0] != per_rank[1]
+            or any(f["rank"] != 1 for f in flagged)
+            or not {f["epoch"] for f in flagged} >= set(
+                range(1, OBSERVE_EPOCHS))
+            or any(tuple(w["counts"][3:]) != (steps,) * 3
+                   for w in workers)):
+        raise AssertionError(f"(28 c) gauges {per_rank}, flagged "
+                             f"{flagged}, workers {workers}")
+    for r, w in enumerate(workers):
+        out[f"observe_rank{r}"] = tuple(w["counts"])
+    log(f"[28 observe] (c) two gloo ranks under Supervisor(observe_dir=) "
+        f"in {wall:.2f} s: rank{{0,1}}.step_time_s {per_rank[0]} on both "
+        f"ranks; rank 1 (sleeping {OBSERVE_SLEEP_S} s a sample) flagged "
+        f"in epochs {[f['epoch'] for f in flagged]}, ratios "
+        f"{[round(f['ratio'], 3) for f in flagged]}; step_timing records "
+        f"{len(timing)}; rows 1-3 launched {workers[0]['counts'][3:]} a "
+        f"rank ({card})")
+    return out
+
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--dp-worker"]:
         return dp_worker(pathlib.Path(sys.argv[2]))
     if sys.argv[1:2] == ["--file-worker"]:
         return file_worker(pathlib.Path(sys.argv[2]))
+    if sys.argv[1:2] == ["--observe-worker"]:
+        return observe_worker(pathlib.Path(sys.argv[2]))
     t0 = time.monotonic()
     card = device_phase()
     build_phase()
@@ -4976,6 +5472,20 @@ def main() -> int:
                 counts[i]
     record["launches_by_path"].update(resilience_phase(
         card, contiguous_streams))
+    # Phase 27's paths launch row 6 (the contiguous replicas' prefills);
+    # phase 28's rows 1-3 (the fused CNN fits, each rank's fit) and 5-9
+    # (the LM fit), each beside the same fit without Telemetry.
+    record["launches_by_path"].update(fleet_phase(card))
+    observed = observe_phase(card)
+    for label in ("cnn_fit_telemetry_k1", "cnn_fit_telemetry_k20",
+                  "observe_rank0", "observe_rank1"):
+        for rec, count in zip(new_records[:3], observed[label][3:]):
+            rec["launches_by_path"][label] = count
+    lm_counts = observed["lm_fit_telemetry"]
+    record["launches_by_path"]["lm_fit_telemetry"] = lm_counts[0]
+    adam_record["launches_by_path"]["lm_fit_telemetry"] = lm_counts[2]
+    for rec in bwd_records:
+        rec["launches_by_path"]["lm_fit_telemetry"] = lm_counts[1]
     # In the order of the TPU kernel table (PERF.md): rows 1-9.
     records = [*new_records, adam_record, record, *bwd_records]
     log(f"done in {time.monotonic() - t0:.1f} s")

@@ -36,16 +36,6 @@ NOT_YET_PORTED = {
     "maybe_step_rejoin_gate": "item 18",
     "LivenessMonitor": "item 18",
     "PeerUnavailableError": "item 18", "check_peer_health": "item 18",
-    # item 19: observability
-    "JSONLogger": "item 19", "TensorBoard": "item 19",
-    "Telemetry": "item 19", "LazyLogs": "item 19",
-    "StepTimer": "item 19", "active_step_timer": "item 19",
-    "maybe_telemetry_from_env": "item 19", "OBSERVE_DIR_ENV": "item 19",
-    "SCHEMA": "item 19", "JsonlExporter": "item 19",
-    "SchemaError": "item 19", "read_series": "item 19",
-    "write_prometheus_textfile": "item 19", "HeartbeatMonitor": "item 19",
-    "StragglerVerdict": "item 19", "detect_stragglers": "item 19",
-    "set_collective_logging": "item 19",
     # item 20: the parameter server
     "ParameterServerStrategy": "item 20",
 }
@@ -94,3 +84,21 @@ def test_policy_name_follows_set_policy_as_in_the_reference():
     finally:
         jpolicy.set_policy(before[0])
         tpolicy.set_policy(before[1])
+
+
+#: Modules whose public names the port keeps one for one.
+MODULES = ("serve.fleet", "observe.exporters", "observe.straggler",
+           "observe.telemetry", "observe.cli")
+
+
+@pytest.mark.parametrize("sub", MODULES)
+def test_module_public_names_match_the_reference(sub):
+    ref = importlib.import_module(f"tpu_dist.{sub}")
+    port = importlib.import_module(f"tpu_dist_torch.{sub}")
+    names = getattr(ref, "__all__", None) or [
+        n for n, v in vars(ref).items() if not n.startswith("_")
+        and getattr(v, "__module__", ref.__name__) == ref.__name__
+        and not isinstance(v, type(importlib))]
+    assert [n for n in names if not hasattr(port, n)] == []
+    if hasattr(ref, "__all__"):
+        assert port.__all__ == ref.__all__

@@ -1636,3 +1636,130 @@ def test_stall_watchdog_fires_around_a_captured_decode_replay(cuda_device):
     assert seen == [2]
     assert tripped == [{"timeout_s": 2.0, "bucket": 1, "active": 1}]
     assert engine.programs[("decode", 1)].graph is not None
+
+
+@pytest.mark.gpu
+def test_launch_counts_stay_exact_across_a_concurrent_capture(cuda_device):
+    """One thread captures a program that launches the forward kernel and
+    holds its capture open while another thread launches the kernel
+    eagerly: every eager launch stays counted, and each replay adds the
+    capture's launches."""
+    import threading
+
+    from tpu_dist_torch.utils.graphs import CapturedProgram
+
+    q, k, v = _fwd_inputs((1, 2, 64, 64), torch.float32, cuda_device, 7)
+    inside, release = threading.Event(), threading.Event()
+
+    def fn(x):
+        out = fa.flash_attention_fwd(x, k, v, causal=True, scale=0.125)[0]
+        if not inside.is_set() and torch.cuda.is_current_stream_capturing():
+            inside.set()
+            assert release.wait(60.0)
+        return out
+
+    prog = CapturedProgram(fn, {"x": ((1, 2, 64, 64), torch.float32)},
+                           device=cuda_device)
+    fa.flash_attention_fwd.launches = 0
+    prog(x=q)                                   # eager: 1 launch
+    capturer = threading.Thread(target=prog, kwargs={"x": q})
+    capturer.start()                            # capture, then 1 replay
+    assert inside.wait(60.0)
+    eager = [fa.flash_attention_fwd(q, k, v, causal=True, scale=0.125)[0]
+             for _ in range(5)]
+    # This stream's work only: a device-wide synchronize would wait on the
+    # capturing stream and invalidate its capture.
+    torch.cuda.current_stream().synchronize()
+    release.set()
+    capturer.join(60.0)
+    assert not capturer.is_alive() and prog.graph is not None
+    for _ in range(3):
+        out = prog(x=q)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.launches == 1 + 5 + 1 + 3
+    torch.testing.assert_close(out, eager[0], atol=0, rtol=0)
+
+
+@pytest.mark.gpu
+def test_a_fleet_of_two_replicas_fails_over_on_the_card(cuda_device,
+                                                        tmp_path):
+    """Two replicas of a tiny LM share the card, each capturing its own
+    programs on its own thread; a kill fails over onto the survivor. The
+    streams equal a solo engine's (greedy, certified ties aside: none at
+    these margins), the forward kernel launched depth x prefills over the
+    solo run and both replicas, and each replica replayed its graphs."""
+    from tpu_dist_torch.observe import metrics
+    from tpu_dist_torch.resilience.faults import FaultPlan
+    from tpu_dist_torch.serve.fleet import ServeFleet
+
+    model = build_transformer_lm(64, 64, d_model=64, depth=2, num_heads=2,
+                                 seed=0)
+
+    def engine(**kw):
+        return ServeEngine(model, max_batch=4, max_len=64, seed=0,
+                           device=cuda_device, **kw)
+
+    rng = np.random.default_rng(0)
+    prefixes = [rng.integers(0, 64, size=16).tolist() for _ in range(2)]
+    work = [(prefixes[i % 2] + rng.integers(0, 64, size=3 + i).tolist(),
+             4 + i % 3) for i in range(8)]
+    metrics.get_registry().reset()
+    metrics.enable()
+    try:
+        fa.flash_attention_fwd.launches = 0
+        solo = engine()
+        reqs = [solo.submit(p, max_new_tokens=n) for p, n in work]
+        solo.run_until_idle()
+        want = [list(r.generated) for r in reqs]
+        fleet = ServeFleet(
+            lambda i, *, journal, fault_injector: engine(
+                journal=journal, fault_injector=fault_injector),
+            replicas=2, page_size=16, journal_root=str(tmp_path),
+            plan=FaultPlan.parse("replica_kill@req1:replica0"))
+        fleet.start()
+        frs = [fleet.submit(p, max_new_tokens=n) for p, n in work]
+        fleet.drain(timeout_s=120.0)
+        fleet.close()
+        torch.cuda.synchronize()
+        prefills = metrics.get_registry().snapshot()["counters"][
+            "serve.prefills"]
+    finally:
+        metrics.disable()
+    assert [fr.tokens for fr in frs] == want
+    assert [(d["replica"], d["killed"]) for d in fleet.deaths] == [(0, True)]
+    assert fleet.failover_replayed >= 1
+    assert fa.flash_attention_fwd.launches == 2 * prefills
+    stats = fleet.graph_stats()
+    assert all(s["captured"] > 0 and s["replays"] > 0
+               for s in stats.values())
+
+
+@pytest.mark.gpu
+def test_step_timer_puts_a_device_bound_step_in_device_time(cuda_device):
+    """A step of wide fp32 matmuls keeps the card far longer than the host
+    takes to launch it. The timer's blocking wait on each execution's end
+    puts that time in device_block_s, not in dispatch_s, and each
+    execution's split sums to its total."""
+    from tpu_dist_torch.models import Dense, Sequential
+    from tpu_dist_torch.observe.metrics import MetricsRegistry
+    from tpu_dist_torch.observe.telemetry import Telemetry
+
+    # ~0.8 TFLOP a step of fp32 matmuls: tens of ms on the card.
+    model = Sequential([Dense(8192, activation="relu"),
+                        Dense(8192, activation="relu"), Dense(10)],
+                       input_shape=(256,))
+    model.compile(loss=SparseCategoricalCrossentropy(from_logits=True),
+                  optimizer=SGD(learning_rate=0.01), device=cuda_device)
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((6 * 2048, 256), dtype=np.float32)
+    y = rng.integers(0, 10, size=len(x)).astype(np.int32)
+    reg = MetricsRegistry(enabled=False)
+    model.fit(Dataset.from_tensor_slices((x, y)).batch(2048), epochs=1,
+              verbose=0, callbacks=[Telemetry(registry=reg)])
+    d = reg.snapshot()["distributions"]
+    assert reg.snapshot()["counters"]["step.count"] == 6
+    assert d["step.device_block_s"]["p50"] > 2 * d["step.dispatch_s"]["p50"]
+    assert d["step.device_block_s"]["sum"] > d["step.dispatch_s"]["sum"]
+    parts = sum(d[f"step.{p}_s"]["sum"]
+                for p in ("data_wait", "dispatch", "device_block"))
+    assert parts == pytest.approx(d["step.total_s"]["sum"], rel=1e-9)

@@ -130,13 +130,12 @@ def test_unported_supervisor_arguments_raise(tmp_path):
     for kw, item in ((dict(worker_schedule=[2, 1]), 18),
                      (dict(device_schedule=[1]), 18),
                      (dict(rejoin_window_s=5.0), 18),
-                     (dict(step_rejoin_dir=tmp_path), 18),
-                     (dict(observe_dir=tmp_path), 19)):
+                     (dict(step_rejoin_dir=tmp_path), 18)):
         with pytest.raises(NotImplementedError,
                            match=f"item {item} of queue 1"):
             supervisor.Supervisor(_cmd("clean"), **kw)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        cli.main(["--fleet"])
+    with pytest.raises(NotImplementedError, match="item 20"):
+        cli.main(["--fleet", "--devices-per-replica", "2"])
 
 
 def test_backoff_and_classification_match_reference():

@@ -38,7 +38,8 @@ from tpu_dist_torch.parallel import (CollectiveCommunication, InputContext,
                                      MultiWorkerMirroredStrategy, ReduceOp,
                                      Strategy, get_strategy)
 from tpu_dist_torch.training import (Callback, EarlyStopping, History,
-                                     LambdaCallback, ModelCheckpoint,
+                                     JSONLogger, LambdaCallback,
+                                     ModelCheckpoint, TensorBoard,
                                      checkpoint)
 
 __version__ = "0.1.0"
@@ -51,7 +52,7 @@ __all__ = [
     "Model", "Sequential", "build_and_compile_cnn_model",
     "CollectiveCommunication", "InputContext", "MirroredStrategy",
     "MultiWorkerMirroredStrategy", "ReduceOp", "Strategy", "get_strategy",
-    "Callback", "EarlyStopping", "History", "LambdaCallback",
-    "ModelCheckpoint", "checkpoint",
+    "Callback", "EarlyStopping", "History", "JSONLogger", "LambdaCallback",
+    "ModelCheckpoint", "TensorBoard", "checkpoint",
     "__version__",
 ]

@@ -31,6 +31,7 @@ from __future__ import annotations
 import atexit
 import logging
 import threading
+import time
 from typing import Optional
 
 import torch
@@ -187,7 +188,14 @@ def is_chief() -> bool:
 
 def barrier(name: str = "tpu_dist_barrier") -> None:
     """Cluster-wide rendezvous (a no-op for one process): the reference's
-    startup barrier."""
+    startup barrier. Fires the collectives' fault hook before and their
+    observe hook after, with the seconds it waited (the cluster's skew)."""
+    from tpu_dist_torch.parallel.collectives import (fire_fault_hook,
+                                                     fire_observe_hook)
+
+    fire_fault_hook("barrier")
+    t0 = time.perf_counter()
     if process_count() > 1:
         logger.debug("tpu_dist_torch: barrier %s", name)
         dist.barrier()
+    fire_observe_hook("barrier", seconds=time.perf_counter() - t0)

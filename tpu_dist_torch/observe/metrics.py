@@ -52,6 +52,9 @@ def quantile(sorted_values: list, q: float) -> float:
         sorted_values[hi]) * frac
 
 
+_COUNTER_LOCK = threading.Lock()
+
+
 class Counter:
     """Monotonic count (steps run, collectives fired, faults seen)."""
 
@@ -63,7 +66,10 @@ class Counter:
 
     def inc(self, n: int = 1) -> None:
         if self._registry.enabled:
-            self.value += n
+            # Several threads count (a serving fleet's replicas): += alone
+            # can lose an update between its read and its write.
+            with _COUNTER_LOCK:
+                self.value += n
 
 
 class Gauge:

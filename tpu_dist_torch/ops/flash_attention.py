@@ -41,6 +41,7 @@ import functools
 import torch
 
 from tpu_dist_torch.ops import _build
+from tpu_dist_torch.utils.graphs import count_launch
 
 _SOURCE = "flash_fwd.cu"
 _BWD_SOURCE = "flash_bwd.cu"
@@ -211,7 +212,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = False, scale: float):
     # A CUDA tensor's device always carries its index.
     splits = split_count(b * h, ln, q.shape[-1], _sm_count(q.device.index))
     _launch_fwd(q, k, v, o, lse, causal=causal, scale=scale, splits=splits)
-    flash_attention_fwd.launches += 1
+    count_launch(flash_attention_fwd)
     return o, lse
 
 
@@ -282,7 +283,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = False,
     _launch_delta(do, o, delta)
     _launch_bwd(q, k, v, do, lse, delta, dq, dk, dv, causal=causal,
                 scale=scale, parts=3)
-    flash_attention_bwd.launches += 1
+    count_launch(flash_attention_bwd)
     return dq, dk, dv
 
 

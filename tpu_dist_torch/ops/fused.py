@@ -44,6 +44,7 @@ from typing import Optional, Sequence
 import torch
 
 from tpu_dist_torch.ops import _build
+from tpu_dist_torch.utils.graphs import count_launch
 
 #: Elements per block of the optimizer kernels (``kChunk`` in the sources).
 CHUNK = 4096
@@ -142,7 +143,7 @@ def fused_ce_fwd(logits: torch.Tensor, labels: torch.Tensor):
             _LABEL_BYTES[labels.dtype], loss.data_ptr(), lse.data_ptr(), rows,
             cols, torch.cuda.current_stream().cuda_stream)
     _check_launch(err, "fused_ce_fwd", logits.shape)
-    fused_ce_fwd.launches += 1
+    count_launch(fused_ce_fwd)
     return loss, lse
 
 
@@ -174,7 +175,7 @@ def fused_ce_bwd(logits: torch.Tensor, labels: torch.Tensor,
             dlogits.data_ptr(), rows, cols,
             torch.cuda.current_stream().cuda_stream)
     _check_launch(err, "fused_ce_bwd", logits.shape)
-    fused_ce_bwd.launches += 1
+    count_launch(fused_ce_bwd)
     return dlogits
 
 
@@ -519,9 +520,9 @@ def fused_sgd_apply(params: Sequence[torch.Tensor],
         raise RuntimeError(
             f"fused_sgd_apply: kernel launch failed with CUDA error {err} "
             f"({t.leaves} leaves, {t.chunks} chunks)")
-    fused_sgd_apply.launches += 1
+    count_launch(fused_sgd_apply)
     if m != 0.0:
-        fused_sgd_apply.momentum_launches += 1
+        count_launch(fused_sgd_apply, "momentum_launches")
     return params, velocity
 
 
@@ -624,7 +625,7 @@ def fused_adam_apply(params: Sequence[torch.Tensor],
         raise RuntimeError(
             f"fused_adam_apply: kernel launch failed with CUDA error {err} "
             f"({t.leaves} leaves, {t.chunks} chunks)")
-    fused_adam_apply.launches += 1
+    count_launch(fused_adam_apply)
     return params, mu, nu
 
 

@@ -10,7 +10,8 @@ from tpu_dist_torch.parallel.collectives import (CollectiveCommunication,
                                                  broadcast_from_chief,
                                                  bucketed_all_reduce,
                                                  host_all_reduce_sum,
-                                                 partition_buckets)
+                                                 partition_buckets,
+                                                 set_collective_logging)
 from tpu_dist_torch.parallel.mesh import (batch_sharded, make_mesh,
                                           replicate, replicated, shard_batch)
 from tpu_dist_torch.parallel.strategy import (DefaultStrategy, InputContext,
@@ -25,7 +26,7 @@ __all__ = [
     "batch_sharded", "make_mesh", "replicate", "replicated", "shard_batch",
     "CollectiveCommunication", "ReduceOp", "all_gather", "all_reduce",
     "broadcast_from_chief", "bucketed_all_reduce", "host_all_reduce_sum",
-    "partition_buckets",
+    "partition_buckets", "set_collective_logging",
     "DefaultStrategy", "InputContext", "MirroredStrategy",
     "MultiWorkerMirroredStrategy", "Strategy", "get_strategy",
     "has_strategy",

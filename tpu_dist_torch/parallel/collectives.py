@@ -17,18 +17,113 @@ no leaf. So :func:`partition_buckets` gives the reference's index lists on
 the same tree of the same shapes, and every process builds the same
 sequence of collectives from the shapes alone (a rank-divergent order
 would deadlock).
+
+Three seams, the reference's: :func:`set_collective_logging` logs every
+collective's shapes (TF's INFO lines); a fault hook
+(:func:`install_fault_hook`) is called with the op's name before each
+wrapper here and ``bootstrap.barrier`` does its work, so a chaos harness
+can delay or fail it; an observe hook (:func:`install_observe_hook`) is
+called after, with the payload's leaf count and bytes and, for the host
+collectives and the barrier, the host seconds they took. A firing inside
+a CUDA-graph capture is tagged ``phase="trace"`` (it records work that
+replays, as a JAX trace does) and the fault hook does not fire there. A
+hook failure of the observe hook is logged and swallowed. With no hook
+installed each costs one pointer check.
 """
 
 from __future__ import annotations
 
 import enum
-from typing import Any, Sequence
+import logging
+import time
+from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from tpu_dist_torch.cluster import bootstrap
+
+logger = logging.getLogger("tpu_dist_torch.collectives")
+
+#: Flip with :func:`set_collective_logging`.
+_LOG_COLLECTIVES = False
+_FAULT_HOOK = None
+_OBSERVE_HOOK = None
+
+
+def set_collective_logging(enabled: bool) -> None:
+    global _LOG_COLLECTIVES
+    _LOG_COLLECTIVES = bool(enabled)
+
+
+def install_fault_hook(hook):
+    """Install (or, with None, remove) the collective fault hook:
+    ``hook(op_name)``, called before each host-level collective; it may
+    sleep or raise. Returns the previous hook."""
+    global _FAULT_HOOK
+    prev = _FAULT_HOOK
+    _FAULT_HOOK = hook
+    return prev
+
+
+def _capturing() -> bool:
+    """Is this thread's current stream capturing a CUDA graph?"""
+    return (torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing())
+
+
+def fire_fault_hook(op: str) -> None:
+    """Call the installed fault hook, but not inside a capture, where a
+    sleep would stall the recording and not the step."""
+    hook = _FAULT_HOOK
+    if hook is None or _capturing():
+        return
+    hook(op)
+
+
+def install_observe_hook(hook):
+    """Install (or, with None, remove) the collective observe hook:
+    ``hook(op, *, phase, leaves, nbytes, seconds)``, called after each
+    wrapper; ``phase`` is ``"eager"`` or ``"trace"`` (inside a capture),
+    ``seconds`` the host wall time of a host-level collective (None for
+    the others). Returns the previous hook."""
+    global _OBSERVE_HOOK
+    prev = _OBSERVE_HOOK
+    _OBSERVE_HOOK = hook
+    return prev
+
+
+def _tree_payload(tree: Any) -> tuple[int, int]:
+    """(leaf count, payload bytes) of a tree; opaque leaves count 0."""
+    leaves = tree_leaves(tree)
+    return len(leaves), sum(_leaf_nbytes(leaf) for leaf in leaves)
+
+
+def fire_observe_hook(op: str, tree: Any = None, *,
+                      seconds: Optional[float] = None) -> None:
+    """Report one collective call to the installed observe hook. A hook
+    failure is logged and swallowed: telemetry never takes down the
+    collective it watches."""
+    hook = _OBSERVE_HOOK
+    if hook is None:
+        return
+    phase = "trace" if _capturing() else "eager"
+    leaves, nbytes = (0, 0) if tree is None else _tree_payload(tree)
+    try:
+        hook(op, phase=phase, leaves=leaves, nbytes=nbytes, seconds=seconds)
+    except Exception:  # noqa: BLE001 - observability is best-effort
+        logger.debug("observe hook failed for %s", op, exc_info=True)
+
+
+def _log_tree(op: str, tree: Any) -> None:
+    if not _LOG_COLLECTIVES:
+        return
+    leaves = tree_leaves(tree)
+    logger.info(
+        "Collective %s tensors: %d all_reduces, group_size = %s, shapes = %s",
+        op, len(leaves), bootstrap.process_count(),
+        [tuple(np.shape(leaf)) for leaf in leaves])
 
 
 class CollectiveCommunication(enum.Enum):
@@ -94,6 +189,9 @@ def all_reduce(tensors: Sequence[torch.Tensor],
     collective: the tensors (one dtype, one device) are packed into a flat
     buffer, reduced, and copied back. Returns ``tensors``."""
     op = _reduce_op(op)
+    fire_fault_hook("all_reduce")
+    fire_observe_hook("all_reduce", list(tensors))
+    _log_tree(f"all_reduce[{op.value}]", list(tensors))
     world = bootstrap.process_count()
     if world == 1 or not tensors:
         return tensors
@@ -207,6 +305,7 @@ def bucketed_all_reduce(tree: Any, op: ReduceOp | str = ReduceOp.MEAN, *,
     leaves = tree_leaves(tree)
     if world == 1 or not leaves:
         return tree
+    fire_fault_hook("bucketed_all_reduce")
     if op in (ReduceOp.MAX, ReduceOp.MIN):
         for dtype in dict.fromkeys(t.dtype for t in leaves):
             all_reduce([t for t in leaves if t.dtype == dtype], op)
@@ -216,6 +315,8 @@ def bucketed_all_reduce(tree: Any, op: ReduceOp | str = ReduceOp.MEAN, *,
         for i in bucket:
             by_dtype.setdefault(leaves[i].dtype, []).append(leaves[i])
         for group in by_dtype.values():
+            fire_observe_hook("bucketed_all_reduce", group)
+            _log_tree(f"bucketed_all_reduce[{op.value}]", group)
             bucketed_all_reduce.launches += 1
             _reduce_flat(group, op, world)
     return tree
@@ -229,6 +330,9 @@ def all_gather(x: Any, *, tiled: bool = False) -> Any:
     made tensors), identical on every process: stacked on a new leading
     axis ``[process_count, ...]``, or concatenated along the first axis
     with ``tiled=True``. With one process, ``x[None]`` (``x`` tiled)."""
+    fire_fault_hook("all_gather")
+    fire_observe_hook("all_gather", x)
+    _log_tree("all_gather", x)
     world = bootstrap.process_count()
 
     def gather(t):
@@ -250,6 +354,15 @@ def host_all_gather(x) -> np.ndarray:
     array or scalar) stacked on a new leading axis ``[process_count,
     ...]``, identical everywhere, as numpy. One process gives
     ``np.asarray(x)[None]``."""
+    fire_fault_hook("host_all_gather")
+    t0 = time.perf_counter()
+    out = _host_all_gather(x)
+    fire_observe_hook("host_all_gather", out,
+                      seconds=time.perf_counter() - t0)
+    return out
+
+
+def _host_all_gather(x) -> np.ndarray:
     a = np.asarray(x)
     if bootstrap.process_count() == 1:
         return a[None]
@@ -264,9 +377,13 @@ def host_all_reduce_sum(x) -> Any:
     any step: the sum over :func:`host_all_gather`'s leading axis, in
     process order (the reference's ``process_allgather(x).sum(0)``). One
     process gives ``x`` as it is."""
-    if bootstrap.process_count() == 1:
-        return x
-    return host_all_gather(x).sum(axis=0)
+    fire_fault_hook("host_all_reduce_sum")
+    t0 = time.perf_counter()
+    out = (x if bootstrap.process_count() == 1
+           else _host_all_gather(x).sum(axis=0))
+    fire_observe_hook("host_all_reduce_sum", out,
+                      seconds=time.perf_counter() - t0)
+    return out
 
 
 def broadcast_from_chief(tree: Any) -> Any:
@@ -280,6 +397,15 @@ def broadcast_from_chief(tree: Any) -> Any:
     back as new arrays (sent through the process group's device: the card
     under NCCL, the CPU under gloo). With one process the tree comes back
     as it is."""
+    fire_fault_hook("broadcast_from_chief")
+    t0 = time.perf_counter()
+    out = _broadcast_from_chief(tree)
+    fire_observe_hook("broadcast_from_chief", out,
+                      seconds=time.perf_counter() - t0)
+    return out
+
+
+def _broadcast_from_chief(tree: Any) -> Any:
     if bootstrap.process_count() == 1:
         return tree
     leaves = tree_leaves(tree)

@@ -20,8 +20,9 @@ would deadlock once a killed worker stops draining it), and every
 lifecycle event lands in the shared :mod:`~tpu_dist_torch.resilience.
 events` JSONL log. The reference's elastic and reform arguments
 (``worker_schedule``, ``device_schedule``, ``rejoin_window_s > 0``,
-``step_rejoin_dir``) come with ROADMAP.md queue 1, item 18, and
-``observe_dir`` with item 19: each raises ``unported``.
+``step_rejoin_dir``) come with ROADMAP.md queue 1, item 18: each raises
+``unported``. ``observe_dir`` arms each worker's telemetry, as in the
+reference (:class:`Supervisor`).
 """
 
 from __future__ import annotations
@@ -168,6 +169,13 @@ class Supervisor:
     ``TPU_DIST_RESILIENCE_ATTEMPT``, and whatever the caller passes in
     ``env``. ``rank_scoped_env_keys`` names env vars whose values get a
     ``/rank{r}`` suffix per worker (a checkpoint directory, say).
+
+    ``observe_dir`` arms per-worker telemetry: each rank gets
+    ``TPU_DIST_OBSERVE_DIR=<observe_dir>/rank<r>``, so its ``fit``
+    attaches a :class:`~tpu_dist_torch.observe.telemetry.Telemetry`
+    callback whose ``step_timing`` / ``straggler_detected`` records land
+    in the shared event log (exports append across restarts: one series
+    per rank).
     """
 
     def __init__(self, cmd: Sequence[str], *, num_workers: int = 1,
@@ -194,8 +202,6 @@ class Supervisor:
                 raise unported(f"Supervisor({name}=...)", 18)
         if rejoin_window_s > 0:
             raise unported("Supervisor(rejoin_window_s > 0)", 18)
-        if observe_dir is not None:
-            raise unported("Supervisor(observe_dir=...)", 19)
         if num_workers < 1:
             raise ValueError("num_workers must be >= 1")
         if max_restarts < 0:
@@ -209,6 +215,8 @@ class Supervisor:
         self.env = dict(env or {})
         self.log_dir = pathlib.Path(log_dir)
         self.events = event_log
+        self.observe_dir = (pathlib.Path(observe_dir)
+                            if observe_dir is not None else None)
         #: Exit codes that stop supervision instead of triggering a
         #: restart: the worker declared its failure non-recoverable (by
         #: default ``integrity_abort``). Serve supervision empties it.
@@ -221,6 +229,10 @@ class Supervisor:
         env = dict(os.environ)
         env.update(self.env)
         env[events.ATTEMPT_ENV] = str(attempt)
+        if self.observe_dir is not None:
+            from tpu_dist_torch.observe.telemetry import OBSERVE_DIR_ENV
+
+            env[OBSERVE_DIR_ENV] = str(self.observe_dir / f"rank{rank}")
         if self.num_workers > 1:
             from tpu_dist_torch.cluster.config import make_local_cluster
 

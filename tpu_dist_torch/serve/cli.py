@@ -1,6 +1,6 @@
 """``python -m tpu_dist_torch.serve`` — demo + seeded load generator.
 
-Counterpart of ``tpu_dist/serve/cli.py`` (all but ``--fleet``):
+Counterpart of ``tpu_dist/serve/cli.py``:
 
 * default (demo): build the causal LM from ``--seed``, serve a handful of
   prompts through the continuous-batching engine, print the generations
@@ -17,6 +17,18 @@ Counterpart of ``tpu_dist/serve/cli.py`` (all but ``--fleet``):
   clock. Exits 0 iff every gate holds, 2 without a serve fault.
 * ``--worker``: one supervised attempt of a chaos run (journal and fault
   plan from the environment, a ``RESULT:{...}`` line on stdout).
+* ``--fleet``: the sessioned workload through ``--fleet-replicas``
+  replicas behind the prefix-affinity router (``serve/fleet.py``), every
+  stream against a solo baseline, gated routing, failover
+  (``replica_kill@reqN:replicaR``) and storm (``router_storm@reqN:xM``)
+  invariants; exits 0 iff every gate holds, 2 with a solo fault kind.
+  ``--devices-per-replica`` (a leased submesh each) is item 20 of
+  ROADMAP.md's queue 1 and raises ``unported``.
+
+Set ``$TPU_DIST_OBSERVE_DIR`` to also export the metrics snapshot of a
+``--bench`` or demo run as a schema-versioned JSONL series and a
+Prometheus textfile there (``serve.jsonl``, ``serve.prom``), as training
+telemetry does.
 
 ``--journal-dir``, ``--max-queue``, ``--max-ttft-s``, ``--retry-budget``
 and ``--stall-timeout-s`` arm the engine's journal, load shedding and
@@ -38,6 +50,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 from typing import Optional
@@ -45,7 +58,6 @@ from typing import Optional
 import numpy as np
 
 from tpu_dist_torch.observe import metrics
-from tpu_dist_torch.utils.errors import unported
 
 
 def _quantile(vals, p: float) -> Optional[float]:
@@ -190,6 +202,26 @@ def run_load(engine, workload: list[dict], *, clients: int = 0,
     return _summary(engine, wall_s=time.monotonic() - t0)
 
 
+def _export_observe(tag: str) -> Optional[str]:
+    """Write the metrics snapshot under ``$TPU_DIST_OBSERVE_DIR`` (a JSONL
+    record of kind ``tag`` and a Prometheus textfile); returns the
+    directory, or None when the variable is unset."""
+    from tpu_dist_torch.observe.telemetry import OBSERVE_DIR_ENV
+
+    d = os.environ.get(OBSERVE_DIR_ENV)
+    if not d:
+        return None
+    from tpu_dist_torch.observe.exporters import (JsonlExporter,
+                                                  write_prometheus_textfile)
+
+    os.makedirs(d, exist_ok=True)
+    snap = metrics.get_registry().snapshot()
+    with JsonlExporter(os.path.join(d, "serve.jsonl")) as ex:
+        ex.write(snap, kind=tag)
+    write_prometheus_textfile(snap, os.path.join(d, "serve.prom"))
+    return d
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="python -m tpu_dist_torch.serve",
@@ -274,11 +306,23 @@ def main(argv=None) -> int:
     p.add_argument("--report", default=None,
                    help="also write the chaos JSON report to this path")
     p.add_argument("--fleet", action="store_true",
-                   help="multi-replica fleet run (not ported yet)")
+                   help="multi-replica fleet run: sessioned workload "
+                        "through the prefix-affinity router, token-parity "
+                        "+ failover gates (serve/fleet.py)")
+    p.add_argument("--fleet-replicas", type=int, default=2,
+                   help="initial replica count for --fleet")
+    p.add_argument("--fleet-sessions", type=int, default=4,
+                   help="distinct shared-prefix sessions in the --fleet "
+                        "workload (affinity anti-vacuity needs >= 1)")
+    p.add_argument("--devices-per-replica", type=int, default=None,
+                   help="lease a submesh of this many devices per replica "
+                        "(not ported yet: item 20)")
     args = p.parse_args(argv)
 
     if args.fleet:
-        raise unported("python -m tpu_dist_torch.serve --fleet", 16)
+        from tpu_dist_torch.serve.fleet import run_fleet
+
+        return run_fleet(args)
     if args.worker:
         from tpu_dist_torch.serve.chaos import run_worker
 
@@ -320,6 +364,9 @@ def main(argv=None) -> int:
                 **summary,
             }
             report["ok"] = report["completed"] > 0
+            obs = _export_observe("serve_bench")
+            if obs:
+                report["observe_dir"] = obs
             print(json.dumps(report, indent=2))
             if not report["ok"]:
                 print(f"VACUOUS: no request completed "
@@ -344,6 +391,7 @@ def main(argv=None) -> int:
                   f"{(r.latency_s or 0) * 1e3:.1f} ms)")
         print(json.dumps(_summary(engine,
                                   wall_s=time.monotonic() - t0), indent=2))
+        _export_observe("serve_demo")
         return 0
     finally:
         metrics.disable()

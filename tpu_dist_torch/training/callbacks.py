@@ -1,13 +1,12 @@
 """Training callbacks — the Keras-fit hook surface.
 
-Subset of ``tpu_dist/training/callbacks.py``: the base hook protocol,
+Counterpart of ``tpu_dist/training/callbacks.py``: the base hook protocol,
 :class:`CallbackList`, :class:`History` (always installed, the object
-``fit`` returns), :class:`StopTraining`, :class:`ModelCheckpoint`,
-:class:`EarlyStopping` and :class:`LambdaCallback`. The JAX package's
-``LazyLogs`` defer the epoch's device-to-host fetch; here the trainer fills
-plain dicts once per epoch with ``.item()``, one read per value at the
-epoch's end. ``JSONLogger`` and ``TensorBoard`` come with the observability
-item of ``ROADMAP.md``'s queue 1 (item 19).
+``fit`` returns), :class:`LazyLogs` (epoch logs read from the card on
+first use), :class:`StopTraining`, :class:`ModelCheckpoint`,
+:class:`EarlyStopping`, :class:`JSONLogger`, :class:`TensorBoard` and
+:class:`LambdaCallback`; ``Telemetry`` (``tpu_dist_torch.observe``) is
+re-exported here lazily, as in the reference.
 """
 
 from __future__ import annotations
@@ -15,7 +14,100 @@ from __future__ import annotations
 import logging
 from typing import Optional, Sequence
 
+import torch
+
 logger = logging.getLogger("tpu_dist_torch.callbacks")
+
+
+class LazyLogs(dict):
+    """Epoch logs whose device scalars are read on first use.
+
+    The trainer hands over the epoch's loss and metric results as 0-d
+    tensors; they are stacked into one vector and copied to pinned host
+    memory with one non-blocking copy right behind the epoch's last step,
+    and an event marks its end. A value read (``[]``, ``get``, ``items``,
+    ``values``, ``copy``, ``repr``) waits for that event once and turns
+    every pending value into a float; key, length and membership queries
+    do not wait. So a ``verbose=0`` fit with no log-reading callback never
+    blocks at the epoch boundary. Until then a dict-bypassing reader (say
+    ``dict(logs)``) sees the 0-d tensors. On the CPU the copy is a plain
+    one.
+    """
+
+    def __init__(self, host_logs: Optional[dict] = None,
+                 device_logs: Optional[dict] = None):
+        super().__init__(host_logs or {})
+        self._device = dict(device_logs or {})
+        #: (names, host vector, event or None) of copies still in flight.
+        self._copies: list = []
+        if self._device:
+            self._copies.append(_start_copy(self._device))
+        super().update(self._device)
+
+    def materialize(self) -> "LazyLogs":
+        """Wait for the pending copies and replace every pending value with
+        a plain float; idempotent."""
+        if self._device:
+            for names, host, event in self._copies:
+                if event is not None:
+                    event.synchronize()
+                super().update(zip(names, host.tolist()))
+            self._copies = []
+            self._device = {}
+        return self
+
+    def absorb(self, other: dict, prefix: str = "") -> None:
+        """Merge ``other``'s entries under ``prefix`` without waiting:
+        another LazyLogs' pending values stay pending (validation logs fold
+        into the epoch's so)."""
+        if isinstance(other, LazyLogs):
+            for names, host, event in other._copies:
+                self._copies.append(
+                    ([prefix + n for n in names], host, event))
+            for k, v in other._device.items():
+                self._device[prefix + k] = v
+        for k, v in dict.items(other):
+            dict.__setitem__(self, prefix + k, v)
+
+    def __getitem__(self, key):
+        self.materialize()
+        return super().__getitem__(key)
+
+    def get(self, key, default=None):
+        self.materialize()
+        return super().get(key, default)
+
+    def items(self):
+        self.materialize()
+        return super().items()
+
+    def values(self):
+        self.materialize()
+        return super().values()
+
+    def copy(self) -> dict:
+        self.materialize()
+        return dict(self)
+
+    def __repr__(self):
+        self.materialize()
+        return super().__repr__()
+
+
+def _start_copy(device_logs: dict) -> tuple:
+    """One stacked vector of the 0-d tensors, copied to the host: to pinned
+    memory without blocking (an event marks its end) on CUDA, a plain copy
+    on the CPU."""
+    names = list(device_logs)
+    stacked = torch.stack([v.detach().reshape(()).to(torch.float64)
+                           for v in device_logs.values()])
+    if stacked.device.type != "cuda":
+        return names, stacked, None
+    host = torch.empty(stacked.shape, dtype=stacked.dtype, pin_memory=True)
+    host.copy_(stacked, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return names, host, event
 
 
 class Callback:
@@ -66,16 +158,30 @@ class CallbackList:
 
 
 class History(Callback):
-    """Per-epoch log record; ``fit`` returns this (Keras History analog)."""
+    """Per-epoch log record; ``fit`` returns this (Keras History analog).
+
+    Epoch logs may be :class:`LazyLogs` still holding device scalars;
+    History keeps them unread and folds them in, as floats, only when
+    ``.history`` is read."""
 
     def __init__(self):
         self.epoch: list[int] = []
-        self.history: dict[str, list] = {}
+        self._pending: list[dict] = []
+        self._history: dict[str, list] = {}
 
     def on_epoch_end(self, epoch, logs):
         self.epoch.append(epoch)
-        for k, v in logs.items():
-            self.history.setdefault(k, []).append(v)
+        self._pending.append(logs)
+
+    @property
+    def history(self) -> dict[str, list]:
+        while self._pending:
+            logs = self._pending.pop(0)
+            if isinstance(logs, LazyLogs):
+                logs.materialize()
+            for k, v in logs.items():
+                self._history.setdefault(k, []).append(v)
+        return self._history
 
 
 class StopTraining(Exception):
@@ -191,6 +297,89 @@ class EarlyStopping(Callback):
                 raise StopTraining(f"EarlyStopping at epoch {epoch}")
 
 
+class JSONLogger(Callback):
+    """Structured per-epoch training log: one JSON line per epoch (and per
+    execution with ``log_batches=True``), chief-only, appended (resumed runs
+    add to the file). Keys and rounding are the reference's."""
+
+    def __init__(self, path: str, *, log_batches: bool = False):
+        self.path = path
+        self._log_batches = log_batches
+        self.wants_batches = False  # resolved per process at train begin
+        self._file = None
+
+    def on_train_begin(self):
+        import os
+
+        from tpu_dist_torch.cluster import bootstrap
+
+        chief = bootstrap.is_chief()
+        # Only the chief writes, so only the chief makes the trainer pay
+        # the per-execution loss read that batch logging needs.
+        self.wants_batches = self._log_batches and chief
+        if chief:
+            os.makedirs(os.path.dirname(os.path.abspath(self.path)),
+                        exist_ok=True)
+            self._file = open(self.path, "a", buffering=1)
+
+    def on_train_end(self):
+        if self._file is not None:
+            self._file.close()
+            self._file = None
+
+    def _write(self, record: dict):
+        if self._file is not None:
+            import json
+
+            self._file.write(json.dumps(record) + "\n")
+
+    def on_epoch_end(self, epoch, logs):
+        self._write({"event": "epoch", "epoch": epoch,
+                     **{k: round(float(v), 6) for k, v in logs.items()}})
+
+    def on_batch_end(self, step, logs):
+        self._write({"event": "batch", "step": step,
+                     **{k: round(float(v), 6) for k, v in logs.items()}})
+
+
+class TensorBoard(Callback):
+    """Chief-only TensorBoard scalars: each epoch's logs as ``epoch_{key}``
+    through ``torch.utils.tensorboard`` where it imports; otherwise a
+    warning, once, and nothing written (the reference does the same
+    without TensorFlow)."""
+
+    def __init__(self, log_dir: str):
+        self.log_dir = log_dir
+        self._writer = None
+
+    def on_train_begin(self):
+        from tpu_dist_torch.cluster import bootstrap
+
+        if not bootstrap.is_chief():
+            return
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError:
+            logger.warning(
+                "TensorBoard callback: torch.utils.tensorboard is not "
+                "importable; scalar event files will not be written (use "
+                "JSONLogger instead)")
+            return
+        self._writer = SummaryWriter(self.log_dir)
+
+    def on_epoch_end(self, epoch, logs):
+        if self._writer is None:
+            return
+        for k, v in logs.items():
+            self._writer.add_scalar(f"epoch_{k}", float(v), epoch)
+        self._writer.flush()
+
+    def on_train_end(self):
+        if self._writer is not None:
+            self._writer.close()
+            self._writer = None
+
+
 class LambdaCallback(Callback):
     """Epoch-end and batch-end hooks from plain functions; a batch hook
     makes the trainer read each execution's loss."""
@@ -207,3 +396,13 @@ class LambdaCallback(Callback):
     def on_batch_end(self, step, logs):
         if self._batch_end:
             self._batch_end(step, logs)
+
+
+def __getattr__(name):
+    # Telemetry lives in tpu_dist_torch.observe, which imports Callback
+    # from here; a lazy re-export keeps it beside the other callbacks.
+    if name == "Telemetry":
+        from tpu_dist_torch.observe.telemetry import Telemetry
+
+        return Telemetry
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -135,7 +135,7 @@ from tpu_dist_torch.models.layers import BatchNormalization, Dropout
 from tpu_dist_torch.models.policy import policy
 from tpu_dist_torch.parallel import collectives
 from tpu_dist_torch.training.callbacks import (CallbackList, History,
-                                               StopTraining)
+                                               LazyLogs, StopTraining)
 from tpu_dist_torch.utils import graphs, profiler
 from tpu_dist_torch.utils.progbar import ProgressBar
 
@@ -678,6 +678,15 @@ class Trainer:
                 raise ValueError("the dataset's cardinality is unknown; "
                                  "pass steps_per_epoch")
         callbacks = list(callbacks)
+        # $TPU_DIST_OBSERVE_DIR (a Supervisor's, or a shell's) attaches a
+        # Telemetry callback, unless the caller passed one.
+        from tpu_dist_torch.observe.telemetry import (
+            Telemetry, maybe_telemetry_from_env)
+
+        if not any(isinstance(cb, Telemetry) for cb in callbacks):
+            telemetry = maybe_telemetry_from_env()
+            if telemetry is not None:
+                callbacks.append(telemetry)
         if checkpoint_dir is not None:
             initial_epoch = self._resume(checkpoint_dir, initial_epoch)
             callbacks = self._with_checkpoints(checkpoint_dir, callbacks)
@@ -752,38 +761,60 @@ class Trainer:
             self._fit_loss_acc = self._init_loss_acc()
         return self._fit_loss_acc.zero_()
 
-    def _execute(self, step, multi, batches, k: int):
+    def _execute(self, step, multi, batches, k: int, clock=None):
         """One execution of ``k`` steps over the next ``k`` batches;
-        returns its loss (the k-mean). A window whose batches do not all
-        have one shape (a ``drop_remainder=False`` tail) runs step by step
-        and returns the last step's loss, as the JAX package does. A
+        returns its loss (the k-mean) and the time ``clock()`` read once the
+        batches were fetched (0.0 without a clock: the step timer's
+        data-wait ends there). A window whose batches do not all have one
+        shape (a ``drop_remainder=False`` tail) runs step by step and
+        returns the last step's loss, as the JAX package does. A
         DeviceDataset gathers the batches on the device: one at k = 1, k
         stacked for an execution, whose captured program gathers them
         itself from the index vector (module docstring)."""
+        fetched = clock or float
         v = self.variables
         variables = (v["params"], v["state"], v["opt"], v["metrics"],
                      self._fit_loss_acc)
         if isinstance(batches, DeviceDataset):
             if k == 1:
-                return step(*variables, *batches.next_batch())
+                xb, yb = batches.next_batch()
+                t = fetched()
+                return step(*variables, xb, yb), t
             if isinstance(multi, _GraphedExecutions):
-                return multi.indexed(variables, batches,
-                                     batches.next_indices(k))
-            return multi(*variables, *batches.next_stack(k))
+                idx = batches.next_indices(k)
+                t = fetched()
+                return multi.indexed(variables, batches, idx), t
+            xs, ys = batches.next_stack(k)
+            t = fetched()
+            return multi(*variables, xs, ys), t
         if k == 1:
-            return step(*variables, *self._next_batch(batches))
+            xb, yb = self._next_batch(batches)
+            t = fetched()
+            return step(*variables, xb, yb), t
         window = [self._next_batch(batches) for _ in range(k)]
+        t = fetched()
         if len({(np.shape(x), np.shape(y)) for x, y in window}) > 1:
             for xb, yb in window:
                 loss = step(*variables, xb, yb)
-            return loss
+            return loss, t
         return multi(*variables, np.stack([x for x, _ in window]),
-                     np.stack([y for _, y in window]))
+                     np.stack([y for _, y in window])), t
 
     def _run_epochs(self, step, multi, batches, cbs, initial_epoch, epochs,
                     steps_per_epoch, show, val_batches, val_steps, seed):
+        from tpu_dist_torch.observe.telemetry import active_step_timer
+
         v = self.variables
         k = self.model.steps_per_execution
+        # A Telemetry callback's on_train_begin has installed it; without
+        # one the loop pays one is-None check per execution.
+        timer = active_step_timer()
+        clock = time.perf_counter if timer is not None else None
+        # The timer's device time: a blocking wait for the execution's
+        # end on the stream it ran on (on the CPU it has ended already).
+        stream = (torch.cuda.current_stream(self.device)
+                  if timer is not None and self.device.type == "cuda"
+                  else None)
         for epoch in range(initial_epoch, epochs):
             # A replay of a captured program reads the registered
             # generator's seed and offset as they stand.
@@ -802,11 +833,24 @@ class Trainer:
             step_i = executions = 0
             while step_i < steps_per_epoch:
                 kk = min(k, steps_per_epoch - step_i)
+                # Step-phase timing: data-wait ends once the batches are
+                # fetched, dispatch when the step (or the replay) returns,
+                # device time is the blocking wait on the card.
+                t_exec0 = time.perf_counter() if timer is not None else 0.0
                 with profiler.step_annotation(epoch * steps_per_epoch
                                               + step_i):
-                    loss = self._execute(step, multi, batches, kk)
+                    loss, t_fetch = self._execute(step, multi, batches, kk,
+                                                  clock)
                 step_i += kk
                 executions += 1
+                if timer is not None:
+                    t_disp = time.perf_counter()
+                    if stream is not None:
+                        stream.synchronize()
+                    timer.record_execution(
+                        steps=kk, data_wait_s=t_fetch - t_exec0,
+                        dispatch_s=t_disp - t_fetch,
+                        device_block_s=time.perf_counter() - t_disp)
                 if eager_loss:
                     # Batch hooks fire once per execution, with its loss;
                     # the bar advances by its steps.
@@ -814,31 +858,37 @@ class Trainer:
                     loss_running += loss_val
                     bar.update(step_i, loss=loss_running / executions)
                     cbs.on_batch_end(step_i - 1, {"loss": loss_val})
-            logs = {"epoch_time": time.perf_counter() - t_epoch,
-                    **self._results(loss_acc, v["metrics"])}
+            # No host read at the epoch's end: the results are copied to
+            # the host without blocking and read when someone reads them
+            # (LazyLogs) — the bar when verbose, a callback, History.
+            device_logs = self._results(loss_acc, v["metrics"])
+            logs = LazyLogs({"epoch_time": time.perf_counter() - t_epoch},
+                            device_logs)
             if val_batches is not None:
-                val_logs = self._evaluate_on(val_batches, val_steps)
-                logs.update({f"val_{k}": x for k, x in val_logs.items()})
+                logs.absorb(self._evaluate_on(val_batches, val_steps),
+                            prefix="val_")
             bar.finish(logs)
             cbs.on_epoch_end(epoch, logs)
 
     def _results(self, loss_acc, metric_states) -> dict:
-        """The epoch's (or pass's) logs, read once each with ``.item()``.
-        Across processes, the loss accumulator is averaged (its step losses
-        are per-process means) and the metric totals summed first."""
+        """The epoch's (or pass's) loss mean and each metric's result as 0-d
+        device tensors, for :class:`LazyLogs` to copy to the host without
+        blocking. Across processes, the loss accumulator is averaged (its
+        step losses are per-process means) and the metric totals summed
+        first."""
         if self.distributed:
             collectives.all_reduce([loss_acc], collectives.ReduceOp.MEAN)
             states = [t for ms in metric_states for t in ms.values()]
             collectives.all_reduce(states, collectives.ReduceOp.SUM)
-        logs = {"loss": (loss_acc[0] / torch.clamp(loss_acc[1], min=1.0))
-                .item()}
+        device_logs = {"loss": loss_acc[0] / torch.clamp(loss_acc[1],
+                                                         min=1.0)}
         for metric, mstate in zip(self.model.metrics, metric_states):
-            logs[metric.name] = metric.result(mstate).item()
-        return logs
+            device_logs[metric.name] = metric.result(mstate)
+        return device_logs
 
     def evaluate(self, x, *, steps: Optional[int], verbose: int) -> dict:
         self.ensure_variables()
-        logs = self._evaluate_on(self._distribute(x), steps)
+        logs = self._evaluate_on(self._distribute(x), steps).copy()
         if verbose:
             print(" - ".join(f"{k}: {v_:.4f}" for k, v_ in logs.items()))
         return logs
@@ -865,7 +915,7 @@ class Trainer:
                 count += 1
         if count == 0:
             raise RuntimeError("evaluate: dataset yielded no batches")
-        return self._results(loss_acc, metric_states)
+        return LazyLogs(device_logs=self._results(loss_acc, metric_states))
 
     # -- predict ---------------------------------------------------------------
 

@@ -27,10 +27,22 @@ the function, which launches nothing, then replays it; every later call
 replays. A key that is used once is never captured.
 
 Replays launch the kernels without their Python wrappers, so the kernels'
-launch counters (:data:`COUNTERS`) would count only the eager calls. A
-capture therefore records how far each counter moved while the function
-was recorded (a wrapper counts there though nothing launched), puts the
-counters back, and adds that delta on every replay.
+launch counters would count only the eager calls. Every wrapper counts
+through :func:`count_launch`: a launch on the stream a capture is
+recording adds to that capture's record (the capturing thread's calls,
+and the backward's, which autograd runs on a thread of its own but on the
+forward's stream), and each replay adds the record; any other launch adds
+one to its counter under a lock (several threads launch, as the replicas
+of a serving fleet do), also while another thread captures.
+
+Captures are serialised by one process-wide lock and run in the
+thread-local capture mode, each on a side stream of its own: another
+thread's eager work, replays, host reads and allocations go on during a
+capture (they run on other streams, which the capture does not record),
+and two captures never overlap. The cyclic garbage collector is off
+while a capture records: a collection could destroy an old graph, whose
+teardown on the capturing thread the capture does not permit (measured:
+seen on an H100: it invalidated the capture).
 
 Nothing falls back: a program is built only for a CUDA device, and an
 error of the eager call, of the capture or of a replay propagates.
@@ -38,23 +50,33 @@ error of the eager call, of the capture or of a replay propagates.
 
 from __future__ import annotations
 
-import importlib
+import gc
+import threading
 import time
 from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
-#: The kernels' launch counters, as (module, wrapper, attribute).
-COUNTERS = (
-    ("tpu_dist_torch.ops.flash_attention", "flash_attention_fwd", "launches"),
-    ("tpu_dist_torch.ops.flash_attention", "flash_attention_bwd", "launches"),
-    ("tpu_dist_torch.ops.fused", "fused_ce_fwd", "launches"),
-    ("tpu_dist_torch.ops.fused", "fused_ce_bwd", "launches"),
-    ("tpu_dist_torch.ops.fused", "fused_sgd_apply", "launches"),
-    ("tpu_dist_torch.ops.fused", "fused_sgd_apply", "momentum_launches"),
-    ("tpu_dist_torch.ops.fused", "fused_adam_apply", "launches"),
-)
+_COUNT_LOCK = threading.Lock()
+_CAPTURE_LOCK = threading.Lock()
+#: (stream handle, record) of the capture under way, or None.
+_CAPTURING: Optional[tuple] = None
+
+
+def count_launch(wrapper, attr: str = "launches") -> None:
+    """Add one to the launch counter ``wrapper.<attr>``: into the record of
+    the capture under way if this launch goes to the stream it records
+    (each replay adds the record), else to the counter itself."""
+    capturing = _CAPTURING
+    with _COUNT_LOCK:
+        if (capturing is not None and torch.cuda.current_stream()
+                .cuda_stream == capturing[0]):
+            record = capturing[1]
+            record[(wrapper, attr)] = record.get((wrapper, attr), 0) + 1
+            return
+        setattr(wrapper, attr, getattr(wrapper, attr) + 1)
+
 
 #: A static input: its shape and dtype.
 Spec = tuple[tuple[int, ...], torch.dtype]
@@ -151,42 +173,45 @@ class CapturedProgram:
 
     def _capture(self) -> None:
         """Record ``fn`` on a side stream (a capture cannot run on the
-        default stream). ``torch.cuda.graph`` would also empty the
-        allocator's cache before each capture, which every eager
-        allocation after it pays for again; a capture needs only the card
-        idle."""
-        counters = _counters()
-        before = [getattr(obj, attr) for obj, attr in counters]
+        default stream), under the process-wide capture lock and in the
+        thread-local mode (module docstring). ``torch.cuda.graph`` would
+        also empty the allocator's cache before each capture, which every
+        eager allocation after it pays for again; a capture needs only the
+        card idle."""
         graph = torch.cuda.CUDAGraph()
         for gen in self._generators:
             graph.register_generator_state(gen)
-        t0 = time.perf_counter()
-        torch.cuda.synchronize()
-        try:
-            with torch.cuda.stream(torch.cuda.Stream()):
-                if self._pool is None:
-                    graph.capture_begin()
-                else:
-                    graph.capture_begin(pool=self._pool)
-                try:
-                    outputs = self.fn(**self.static)
-                finally:
-                    graph.capture_end()
-        finally:
-            moved = [getattr(obj, attr) - b
-                     for (obj, attr), b in zip(counters, before)]
-            for (obj, attr), b in zip(counters, before):
-                setattr(obj, attr, b)
-        self.capture_s = time.perf_counter() - t0
+        global _CAPTURING
+        record: dict = {}
+        stream = torch.cuda.Stream()
+        with _CAPTURE_LOCK:
+            t0 = time.perf_counter()
+            torch.cuda.synchronize()
+            _CAPTURING = (stream.cuda_stream, record)
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.stream(stream):
+                    graph.capture_begin(pool=self._pool,
+                                        capture_error_mode="thread_local")
+                    try:
+                        outputs = self.fn(**self.static)
+                    finally:
+                        graph.capture_end()
+            finally:
+                _CAPTURING = None
+                if collecting:
+                    gc.enable()
+            self.capture_s = time.perf_counter() - t0
         self.graph, self.outputs = graph, outputs
-        self._deltas = [(obj, attr, d)
-                        for (obj, attr), d in zip(counters, moved) if d]
+        self._deltas = [(obj, attr, d) for (obj, attr), d in record.items()]
 
     def replay(self):
         """Replay the captured graph on the static inputs as they stand;
         adds the capture's counter deltas."""
         self.graph.replay()
-        for obj, attr, d in self._deltas:
-            setattr(obj, attr, getattr(obj, attr) + d)
+        with _COUNT_LOCK:
+            for obj, attr, d in self._deltas:
+                setattr(obj, attr, getattr(obj, attr) + d)
         self.replays += 1
         return self.outputs
