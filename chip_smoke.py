@@ -284,6 +284,26 @@ plain PyTorch version. Phases:
     shedding within the p99 target and shedding something, the control
     past it; (d) decode tok/s and the captured decode step's ms with the
     journal and without it (off, on, on, off), the flush's ms and bytes.
+27-28. the serving fleet and the observe layer (their sections below);
+29. tensor and sequence parallelism: two workers (``chip_smoke.py
+    --tp-worker DIR``, phase 24's harness) share the card over gloo. (a)
+    the benchmark LM at full width under ``{data: 1, model: 2}`` with
+    ``Adam(fused=True)`` and the fused CE, 4 steps of 8 x 512 through
+    ``make_train_function`` from seed 0's weights: the ranks' losses and
+    replicated leaves bit for bit, losses within ``LOSS_ATOL`` and the
+    gathered parameters within ``PARAM_RTOL`` of their step of a
+    single-process twin's, ``wq`` [512, 256] a rank, the flash kernels on
+    [8, 4, 512, 64], launches (16, 16, 4, 4, 4) a rank, a checkpoint at
+    step 2; (b) the same under ``mixed_bfloat16`` against a bf16 twin
+    within ``BF16_LOSS_ATOL``; (c) the LM with ``RingAttention()`` under
+    ``{data: 1, seq: 2}`` against the flash twin (no flash launch), then
+    ``ring_attention`` alone at [1, 8, 16384, 64] fp32 causal (8,192
+    positions a rank, 2048-position chunks), forward and backward against
+    the flash kernels on the gathered q, k, v within ``RING_TOL``; (d)
+    (a)'s checkpoint restored in one process and continued, against the
+    tensor-parallel run's last steps; times: the step against the twin's,
+    the model-axis collectives a step (each timed alone), ring against
+    flash fwd+bwd at 16,384 positions, the ring's host staging.
 
 Prints one JSON line of kernel records, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
@@ -3023,22 +3043,32 @@ def data_phase(card: str) -> None:
         raise AssertionError(f"(c) promoted program: losses {loss}")
     index_per_step = promoted.index_bytes / steps
     model = g["multi_worker_model"]
+    before = (promoted.index_copies, promoted.index_bytes)
     copies = _htod_copies(lambda: model.fit(
         g["train_datasets_no_auto_shard"], epochs=1,
         steps_per_epoch=CNN_STEPS, verbose=0))
+    # Every step sent its index vector: the dataset's own count of the
+    # copies it issued (a trace has lost one such record in a whole-script
+    # run, so the trace is not what counts them).
+    sent_copies = promoted.index_copies - before[0]
+    sent_bytes = promoted.index_bytes - before[1]
+    if (sent_copies != CNN_STEPS
+            or sent_bytes != CNN_STEPS * int(index_per_step)):
+        raise AssertionError(f"(c) index vectors sent in an epoch of "
+                             f"{CNN_STEPS} steps: {sent_copies} copies, "
+                             f"{sent_bytes} bytes")
     if copies is None:
         sent = "not measured (the trace gives no copy sizes)"
     else:
         # No copy as large as one image of the batch: no pixel crossed.
         image_bytes = int(np.prod(x8.shape[1:]))
-        if max(copies) >= image_bytes or copies.count(
-                int(index_per_step)) < CNN_STEPS:
+        if max(copies) >= image_bytes:
             raise AssertionError(f"(c) host->device copies in an epoch of "
                                  f"{CNN_STEPS} steps: {copies}")
         sent = (f"{len(copies)} copies, {sum(copies)} bytes in "
                 f"{CNN_STEPS} steps ({copies.count(int(index_per_step))} "
-                f"index vectors; other sizes "
-                f"{sorted(set(copies) - {int(index_per_step)})})")
+                f"index vectors in the trace, {sent_copies} counted; other "
+                f"sizes {sorted(set(copies) - {int(index_per_step)})})")
     log(f"[21 data] (c) the reference program as it stands: its chain "
         f"promoted to a DeviceDataset on {promoted.device} ({promoted.uploads}"
         f" upload of {promoted.upload_bytes} bytes in "
@@ -5388,6 +5418,392 @@ def observe_phase(card: str) -> dict:
 
 
 
+# -- phase 29: tensor and sequence parallelism --------------------------------
+
+TP_AXES = {"data": 1, "model": 2}
+SEQ_AXES = {"data": 1, "seq": 2}
+#: (a)-(c): 4 steps of 8 x 512 tokens (each rank holds all 8 rows).
+TP_BATCH, TP_STEPS = 8, 4
+#: (a): the checkpoint (d) restores, after this many steps.
+TP_CKPT_STEP = 2
+#: (c): ring attention alone, fp32 causal; each rank holds 8,192 positions,
+#: so the 2048 auto-chunk runs.
+RING_SHAPE = (1, 8, 16384, 64)
+#: Ring vs the flash kernels at RING_SHAPE: fp32 sums over 16,384 keys or
+#: queries, 16x phase 7's longest, in different orders (the ring's folds
+#: and cuBLAS against the kernels' tiles); the rounding grows as the square
+#: root of the terms, so 4x FP32_TOL, of the largest |value| for atol.
+RING_TOL = 4 * FP32_TOL
+#: bf16 twins: the losses (~9.01, fp32 from bf16 logits) may differ by one
+#: bf16 rounding of their size: 2**-8 of ln(8192). Each rank's row-parallel
+#: partial sums round to bf16 before the all-reduce adds them, where one
+#: process rounds the whole sum once.
+BF16_LOSS_ATOL = 2.0 ** -8 * float(np.log(LM["vocab_size"]))
+#: (a), (d): a zero-gradient leaf, the key projection's bias (softmax
+#: cancels a constant per query row): Adam takes its rounding noise to
+#: full-size steps, so it is held to the steps' sizes, lr x steps.
+ADAM_LR = 1e-3
+
+
+def _recording(model) -> list:
+    """Every attention layer's ``attention_fn`` wrapped to record the q
+    shape it is given; returns the list the calls append to."""
+    shapes = []
+    for m in model.modules():
+        if isinstance(m, MultiHeadAttention):
+            inner = m.attention_fn
+
+            def record(q, k, v, *, _inner=inner, **kw):
+                shapes.append(tuple(q.shape))
+                return _inner(q, k, v, **kw)
+
+            m.attention_fn = record
+    return shapes
+
+
+def _tp_steps(model, x, y, *, ckpt_dir=None) -> dict:
+    """TP_STEPS train steps of ``model`` through make_train_function on
+    (x, y), counted; a checkpoint after TP_CKPT_STEP when ``ckpt_dir``;
+    then the gathered parameters."""
+    from tpu_dist_torch.parallel import tensor
+
+    fn, st = model.make_train_function(), model.train_state()
+    _reset_counts()
+    losses = []
+    for step in range(TP_STEPS):
+        losses.append(float(fn(*st, x, y)))
+        if ckpt_dir is not None and step + 1 == TP_CKPT_STEP:
+            checkpoint.save(ckpt_dir, model, step=TP_CKPT_STEP)
+    torch.cuda.synchronize()
+    counts = _counts()
+    return {"loss": losses, "counts": counts, "fn": fn, "st": st,
+            "params": {n: t.detach().cpu() for n, t in
+                       tensor.gather_params(model).items()}}
+
+
+def _collective_ms(group, size: int, calls: dict, steps: int) -> tuple:
+    """Each collective of ``calls`` (a model axis's, ``{(op, shape,
+    dtype): count}`` over ``steps`` steps) timed alone on fresh tensors of
+    its shape and dtype (synchronised around, 5 calls after 2): the ms a
+    step, and the breakdown {(op, shape, dtype): (calls a step, ms a
+    call)}."""
+    out, total = {}, 0.0
+    for (op, shape, dtype), n in calls.items():
+        t = torch.randn(shape, device="cuda").to(getattr(torch, dtype[6:]))
+        if op == "all_reduce":
+            fn = lambda: torch.distributed.all_reduce(t, group=group)
+        else:
+            parts = [torch.empty_like(t) for _ in range(size)]
+            fn = lambda: torch.distributed.all_gather(parts, t, group=group)
+        torch.distributed.barrier()
+        ms = _ms(fn, 5)
+        out[op, shape, dtype] = (n / steps, ms)
+        total += n / steps * ms
+    return total, out
+
+
+def _tp_run(strategy, x, y, ckpt_dir=None) -> dict:
+    """(a) / (b): the full-width LM under {data: 1, model: 2} with fused
+    Adam and the fused CE, TP_STEPS steps from seed 0's weights on both
+    ranks; then the step's ms and the model-axis collectives'."""
+    with strategy.scope():
+        model = _compiled_lm(Adam(ADAM_LR, fused=True), fused_ce=True)
+    shard = model._tensor_parallel[0]
+    shapes = _recording(model)
+    shard.calls.clear()
+    shard.seconds = 0.0
+    run = _tp_steps(model, x, y, ckpt_dir=ckpt_dir)
+    calls = collections.Counter(shard.calls)
+    fn, st = run.pop("fn"), run.pop("st")
+    shard.seconds = 0.0
+    torch.distributed.barrier()
+    run["step_ms"] = _ms(lambda: fn(*st, x, y), 5)
+    run["collective_host_s"] = shard.seconds / 7
+    run["collective_ms"], run["collectives"] = _collective_ms(
+        shard.group, shard.size, calls, TP_STEPS)
+    params = dict(model.named_parameters())
+    wq = params["block.residual.main.multiheadattention.wq"]
+    layout = model._tensor_parallel[1]
+    run.update(heads=sorted(set(shapes)), wq=tuple(wq.shape),
+               wq_dtype=str(wq.dtype), layout=sorted(layout),
+               replicated={n: p.detach().cpu() for n, p in params.items()
+                           if n not in layout})
+    del model
+    torch.cuda.empty_cache()
+    return run
+
+
+def _ring_lm(strategy, x, y) -> dict:
+    """(c): the LM of (a) with RingAttention() in every block under
+    {data: 1, seq: 2}, TP_STEPS steps."""
+    from tpu_dist_torch.parallel import RingAttention
+
+    with strategy.scope():
+        model = build_transformer_lm(
+            LM["vocab_size"], LM["seq_len"], d_model=LM["d_model"],
+            depth=LM["depth"], num_heads=LM["num_heads"], seed=0,
+            attention_fn=RingAttention())
+        model.compile(optimizer=Adam(ADAM_LR, fused=True),
+                      loss=SparseCategoricalCrossentropy(from_logits=True,
+                                                         fused=True),
+                      metrics=[SparseCategoricalAccuracy()])
+        run = _tp_steps(model, x, y)
+    run.pop("fn"), run.pop("st")
+    del model
+    torch.cuda.empty_cache()
+    return run
+
+
+def _ring_alone(strategy) -> dict:
+    """(c): ring_attention at RING_SHAPE fp32 causal on this rank's block,
+    forward and backward (a seeded cotangent), against the flash kernels on
+    the gathered q, k, v (this rank's block of their output and
+    gradients); then both timed, the flash pair on rank 0 alone."""
+    from tpu_dist_torch.parallel import sequence
+
+    mesh = strategy.mesh
+    gen = torch.Generator().manual_seed(29)
+    q, k, v, do = (torch.randn(RING_SHAPE, generator=gen).cuda()
+                   for _ in range(4))
+    place = sequence.sequence_sharding(mesh).place
+    ql, kl, vl = (place(t).requires_grad_() for t in (q, k, v))
+    dol = place(do)
+    scale = RING_SHAPE[-1] ** -0.5
+
+    def ring():
+        o = sequence.ring_attention(ql, kl, vl, mesh=mesh, causal=True)
+        return (o, *torch.autograd.grad(o, (ql, kl, vl), dol))
+
+    for key in sequence.staging:
+        sequence.staging[key] = 0
+    got = ring()
+    torch.cuda.synchronize()
+    staged = dict(sequence.staging)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True, scale=scale)
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True,
+                                   scale=scale)
+    want = [place(t) for t in (o, *grads)]
+    torch.cuda.synchronize()
+    errs = [float((g.detach() - w).abs().max()) for g, w in zip(got, want)]
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.detach(), w, rtol=RING_TOL,
+                                   atol=RING_TOL * float(w.abs().max()))
+    del got, want, grads, o, lse
+    torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    ring_ms = _ms(ring, 3)
+    flash_ms = None
+    if bootstrap.process_index() == 0:
+        def flash():
+            o, lse = fa.flash_attention_fwd(q, k, v, causal=True,
+                                            scale=scale)
+            return fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True,
+                                          scale=scale)
+        flash_ms = _ms(flash, 3)
+    torch.distributed.barrier()
+    return {"errs": errs, "ring_ms": ring_ms, "flash_ms": flash_ms,
+            "staged": staged, "block": list(ql.shape)}
+
+
+def tp_worker(outdir: pathlib.Path) -> int:
+    """Phase 29's worker (``chip_smoke.py --tp-worker DIR``, TF_CONFIG in
+    the environment): (a) the full-width LM under {data: 1, model: 2}
+    (gloo on CUDA tensors, one card), its checkpoint at step 2 into
+    DIR/ckpt; (b) the same under mixed_bfloat16; (c) the LM with
+    RingAttention under {data: 1, seq: 2}, then ring attention alone.
+    Writes ``tp_worker<rank>.pt`` into DIR."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for source in SOURCES:
+        _build.load(source)
+    x, y = _bench_tokens(TP_BATCH)
+    tp = MultiWorkerMirroredStrategy(communication="ring",
+                                     axis_shapes=TP_AXES)
+    out = {"device": str(tp.device),
+           "backend": torch.distributed.get_backend(),
+           "replicas": tp.num_replicas_in_sync}
+    out["fp32"] = _tp_run(tp, x, y, ckpt_dir=outdir / "ckpt")
+    set_policy("mixed_bfloat16")
+    try:
+        out["bf16"] = _tp_run(tp, x, y)
+    finally:
+        set_policy("float32")
+    seq = MultiWorkerMirroredStrategy(communication="ring",
+                                      axis_shapes=SEQ_AXES)
+    out["ring_lm"] = _ring_lm(seq, x, y)
+    out["ring"] = _ring_alone(seq)
+    torch.save(_cpu(out), outdir / f"worker{bootstrap.process_index()}.pt")
+    return 0
+
+
+def _single_lm(x, y, *, steps: int = TP_STEPS, restore=None) -> dict:
+    """The single-process twin of (a) (or of (d) from ``restore``, a
+    checkpoint directory): the same compile, ``steps`` steps on (x, y),
+    counted, then its step's ms."""
+    model = _compiled_lm(Adam(ADAM_LR, fused=True), fused_ce=True)
+    fn, st = model.make_train_function(), model.train_state()
+    step = None
+    if restore is not None:
+        step = checkpoint.restore_model(restore, model)
+    _reset_counts()
+    losses = [float(fn(*st, x, y)) for _ in range(steps)]
+    torch.cuda.synchronize()
+    out = {"loss": losses, "counts": _counts(), "step": step,
+           "params": {n: p.detach().cpu()
+                      for n, p in model.named_parameters()}}
+    out["step_ms"] = _ms(lambda: fn(*st, x, y), 5)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _param_gaps(got: dict, want: dict, before: dict) -> tuple:
+    """Every leaf of ``got`` within PARAM_RTOL of its step (from
+    ``before``) plus PARAM_ATOL of ``want``'s, but the key biases (a zero
+    gradient: within ADAM_LR x TP_STEPS); returns (largest gap, the leaf
+    nearest its limit)."""
+    over, worst, near = [], 0.0, ("", 0.0)
+    for name, w in want.items():
+        gap = float((got[name] - w).abs().max())
+        step = float((w - before[name]).abs().max())
+        limit = (ADAM_LR * TP_STEPS if name.endswith(".bk")
+                 else PARAM_RTOL * step + PARAM_ATOL)
+        worst = max(worst, gap)
+        if gap / limit > near[1]:
+            near = (name, gap / limit)
+        if gap > limit:
+            over.append(f"{name}: {gap:.3e} (step {step:.3e})")
+    if over:
+        raise AssertionError(f"parameters beyond the twin's limits: "
+                             f"{'; '.join(over[:8])}")
+    return worst, near
+
+
+def tp_phase(card: str) -> dict:
+    """Phase 29: tensor and sequence parallelism on two gloo ranks sharing
+    the card. Returns each rank's launch counts on (a) and (c)'s LM."""
+    x, y = _bench_tokens(TP_BATCH)
+    depth, steps = LM["depth"], TP_STEPS
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        t0 = time.monotonic()
+        workers = _spawn_dp_workers(tmp, flag="--tp-worker")
+        wall = time.monotonic() - t0
+        twin = _single_lm(x, y)
+        resumed = _single_lm(x, y, steps=steps - TP_CKPT_STEP,
+                             restore=tmp / "ckpt")
+    set_policy("mixed_bfloat16")
+    try:
+        twin16 = _single_lm(x, y)
+    finally:
+        set_policy("float32")
+    before = {n: p.detach().cpu() for n, p in _compiled_lm(
+        Adam(ADAM_LR, fused=True)).named_parameters()}
+    r0, r1 = workers
+    half = LM["num_heads"] // 2
+    dk = LM["d_model"] // LM["num_heads"]
+    want_counts = (depth * steps, depth * steps, steps, steps, steps, 0)
+    # (a) fp32.
+    a0, a1 = r0["fp32"], r1["fp32"]
+    if (a0["loss"] != a1["loss"] or r0["replicas"] != 1
+            or r0["backend"] != "gloo"
+            or any(not torch.equal(a0["replicated"][n], a1["replicated"][n])
+                   for n in a0["replicated"])):
+        raise AssertionError(f"(29 a) the ranks differ: losses {a0['loss']}"
+                             f" / {a1['loss']}")
+    for r, a in enumerate((a0, a1)):
+        if (a["counts"] != want_counts or a["wq"] != (LM["d_model"], 256)
+                or a["heads"] != [(TP_BATCH, half, LM["seq_len"], dk)]):
+            raise AssertionError(f"(29 a) rank {r}: launches {a['counts']} "
+                                 f"(want {want_counts}), wq {a['wq']}, "
+                                 f"attention on {a['heads']}")
+    np.testing.assert_allclose(a0["loss"], twin["loss"], atol=LOSS_ATOL,
+                               rtol=0, err_msg="(29 a) losses vs the twin")
+    gap, near = _param_gaps(a0["params"], twin["params"], before)
+    coll = sorted(((k, v) for k, v in a0["collectives"].items()),
+                  key=lambda kv: -kv[1][0] * kv[1][1])
+    log(f"[29 tp] (a) the full-width LM under {TP_AXES} on two gloo ranks "
+        f"sharing the card (workers {wall:.1f} s), Adam(fused=True) + fused"
+        f" CE, {steps} steps of {TP_BATCH} x {LM['seq_len']}: losses "
+        f"{[round(v, 6) for v in a0['loss']]} bit for bit on both ranks "
+        f"(replicated leaves too); twin {[round(v, 6) for v in twin['loss']]}"
+        f" (max |diff| {max(abs(p - q) for p, q in zip(a0['loss'], twin['loss'])):.2e},"
+        f" atol {LOSS_ATOL:g}); gathered params within {PARAM_RTOL:g} x "
+        f"step + {PARAM_ATOL:g} of the twin's (bk: lr x steps), max gap "
+        f"{gap:.3e}, nearest its limit {near[0]} at {near[1]:.3f}; wq "
+        f"{a0['wq']} a rank; flash on {a0['heads']}; launches (flash fwd, "
+        f"bwd, Adam, CE fwd, CE bwd, SGD) {a0['counts']} / {a1['counts']}; "
+        f"sharded leaves {len(a0['layout'])} ({card})")
+    log(f"[29 tp] (a) times ({card}): step {a0['step_ms']:.3f} / "
+        f"{a1['step_ms']:.3f} ms a rank (two ranks on one card) against the "
+        f"single-process twin's {twin['step_ms']:.3f} ms; the model-axis "
+        f"collectives {a0['collective_ms']:.3f} ms a step timed alone (gloo "
+        f"staging through the host), host time inside the step "
+        f"{a0['collective_host_s'] * 1e3:.3f} ms; per step: " + "; ".join(
+            f"{op} {list(shape)} {dtype[6:]} x {n:g} at {ms:.3f} ms"
+            for (op, shape, dtype), (n, ms) in coll))
+    # (b) mixed_bfloat16.
+    b0, b1 = r0["bf16"], r1["bf16"]
+    if (b0["loss"] != b1["loss"] or b0["counts"] != want_counts
+            or b0["wq_dtype"] != "torch.float32"
+            or b0["heads"] != [(TP_BATCH, half, LM["seq_len"], dk)]):
+        raise AssertionError(f"(29 b) bf16: losses {b0['loss']} / "
+                             f"{b1['loss']}, launches {b0['counts']}, wq "
+                             f"{b0['wq_dtype']}, heads {b0['heads']}")
+    np.testing.assert_allclose(b0["loss"], twin16["loss"],
+                               atol=BF16_LOSS_ATOL, rtol=0,
+                               err_msg="(29 b) bf16 losses vs the twin")
+    log(f"[29 tp] (b) the same under mixed_bfloat16 (flash bf16, row 6c): "
+        f"losses {[round(v, 5) for v in b0['loss']]} bit for bit on both "
+        f"ranks; single-process twin {[round(v, 5) for v in twin16['loss']]}"
+        f" (atol {BF16_LOSS_ATOL:.4f}, one bf16 rounding of ln(8192)); "
+        f"launches {b0['counts']}; step {b0['step_ms']:.3f} ms against the "
+        f"twin's {twin16['step_ms']:.3f}; collectives {b0['collective_ms']:.3f}"
+        f" ms a step ({card})")
+    # (c) the ring LM and ring attention alone.
+    c0, c1 = r0["ring_lm"], r1["ring_lm"]
+    ring_counts = (0, 0, steps, steps, steps, 0)
+    if c0["loss"] != c1["loss"] or c0["counts"] != ring_counts:
+        raise AssertionError(f"(29 c) ring LM: losses {c0['loss']} / "
+                             f"{c1['loss']}, launches {c0['counts']}")
+    np.testing.assert_allclose(c0["loss"], twin["loss"], atol=LOSS_ATOL,
+                               rtol=0, err_msg="(29 c) ring LM vs the twin")
+    gap_c, near_c = _param_gaps(c0["params"], twin["params"], before)
+    ring = [r0["ring"], r1["ring"]]
+    log(f"[29 tp] (c) the LM with RingAttention() under {SEQ_AXES}: losses "
+        f"{[round(v, 6) for v in c0['loss']]} bit for bit on both ranks, "
+        f"within {LOSS_ATOL:g} of the flash twin's; params max gap "
+        f"{gap_c:.3e} (nearest {near_c[0]} at {near_c[1]:.3f}); launches "
+        f"{c0['counts']} (the ring reaches no flash kernel) ({card})")
+    staged = ring[0]["staged"]
+    log(f"[29 tp] (c) ring_attention {list(RING_SHAPE)} fp32 causal, blocks "
+        f"{ring[0]['block']} (2048-position chunks): max |ring - flash| "
+        f"over o, dq, dk, dv rank 0 {[f'{e:.2e}' for e in ring[0]['errs']]}, "
+        f"rank 1 {[f'{e:.2e}' for e in ring[1]['errs']]} (rtol {RING_TOL:g},"
+        f" atol {RING_TOL:g} of the largest |value|); fwd+bwd {ring[0]['ring_ms']:.3f} / {ring[1]['ring_ms']:.3f}"
+        f" ms a rank against the flash kernels' {ring[0]['flash_ms']:.3f} ms "
+        f"(one process, the whole sequence); host staging of the shifts: "
+        f"{staged['calls']} exchanges, {staged['bytes'] / 2**20:.1f} MiB, "
+        f"{staged['seconds'] * 1e3:.3f} ms in one fwd+bwd ({card})")
+    # (d) (a)'s checkpoint restored in one process and continued.
+    if resumed["step"] != TP_CKPT_STEP:
+        raise AssertionError(f"(29 d) restored step {resumed['step']}")
+    np.testing.assert_allclose(resumed["loss"], a0["loss"][TP_CKPT_STEP:],
+                               atol=LOSS_ATOL, rtol=0,
+                               err_msg="(29 d) resumed losses")
+    gap_d, near_d = _param_gaps(resumed["params"], a0["params"], before)
+    log(f"[29 tp] (d) (a)'s checkpoint at step {TP_CKPT_STEP} (global "
+        f"arrays, gathered over the model axis) restored in one process and "
+        f"continued {steps - TP_CKPT_STEP} steps: losses "
+        f"{[round(v, 6) for v in resumed['loss']]} against the tensor-"
+        f"parallel run's {[round(v, 6) for v in a0['loss'][TP_CKPT_STEP:]]};"
+        f" params max gap {gap_d:.3e} (nearest {near_d[0]} at "
+        f"{near_d[1]:.3f}) ({card})")
+    return {"tp_rank0": a0["counts"], "tp_rank1": a1["counts"],
+            "tp_bf16_rank0": b0["counts"], "tp_bf16_rank1": b1["counts"],
+            "ring_lm_rank0": c0["counts"], "ring_lm_rank1": c1["counts"]}
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--dp-worker"]:
         return dp_worker(pathlib.Path(sys.argv[2]))
@@ -5395,6 +5811,8 @@ def main() -> int:
         return file_worker(pathlib.Path(sys.argv[2]))
     if sys.argv[1:2] == ["--observe-worker"]:
         return observe_worker(pathlib.Path(sys.argv[2]))
+    if sys.argv[1:2] == ["--tp-worker"]:
+        return tp_worker(pathlib.Path(sys.argv[2]))
     t0 = time.monotonic()
     card = device_phase()
     build_phase()
@@ -5486,6 +5904,15 @@ def main() -> int:
     adam_record["launches_by_path"]["lm_fit_telemetry"] = lm_counts[2]
     for rec in bwd_records:
         rec["launches_by_path"]["lm_fit_telemetry"] = lm_counts[1]
+    # Phase 29's paths: each rank's tensor-parallel LM (fp32 and bf16)
+    # launches rows 1-2, 5 and 6-9; the ring LM rows 1-2 and 5.
+    for label, counts in tp_phase(card).items():
+        for rec, count in zip(new_records[:2], counts[3:5]):
+            rec["launches_by_path"][label] = count
+        adam_record["launches_by_path"][label] = counts[2]
+        record["launches_by_path"][label] = counts[0]
+        for rec in bwd_records:
+            rec["launches_by_path"][label] = counts[1]
     # In the order of the TPU kernel table (PERF.md): rows 1-9.
     records = [*new_records, adam_record, record, *bwd_records]
     log(f"done in {time.monotonic() - t0:.1f} s")

@@ -24,12 +24,10 @@ PACKAGES = ("", "ops", "serve", "training", "observe", "models", "data",
 NOT_YET_PORTED = {
     "OptaxWrapper": "not ported, by decision (optax has no PyTorch "
                     "counterpart)",
-    # item 17: parallel axes
-    "RingAttention": "item 17", "ring_attention": "item 17",
-    "sequence_sharding": "item 17", "tensor_parallel_specs": "item 17",
-    "PipelinedBlocks": "item 17", "gpipe_schedule": "item 17",
-    "make_1f1b_train_step": "item 17", "one_f_one_b": "item 17",
-    "MixtureOfExperts": "item 17",
+    # item 17b: the pipe and expert axes
+    "PipelinedBlocks": "item 17b", "gpipe_schedule": "item 17b",
+    "make_1f1b_train_step": "item 17b", "one_f_one_b": "item 17b",
+    "MixtureOfExperts": "item 17b",
     # item 18: resilience, liveness
     "FaultInjector": "item 18", "maybe_injector_from_env": "item 18",
     "GangReform": "item 18", "StepRejoinGate": "item 18",

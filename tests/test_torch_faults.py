@@ -338,12 +338,14 @@ def test_sync_bn_variance_is_centred_on_off_centre_data(tmp_path):
 # -- the minor faults ------------------------------------------------------------
 
 @pytest.mark.parametrize("call, item", [
-    (lambda: transformer.build_transformer_lm(16, 8, moe_experts=2), 17),
-    (lambda: transformer.build_transformer_lm(16, 8, pipeline_stages=2), 17),
-    # Item 12 ported axis_shapes of the data axis alone and strategy.run;
-    # a parallel axis and several devices in one process stay unported.
-    (lambda: MirroredStrategy(axis_shapes={"data": 1, "seq": 2},
-                              device="cpu"), 17),
+    (lambda: transformer.build_transformer_lm(16, 8, moe_experts=2), "17b"),
+    (lambda: transformer.build_transformer_lm(16, 8, pipeline_stages=2),
+     "17b"),
+    # Item 12 ported axis_shapes of the data axis alone and strategy.run,
+    # item 17a the model and seq axes; the pipe and expert axes and
+    # several devices in one process stay unported.
+    (lambda: MirroredStrategy(axis_shapes={"data": 1, "pipe": 2},
+                              device="cpu"), "17b"),
     (lambda: MirroredStrategy(devices=["cpu", "cpu"]), "12b"),
 ], ids=["moe_experts", "pipeline_stages", "axis_shapes", "run"])
 def test_unported_names_the_roadmap_item(call, item):

@@ -45,9 +45,10 @@ class DeviceDataset:
 
     ``device`` is where the arrays go (default: the trainer's device when
     ``fit`` binds it, else CUDA by the port's rule). ``uploads`` counts
-    the uploads, ``upload_seconds`` times the last one, and
+    the uploads, ``upload_seconds`` times the last one,
     ``index_bytes`` counts the bytes of the index vectors drawn for the
-    device, the only bytes a batch sends.
+    device, the only bytes a batch sends, and ``index_copies`` the
+    host-to-device copies of index vectors this object issued.
     """
 
     def __init__(self, images: np.ndarray, labels: np.ndarray, *,
@@ -87,6 +88,7 @@ class DeviceDataset:
         self.uploads = 0
         self.upload_seconds: Optional[float] = None
         self.index_bytes = 0
+        self.index_copies = 0
 
     def bind_device(self, device: DeviceLike) -> "DeviceDataset":
         """Pin (or move) the dataset to ``device``: ``fit`` binds it to the
@@ -177,6 +179,7 @@ class DeviceDataset:
         self._copied.synchronize()  # the last copy out of the staging is done
         host.numpy()[:] = idx.reshape(-1)
         out = host.to(self._device, non_blocking=True)
+        self.index_copies += 1
         self._copied.record()
         return out.view(idx.shape)
 

@@ -57,9 +57,9 @@ def check_replicated_determinism(dataset, num_shards: int,
     processes that share a shard must produce identical batches. A chain
     with an unseeded shuffle certainly does not, and raises; any other
     pipeline cannot be proven either way and gets a warning. The port's
-    strategies give every process a shard of its own (one replica per
-    process), so their datasets pass it by construction; a mesh whose data
-    axis spans fewer processes (ROADMAP queue 1, item 12) calls it."""
+    strategies give every process a shard of its own on a data-only mesh,
+    so their datasets pass it by construction; a mesh whose data axis spans
+    fewer processes (a model or sequence axis beside it) calls it."""
     if num_shards >= num_processes:
         return
     if _find_unseeded_shuffle(dataset):
@@ -95,16 +95,22 @@ class DistributedDataset:
         self._strategy = strategy
         self._num_processes = bootstrap.process_count()
         self._process_index = bootstrap.process_index()
+        # One shard per data-parallel replica: the processes beside it on a
+        # model or sequence axis read its shard too.
+        shards, index = self._num_processes, self._process_index
+        if strategy is not None and strategy.parallel_mesh is not None:
+            shards, index = strategy.input_shard_info()
         effective = (policy if policy is not None
                      else dataset.auto_shard_policy)
         if effective == AutoShardPolicy.OFF:
             self._policy = AutoShardPolicy.OFF
             self._local = dataset
         else:
-            self._policy = resolve_policy(dataset, self._num_processes,
-                                          effective)
-            self._local = shard_dataset(dataset, self._num_processes,
-                                        self._process_index, self._policy,
+            check_replicated_determinism(dataset, shards,
+                                         self._num_processes,
+                                         "DistributedDataset")
+            self._policy = resolve_policy(dataset, shards, effective)
+            self._local = shard_dataset(dataset, shards, index, self._policy,
                                         pre_batched=True)
         if device is None and strategy is not None:
             device = strategy.device

@@ -24,6 +24,13 @@ constant-rate momentum SGD's velocity tree is the whole ``opt``
 parameter order, so it is mapped to those keys by the parameters' names,
 never by position (the reference's sorted order puts ``conv2d_10`` before
 ``conv2d_2``).
+
+Under a model axis a process holds blocks of some parameters
+(``parallel/tensor.py``): :func:`local_shards` takes whole tensors (the
+reference's, or a checkpoint's) to this process's blocks, and
+:func:`checkpoint_names` names the parameter each checkpoint key follows,
+so a checkpoint gathers and restores each block by its parameter's
+layout.
 """
 
 from __future__ import annotations
@@ -70,6 +77,21 @@ def variables_from_jax(variables: dict) -> dict[str, torch.Tensor]:
     port's whole ``state_dict``: parameters and buffers."""
     return {**params_from_jax(variables["params"]),
             **state_from_jax(variables.get("state") or {})}
+
+
+def local_shards(tensors: dict, layout: dict) -> dict:
+    """``{name: tensor}`` with every tensor ``layout`` names (``{name:
+    (dim, axis size, coordinate)}``, ``parallel/tensor.shard_model``'s)
+    cut to this process's block along its dimension; the rest as they
+    are. With the layout of a model on a mesh, ``local_shards(
+    variables_from_jax(v), layout)`` is what that process loads."""
+    out = dict(tensors)
+    for name, (dim, size, index) in layout.items():
+        if name in out:
+            t = out[name]
+            per = t.shape[dim] // size
+            out[name] = t.narrow(dim, index * per, per).clone()
+    return out
 
 
 def keypath(dotted: str) -> str:
@@ -132,6 +154,29 @@ def checkpoint_tensors(model, opt_state) -> dict[str, torch.Tensor]:
     out.update(("['state']" + keypath(n), b)
                for n, b in model.named_buffers())
     out.update(opt_keys(opt_state, names, "['opt']"))
+    return out
+
+
+def _names_like(opt_state, names: list[str]):
+    """``opt_state`` with every list of per-parameter tensors replaced by
+    the parameters' names and every other leaf by None."""
+    if isinstance(opt_state, tuple) and hasattr(opt_state, "_fields"):
+        return type(opt_state)(*(_names_like(getattr(opt_state, f), names)
+                                 for f in opt_state._fields))
+    if isinstance(opt_state, (list, tuple)):
+        return list(names) if opt_state else []
+    return None
+
+
+def checkpoint_names(model, opt_state) -> dict:
+    """``{checkpoint key: parameter name or None}`` over the keys of
+    :func:`checkpoint_tensors`: a parameter's key and its optimizer
+    states' keys name it, a buffer's and a step counter's None."""
+    names = [n for n, _ in model.named_parameters()]
+    out = {"['params']" + keypath(n): n for n in names}
+    out.update(("['state']" + keypath(n), None)
+               for n, _ in model.named_buffers())
+    out.update(opt_keys(_names_like(opt_state, names), names, "['opt']"))
     return out
 
 

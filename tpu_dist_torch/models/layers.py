@@ -109,7 +109,9 @@ class Layer(nn.Module):
 
 
 class Dense(Layer):
-    """Fully connected on the last axis; kernel ``[in, out]``."""
+    """Fully connected on the last axis; kernel ``[in, out]``. Under a
+    model axis, :attr:`shard` (``parallel/tensor.DenseShard``) runs this
+    process's column or row slice with its collectives."""
 
     def __init__(self, units: int, activation: Optional[str] = None,
                  use_bias: bool = True,
@@ -119,6 +121,7 @@ class Dense(Layer):
         self.activation = activation
         self.use_bias = use_bias
         self.kernel_initializer = kernel_initializer
+        self.shard = None
 
     def init(self, gen, in_shape):
         din = in_shape[-1]
@@ -129,6 +132,8 @@ class Dense(Layer):
         return (*in_shape[:-1], self.units)
 
     def forward(self, x):
+        if self.shard is not None:
+            return self.shard(self, x)
         y = x @ self.kernel.to(x.dtype)
         if self.use_bias:
             y = y + self.bias.to(y.dtype)
@@ -305,21 +310,23 @@ class _SyncMoments(torch.autograd.Function):
     running state)."""
 
     @staticmethod
-    def forward(ctx, xf, epsilon):
+    def forward(ctx, xf, epsilon, group):
         from tpu_dist_torch.parallel import collectives
 
         c = xf.shape[-1]
         flat = xf.reshape(-1, c)
         sums = torch.cat([flat.sum(0), flat.new_full((1,), flat.shape[0])])
-        collectives.all_reduce([sums], collectives.ReduceOp.SUM)
+        collectives.all_reduce([sums], collectives.ReduceOp.SUM, group=group)
         n = sums[c:]
         mean = sums[:c] / n
         centred = (flat - mean).square().sum(0)
-        collectives.all_reduce([centred], collectives.ReduceOp.SUM)
+        collectives.all_reduce([centred], collectives.ReduceOp.SUM,
+                               group=group)
         var = centred / n
         inv = torch.rsqrt(var + epsilon)
         xhat = (xf - mean) * inv
         ctx.save_for_backward(xhat, inv, n)
+        ctx.group = group
         ctx.mark_non_differentiable(mean, var)
         return xhat, mean, var
 
@@ -331,9 +338,10 @@ class _SyncMoments(torch.autograd.Function):
         c = xhat.shape[-1]
         sums = torch.cat([dxhat.reshape(-1, c).sum(0),
                           (dxhat * xhat).reshape(-1, c).sum(0)])
-        collectives.all_reduce([sums], collectives.ReduceOp.SUM)
+        collectives.all_reduce([sums], collectives.ReduceOp.SUM,
+                               group=ctx.group)
         dx = inv * (dxhat - sums[:c] / n - xhat * (sums[c:] / n))
-        return dx, None
+        return dx, None, None
 
 
 class BatchNormalization(Layer):
@@ -348,7 +356,8 @@ class BatchNormalization(Layer):
     normalises with the running state. The output is cast back to the
     input's dtype. With ``synchronized`` set (the trainer sets it in a
     process group), the moments and their gradients are the global
-    batch's (:class:`_SyncMoments`)."""
+    batch's (:class:`_SyncMoments`), over the processes of ``sync_group``
+    (None: all; the trainer sets the replicas' group)."""
 
     def __init__(self, momentum: float = 0.99, epsilon: float = 1e-3,
                  center: bool = True, scale: bool = True):
@@ -358,6 +367,7 @@ class BatchNormalization(Layer):
         self.center = center
         self.scale = scale
         self.synchronized = False
+        self.sync_group = None
 
     def init(self, gen, in_shape):
         c = in_shape[-1]
@@ -372,7 +382,8 @@ class BatchNormalization(Layer):
         xf = x.float()
         if self.training:
             if self.synchronized:
-                y, mean, var = _SyncMoments.apply(xf, self.epsilon)
+                y, mean, var = _SyncMoments.apply(xf, self.epsilon,
+                                                  self.sync_group)
             else:
                 var, mean = torch.var_mean(xf, dim=tuple(range(x.dim() - 1)),
                                            correction=0)

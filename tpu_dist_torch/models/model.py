@@ -76,12 +76,14 @@ class _Tree(nn.Module):
 def _detached_copy(layers, device: str = "meta") -> list:
     """A deep copy of ``layers`` whose parameters and buffers are stand-ins
     on ``device`` (nothing is copied for them) and which shares the
-    originals' random generators; its ``init`` makes new tensors."""
+    originals' random generators and process groups; its ``init`` makes
+    new tensors."""
     tensors = [t for layer in layers
                for t in (*layer.parameters(), *layer.buffers())]
     memo = {id(t): t.to(device) for t in tensors}
     memo.update((id(g), g) for layer in layers for m in layer.modules()
-                if (g := getattr(m, "generator", None)) is not None)
+                for attr in ("generator", "sync_group")
+                if (g := getattr(m, attr, None)) is not None)
     return copy.deepcopy(list(layers), memo)
 
 
@@ -146,6 +148,11 @@ class Model(nn.Module):
         self.prefetch_to_device = 0
         self.strategy = None
         self._trainer = None
+        #: The mesh ``compile`` placed the model on (one with a model or
+        #: sequence axis), and under a model axis ``(ModelShard, {name:
+        #: (dim, size, index)})`` (``parallel/tensor.shard_model``).
+        self._parallel_mesh = None
+        self._tensor_parallel = None
         #: The summed ``aux_loss`` leaves of the last forward's new state,
         #: with their autograd graph (the trainer adds them to the loss).
         self._aux_loss: Optional[torch.Tensor] = None
@@ -241,17 +248,21 @@ class Model(nn.Module):
     @property
     def variables(self) -> dict:
         """``{'params': …, 'state': …}``, nested dicts of (detached, live)
-        tensors in the reference's tree layout."""
+        tensors in the reference's tree layout (under a model axis, this
+        process's blocks: ``parallel/tensor.gather_params`` gathers
+        them)."""
         return {"params": _nest(self.named_parameters()),
                 "state": _nest(self.named_buffers())}
 
     def load_jax_variables(self, variables: dict) -> None:
         """Load the reference model's ``variables`` (``{'params': …,
         'state': …}``, nested dicts of numpy arrays) into this model, in
-        place; strict on names and shapes."""
+        place; strict on names and shapes. Under a model axis each process
+        loads its shards."""
         from tpu_dist_torch.models.bridge import variables_from_jax
 
-        self.load_state_dict(variables_from_jax(variables), strict=True)
+        self.load_state_dict(self._local(variables_from_jax(variables)),
+                             strict=True)
 
     def load_jax_params(self, tree: dict) -> None:
         """Load the reference model's ``variables['params']`` into this
@@ -266,7 +277,7 @@ class Model(nn.Module):
                 f"{self.name}: the params do not match the model's: missing "
                 f"{sorted(names - set(loaded))}, unexpected "
                 f"{sorted(set(loaded) - names)}")
-        self.load_state_dict(loaded, strict=False)
+        self.load_state_dict(self._local(loaded), strict=False)
 
     # -- Keras-style training surface -----------------------------------------
 
@@ -319,14 +330,50 @@ class Model(nn.Module):
                     f"replica trains on {strategy.device}")
             target = strategy.device
         self.to(target)
+        self._place_on(strategy.parallel_mesh)
         self.strategy = strategy
         self.optimizer = optimizers_lib.get(optimizer)
+        if self._tensor_parallel is not None and (
+                self.optimizer.clipnorm is not None
+                or self.optimizer.global_clipnorm is not None):
+            raise ValueError(
+                "clipnorm and global_clipnorm need the norms of whole "
+                "tensors; under a model axis each process holds slices")
         self.loss = losses_lib.get(loss) if loss is not None else None
         self.metrics = [metrics_lib.get(m) for m in metrics]
         self.steps_per_execution = int(steps_per_execution)
         self.gradient_bucket_bytes = int(gradient_bucket_bytes)
         self.prefetch_to_device = int(prefetch_to_device)
         self._trainer = None
+
+    def _place_on(self, mesh) -> None:
+        """Put the model on a mesh with a model or sequence axis (None:
+        nothing to do): process 0's parameters and state on every process
+        (the mirrored variables' initial broadcast, made before any
+        slicing), then this process's shards under a model axis
+        (``parallel/tensor.shard_model``). A model placed on one mesh is
+        not placed on another."""
+        placed = self._parallel_mesh
+        if placed is not None or mesh is None:
+            if placed is not None and placed != mesh:
+                raise ValueError(
+                    f"{self.name} is placed on the mesh {dict(placed.shape)};"
+                    f" build the model anew for another")
+            return
+        from tpu_dist_torch.parallel import collectives, tensor
+
+        collectives.broadcast_from_chief([list(self.parameters()),
+                                          list(self.buffers())])
+        tensor.shard_model(self, mesh)
+        self._parallel_mesh = mesh
+
+    def _local(self, tensors: dict) -> dict:
+        """``{name: tensor}`` of whole tensors as this process holds them:
+        each sharded leaf's block under a model axis."""
+        from tpu_dist_torch.models.bridge import local_shards
+
+        tp = self._tensor_parallel
+        return tensors if tp is None else local_shards(tensors, tp[1])
 
     def _get_trainer(self, needs: str):
         from tpu_dist_torch.training.trainer import Trainer

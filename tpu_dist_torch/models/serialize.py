@@ -13,7 +13,8 @@ The reference's layers are frozen dataclasses; the port's are
 reference's field names (``Layer.config``). Its optimizers, losses,
 metrics and schedules keep the reference's public attribute names and
 their private state (leaf tables) private, so ``vars()`` reads the same
-config in both.
+config in both. An attention layer's ``parallel.RingAttention`` is saved
+as its fields (the reference's ``__attention__`` record), never its mesh.
 
     model.save("saved/mnist")                 # the chief writes
     model2 = tpu_dist_torch.models.load_model("saved/mnist", device="cpu")
@@ -34,16 +35,26 @@ FORMAT = "tpu_dist.sequential.v1"
 
 def _encode_value(v):
     from tpu_dist_torch.models.layers import Layer
+    from tpu_dist_torch.parallel.sequence import RingAttention
 
     if isinstance(v, Layer):
         return {"__layer__": layer_config(v)}
+    if isinstance(v, RingAttention):
+        # The declarative attention spec: its fields, never a mesh (the
+        # restoring job's strategy scope provides one).
+        return {"__attention__": {
+            "class": "RingAttention",
+            "config": {k: getattr(v, k)
+                       for k in ("axis_name", "batch_axis", "scale",
+                                 "kv_chunk")}}}
     if isinstance(v, (tuple, list)):
         return [_encode_value(e) for e in v]
     if callable(v):
         raise TypeError(
             f"cannot serialize layer field holding a callable ({v!r}); use "
-            "save_weights()/load_weights and rebuild the architecture in "
-            "code for an attention_fn hook")
+            "the declarative spec (RingAttention(axis_name=...)) for ring "
+            "attention, or save_weights()/load_weights and rebuild the "
+            "architecture in code for other attention_fn hooks")
     return v
 
 
@@ -51,10 +62,15 @@ def _decode_value(v):
     if isinstance(v, dict) and "__layer__" in v:
         return layer_from_config(v["__layer__"])
     if isinstance(v, dict) and "__attention__" in v:
-        from tpu_dist_torch.utils.errors import unported
+        from tpu_dist_torch.parallel.sequence import RingAttention
 
-        raise unported(f"attention spec {v['__attention__'].get('class')!r}"
-                       " (ring attention)", 17)
+        spec = v["__attention__"]
+        # An allowlist: a crafted model.json must reach nothing else.
+        cls = {"RingAttention": RingAttention}.get(spec["class"])
+        if cls is None:
+            raise ValueError(
+                f"unknown attention spec class {spec['class']!r}")
+        return cls(**spec["config"])
     if isinstance(v, list):
         return tuple(_decode_value(e) for e in v)
     return v

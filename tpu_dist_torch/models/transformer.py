@@ -6,10 +6,17 @@ embeddings, LayerNorm, multi-head attention behind the
 :func:`build_transformer_lm`. The dispatch sends every CUDA tensor to the
 hand-written Hopper kernels of ``ops/flash_attention.py`` (the forward,
 and under autograd the backward pair), which raise on what they do not
-take; CPU tensors get their plain PyTorch versions. Single
-device only: the reference's mesh-mapped flash, ring attention hooks,
-pipeline stages and mixture-of-experts blocks come with the parallel-axes
-slice of the port.
+take; CPU tensors get their plain PyTorch versions.
+
+Under a model axis (``parallel/tensor.py``) a multi-head attention layer
+holds this process's heads, ``num_heads / M`` of them, and the dispatch
+launches the flash kernels on ``[B, H / M, L, dk]``: the port's
+counterpart of the reference's ``_mesh_mapped_flash``. Each process holds
+only its own shard, so the raw kernel is always safe here, where the
+reference must keep GSPMD from gathering around it. ``attention_fn``
+takes another attention function, e.g. ``parallel.RingAttention()`` for
+ring attention over a ``seq`` axis. Pipeline stages and
+mixture-of-experts blocks are ROADMAP item 17b.
 """
 
 from __future__ import annotations
@@ -110,7 +117,11 @@ class MultiHeadAttention(Layer):
     applies the autoregressive mask. ``attention_fn`` (``None``:
     :func:`_default_attention`) may be another function of the same
     signature, e.g. :func:`_dense_attention` for a plain-attention twin; as
-    in the reference, a model holding one does not serialize."""
+    in the reference, a model holding one does not serialize, but for a
+    ``parallel.RingAttention``. Under a model axis :attr:`shard`
+    (``parallel/tensor.ModelShard``) is set: the projections hold this
+    process's heads, the input's gradient and the output's partial sums
+    are reduced over the axis."""
 
     def __init__(self, num_heads: int, key_dim: int, causal: bool = False,
                  use_bias: bool = True,
@@ -123,6 +134,7 @@ class MultiHeadAttention(Layer):
         self.causal = causal
         self.use_bias = use_bias
         self.kernel_initializer = kernel_initializer
+        self.shard = None
 
     def config(self) -> dict:
         fn = self.attention_fn
@@ -142,12 +154,13 @@ class MultiHeadAttention(Layer):
 
     def _heads(self, x, w, b):
         """``[.., L, D] -> [.., H, L, key_dim]``: the ``H * key_dim``
-        projection columns split as ``(H, key_dim)``, heads before L."""
+        projection columns split as ``(H, key_dim)``, heads before L (H
+        this process's heads under a model axis)."""
         y = x @ w.to(x.dtype)
         if b is not None:
             y = y + b.to(y.dtype)
         *lead, ln, _ = y.shape
-        y = y.reshape(*lead, ln, self.num_heads, self.key_dim)
+        y = y.reshape(*lead, ln, -1, self.key_dim)
         return y.movedim(-2, -3)
 
     def qkv(self, x):
@@ -162,11 +175,15 @@ class MultiHeadAttention(Layer):
         o = o.movedim(-3, -2)
         *lead, ln, h, dk = o.shape
         y = o.reshape(*lead, ln, h * dk) @ self.wo.to(o.dtype)
+        if self.shard is not None:
+            y = self.shard.reduce(y)
         if self.use_bias:
             y = y + self.bo.to(y.dtype)
         return y
 
     def forward(self, x):
+        if self.shard is not None:
+            x = self.shard.copy(x)
         q, k, v = self.qkv(x)
         o = self.attention_fn(q, k, v, causal=self.causal,
                               scale=1.0 / math.sqrt(self.key_dim))
@@ -176,8 +193,10 @@ class MultiHeadAttention(Layer):
 def TransformerBlock(d_model: int, num_heads: int, ff_dim: int,
                      key_dim: Optional[int] = None, causal: bool = False,
                      activation: str = "gelu",
+                     attention_fn: Optional[Callable] = None,
                      epsilon: float = 1e-5) -> Block:
-    """Pre-LN block: ``x + MHA(LN(x))``, then ``x + MLP(LN(x))``."""
+    """Pre-LN block: ``x + MHA(LN(x))``, then ``x + MLP(LN(x))``;
+    ``attention_fn`` is the attention layer's."""
     if key_dim is None:
         if d_model % num_heads:
             raise ValueError(
@@ -187,7 +206,7 @@ def TransformerBlock(d_model: int, num_heads: int, ff_dim: int,
     attn = Residual(
         main=(LayerNormalization(epsilon=epsilon),
               MultiHeadAttention(num_heads=num_heads, key_dim=key_dim,
-                                 causal=causal)),
+                                 causal=causal, attention_fn=attention_fn)),
         shortcut=(), activation=None)
     mlp = Residual(
         main=(LayerNormalization(epsilon=epsilon),
@@ -199,22 +218,26 @@ def TransformerBlock(d_model: int, num_heads: int, ff_dim: int,
 def build_transformer_lm(vocab_size: int, seq_len: int, *, d_model: int = 128,
                          depth: int = 2, num_heads: int = 4,
                          ff_dim: Optional[int] = None,
+                         attention_fn: Optional[Callable] = None,
                          pipeline_stages: Optional[int] = None,
                          moe_experts: Optional[int] = None,
                          seed: int = 0) -> Sequential:
     """A causal (GPT-style) LM: token + position embeddings, ``depth``
     pre-LN blocks, final LN, vocab head. Int token ids ``[B, L]`` ->
-    logits ``[B, L, vocab]``. Parameters are initialized from ``seed`` on
-    the CPU; ``compile`` (or a ``ServeEngine``) moves the model to the
-    CUDA device unless the caller asks for the CPU."""
+    logits ``[B, L, vocab]``. ``attention_fn`` is every block's attention
+    function (e.g. ``parallel.RingAttention()``). Parameters are
+    initialized from ``seed`` on the CPU; ``compile`` (or a
+    ``ServeEngine``) moves the model to the CUDA device unless the caller
+    asks for the CPU."""
     if pipeline_stages:
-        raise unported("build_transformer_lm(pipeline_stages=)", 17)
+        raise unported("build_transformer_lm(pipeline_stages=)", "17b")
     if moe_experts:
-        raise unported("build_transformer_lm(moe_experts=)", 17)
+        raise unported("build_transformer_lm(moe_experts=)", "17b")
     ff_dim = ff_dim or 4 * d_model
     layers = [Embedding(vocab_size, d_model),
               PositionalEmbedding(max_len=seq_len)]
-    layers += [TransformerBlock(d_model, num_heads, ff_dim, causal=True)
+    layers += [TransformerBlock(d_model, num_heads, ff_dim, causal=True,
+                                attention_fn=attention_fn)
                for _ in range(depth)]
     layers += [LayerNormalization(), Dense(vocab_size)]
     return Sequential(layers, input_shape=(seq_len,), name="transformer_lm",

@@ -1,5 +1,5 @@
-"""Parallelism layer: axis names, meshes, collectives and distribution
-strategies."""
+"""Parallelism layer: axis names, meshes, collectives, distribution
+strategies, tensor parallelism and ring attention."""
 
 from tpu_dist_torch.parallel.axes import (CANONICAL_AXES, DATA_AXIS,
                                           EXPERT_AXIS, MODEL_AXIS, PIPE_AXIS,
@@ -14,11 +14,14 @@ from tpu_dist_torch.parallel.collectives import (CollectiveCommunication,
                                                  set_collective_logging)
 from tpu_dist_torch.parallel.mesh import (batch_sharded, make_mesh,
                                           replicate, replicated, shard_batch)
+from tpu_dist_torch.parallel.sequence import (RingAttention, ring_attention,
+                                              sequence_sharding)
 from tpu_dist_torch.parallel.strategy import (DefaultStrategy, InputContext,
                                               MirroredStrategy,
                                               MultiWorkerMirroredStrategy,
                                               Strategy, get_strategy,
                                               has_strategy)
+from tpu_dist_torch.parallel.tensor import tensor_parallel_specs
 
 __all__ = [
     "CANONICAL_AXES", "DATA_AXIS", "EXPERT_AXIS", "MODEL_AXIS", "PIPE_AXIS",
@@ -30,4 +33,6 @@ __all__ = [
     "DefaultStrategy", "InputContext", "MirroredStrategy",
     "MultiWorkerMirroredStrategy", "Strategy", "get_strategy",
     "has_strategy",
+    "RingAttention", "ring_attention", "sequence_sharding",
+    "tensor_parallel_specs",
 ]

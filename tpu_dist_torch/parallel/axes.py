@@ -3,9 +3,10 @@
 
 An axis name is part of the user-visible contract: ``axis_shapes={'data':
 2}`` on a strategy, ``batch_sharded(mesh, 'data')`` on a batch. The port
-runs one replica per process, so only the data axis carries processes
-today (``parallel/mesh.py``); the other names are declared so that code
-written against the JAX package reads the same here. Dependency-free.
+runs one device per process, so an axis carries processes
+(``parallel/mesh.py``): the data, model and seq axes today; the pipe and
+expert names are declared so that code written against the JAX package
+reads the same here. Dependency-free.
 """
 
 from __future__ import annotations
@@ -14,16 +15,16 @@ from __future__ import annotations
 #: (the reference's MultiWorkerMirroredStrategy semantics).
 DATA_AXIS = "data"
 
-#: Tensor-parallel axis (ROADMAP queue 1, item 17).
+#: Tensor-parallel axis (``parallel/tensor.py``).
 MODEL_AXIS = "model"
 
-#: Sequence-parallel axis: ring attention (item 17).
+#: Sequence-parallel axis: ring attention (``parallel/sequence.py``).
 SEQ_AXIS = "seq"
 
-#: Pipeline-parallel axis (item 17).
+#: Pipeline-parallel axis (ROADMAP queue 1, item 17b).
 PIPE_AXIS = "pipe"
 
-#: Expert-parallel axis (item 17).
+#: Expert-parallel axis (item 17b).
 EXPERT_AXIS = "expert"
 
 #: Every axis name the framework declares.

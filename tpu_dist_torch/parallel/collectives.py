@@ -7,9 +7,11 @@ the step's gradient all-reduce into the program; here the trainer calls
 flat buffer (the reference's single end-of-step all-reduce), or
 :func:`bucketed_all_reduce` in size buckets under
 ``compile(gradient_bucket_bytes=)``, over the process group that
-``cluster/bootstrap.py`` brought up. The axis every collective here runs
-over is the process group's: the data axis (``parallel/axes.py``), one
-replica per process. With one process every collective is the identity.
+``cluster/bootstrap.py`` brought up. A collective runs over the whole
+process group, or over the subgroup ``group=`` names: a mesh axis's
+(``parallel/mesh.axis_group``; :data:`~tpu_dist_torch.parallel.mesh.SELF`
+is this process alone). With one process every collective is the
+identity.
 
 Trees are nests of dicts, lists, tuples and NamedTuples, flattened as
 ``jax.tree_util`` flattens them: dicts in sorted key order, ``None`` holds
@@ -163,17 +165,35 @@ class ReduceOp(enum.Enum):
 _DIST_OPS = {ReduceOp.SUM: "SUM", ReduceOp.MEAN: "SUM", ReduceOp.MAX: "MAX",
              ReduceOp.MIN: "MIN"}
 
+#: ``group=`` for this process alone (``parallel/mesh.SELF``).
+_SELF = "self"
+
+
+def group_size(group=None) -> int:
+    """The number of processes in ``group`` (None: the whole process
+    group; ``"self"``: 1)."""
+    if group == _SELF or not bootstrap.is_initialized():
+        return 1
+    return dist.get_world_size(group)
+
+
+def group_root(group=None) -> int:
+    """The global rank of the first process of ``group`` (a process
+    group, or None: the whole one)."""
+    return 0 if group is None else dist.get_global_rank(group, 0)
+
 
 def _reduce_op(op) -> ReduceOp:
     return ReduceOp(op) if not isinstance(op, ReduceOp) else op
 
 
 def _reduce_flat(tensors: Sequence[torch.Tensor], op: ReduceOp,
-                 world: int) -> None:
+                 world: int, group=None) -> None:
     """One collective over ``tensors`` (one dtype, one device), packed into
     a flat buffer, reduced and copied back in place."""
     flat = torch.cat([t.reshape(-1) for t in tensors])
-    dist.all_reduce(flat, op=getattr(dist.ReduceOp, _DIST_OPS[op]))
+    dist.all_reduce(flat, op=getattr(dist.ReduceOp, _DIST_OPS[op]),
+                    group=group)
     if op is ReduceOp.MEAN:
         flat /= world
     offset = 0
@@ -184,21 +204,23 @@ def _reduce_flat(tensors: Sequence[torch.Tensor], op: ReduceOp,
 
 
 def all_reduce(tensors: Sequence[torch.Tensor],
-               op: ReduceOp | str = ReduceOp.SUM) -> Sequence[torch.Tensor]:
-    """Reduce every tensor across the processes, in place, in one
-    collective: the tensors (one dtype, one device) are packed into a flat
-    buffer, reduced, and copied back. Returns ``tensors``."""
+               op: ReduceOp | str = ReduceOp.SUM, *,
+               group=None) -> Sequence[torch.Tensor]:
+    """Reduce every tensor across the processes of ``group`` (default:
+    all), in place, in one collective: the tensors (one dtype, one device)
+    are packed into a flat buffer, reduced, and copied back. Returns
+    ``tensors``."""
     op = _reduce_op(op)
     fire_fault_hook("all_reduce")
     fire_observe_hook("all_reduce", list(tensors))
     _log_tree(f"all_reduce[{op.value}]", list(tensors))
-    world = bootstrap.process_count()
+    world = group_size(group)
     if world == 1 or not tensors:
         return tensors
     dtypes = {t.dtype for t in tensors}
     if len(dtypes) != 1:
         raise ValueError(f"all_reduce packs one dtype, got {sorted(map(str, dtypes))}")
-    _reduce_flat(tensors, op, world)
+    _reduce_flat(tensors, op, world, group)
     return tensors
 
 
@@ -286,7 +308,7 @@ def partition_buckets(tree: Any, bucket_bytes: int) -> list[list[int]]:
 
 
 def bucketed_all_reduce(tree: Any, op: ReduceOp | str = ReduceOp.MEAN, *,
-                        bucket_bytes: int = 0) -> Any:
+                        bucket_bytes: int = 0, group=None) -> Any:
     """Reduce a tree of tensors across the processes in size buckets, in
     place: the leaves of each :func:`partition_buckets` bucket are grouped
     by dtype (first-occurrence order, the same on every process) and each
@@ -301,39 +323,42 @@ def bucketed_all_reduce(tree: Any, op: ReduceOp | str = ReduceOp.MEAN, *,
     once the backward pass has ended; launching each as its last gradient
     lands is ROADMAP's K8."""
     op = _reduce_op(op)
-    world = bootstrap.process_count()
+    world = group_size(group)
     leaves = tree_leaves(tree)
     if world == 1 or not leaves:
         return tree
     fire_fault_hook("bucketed_all_reduce")
     if op in (ReduceOp.MAX, ReduceOp.MIN):
         for dtype in dict.fromkeys(t.dtype for t in leaves):
-            all_reduce([t for t in leaves if t.dtype == dtype], op)
+            all_reduce([t for t in leaves if t.dtype == dtype], op,
+                       group=group)
         return tree
     for bucket in partition_buckets(tree, bucket_bytes):
         by_dtype: dict = {}
         for i in bucket:
             by_dtype.setdefault(leaves[i].dtype, []).append(leaves[i])
-        for group in by_dtype.values():
-            fire_observe_hook("bucketed_all_reduce", group)
-            _log_tree(f"bucketed_all_reduce[{op.value}]", group)
+        for packed in by_dtype.values():
+            fire_observe_hook("bucketed_all_reduce", packed)
+            _log_tree(f"bucketed_all_reduce[{op.value}]", packed)
             bucketed_all_reduce.launches += 1
-            _reduce_flat(group, op, world)
+            _reduce_flat(packed, op, world, group)
     return tree
 
 
 bucketed_all_reduce.launches = 0
 
 
-def all_gather(x: Any, *, tiled: bool = False) -> Any:
+def all_gather(x: Any, *, tiled: bool = False, axis: int = 0,
+               group=None) -> Any:
     """Every process's value of each leaf of ``x`` (tensors, or numbers
-    made tensors), identical on every process: stacked on a new leading
-    axis ``[process_count, ...]``, or concatenated along the first axis
-    with ``tiled=True``. With one process, ``x[None]`` (``x`` tiled)."""
+    made tensors), identical on every process of ``group`` (default: all):
+    stacked on a new leading axis ``[process_count, ...]``, or
+    concatenated along ``axis`` (default the first) with ``tiled=True``.
+    With one process, ``x[None]`` (``x`` tiled)."""
     fire_fault_hook("all_gather")
     fire_observe_hook("all_gather", x)
     _log_tree("all_gather", x)
-    world = bootstrap.process_count()
+    world = group_size(group)
 
     def gather(t):
         t = torch.as_tensor(t)
@@ -343,8 +368,8 @@ def all_gather(x: Any, *, tiled: bool = False) -> Any:
             return t if tiled else t.unsqueeze(0)
         t = t.contiguous()
         parts = [torch.empty_like(t) for _ in range(world)]
-        dist.all_gather(parts, t)
-        return torch.cat(parts) if tiled else torch.stack(parts)
+        dist.all_gather(parts, t, group=group)
+        return torch.cat(parts, axis) if tiled else torch.stack(parts)
 
     return tree_map(gather, x)
 
@@ -386,9 +411,10 @@ def host_all_reduce_sum(x) -> Any:
     return out
 
 
-def broadcast_from_chief(tree: Any) -> Any:
+def broadcast_from_chief(tree: Any, *, group=None) -> Any:
     """Process 0's tree on every process (the checkpoint restore's
-    fan-out, the mirrored variables' initial broadcast). ``tree`` nests
+    fan-out, the mirrored variables' initial broadcast); with ``group``,
+    the group's first process's tree on every process of the group. ``tree`` nests
     dicts, lists and tuples over numpy arrays, numpy scalars or tensors,
     the same structure, shapes and dtypes on every process. Leaves are
     packed into one flat buffer per dtype, so a tree mixing fp32
@@ -399,14 +425,14 @@ def broadcast_from_chief(tree: Any) -> Any:
     as it is."""
     fire_fault_hook("broadcast_from_chief")
     t0 = time.perf_counter()
-    out = _broadcast_from_chief(tree)
+    out = _broadcast_from_chief(tree, group)
     fire_observe_hook("broadcast_from_chief", out,
                       seconds=time.perf_counter() - t0)
     return out
 
 
-def _broadcast_from_chief(tree: Any) -> Any:
-    if bootstrap.process_count() == 1:
+def _broadcast_from_chief(tree: Any, group=None) -> Any:
+    if group_size(group) == 1:
         return tree
     leaves = tree_leaves(tree)
     wire = bootstrap.device_of_group()
@@ -414,13 +440,13 @@ def _broadcast_from_chief(tree: Any) -> Any:
                else torch.from_numpy(np.array(leaf)).to(wire)
                for leaf in leaves]
     for dtype in dict.fromkeys(t.dtype for t in tensors):
-        group = [t for t in tensors if t.dtype == dtype]
-        on = group[0].device
-        flat = torch.cat([t.detach().reshape(-1).to(on) for t in group])
-        dist.broadcast(flat, src=0)
+        same = [t for t in tensors if t.dtype == dtype]
+        on = same[0].device
+        flat = torch.cat([t.detach().reshape(-1).to(on) for t in same])
+        dist.broadcast(flat, src=group_root(group), group=group)
         offset = 0
         with torch.no_grad():
-            for t in group:
+            for t in same:
                 n = t.numel()
                 t.copy_(flat[offset:offset + n].view_as(t))
                 offset += n

@@ -13,10 +13,18 @@ on this process's device:
   initial-value broadcast of mirrored variables);
 * batch-sharded (``shard_batch``): this process's contiguous rows of a
   global batch, the rows the DATA auto-shard gives it
-  (``data/sharding.py``).
+  (``data/sharding.py``);
+* any other spec (``Placement.place``): this process's block of every
+  dimension the spec names an axis for, e.g. a sequence block
+  (``parallel/sequence.sequence_sharding``).
 
-No process group is started here: the mesh reads the one
-``cluster/bootstrap.py`` brought up, or none (one process).
+The processes fill the mesh in row-major order of its axes. A mesh over
+several processes with more than one axis of size > 1 gets one process
+subgroup per slice of each axis (:func:`axis_group`), made once, by every
+process in the same order (``torch.distributed.new_group``'s rule); an
+axis spanning every process is the whole group. No process group is
+started here: the mesh reads the one ``cluster/bootstrap.py`` brought up,
+or none (one process).
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ from typing import Mapping, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tpu_dist_torch.cluster import bootstrap
 from tpu_dist_torch.parallel.axes import DATA_AXIS
@@ -58,11 +67,27 @@ class Mesh:
 
 @dataclasses.dataclass(frozen=True)
 class Placement:
-    """A mesh and a partition spec: ``()`` replicated, ``(axis,)`` the
-    leading (batch) axis split over ``axis``."""
+    """A mesh and a partition spec: one entry per leading dimension, an
+    axis name or None; ``()`` replicated, ``(axis,)`` the leading (batch)
+    axis split over ``axis``."""
 
     mesh: Mesh
     spec: tuple = ()
+
+    def place(self, tree):
+        """This process's part of a tree of global arrays or tensors, as
+        tensors on the mesh's device: along every dimension the spec names
+        an axis for, the contiguous block its coordinate on that axis
+        selects (a dimension the axis does not divide raises)."""
+        def part(a):
+            t = _tensor(a)
+            for dim, axis in enumerate(self.spec):
+                if axis is not None:
+                    t = _block(t, dim, self.mesh.shape[axis],
+                               coordinate(self.mesh, axis))
+            return t.to(self.mesh.device)
+
+        return tree_map(part, tree)
 
 
 def make_mesh(axis_shapes: Mapping[str, int] | None = None, *,
@@ -113,7 +138,65 @@ def make_mesh(axis_shapes: Mapping[str, int] | None = None, *,
         raise ValueError(
             f"mesh shape {dict(axis_shapes)} needs {known_prod} devices, "
             f"have {n}")
-    return Mesh(tuple(axis_shapes), tuple(axis_shapes.values()), device)
+    mesh = Mesh(tuple(axis_shapes), tuple(axis_shapes.values()), device)
+    if not local and n > 1:
+        _make_groups(mesh)
+    return mesh
+
+
+#: The group of an axis of size 1: this process alone, over which every
+#: collective is the identity.
+SELF = "self"
+
+#: ``{(axis names, sizes, world group): {axis: group}}``: this process's
+#: subgroup of each axis of every multi-process mesh made so far.
+_GROUPS: dict = {}
+
+
+def _slices(mesh: Mesh, k: int) -> np.ndarray:
+    """The ranks of every slice of axis ``k`` (one row each, in the
+    processes' row-major order)."""
+    ranks = np.arange(mesh.size).reshape(mesh.sizes)
+    return np.moveaxis(ranks, k, -1).reshape(-1, mesh.sizes[k])
+
+
+def _make_groups(mesh: Mesh) -> None:
+    """Create the subgroups of every axis of ``mesh`` once: every process
+    creates every group, in axis order then slice order. An axis of size 1
+    needs none (:data:`SELF`), an axis over every process is the whole
+    group (None)."""
+    key = (mesh.axis_names, mesh.sizes, id(dist.group.WORLD))
+    if key in _GROUPS:
+        return
+    me = bootstrap.process_index()
+    groups = {}
+    for k, axis in enumerate(mesh.axis_names):
+        if mesh.sizes[k] == 1:
+            groups[axis] = SELF
+        elif mesh.sizes[k] == mesh.size:
+            groups[axis] = None
+        else:
+            for ranks in _slices(mesh, k):
+                group = dist.new_group([int(r) for r in ranks])
+                if me in ranks:
+                    groups[axis] = group
+    _GROUPS[key] = groups
+
+
+def axis_group(mesh: Mesh, axis: str):
+    """This process's group along ``axis``: the processes that share its
+    coordinates on every other axis. None is the whole process group,
+    :data:`SELF` this process alone (an axis of size 1, or a mesh of one
+    process)."""
+    if axis not in mesh.axis_names:
+        raise ValueError(f"mesh has axes {mesh.axis_names}, no {axis!r}")
+    if mesh.shape[axis] == 1:
+        return SELF
+    key = (mesh.axis_names, mesh.sizes, id(dist.group.WORLD))
+    if key not in _GROUPS:
+        raise ValueError(f"mesh {dict(mesh.shape)} is not over this "
+                         f"process group")
+    return _GROUPS[key][axis]
 
 
 def replicated(mesh: Mesh) -> Placement:
@@ -137,6 +220,17 @@ def coordinate(mesh: Mesh, axis: str) -> int:
     return (bootstrap.process_index() // inner) % mesh.sizes[k]
 
 
+def _block(t: torch.Tensor, dim: int, shards: int, index: int):
+    """Block ``index`` of ``shards`` contiguous blocks of ``t`` along
+    ``dim``; a dimension the shard count does not divide raises."""
+    n = t.shape[dim]
+    if n % shards:
+        raise ValueError(f"dimension {dim} of size {n} not divisible by "
+                         f"{shards} shards")
+    per = n // shards
+    return t.narrow(dim, index * per, per)
+
+
 def _rows(a, shards: int, index: int):
     """Shard ``index`` of ``shards`` contiguous row blocks of ``a`` (the
     DATA auto-shard's slice of a batch); a batch the shard count does not
@@ -146,8 +240,7 @@ def _rows(a, shards: int, index: int):
         raise ValueError(
             f"global batch {b} not divisible by {shards} data shards; make "
             f"the global batch a multiple of the replica count")
-    per = b // shards
-    return a[index * per:(index + 1) * per]
+    return _block(a, 0, shards, index)
 
 
 def _tensor(a) -> torch.Tensor:
@@ -158,8 +251,9 @@ def _tensor(a) -> torch.Tensor:
 def shard_batch(batch, mesh: Mesh, axis: str = DATA_AXIS):
     """This process's rows of a global batch (a tree of arrays or tensors),
     as tensors on the mesh's device: the contiguous block of rows its
-    coordinate on ``axis`` selects, in the DATA auto-shard's order. Dtypes
-    are kept."""
+    coordinate on ``axis`` selects, in the DATA auto-shard's order, so the
+    processes that share a data coordinate (a model or sequence axis
+    beside it) hold the same rows. Dtypes are kept."""
     batch_sharded(mesh, axis)
     shards, index = mesh.shape[axis], coordinate(mesh, axis)
     return tree_map(

@@ -21,10 +21,13 @@ train in sync, and a mesh record of them (``parallel/mesh.py``):
 (:func:`get_strategy`), as in the reference program. The custom-loop
 surface is the reference's: ``distribute_datasets_from_function`` with an
 :class:`InputContext`, ``replicate``, ``distribute_batch``, ``run`` and
-``reduce``. ``axis_shapes`` may name only the data axis (other axes of
-size 1 are accepted); a parallel axis of size > 1 is ROADMAP item 17.
-``ParameterServerStrategy`` and the liveness monitor come with later
-slices of the port.
+``reduce``. ``axis_shapes`` may name the data axis with a ``model`` axis
+(tensor parallelism: ``compile`` keeps on each process the slice of each
+parameter that ``parallel/tensor.py``'s rules name) and a ``seq`` axis
+(ring attention: ``parallel/sequence.py``); the data-parallel replicas
+are the data axis's processes. The ``pipe`` and ``expert`` axes are
+ROADMAP item 17b. ``ParameterServerStrategy`` and the liveness monitor
+come with later slices of the port.
 """
 
 from __future__ import annotations
@@ -39,7 +42,8 @@ import torch
 from tpu_dist_torch.cluster import bootstrap
 from tpu_dist_torch.parallel import collectives
 from tpu_dist_torch.parallel import mesh as mesh_lib
-from tpu_dist_torch.parallel.axes import DATA_AXIS
+from tpu_dist_torch.parallel.axes import (DATA_AXIS, EXPERT_AXIS,
+                                          PIPE_AXIS)
 from tpu_dist_torch.parallel.collectives import (CollectiveCommunication,
                                                  ReduceOp)
 from tpu_dist_torch.utils.device import DeviceLike, resolve_device
@@ -84,18 +88,18 @@ class InputContext:
 
 def _check_axis_shapes(axis_shapes: Optional[dict]) -> None:
     """The reference's rule (the data axis must be there), and the port's:
-    every other axis has size 1 (a parallel axis is item 17)."""
+    a ``pipe`` or ``expert`` axis of size > 1 is item 17b."""
     if axis_shapes is None:
         return
     if DATA_AXIS not in axis_shapes:
         raise ValueError(
             f"axis_shapes must include the {DATA_AXIS!r} axis (batches "
             f"shard over it), got {axis_shapes}")
-    extra = {k: v for k, v in axis_shapes.items()
-             if k != DATA_AXIS and v != 1}
-    if extra:
+    later = sorted(k for k in (PIPE_AXIS, EXPERT_AXIS)
+                   if axis_shapes.get(k, 1) != 1)
+    if later:
         raise unported(f"axis_shapes={dict(axis_shapes)} (the parallel "
-                       f"axes {sorted(extra)})", 17)
+                       f"axes {later})", "17b")
 
 
 def _as_tensor(leaf, device) -> torch.Tensor:
@@ -126,6 +130,9 @@ class Strategy:
     """Base: the device this process trains on (``None`` lets ``compile``
     choose), the number of replicas training in sync, and their mesh."""
 
+    #: The mesh is over this process alone (True) or every process.
+    _local_mesh = True
+
     def __init__(self, device: Optional[torch.device] = None,
                  axis_shapes: Optional[dict] = None):
         self._device = device
@@ -144,13 +151,32 @@ class Strategy:
         over this strategy's processes, one device each."""
         if self._mesh is None:
             self._mesh = mesh_lib.make_mesh(
-                self._axis_shapes, local=self.num_replicas_in_sync == 1,
-                device=self._device)
+                self._axis_shapes, device=self._device,
+                local=self._local_mesh or bootstrap.process_count() == 1)
         return self._mesh
 
     @property
     def data_axis(self) -> str:
         return DATA_AXIS
+
+    @property
+    def parallel_mesh(self) -> Optional[mesh_lib.Mesh]:
+        """The mesh when an axis beside the data axis has size > 1 (tensor
+        or sequence parallelism), else None."""
+        if not self._axis_shapes or set(self._axis_shapes) <= {DATA_AXIS}:
+            return None
+        mesh = self.mesh
+        return mesh if any(s > 1 for a, s in mesh.shape.items()
+                           if a != DATA_AXIS) else None
+
+    @property
+    def data_group(self):
+        """The group the replicas' reductions run over: the data axis's
+        when the mesh has another parallel axis, else the whole process
+        group (None)."""
+        mesh = self.parallel_mesh
+        return None if mesh is None else mesh_lib.axis_group(mesh,
+                                                             DATA_AXIS)
 
     @property
     def num_replicas_in_sync(self) -> int:
@@ -175,11 +201,13 @@ class Strategy:
 
     def input_shard_info(self) -> tuple[int, int]:
         """``(num_input_shards, shard_id)`` for the host input pipeline:
-        one pipeline per replica, so per process (the reference's
-        data-axis process structure, which the port's meshes keep)."""
+        one pipeline per data-parallel replica, the process's coordinate on
+        the data axis (the processes beside it on a model or sequence axis
+        read the same shard)."""
         if self.num_replicas_in_sync == 1:
             return 1, 0
-        return self.num_replicas_in_sync, bootstrap.process_index()
+        return (self.num_replicas_in_sync,
+                mesh_lib.coordinate(self.mesh, DATA_AXIS))
 
     def replicate(self, tree, *, broadcast: Optional[bool] = None):
         """A tree of arrays or tensors as new tensors on this process's
@@ -240,7 +268,8 @@ class Strategy:
         out = fn(*args, **(kwargs or {}))
         device = self.mesh.device
         return collectives.all_gather(
-            collectives.tree_map(lambda t: _as_tensor(t, device), out))
+            collectives.tree_map(lambda t: _as_tensor(t, device), out),
+            group=self.data_group)
 
     def reduce(self, op: ReduceOp | str, value):
         """Reduction of per-replica values (a leading replica axis) to one
@@ -327,9 +356,13 @@ class MultiWorkerMirroredStrategy(Strategy):
             self.num_replicas_in_sync, self.communication.name, self._device,
             dict(cfg.cluster.jobs) if cfg else "<local>")
 
+    _local_mesh = False
+
     @property
     def num_replicas_in_sync(self) -> int:
-        return bootstrap.process_count()
+        """The data axis's size: the processes on a model or sequence axis
+        are one replica."""
+        return self.mesh.shape[DATA_AXIS]
 
 
 _default_strategy: Optional[DefaultStrategy] = None

@@ -26,7 +26,12 @@ tables (``ops/fused.py``), which hold those tensors, stay valid.
 Several processes: only the chief writes, and everyone meets at a barrier
 after the write (``cluster/bootstrap.py``); on restore the chief reads and
 ``parallel/collectives.broadcast_from_chief`` sends its bytes to the
-others. :class:`AsyncCheckpointer` moves serialization and the publish to
+others. Under a model axis (``parallel/tensor.py``) a checkpoint still
+holds the global arrays, in the same layout: each sharded leaf (a
+parameter and its optimizer states) is gathered over the axis before the
+write, and a restore copies into each process its block of the global
+array by the restoring model's own layout, so a checkpoint restores onto
+any other mesh (the reference's cross-topology restore). :class:`AsyncCheckpointer` moves serialization and the publish to
 a background thread.
 
 The sharded v2 layout (``sharded=True``) and the write-fault hook come with
@@ -89,7 +94,10 @@ def _saveable(model_or_variables) -> dict:
                                 if k in model_or_variables})
 
 
-def _live_tensors(model, trainer=None) -> dict:
+def _live_tensors(model, trainer=None, *, gathered: bool = True) -> dict:
+    """The model's live checkpoint tensors, keyed; under a model axis the
+    sharded ones gathered to global tensors (a collective), unless not
+    ``gathered``."""
     from tpu_dist_torch.training.trainer import Trainer
 
     if trainer is None:
@@ -97,7 +105,26 @@ def _live_tensors(model, trainer=None) -> dict:
             model._trainer = Trainer(model)
         trainer = model._trainer
     trainer.ensure_variables()
-    return bridge.checkpoint_tensors(model, trainer.variables["opt"])
+    live = bridge.checkpoint_tensors(model, trainer.variables["opt"])
+    layout = _shard_layout(model, trainer)
+    if not gathered or not layout:
+        return live
+    from tpu_dist_torch.parallel.tensor import gather_leaf
+
+    shard = model._tensor_parallel[0]
+    return {k: gather_leaf(t, layout[k][0], shard) if k in layout else t
+            for k, t in live.items()}
+
+
+def _shard_layout(model, trainer) -> dict:
+    """``{checkpoint key: (dim, axis size, coordinate)}`` of the keys whose
+    tensors are blocks under a model axis (a parameter's and its optimizer
+    states'); empty without one."""
+    tp = model._tensor_parallel
+    if tp is None:
+        return {}
+    names = bridge.checkpoint_names(model, trainer.variables["opt"])
+    return {k: tp[1][n] for k, n in names.items() if n in tp[1]}
 
 
 def _host(leaf) -> np.ndarray:
@@ -542,10 +569,30 @@ def restore_model(directory: str | os.PathLike, model, *,
     """Restore a model's training variables in place (resume): its
     parameters, its state buffers and the optimizer state of ``trainer``
     (default: the model's own, made if it has none), each ``copy_``-ed on
-    its device from the checkpoint (module docstring). Returns the step."""
-    live = _live_tensors(model, trainer)
-    arrays, step = restore(directory, live, step=step)
+    its device from the checkpoint (module docstring); under a model axis
+    each process copies its block of each sharded leaf. Returns the
+    step."""
+    live = _live_tensors(model, trainer, gathered=False)
+    layout = _shard_layout(model, trainer or model._trainer)
+    template = {k: torch.empty(_global_shape(t, layout.get(k)),
+                               dtype=t.dtype, device="meta")
+                for k, t in live.items()}
+    arrays, step = restore(directory, template, step=step)
     with torch.no_grad():
         for key, t in live.items():
-            t.copy_(torch.from_numpy(arrays[key]))
+            value = torch.from_numpy(arrays[key])
+            if key in layout:
+                dim, size, index = layout[key]
+                per = value.shape[dim] // size
+                value = value.narrow(dim, index * per, per)
+            t.copy_(value)
     return step
+
+
+def _global_shape(t: torch.Tensor, placed) -> tuple:
+    """The global shape of a live tensor, a block along ``dim`` of ``size``
+    when ``placed`` is ``(dim, size, index)``."""
+    shape = list(t.shape)
+    if placed is not None:
+        shape[placed[0]] *= placed[1]
+    return tuple(shape)

@@ -30,6 +30,15 @@ only for equal shards: DATA sharding slices every global batch into equal
 parts (and raises on a batch the process count does not divide); under
 OFF every process brings its own equally sized local batch.
 
+Under a mesh with a ``model`` or ``seq`` axis beside the data axis
+(``parallel/tensor.py``, ``parallel/sequence.py``) the replicas are the
+data axis's processes: every reduction above runs over this process's
+data-axis group (``Strategy.data_group``), so a shard of a
+tensor-parallel leaf is averaged only with the same shard on its data
+peers, and the processes beside it on the other axis, which hold the same
+rows, compute the same loss. Such a step's forward and backward hold
+collectives, so it runs eagerly (no captured program).
+
 ``compile(gradient_bucket_bytes=b > 0)`` switches a multi-process step to
 the JAX package's bucketed schedule (``_pure_step_bucketed``): each
 process's BatchNorm takes its own shard's moments (no synchronisation in
@@ -241,13 +250,13 @@ def _aux_loss_total(models):
     return total
 
 
-def _mean_floats(tensors) -> None:
-    """Average the floating-point tensors across the processes, in place,
-    one collective per dtype."""
+def _mean_floats(tensors, group=None) -> None:
+    """Average the floating-point tensors across the processes of
+    ``group``, in place, one collective per dtype."""
     floats = [t for t in tensors if t.is_floating_point()]
     for dtype in dict.fromkeys(t.dtype for t in floats):
         collectives.all_reduce([t for t in floats if t.dtype == dtype],
-                               collectives.ReduceOp.MEAN)
+                               collectives.ReduceOp.MEAN, group=group)
 
 
 def _tensors(tree) -> list:
@@ -339,6 +348,12 @@ class Trainer:
 
         self.model = model
         self.strategy = model.strategy or get_strategy()
+        #: The replicas' group (the data axis's beside a model or sequence
+        #: axis; None: every process).
+        self.group = self.strategy.data_group
+        #: The forward and backward hold collectives (a model or sequence
+        #: axis): no captured programs.
+        self.meshed = self.strategy.parallel_mesh is not None
         self.variables: Optional[dict] = None  # params/state/opt/metrics
         self._iterator = None
         self._iterator_source = None
@@ -374,6 +389,7 @@ class Trainer:
         for m in self.model.modules():
             if isinstance(m, BatchNormalization):
                 m.synchronized = self.distributed and not self._bucket_bytes
+                m.sync_group = self.group
 
     # -- variables -----------------------------------------------------------
 
@@ -394,8 +410,10 @@ class Trainer:
         params = list(self.model.parameters())
         state = list(self.model.buffers())
         if self.distributed:
-            # Mirrored variables start equal: process 0's values everywhere.
-            collectives.broadcast_from_chief([params, state])
+            # Mirrored variables start equal: the first replica's values
+            # everywhere (a sharded leaf's on the replicas of its shard).
+            collectives.broadcast_from_chief([params, state],
+                                             group=self.group)
         self.rng = torch.Generator(device=self.device).manual_seed(seed)
         for m in self.model.modules():
             if hasattr(m, "generator"):
@@ -468,6 +486,7 @@ class Trainer:
         metrics = tuple(model.metrics)
         device = self.device
         distributed = self.distributed
+        group = self.group
         bucket_bytes = self._bucket_bytes
         names = [n for n, _ in model.named_parameters()]
         functional = [m for m in model.modules()
@@ -493,16 +512,18 @@ class Trainer:
                 # The JAX package's bucketed schedule: the mean loss, the
                 # gradients in buckets over its flatten order, the mean of
                 # the state each shard's BatchNorm moved.
-                collectives.all_reduce([loss], collectives.ReduceOp.MEAN)
+                collectives.all_reduce([loss], collectives.ReduceOp.MEAN,
+                                       group=group)
                 collectives.bucketed_all_reduce(
                     _nest(zip(names, grads)), collectives.ReduceOp.MEAN,
-                    bucket_bytes=bucket_bytes)
-                _mean_floats(state)
+                    bucket_bytes=bucket_bytes, group=group)
+                _mean_floats(state, group)
             elif distributed:
                 # One flat all-reduce of the gradients and the loss: the
-                # mean over the processes is the global batch's.
+                # mean over the replicas is the global batch's.
                 collectives.all_reduce([*grads, loss],
-                                       collectives.ReduceOp.MEAN)
+                                       collectives.ReduceOp.MEAN,
+                                       group=group)
             optimizer.update(grads, opt_state, params)
             with torch.no_grad():
                 for m, ms in zip(metrics, metric_states):
@@ -529,7 +550,7 @@ class Trainer:
                            loss_acc, xs[i], ys[i]) for i in range(len(xs))]
             return torch.stack(losses).mean()
 
-        if self.device.type != "cuda" or self.distributed:
+        if self.device.type != "cuda" or self.distributed or self.meshed:
             return multi
         key = self._train_variant(class_weight, device_transform)
         if key not in self._graphed:
@@ -877,9 +898,11 @@ class Trainer:
         step losses are per-process means) and the metric totals summed
         first."""
         if self.distributed:
-            collectives.all_reduce([loss_acc], collectives.ReduceOp.MEAN)
+            collectives.all_reduce([loss_acc], collectives.ReduceOp.MEAN,
+                                   group=self.group)
             states = [t for ms in metric_states for t in ms.values()]
-            collectives.all_reduce(states, collectives.ReduceOp.SUM)
+            collectives.all_reduce(states, collectives.ReduceOp.SUM,
+                                   group=self.group)
         device_logs = {"loss": loss_acc[0] / torch.clamp(loss_acc[1],
                                                          min=1.0)}
         for metric, mstate in zip(self.model.metrics, metric_states):
@@ -959,7 +982,7 @@ class Trainer:
         """The eval forward of one batch (an array or a tensor), as a tensor
         on the model's device."""
         model, device = self.model, self.device
-        if device.type != "cuda":
+        if device.type != "cuda" or self.meshed:
             return model(_place(xb, device, transform))
         # The static input takes the dtype _place gives the batch (the
         # wire dtype under a transform); the staging copy casts into it.
