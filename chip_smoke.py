@@ -297,13 +297,31 @@ plain PyTorch version. Phases:
     step 2; (b) the same under ``mixed_bfloat16`` against a bf16 twin
     within ``BF16_LOSS_ATOL``; (c) the LM with ``RingAttention()`` under
     ``{data: 1, seq: 2}`` against the flash twin (no flash launch), then
-    ``ring_attention`` alone at [1, 8, 16384, 64] fp32 causal (8,192
-    positions a rank, 2048-position chunks), forward and backward against
+    ``ring_attention_blocks`` alone at [1, 8, 16384, 64] fp32 causal
+    (8,192 positions a rank, 2048-position chunks), forward and backward
+    against
     the flash kernels on the gathered q, k, v within ``RING_TOL``; (d)
     (a)'s checkpoint restored in one process and continued, against the
     tensor-parallel run's last steps; times: the step against the twin's,
     the model-axis collectives a step (each timed alone), ring against
     flash fwd+bwd at 16,384 positions, the ring's host staging.
+30. the pipe and expert axes: two workers again (``chip_smoke.py
+    --pp-worker DIR``). (a) the benchmark LM with ``pipeline_stages=2``,
+    ``pipeline_microbatches=4`` under ``{data: 1, pipe: 2}``, 4 steps of
+    ``fit`` on 8 x 512 with ``Adam(fused=True)`` and the fused CE: the
+    ranks' losses and replicated leaves bit for bit, losses within
+    ``PP_LOSS_RTOL`` of a pipe-less one-process twin's, stage leaves
+    [1, ...] a rank, launches (32, 32, 4, 4, 4, 0) a rank, a checkpoint at
+    step 2; (b) ``make_1f1b_train_step`` at M = 4 and 8: loss and
+    gradients against GPipe's on the same weights within ``F1B_TOL``, the
+    stash's counts, each one's peak device memory at M = 8 (1F1B's below
+    GPipe's), 4 steps with ``SGD(fused=True)``; (c) the LM with 4 experts
+    (top 2, 8 groups) under ``{data: 1, expert: 2}``: ranks bit for bit,
+    within ``PP_LOSS_RTOL`` of a one-process twin, experts [2, ...] a
+    rank, the aux loss in the objective; (d) (a)'s checkpoint restored in
+    one process without a pipe axis and continued; times: each rank's step
+    beside its twin's, the stage handoffs' host staging, the all_to_all's
+    host time.
 
 Prints one JSON line of kernel records, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
@@ -5555,10 +5573,10 @@ def _ring_lm(strategy, x, y) -> dict:
 
 
 def _ring_alone(strategy) -> dict:
-    """(c): ring_attention at RING_SHAPE fp32 causal on this rank's block,
-    forward and backward (a seeded cotangent), against the flash kernels on
-    the gathered q, k, v (this rank's block of their output and
-    gradients); then both timed, the flash pair on rank 0 alone."""
+    """(c): ring_attention_blocks at RING_SHAPE fp32 causal on this rank's
+    block, forward and backward (a seeded cotangent), against the flash
+    kernels on the gathered q, k, v (this rank's block of their output
+    and gradients); then both timed, the flash pair on rank 0 alone."""
     from tpu_dist_torch.parallel import sequence
 
     mesh = strategy.mesh
@@ -5571,7 +5589,8 @@ def _ring_alone(strategy) -> dict:
     scale = RING_SHAPE[-1] ** -0.5
 
     def ring():
-        o = sequence.ring_attention(ql, kl, vl, mesh=mesh, causal=True)
+        o = sequence.ring_attention_blocks(ql, kl, vl, mesh=mesh,
+                                           causal=True)
         return (o, *torch.autograd.grad(o, (ql, kl, vl), dol))
 
     for key in sequence.staging:
@@ -5804,6 +5823,415 @@ def tp_phase(card: str) -> dict:
             "ring_lm_rank0": c0["counts"], "ring_lm_rank1": c1["counts"]}
 
 
+# -- phase 30: the pipe and expert axes ----------------------------------------
+
+PP_AXES = {"data": 1, "pipe": 2}
+EP_AXES = {"data": 1, "expert": 2}
+#: (a)-(d): 4 steps of 8 x 512 tokens (each rank holds all 8 rows); the
+#: checkpoint (d) restores after step 2.
+PP_BATCH, PP_STEPS, PP_CKPT_STEP = 8, 4, 2
+PP_KW = dict(pipeline_stages=2, pipeline_microbatches=4)
+MOE_KW = dict(moe_experts=4, moe_top_k=2, moe_groups=8)
+#: (a), (c), (d): the ranks against a one-process twin: the same fp32 math
+#: on microbatches of 2 rows (or a process's 4 rows) where the twin takes
+#: 8, so cuBLAS may pick other kernels: the losses within 1e-5 of their
+#: size.
+PP_LOSS_RTOL = 1e-5
+#: (b): 1F1B against GPipe on the same weights, the reference's bar
+#: (tests/test_pipeline_parallel.py:299).
+F1B_TOL = dict(rtol=5e-4, atol=5e-5)
+F1B_SGD_LR = 0.1
+
+
+def _pp_lm(optimizer, **kw):
+    """The full-width LM of bench.py with ``kw``'s pipeline or
+    mixture-of-experts options, seed 0, the fused CE, on the card."""
+    model = build_transformer_lm(LM["vocab_size"], LM["seq_len"],
+                                 d_model=LM["d_model"], depth=LM["depth"],
+                                 num_heads=LM["num_heads"], seed=0, **kw)
+    model.compile(optimizer=optimizer,
+                  loss=SparseCategoricalCrossentropy(from_logits=True,
+                                                     fused=True),
+                  metrics=[SparseCategoricalAccuracy()])
+    return model
+
+
+class _SaveAt(Callback):
+    """Checkpoint ``step`` into ``directory`` at the end of that epoch (one
+    step an epoch)."""
+
+    def __init__(self, directory, step: int):
+        self.directory, self.step = directory, step
+
+    def on_epoch_end(self, epoch, logs):
+        if epoch + 1 == self.step:
+            checkpoint.save(self.directory, self.model, step=self.step)
+
+
+def _pp_fit(model, x, y, steps: int, ckpt_dir=None) -> dict:
+    """``steps`` steps of ``fit`` on the batch (x, y), one an epoch,
+    counted; a checkpoint after PP_CKPT_STEP when ``ckpt_dir``."""
+    data = (x.cpu().numpy(), y.cpu().numpy())
+    callbacks = [] if ckpt_dir is None else [_SaveAt(ckpt_dir, PP_CKPT_STEP)]
+    _reset_counts()
+    hist = model.fit(data, epochs=steps, steps_per_epoch=1, verbose=0,
+                     callbacks=callbacks)
+    torch.cuda.synchronize()
+    return {"loss": hist.history["loss"], "counts": _counts()}
+
+
+def _grads_of(model, x, y) -> tuple:
+    """One forward and backward of ``model`` in train mode on (x, y): the
+    loss and every parameter's gradient (this process's block)."""
+    model.train()
+    for p in model.parameters():
+        p.grad = None
+    loss = model.loss(model(x), y)
+    loss.backward()
+    model.eval()
+    return float(loss), {n: p.grad.detach().clone()
+                         for n, p in model.named_parameters()}
+
+
+def _gpipe_run(strategy, x, y, ckpt_dir) -> dict:
+    """(a): the pipelined LM's fit under PP_AXES, then its step's ms and
+    the stage handoffs' staging over one step."""
+    from tpu_dist_torch.parallel import pipeline_parallel
+
+    with strategy.scope():
+        model = _pp_lm(Adam(ADAM_LR, fused=True), **PP_KW)
+    run = _pp_fit(model, x, y, PP_STEPS, ckpt_dir)
+    named = dict(model.named_parameters())
+    layout = model._tensor_parallel[1]
+    run.update(layout=sorted(layout),
+               stage_shapes={n: tuple(named[n].shape) for n in layout},
+               replicated={n: p.detach().cpu() for n, p in named.items()
+                           if n not in layout})
+    fn, st = model.make_train_function(), model.train_state()
+    torch.distributed.barrier()
+    run["step_ms"] = _ms(lambda: fn(*st, x, y), 5)
+    for key in pipeline_parallel.staging:
+        pipeline_parallel.staging[key] = 0
+    fn(*st, x, y)
+    torch.cuda.synchronize()
+    run["staged"] = dict(pipeline_parallel.staging)
+    del model, fn, st
+    torch.cuda.empty_cache()
+    return run
+
+
+def _peak_mb(fn) -> float:
+    """The peak of this process's allocated device memory above what it
+    held before, over one call of ``fn``, in MiB."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+def _f1b_run(strategy, x, y) -> dict:
+    """(b): on seed 0's weights, GPipe's loss and gradients against the
+    1F1B step's at M = 4 and M = 8; each one's peak memory at M = 8; then
+    PP_STEPS steps of the 1F1B step with fused SGD, counted."""
+    from tpu_dist_torch.parallel import make_1f1b_train_step
+
+    with strategy.scope():
+        model = _pp_lm(Adam(ADAM_LR, fused=True), **PP_KW)
+    pb = next(m for m in model.modules() if type(m).__name__
+              == "PipelinedBlocks")
+    loss_fn = model.loss
+    out = {"gpipe": _grads_of(model, x, y), "f1b": {}, "peak_mb": {}}
+    for m in (4, 8):
+        pb.microbatches = m
+        step = make_1f1b_train_step(model, loss_fn, strategy=strategy)
+        loss, grads = step(x, y)
+        out["f1b"][m] = (float(loss), {n: g.detach().clone()
+                                        for n, g in grads.items()},
+                         dict(step.stats))
+        del grads
+    for p in model.parameters():
+        p.grad = None
+    torch.cuda.empty_cache()
+    # M = 8 on the same model and batch: 1F1B's step, then GPipe's.
+    step = make_1f1b_train_step(model, loss_fn, strategy=strategy)
+    out["peak_mb"]["f1b"] = _peak_mb(lambda: step(x, y))
+    torch.cuda.empty_cache()
+    out["peak_mb"]["gpipe"] = _peak_mb(lambda: _grads_of(model, x, y))
+    for p in model.parameters():
+        p.grad = None
+    torch.cuda.empty_cache()
+    pb.microbatches = PP_KW["pipeline_microbatches"]
+    step = make_1f1b_train_step(model, loss_fn, strategy=strategy)
+    opt = SGD(F1B_SGD_LR, fused=True)
+    params = list(model.parameters())
+    names = [n for n, _ in model.named_parameters()]
+    state = opt.init(params)
+    _reset_counts()
+    losses = []
+    for _ in range(PP_STEPS):
+        loss, grads = step(x, y)
+        opt.update([grads[n] for n in names], state, params)
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    out.update(sgd_loss=losses, counts=_counts())
+
+    def one():
+        loss, grads = step(x, y)
+        opt.update([grads[n] for n in names], state, params)
+
+    torch.distributed.barrier()
+    out["step_ms"] = _ms(one, 5)
+    del model, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def _moe_run(strategy, x, y) -> dict:
+    """(c): the MoE LM's fit under EP_AXES, the aux loss's share of the
+    objective, then its step's ms and the all_to_all host time a step."""
+    from tpu_dist_torch.parallel import expert
+
+    with strategy.scope():
+        model = _pp_lm(Adam(ADAM_LR, fused=True), **MOE_KW)
+    run = _pp_fit(model, x, y, PP_STEPS)
+    named = dict(model.named_parameters())
+    layout = model._tensor_parallel[1]
+    run.update(layout=sorted(layout),
+               expert_shapes={n: tuple(named[n].shape) for n in layout},
+               replicated={n: p.detach().cpu() for n, p in named.items()
+                           if n not in layout})
+    fn, st = model.make_train_function(), model.train_state()
+    # The objective holds the aux loss: the pure CE of this forward plus
+    # the aux buffers it leaves is the next step's loss (same weights).
+    with torch.no_grad():
+        model.train()
+        ce = float(model.loss(model(x), y))
+        model.eval()
+    run["aux"] = [float(b) for n, b in model.named_buffers()
+                  if n.endswith("aux_loss")]
+    run["objective"] = (ce, float(fn(*st, x, y)))
+    torch.distributed.barrier()
+    run["step_ms"] = _ms(lambda: fn(*st, x, y), 5)
+    expert.exchanges.update(calls=0, seconds=0.0)
+    t0 = time.perf_counter()
+    fn(*st, x, y)
+    torch.cuda.synchronize()
+    run["a2a"] = dict(expert.exchanges, step_s=time.perf_counter() - t0)
+    del model, fn, st
+    torch.cuda.empty_cache()
+    return run
+
+
+def pp_worker(outdir: pathlib.Path) -> int:
+    """Phase 30's worker (``chip_smoke.py --pp-worker DIR``, TF_CONFIG in
+    the environment): (a) the pipelined LM's fit under {data: 1, pipe: 2}
+    (gloo, one card), its checkpoint at step 2 into DIR/ckpt; (b) the 1F1B
+    step on the same model; (c) the MoE LM's fit under {data: 1, expert:
+    2}. Writes ``worker<rank>.pt`` into DIR."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for source in SOURCES:
+        _build.load(source)
+    x, y = _bench_tokens(PP_BATCH)
+    pipe = MultiWorkerMirroredStrategy(communication="ring",
+                                       axis_shapes=PP_AXES)
+    out = {"backend": torch.distributed.get_backend(),
+           "replicas": pipe.num_replicas_in_sync}
+    t0 = time.monotonic()
+    out["gpipe"] = _gpipe_run(pipe, x, y, outdir / "ckpt")
+    out["f1b"] = _f1b_run(pipe, x, y)
+    ep = MultiWorkerMirroredStrategy(communication="ring",
+                                     axis_shapes=EP_AXES)
+    out["moe"] = _moe_run(ep, x, y)
+    out["seconds"] = time.monotonic() - t0
+    torch.save(_cpu(out), outdir / f"worker{bootstrap.process_index()}.pt")
+    return 0
+
+
+def _pp_twin(x, y, kw, *, steps=PP_STEPS, restore=None) -> dict:
+    """A one-process twin of (a) or (c) (``kw``), or (d) from ``restore``:
+    the same compile, ``steps`` steps of fit, then its step's ms."""
+    model = _pp_lm(Adam(ADAM_LR, fused=True), **kw)
+    step = None
+    if restore is not None:
+        step = checkpoint.restore_model(restore, model)
+    run = _pp_fit(model, x, y, steps)
+    fn, st = model.make_train_function(), model.train_state()
+    run.update(step=step, step_ms=_ms(lambda: fn(*st, x, y), 5))
+    del model, fn, st
+    torch.cuda.empty_cache()
+    return run
+
+
+def _close_rel(got, want, label: str) -> float:
+    """Largest |got - want| / |want|; raises above PP_LOSS_RTOL."""
+    rel = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+    if len(got) != len(want) or rel > PP_LOSS_RTOL:
+        raise AssertionError(f"{label}: {got} against {want} (largest "
+                             f"relative gap {rel:.2e})")
+    return rel
+
+
+def _grad_gap(got: dict, want: dict, label: str) -> float:
+    """Every gradient of ``got`` against ``want``'s under F1B_TOL; returns
+    the largest |difference|."""
+    worst = 0.0
+    for n, w in want.items():
+        torch.testing.assert_close(got[n].float(), w.float(), **F1B_TOL,
+                                   msg=lambda m: f"{label} {n}: {m}")
+        worst = max(worst, float((got[n].float() - w.float()).abs().max()))
+    return worst
+
+
+def pp_phase(card: str) -> dict:
+    """Phase 30: the pipe and expert axes on two gloo ranks sharing the
+    card. Returns each rank's launch counts on (a), (b) and (c)."""
+    x, y = _bench_tokens(PP_BATCH)
+    depth, steps = LM["depth"], PP_STEPS
+    m, s_count = PP_KW["pipeline_microbatches"], PP_KW["pipeline_stages"]
+    per_stage = depth // s_count
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        workers = _spawn_dp_workers(tmp, flag="--pp-worker")
+        wall = time.monotonic() - t0
+        twin = _pp_twin(x, y, PP_KW)
+        resumed = _pp_twin(x, y, PP_KW, steps=steps - PP_CKPT_STEP,
+                           restore=tmp / "ckpt")
+    moe_twin = _pp_twin(x, y, MOE_KW)
+    r0, r1 = workers
+    # (a) GPipe through fit. Each rank's stage runs its blocks' attention
+    # on each of the M microbatches, forward and backward; every rank
+    # computes the loss on the broadcast output.
+    a0, a1 = r0["gpipe"], r1["gpipe"]
+    want_a = (per_stage * m * steps, per_stage * m * steps, steps, steps,
+              steps, 0)
+    if (a0["loss"] != a1["loss"] or r0["replicas"] != 1
+            or r0["backend"] != "gloo"
+            or any(not torch.equal(a0["replicated"][n], a1["replicated"][n])
+                   for n in a0["replicated"])):
+        raise AssertionError(f"(30 a) the ranks differ: losses {a0['loss']}"
+                             f" / {a1['loss']}")
+    for r, a in enumerate((a0, a1)):
+        if (a["counts"] != want_a or not a["layout"]
+                or any(shape[0] != 1 for shape in a["stage_shapes"].values())):
+            raise AssertionError(f"(30 a) rank {r}: launches {a['counts']} "
+                                 f"(want {want_a}), stage leaves "
+                                 f"{sorted(set(a['stage_shapes'].values()))}")
+    rel_a = _close_rel(a0["loss"], twin["loss"], "(30 a) losses vs the twin")
+    staged = a0["staged"]
+    log(f"[30 pp] (a) the full-width LM with pipeline_stages={s_count}, "
+        f"microbatches={m} under {PP_AXES} on two gloo ranks sharing the "
+        f"card (workers {wall:.1f} s), fit with Adam(fused=True) + fused CE,"
+        f" {steps} steps of {PP_BATCH} x {LM['seq_len']}: losses "
+        f"{[round(v, 6) for v in a0['loss']]} bit for bit on both ranks "
+        f"(replicated leaves too); pipe-less twin "
+        f"{[round(v, 6) for v in twin['loss']]} (largest relative gap "
+        f"{rel_a:.2e}, limit {PP_LOSS_RTOL:g}); stage leaves "
+        f"{len(a0['layout'])} at [1, ...] a rank; launches (flash fwd, bwd,"
+        f" Adam, CE fwd, CE bwd, SGD) {a0['counts']} / {a1['counts']} "
+        f"(predicted {want_a}; twin {twin['counts']}) ({card})")
+    log(f"[30 pp] (a) times ({card}): step {a0['step_ms']:.3f} / "
+        f"{a1['step_ms']:.3f} ms a rank (two ranks on one card) against the "
+        f"one-process twin's {twin['step_ms']:.3f} ms; stage handoffs in one "
+        f"step: {staged['shifts']} exchanges, {staged['calls']} staged "
+        f"through the host, {staged['bytes'] / 2**20:.2f} MiB, "
+        f"{staged['seconds'] * 1e3:.3f} ms host time")
+    # (b) 1F1B against GPipe on the same weights, its memory, an SGD loop.
+    b0, b1 = r0["f1b"], r1["f1b"]
+    gaps = {}
+    for r, b in enumerate((b0, b1)):
+        loss_g, grads_g = b["gpipe"]
+        for mm in (4, 8):
+            loss_f, grads_f, stats = b["f1b"][mm]
+            np.testing.assert_allclose(loss_f, loss_g, **F1B_TOL,
+                                       err_msg=f"(30 b) rank {r} M={mm}")
+            gaps[r, mm] = _grad_gap(grads_f, grads_g,
+                                    f"(30 b) rank {r} M={mm}")
+            if stats["slots"] != min(s_count, mm) or \
+                    stats["max_live"] > min(s_count, mm):
+                raise AssertionError(f"(30 b) rank {r} M={mm}: {stats}")
+        if not b["peak_mb"]["f1b"] < b["peak_mb"]["gpipe"]:
+            raise AssertionError(f"(30 b) rank {r}: 1F1B peak "
+                                 f"{b['peak_mb']} not below GPipe's")
+        if not b["sgd_loss"][-1] < b["sgd_loss"][0] or b["counts"][5] != steps:
+            raise AssertionError(f"(30 b) rank {r}: SGD losses "
+                                 f"{b['sgd_loss']}, launches {b['counts']}")
+    if b0["sgd_loss"] != b1["sgd_loss"]:
+        raise AssertionError(f"(30 b) losses {b0['sgd_loss']} / "
+                             f"{b1['sgd_loss']}")
+    log(f"[30 pp] (b) make_1f1b_train_step on seed 0's weights: loss and "
+        f"gradients against GPipe's at rtol {F1B_TOL['rtol']:g}, atol "
+        f"{F1B_TOL['atol']:g}: largest |diff| M=4 {gaps[0, 4]:.2e} / "
+        f"{gaps[1, 4]:.2e}, M=8 {gaps[0, 8]:.2e} / {gaps[1, 8]:.2e} (rank "
+        f"0 / 1); stash {b0['f1b'][8][2]} / {b1['f1b'][8][2]} at M=8; peak "
+        f"allocated above the model over one step at M=8: 1F1B "
+        f"{b0['peak_mb']['f1b']:.1f} / {b1['peak_mb']['f1b']:.1f} MiB, GPipe "
+        f"{b0['peak_mb']['gpipe']:.1f} / {b1['peak_mb']['gpipe']:.1f} MiB; "
+        f"{steps} steps with SGD(fused=True, lr {F1B_SGD_LR:g}): losses "
+        f"{[round(v, 5) for v in b0['sgd_loss']]} on both ranks; launches "
+        f"{b0['counts']} / {b1['counts']}; step + update "
+        f"{b0['step_ms']:.3f} / {b1['step_ms']:.3f} ms ({card})")
+    # (c) MoE through fit.
+    c0, c1 = r0["moe"], r1["moe"]
+    want_c = (depth * steps, depth * steps, steps, steps, steps, 0)
+    routers = [n for n in c0["replicated"] if n.endswith("router")]
+    if (c0["loss"] != c1["loss"] or len(routers) != depth
+            or any(not torch.equal(c0["replicated"][n], c1["replicated"][n])
+                   for n in c0["replicated"])):
+        raise AssertionError(f"(30 c) the ranks differ: losses {c0['loss']}"
+                             f" / {c1['loss']}")
+    e_local = MOE_KW["moe_experts"] // EP_AXES["expert"]
+    for r, c in enumerate((c0, c1)):
+        ce, stepped = c["objective"]
+        aux = sum(c["aux"])
+        if (c["counts"] != want_c
+                or any(shape[0] != e_local
+                       for shape in c["expert_shapes"].values())
+                or not all(np.isfinite(c["aux"])) or not aux > 0
+                or abs(stepped - (ce + aux)) > 1e-5 * abs(stepped)):
+            raise AssertionError(
+                f"(30 c) rank {r}: launches {c['counts']} (want {want_c}), "
+                f"experts {sorted(set(c['expert_shapes'].values()))}, aux "
+                f"{c['aux']}, step loss {stepped} vs CE {ce} + aux {aux}")
+    rel_c = _close_rel(c0["loss"], moe_twin["loss"],
+                       "(30 c) losses vs the twin")
+    log(f"[30 pp] (c) the LM with moe_experts={MOE_KW['moe_experts']}, "
+        f"top_k={MOE_KW['moe_top_k']}, groups={MOE_KW['moe_groups']} under "
+        f"{EP_AXES}, fit as (a): losses {[round(v, 6) for v in c0['loss']]} "
+        f"bit for bit on both ranks (router and every replicated leaf too); "
+        f"one-process twin {[round(v, 6) for v in moe_twin['loss']]} "
+        f"(largest relative gap {rel_c:.2e}); expert leaves "
+        f"{len(c0['layout'])} at [{e_local}, ...] a rank; aux losses "
+        f"{[round(v, 6) for v in c0['aux']]} in the objective (step loss "
+        f"{c0['objective'][1]:.6f} = CE {c0['objective'][0]:.6f} + aux); "
+        f"launches {c0['counts']} / {c1['counts']} (twin "
+        f"{moe_twin['counts']}) ({card})")
+    log(f"[30 pp] (c) times ({card}): step {c0['step_ms']:.3f} / "
+        f"{c1['step_ms']:.3f} ms a rank against the twin's "
+        f"{moe_twin['step_ms']:.3f} ms; all_to_all: {c0['a2a']['calls']} "
+        f"exchanges, {c0['a2a']['seconds'] * 1e3:.3f} ms host time of a "
+        f"{c0['a2a']['step_s'] * 1e3:.3f} ms step")
+    # (d) (a)'s checkpoint restored in one process and continued.
+    if resumed["step"] != PP_CKPT_STEP:
+        raise AssertionError(f"(30 d) restored step {resumed['step']}")
+    rel_d = _close_rel(resumed["loss"], a0["loss"][PP_CKPT_STEP:],
+                       "(30 d) resumed losses")
+    log(f"[30 pp] (d) (a)'s checkpoint at step {PP_CKPT_STEP} (stage leaves"
+        f" gathered over the pipe axis) restored in one process without a "
+        f"pipe axis and fit {steps - PP_CKPT_STEP} more steps: losses "
+        f"{[round(v, 6) for v in resumed['loss']]} against the pipelined "
+        f"run's {[round(v, 6) for v in a0['loss'][PP_CKPT_STEP:]]} "
+        f"(largest relative gap {rel_d:.2e}) ({card})")
+    log(f"[30 pp] phase 30 took {time.monotonic() - t0:.1f} s (workers "
+        f"{r0['seconds']:.1f} s of work each)")
+    return {"gpipe_rank0": a0["counts"], "gpipe_rank1": a1["counts"],
+            "f1b_rank0": b0["counts"], "f1b_rank1": b1["counts"],
+            "moe_rank0": c0["counts"], "moe_rank1": c1["counts"]}
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--dp-worker"]:
         return dp_worker(pathlib.Path(sys.argv[2]))
@@ -5813,6 +6241,8 @@ def main() -> int:
         return observe_worker(pathlib.Path(sys.argv[2]))
     if sys.argv[1:2] == ["--tp-worker"]:
         return tp_worker(pathlib.Path(sys.argv[2]))
+    if sys.argv[1:2] == ["--pp-worker"]:
+        return pp_worker(pathlib.Path(sys.argv[2]))
     t0 = time.monotonic()
     card = device_phase()
     build_phase()
@@ -5908,6 +6338,16 @@ def main() -> int:
     # launches rows 1-2, 5 and 6-9; the ring LM rows 1-2 and 5.
     for label, counts in tp_phase(card).items():
         for rec, count in zip(new_records[:2], counts[3:5]):
+            rec["launches_by_path"][label] = count
+        adam_record["launches_by_path"][label] = counts[2]
+        record["launches_by_path"][label] = counts[0]
+        for rec in bwd_records:
+            rec["launches_by_path"][label] = counts[1]
+    # Phase 30's paths: each rank's GPipe and MoE fits launch rows 1-2, 5
+    # and 6-9; the 1F1B loop rows 3 and 6-9, and rows 1-2 on the last
+    # stage.
+    for label, counts in pp_phase(card).items():
+        for rec, count in zip(new_records[:3], (*counts[3:5], counts[5])):
             rec["launches_by_path"][label] = count
         adam_record["launches_by_path"][label] = counts[2]
         record["launches_by_path"][label] = counts[0]

@@ -24,10 +24,6 @@ PACKAGES = ("", "ops", "serve", "training", "observe", "models", "data",
 NOT_YET_PORTED = {
     "OptaxWrapper": "not ported, by decision (optax has no PyTorch "
                     "counterpart)",
-    # item 17b: the pipe and expert axes
-    "PipelinedBlocks": "item 17b", "gpipe_schedule": "item 17b",
-    "make_1f1b_train_step": "item 17b", "one_f_one_b": "item 17b",
-    "MixtureOfExperts": "item 17b",
     # item 18: resilience, liveness
     "FaultInjector": "item 18", "maybe_injector_from_env": "item 18",
     "GangReform": "item 18", "StepRejoinGate": "item 18",

@@ -40,10 +40,11 @@ from tpu_dist.ops import losses as jlosses
 from tpu_dist.ops import optimizers as jopt
 from tpu_dist_torch.data import native
 from tpu_dist_torch.models import Model, Sequential, cnn, layers, resnet
-from tpu_dist_torch.models import transformer
 from tpu_dist_torch.models.bridge import variables_from_jax
 from tpu_dist_torch.ops import losses, optimizers
 from tpu_dist_torch.parallel import MirroredStrategy
+from tpu_dist_torch.serve import fleet
+from tpu_dist_torch.training import checkpoint
 from tpu_dist_torch.utils.errors import unported
 from test_torch_multiworker import _run_workers
 
@@ -338,16 +339,14 @@ def test_sync_bn_variance_is_centred_on_off_centre_data(tmp_path):
 # -- the minor faults ------------------------------------------------------------
 
 @pytest.mark.parametrize("call, item", [
-    (lambda: transformer.build_transformer_lm(16, 8, moe_experts=2), "17b"),
-    (lambda: transformer.build_transformer_lm(16, 8, pipeline_stages=2),
-     "17b"),
-    # Item 12 ported axis_shapes of the data axis alone and strategy.run,
-    # item 17a the model and seq axes; the pipe and expert axes and
-    # several devices in one process stay unported.
-    (lambda: MirroredStrategy(axis_shapes={"data": 1, "pipe": 2},
-                              device="cpu"), "17b"),
+    # Items 12, 17a and 17b ported the data, model, seq, pipe and expert
+    # axes; several devices in one process, the sharded checkpoint layout
+    # and the fleet's leased submeshes stay unported.
     (lambda: MirroredStrategy(devices=["cpu", "cpu"]), "12b"),
-], ids=["moe_experts", "pipeline_stages", "axis_shapes", "run"])
+    (lambda: checkpoint.save("unused", {"params": {}}, step=0,
+                             sharded=True), "18"),
+    (lambda: fleet.ServeFleet(lambda: None, devices_per_replica=2), "20"),
+], ids=["run", "sharded_checkpoint", "devices_per_replica"])
 def test_unported_names_the_roadmap_item(call, item):
     with pytest.raises(NotImplementedError,
                        match=rf"item {item} of queue 1 in ROADMAP\.md"):

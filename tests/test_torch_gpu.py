@@ -1763,3 +1763,42 @@ def test_step_timer_puts_a_device_bound_step_in_device_time(cuda_device):
     parts = sum(d[f"step.{p}_s"]["sum"]
                 for p in ("data_wait", "dispatch", "device_block"))
     assert parts == pytest.approx(d["step.total_s"]["sum"], rel=1e-9)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["pipeline", "moe"])
+def test_pipelined_and_moe_lms_launch_the_kernels_and_equal_the_cpu(
+        cuda_device, kind):
+    # One process: the stacked stages run in sequence, the experts locally;
+    # each block's attention launches the flash pair, the loss the fused CE,
+    # the update fused Adam. Losses agree with the CPU plain-path run to
+    # 1e-4 (fp32 on both sides, sums in another order).
+    kw = ({"pipeline_stages": 2, "pipeline_microbatches": 2}
+          if kind == "pipeline" else {"moe_experts": 4, "moe_groups": 4})
+
+    def make(device):
+        model = build_transformer_lm(64, 64, d_model=64, depth=2,
+                                     num_heads=2, seed=3, **kw)
+        model.compile(optimizer=Adam(learning_rate=1e-3, fused=True),
+                      loss=SparseCategoricalCrossentropy(from_logits=True,
+                                                         fused=True),
+                      device=device)
+        return model
+
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, 64, size=(4, 64))
+    y = np.roll(x, -1, axis=1)
+    losses = {}
+    counted = ((fa, "flash_attention_fwd"), (fa, "flash_attention_bwd"),
+               (fused, "fused_adam_apply"), (fused, "fused_ce_fwd"),
+               (fused, "fused_ce_bwd"))
+    for device in ("cpu", cuda_device):
+        model = make(device)
+        fn, state = model.make_train_function(), model.train_state()
+        for mod, name in counted:
+            getattr(mod, name).launches = 0
+        losses[str(device)] = [float(fn(*state, x, y)) for _ in range(3)]
+        launches = tuple(getattr(mod, name).launches for mod, name in counted)
+        assert launches == ((0,) * 5 if device == "cpu"
+                            else (6, 6, 3, 3, 3)), launches
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], atol=1e-4)

@@ -36,7 +36,7 @@ import tpu_dist as tdj
 from tpu_dist.models.transformer import build_transformer_lm as jlm
 from tpu_dist.parallel import make_mesh as jmake_mesh
 from tpu_dist.parallel import sequence as jsequence
-from tpu_dist_torch.models.bridge import variables_from_jax
+from tpu_dist_torch.models.bridge import params_from_jax, variables_from_jax
 from tpu_dist_torch.parallel import MirroredStrategy, RingAttention
 from tpu_dist_torch.parallel import mesh as mesh_lib
 from tpu_dist_torch.parallel import sequence
@@ -46,6 +46,9 @@ TOL = dict(atol=1e-5, rtol=1e-5)
 SHAPE2 = (2, 3, 32, 8)      # [B, H, L, D] on {seq: 2}
 SHAPE4 = (4, 3, 16, 8)      # on {data: 2, seq: 2}
 VOCAB, LN = 11, 16
+#: The reference's hybrid-mesh LM fit (``tests/test_transformer.py:170``):
+#: 4 epochs of 5 steps.
+HYBRID_EPOCHS = 4
 
 COMMON = '''
 import json, sys
@@ -54,6 +57,7 @@ import torch
 import tpu_dist_torch as td
 from tpu_dist_torch.parallel import (RingAttention, ring_attention,
                                      sequence_sharding)
+from tpu_dist_torch.parallel.sequence import ring_attention_blocks
 
 
 def ring(strategy, arrays, batch_axis=None, **kw):
@@ -64,8 +68,8 @@ def ring(strategy, arrays, batch_axis=None, **kw):
     out = {}
     for causal in (False, True):
         q, k, v = (place(arrays[n]).requires_grad_() for n in "qkv")
-        o = ring_attention(q, k, v, mesh=mesh, causal=causal,
-                           batch_axis=batch_axis, **kw)
+        o = ring_attention_blocks(q, k, v, mesh=mesh, causal=causal,
+                                  batch_axis=batch_axis, **kw)
         grads = torch.autograd.grad((o * place(arrays["do"])).sum(),
                                     (q, k, v))
         out[causal] = [o.detach().numpy().tolist()] + [
@@ -93,13 +97,64 @@ try:
 except ValueError as e:
     out["indivisible"] = str(e)
 
+# The reference's attention_fn contract: partial(ring_attention) on the
+# whole sequence, in a layer and in an LM's fit.
+import functools
+from tpu_dist_torch.models.transformer import (MultiHeadAttention,
+                                               build_transformer_lm)
+from tpu_dist_torch.ops import losses, optimizers
+
+mha = np.load("mha.npz")
+
+
+def mha_run(fn):
+    layer = MultiHeadAttention(num_heads=2, key_dim=8, causal=True,
+                               attention_fn=fn)
+    layer.init(torch.Generator().manual_seed(0), (8, 16))
+    names = [n for n, _ in layer.named_parameters()]
+    layer.load_state_dict({n: torch.from_numpy(mha[n]) for n in names})
+    x = torch.from_numpy(mha["x"]).requires_grad_()
+    y = layer(x)
+    grads = torch.autograd.grad((y * torch.from_numpy(mha["dy"])).sum(),
+                                [x, *layer.parameters()])
+    return {"y": y.detach().numpy().tolist(),
+            **{n: g.numpy().tolist() for n, g in zip(["x", *names], grads)}}
+
+
+ring_fn = functools.partial(ring_attention, mesh=strategy.mesh,
+                            axis_name="seq", causal=True)
+out["mha_ring"] = mha_run(ring_fn)
+out["mha_dense"] = mha_run(None)
+out["spec_bits"] = bool(torch.equal(
+    RingAttention(mesh=strategy.mesh)(*full, causal=True),
+    ring_attention(*full, mesh=strategy.mesh, causal=True)))
+VOCAB, LN = %(vocab)d, %(ln)d
+seq = np.arange(512) * 3 %% VOCAB
+xs = np.stack([seq[i:i + LN] for i in range(0, 480, 4)]).astype(np.int64)
+ys = np.stack([seq[i + 1:i + LN + 1] for i in range(0, 480, 4)]).astype(
+    np.int64)
+with strategy.scope():
+    model = build_transformer_lm(
+        VOCAB, LN, d_model=32, depth=1, num_heads=2,
+        attention_fn=functools.partial(ring_attention, mesh=strategy.mesh,
+                                       axis_name="seq", causal=True,
+                                       batch_axis="data"))
+    model.load_state_dict({k: torch.from_numpy(v)
+                           for k, v in np.load("lm.npz").items()})
+    model.compile(loss=losses.SparseCategoricalCrossentropy(
+        from_logits=True), optimizer=optimizers.Adam(learning_rate=0.01),
+        metrics=["accuracy"], device="cpu")
+    ds = td.data.Dataset.from_tensor_slices((xs, ys)).batch(24).repeat()
+    out["hybrid_lm"] = model.fit(ds, epochs=%(epochs)d, steps_per_epoch=5,
+                                 verbose=0).history
+
 from tpu_dist_torch.examples import long_context_ring_attention
 
 out["example"] = long_context_ring_attention.main(
     ["--device", "cpu", "--seq-len", "64", "--heads", "2", "--head-dim",
      "8", "--check", "32"])
 print(json.dumps(out))
-'''
+''' % {"vocab": VOCAB, "ln": LN, "epochs": HYBRID_EPOCHS}
 
 WORKER4 = COMMON + '''
 from tpu_dist_torch.models import load_model
@@ -179,6 +234,41 @@ def _assemble(outs, key, causal, data: int):
         for d in range(data)], axis=0) for i in range(4)]
 
 
+def _mha_case() -> dict:
+    """The reference's ``MultiHeadAttention(2, 8)`` params at seed 0 (its
+    ``_mha`` helper), bridged, and a seeded x of ``[2, 8, 16]`` (as in
+    ``tests/test_transformer.py:128``) with a seeded cotangent."""
+    from tpu_dist.models.transformer import MultiHeadAttention as JMHA
+
+    params, _, _ = JMHA(num_heads=2, key_dim=8, causal=True).init(
+        jax.random.PRNGKey(0), (8, 16))
+    out = {k: v.numpy() for k, v in params_from_jax(
+        jax.tree_util.tree_map(np.asarray, params)).items()}
+    rng = np.random.default_rng(3)
+    out["x"] = rng.normal(size=(2, 8, 16)).astype(np.float32)
+    out["dy"] = rng.normal(size=(2, 8, 16)).astype(np.float32)
+    return out
+
+
+def _jax_mha(case: dict) -> dict:
+    """The reference's dense causal layer on ``case``: the output and the
+    gradients of sum(y * dy) for x and every parameter."""
+    from tpu_dist.models.transformer import MultiHeadAttention as JMHA
+
+    layer = JMHA(num_heads=2, key_dim=8, causal=True)
+    names = ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "bo")
+    params = {n: jnp.asarray(case[n]) for n in names}
+
+    def loss(p, x):
+        y, _ = layer.apply(p, {}, x)
+        return (y * case["dy"]).sum(), y
+
+    (gp, gx), y = jax.grad(loss, argnums=(0, 1), has_aux=True)(
+        params, jnp.asarray(case["x"]))
+    return {"y": np.asarray(y), "x": np.asarray(gx),
+            **{n: np.asarray(gp[n]) for n in names}}
+
+
 @pytest.fixture(scope="module")
 def run(eight_devices, tmp_path_factory):
     tmp = tmp_path_factory.mktemp("sequence")
@@ -190,6 +280,8 @@ def run(eight_devices, tmp_path_factory):
     init = jax.tree_util.tree_map(np.asarray, jmodel.init(0))
     np.savez(tmp / "lm.npz", **{k: v.numpy() for k, v in
                                 variables_from_jax(init).items()})
+    mha = _mha_case()
+    np.savez(tmp / "mha.npz", **mha)
     procs = {}
     for n, text in ((2, WORKER2), (4, WORKER4)):
         (tmp / f"worker{n}.py").write_text(text)
@@ -223,6 +315,18 @@ def run(eight_devices, tmp_path_factory):
         ds = tdj.data.Dataset.from_tensor_slices((xs, ys)).batch(24).repeat()
         ref["lm_loss"] = jmodel.fit(ds, epochs=1, steps_per_epoch=3,
                                     verbose=0).history["loss"]
+    ref["mha_dense"] = _jax_mha(mha)
+    jdense = jlm(VOCAB, LN, d_model=32, depth=1, num_heads=2)
+    jdense.compile(loss=tdj.ops.SparseCategoricalCrossentropy(
+        from_logits=True), optimizer=tdj.ops.Adam(learning_rate=0.01),
+        metrics=["accuracy"])
+    seq = np.arange(512) * 3 % VOCAB
+    xs = np.stack([seq[i:i + LN] for i in range(0, 480, 4)]).astype(np.int64)
+    ys = np.stack([seq[i + 1:i + LN + 1] for i in range(0, 480, 4)]).astype(
+        np.int64)
+    ds = tdj.data.Dataset.from_tensor_slices((xs, ys)).batch(24).repeat()
+    ref["hybrid_lm"] = jdense.fit(ds, epochs=HYBRID_EPOCHS, steps_per_epoch=5,
+                                  verbose=0).history
     outs = {n: _finish(p) for n, p in procs.items()}
     return outs, ref, a2
 
@@ -296,12 +400,53 @@ def test_the_long_context_example_runs(run):
     assert ex[0]["max_abs_err"] < 3e-5 and ex[1]["max_abs_err"] is None
 
 
+@pytest.mark.multiprocess
+def test_ring_attention_fn_matches_dense(run):
+    # The reference's test_transformer.py:128: a causal layer whose
+    # attention_fn is partial(ring_attention, mesh=, axis_name="seq",
+    # causal=True) equals the dense layer (atol = rtol = 2e-5, its bar),
+    # here in value and gradient on both ranks of {data: 1, seq: 2}.
+    outs, ref, _ = run
+    want = ref["mha_dense"]
+    for o in outs[2]:
+        assert sorted(o["mha_ring"]) == sorted(want)
+        for name, w in want.items():
+            np.testing.assert_allclose(o["mha_ring"][name], w, atol=2e-5,
+                                       rtol=2e-5, err_msg=name)
+            np.testing.assert_allclose(o["mha_dense"][name], w, atol=2e-5,
+                                       rtol=2e-5, err_msg=name)
+    assert outs[2][0]["mha_ring"] == outs[2][1]["mha_ring"]
+
+
+@pytest.mark.multiprocess
+def test_ring_attention_spec_equals_the_function_bit_for_bit(run):
+    # The reference's test_transformer.py:230, on the same arrays.
+    outs, _, _ = run
+    assert all(o["spec_bits"] for o in outs[2])
+
+
+@pytest.mark.multiprocess
+def test_ring_attention_lm_trains_on_hybrid_mesh(run):
+    # The reference's test_transformer.py:170 on {data: 1, seq: 2}: the LM
+    # with partial(ring_attention, ..., causal=True, batch_axis="data")
+    # fits as the reference's dense LM from the same weights does.
+    outs, ref, _ = run
+    want = ref["hybrid_lm"]
+    for o in outs[2]:
+        got = o["hybrid_lm"]
+        np.testing.assert_allclose(got["loss"], want["loss"], atol=2e-5,
+                                   rtol=2e-5)
+        assert got["accuracy"][-1] > 0.9, got
+    a, b = (o["hybrid_lm"] for o in outs[2])
+    assert (a["loss"], a["accuracy"]) == (b["loss"], b["accuracy"])
+
+
 def test_rejects_cross_attention_shapes():
     mesh = mesh_lib.Mesh(("data", "seq"), (1, 1), torch.device("cpu"))
     q = torch.zeros(1, 2, 16, 4)
     k = torch.zeros(1, 2, 8, 4)
     with pytest.raises(ValueError, match="self-attention"):
-        sequence.ring_attention(q, k, k, mesh=mesh)
+        sequence.ring_attention_blocks(q, k, k, mesh=mesh)
 
 
 def test_ring_attention_spec_without_seq_axis_raises_actionably():

@@ -168,9 +168,6 @@ def test_callbacks_see_batches_and_can_stop_training(capsys):
 
 
 @pytest.mark.parametrize("knob,call,item", [
-    # The pipe and expert axes come with item 17b's modules.
-    ("strategy", lambda m: MirroredStrategy(
-        axis_shapes={"data": 1, "expert": 2}, device="cpu"), "item 17b"),
     # fit(checkpoint_dir=) is ported (test_torch_checkpoint.py); the
     # sharded layout its ModelCheckpoint could take is not.
     ("checkpoint_dir", lambda m: m.fit(

@@ -8,6 +8,7 @@ generators give different numbers from one seed, so no test re-derives the
 reference's weights from its RNG.
 """
 
+import functools
 import importlib
 
 import jax
@@ -160,11 +161,18 @@ def test_unique_layer_names_match_reference():
         jlayers.unique_layer_names(mk(_JaxMods))
 
 
-@pytest.mark.parametrize("kwargs", [{"moe_experts": 2},
-                                    {"pipeline_stages": 2}])
-def test_unported_lm_options_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.build_transformer_lm(VOCAB, SEQ, **kwargs)
+@pytest.mark.parametrize("kwargs, kind", [
+    ({"moe_experts": 2}, "MixtureOfExperts"),
+    ({"pipeline_stages": 2}, "PipelinedBlocks")])
+def test_pipeline_and_moe_lm_options_build(kwargs, kind):
+    # Ported with the pipe and expert axes: the reference's layer kinds
+    # under its parameter names.
+    model = tr.build_transformer_lm(VOCAB, SEQ, **kwargs)
+    jmodel = jtr.build_transformer_lm(VOCAB, SEQ, **kwargs)
+    assert kind in {type(m).__name__ for m in model.modules()}
+    assert sorted(n for n, _ in model.named_parameters()) == sorted(
+        params_from_jax(jax.tree_util.tree_map(
+            np.asarray, jmodel.init(0)["params"])))
 
 
 def test_init_is_seeded():
@@ -202,3 +210,95 @@ def test_bfloat16_policy_runs_and_returns_fp32_logits():
     np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=0.15)
     with pytest.raises(ValueError, match="unknown policy"):
         policy.set_policy("float16")
+
+
+# -- the attention_fn contract (the reference's tests/test_transformer.py
+#    :86, :102, :111), each against the JAX layer on bridged weights.
+
+def _mha_pair(causal, jfn, tfn):
+    """The reference's and the port's ``MultiHeadAttention(2, 8)`` on the
+    same perturbed weights, with the given attention functions."""
+    jlayer = jtr.MultiHeadAttention(num_heads=2, key_dim=8, causal=causal,
+                                    attention_fn=jfn)
+    params, _, _ = jlayer.init(jax.random.PRNGKey(0), (8, 16))
+    params = _perturbed(params, 7)
+    tlayer = tr.MultiHeadAttention(num_heads=2, key_dim=8, causal=causal,
+                                   attention_fn=tfn)
+    tlayer.init(torch.Generator().manual_seed(0), (8, 16))
+    tlayer.load_state_dict(params_from_jax(params), strict=True)
+    x = np.random.default_rng(8).standard_normal((2, 8, 16)).astype(
+        np.float32)
+    return jlayer, params, tlayer, x
+
+
+def _jax_dense(q, k, v, causal, scale):
+    s = jnp.einsum("...qd,...kd->...qk", q, k) * scale
+    if causal:
+        ln = q.shape[-2]
+        s = jnp.where(np.tril(np.ones((ln, ln), bool)), s, -jnp.inf)
+    return jnp.einsum("...qk,...kd->...qd", jax.nn.softmax(s, -1), v)
+
+
+def test_attention_fn_causal_forwarded_when_unbound():
+    # def attn(q, k, v, causal): no scale parameter, causal from the layer.
+    seen = {}
+
+    def jattn(q, k, v, causal):
+        seen["jax"] = causal
+        return _jax_dense(q, k, v, causal, 0.25)
+
+    def tattn(q, k, v, causal):
+        seen["torch"] = causal
+        return tr._dense_attention(q, k, v, causal=causal, scale=0.25)
+
+    jlayer, params, tlayer, x = _mha_pair(True, jattn, tattn)
+    ref, _ = jlayer.apply(params, {}, jnp.asarray(x))
+    with torch.no_grad():
+        got = tlayer(torch.from_numpy(x))
+    assert seen == {"jax": True, "torch": True}
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL,
+                               rtol=ATOL)
+
+
+@pytest.mark.parametrize("nested", [False, True])
+def test_attention_fn_causal_conflict_raises(nested):
+    tattn = functools.partial(lambda q, k, v, causal: q, causal=False)
+    if nested:
+        tattn = functools.partial(tattn, unused=None)
+    layer = tr.MultiHeadAttention(num_heads=2, key_dim=8, causal=True,
+                                  attention_fn=tattn)
+    layer.init(torch.Generator().manual_seed(0), (8, 16))
+    with pytest.raises(ValueError, match="conflicts"):
+        layer(torch.zeros(1, 8, 16))
+
+
+def test_attention_fn_nested_partial_causal_and_scale_respected():
+    # An inner partial binds causal=True, an outer one scale=0.125: the
+    # layer must see causal through the chain (a causal=False layer
+    # raises), pass no causal= itself, and the bound scale reaches the
+    # function (not 1 / sqrt(key_dim)).
+    seen = []
+
+    def jfn(q, k, v, causal, scale):
+        return _jax_dense(q, k, v, causal, scale)
+
+    def tfn(q, k, v, causal, scale):
+        seen.append((causal, scale))
+        return tr._dense_attention(q, k, v, causal=causal, scale=scale)
+
+    jouter = functools.partial(functools.partial(jfn, causal=True),
+                               scale=0.125)
+    touter = functools.partial(functools.partial(tfn, causal=True),
+                               scale=0.125)
+    bad = tr.MultiHeadAttention(num_heads=2, key_dim=8, causal=False,
+                                attention_fn=touter)
+    bad.init(torch.Generator().manual_seed(0), (8, 16))
+    with pytest.raises(ValueError, match="conflicts"):
+        bad(torch.zeros(1, 8, 16))
+    jlayer, params, tlayer, x = _mha_pair(True, jouter, touter)
+    ref, _ = jlayer.apply(params, {}, jnp.asarray(x))
+    with torch.no_grad():
+        got = tlayer(torch.from_numpy(x))
+    assert seen == [(True, 0.125)]
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL,
+                               rtol=ATOL)

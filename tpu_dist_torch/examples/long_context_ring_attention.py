@@ -2,11 +2,11 @@
 port of the JAX package's ``examples/long_context_ring_attention.py``.
 
 A context too long to attend on one device is split along the sequence
-over a ``seq`` mesh axis, and ``ring_attention`` computes exact attention
-by rotating the K/V blocks around the axis's processes while an online
-softmax merges them (``parallel/sequence.py``). No process holds the
-``[L, L]`` scores or the whole K/V. It composes with data parallelism on
-the same mesh.
+over a ``seq`` mesh axis, and ``ring_attention_blocks`` computes exact
+attention on each process's block by rotating the K/V blocks around the
+axis's processes while an online softmax merges them
+(``parallel/sequence.py``). No process holds the ``[L, L]`` scores or the
+whole K/V. It composes with data parallelism on the same mesh.
 
     python -m tpu_dist_torch.examples.long_context_ring_attention
         [--device cpu] [--seq-len L]
@@ -25,8 +25,9 @@ import numpy as np
 import torch
 
 import tpu_dist_torch as td
-from tpu_dist_torch.parallel import ring_attention, sequence_sharding
+from tpu_dist_torch.parallel import sequence_sharding
 from tpu_dist_torch.parallel.mesh import coordinate
+from tpu_dist_torch.parallel.sequence import ring_attention_blocks
 
 
 def main(argv=None) -> dict:
@@ -58,8 +59,8 @@ def main(argv=None) -> dict:
     # Each process holds its block of the sequence (and its rows).
     placement = sequence_sharding(mesh, batch_axis="data")
     ql, kl, vl = (placement.place(x) for x in (q, k, v))
-    out = ring_attention(ql, kl, vl, mesh=mesh, axis_name="seq",
-                         causal=True, batch_axis="data")
+    out = ring_attention_blocks(ql, kl, vl, mesh=mesh, axis_name="seq",
+                                causal=True, batch_axis="data")
     print(f"ring attention over {ln} tokens: this process's block "
           f"{tuple(out.shape)}")
 

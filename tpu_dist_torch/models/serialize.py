@@ -92,9 +92,11 @@ def layer_config(layer) -> dict:
 def layer_from_config(spec: dict):
     from tpu_dist_torch.models import layers as layers_mod
     from tpu_dist_torch.models import transformer as transformer_mod
+    from tpu_dist_torch.parallel import expert, pipeline_parallel
 
-    cls = getattr(layers_mod, spec["class"],
-                  getattr(transformer_mod, spec["class"], None))
+    cls = None
+    for module in (layers_mod, transformer_mod, pipeline_parallel, expert):
+        cls = cls or getattr(module, spec["class"], None)
     # Layer subclasses only: a crafted model.json must reach nothing else.
     if (cls is None or not isinstance(cls, type)
             or not issubclass(cls, layers_mod.Layer)):

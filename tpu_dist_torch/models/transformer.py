@@ -15,12 +15,15 @@ counterpart of the reference's ``_mesh_mapped_flash``. Each process holds
 only its own shard, so the raw kernel is always safe here, where the
 reference must keep GSPMD from gathering around it. ``attention_fn``
 takes another attention function, e.g. ``parallel.RingAttention()`` for
-ring attention over a ``seq`` axis. Pipeline stages and
-mixture-of-experts blocks are ROADMAP item 17b.
+ring attention over a ``seq`` axis. :func:`build_transformer_lm` stacks
+its blocks into ``parallel.PipelinedBlocks`` stages (a ``pipe`` axis) or
+makes them Switch blocks of ``parallel.MixtureOfExperts`` (an ``expert``
+axis).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, Optional
 
@@ -31,7 +34,6 @@ from tpu_dist_torch.models.model import Sequential
 from tpu_dist_torch.models.policy import compute_dtype
 from tpu_dist_torch.ops import flash_attention as fa
 from tpu_dist_torch.ops import initializers
-from tpu_dist_torch.utils.errors import unported
 
 
 class Embedding(Layer):
@@ -98,26 +100,51 @@ class LayerNormalization(Layer):
         return y.to(x.dtype)
 
 
-def _dense_attention(q, k, v, *, causal: bool, scale: float):
+def _dense_attention(q, k, v, *, causal: bool,
+                     scale: Optional[float] = None):
     """Dense softmax attention on any device: the plain version, for a
-    caller that asks for it (e.g. ``kv_cache.prefill``'s ``attention_fn``)."""
+    caller that asks for it (e.g. ``kv_cache.prefill``'s ``attention_fn``,
+    or a layer's: ``scale`` defaults to ``1 / sqrt(key_dim)``)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
     return fa.flash_attention_plain(q, k, v, causal=causal, scale=scale)[0]
 
 
-def _default_attention(q, k, v, *, causal: bool, scale: float):
+def _default_attention(q, k, v, *, causal: bool,
+                       scale: Optional[float] = None):
     """Attention dispatch: :func:`fa.flash_attention`, which launches the
     flash kernels on CUDA tensors (and raises on a shape or dtype they do
-    not take) and computes the plain versions on CPU tensors."""
+    not take) and computes the plain versions on CPU tensors. ``scale``
+    defaults to ``1 / sqrt(key_dim)``."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
     return fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                               causal=causal, scale=scale)
 
 
+def _bound_kwargs(fn) -> dict:
+    """The keywords a ``functools.partial`` chain binds, innermost first
+    with outer bindings winning (as they do at call time)."""
+    chain = []
+    while isinstance(fn, functools.partial):
+        chain.append(fn.keywords or {})
+        fn = fn.func
+    bound: dict = {}
+    for kw in reversed(chain):
+        bound.update(kw)
+    return bound
+
+
 class MultiHeadAttention(Layer):
     """Multi-head self-attention on a ``[.., L, D]`` stream; ``causal``
-    applies the autoregressive mask. ``attention_fn`` (``None``:
-    :func:`_default_attention`) may be another function of the same
-    signature, e.g. :func:`_dense_attention` for a plain-attention twin; as
-    in the reference, a model holding one does not serialize, but for a
+    applies the autoregressive mask. ``attention_fn(q, k, v, causal=...)
+    -> out`` (``None``: :func:`_default_attention`, the only one given
+    ``scale=``) swaps the attention inner loop, e.g.
+    :func:`_dense_attention` for a plain-attention twin or
+    ``functools.partial(parallel.ring_attention, mesh=...)``. The layer
+    forwards its own ``causal``; a partial chain that binds ``causal=``
+    must agree with it (the call then passes none) or the forward raises.
+    As in the reference, a model holding one does not serialize, but for a
     ``parallel.RingAttention``. Under a model axis :attr:`shard`
     (``parallel/tensor.ModelShard``) is set: the projections hold this
     process's heads, the input's gradient and the output's partial sums
@@ -185,8 +212,20 @@ class MultiHeadAttention(Layer):
         if self.shard is not None:
             x = self.shard.copy(x)
         q, k, v = self.qkv(x)
-        o = self.attention_fn(q, k, v, causal=self.causal,
-                              scale=1.0 / math.sqrt(self.key_dim))
+        fn = self.attention_fn
+        if fn is _default_attention:
+            o = fn(q, k, v, causal=self.causal,
+                   scale=1.0 / math.sqrt(self.key_dim))
+        else:
+            bound = _bound_kwargs(fn)
+            if "causal" not in bound:
+                o = fn(q, k, v, causal=self.causal)
+            elif bool(bound["causal"]) != bool(self.causal):
+                raise ValueError(
+                    f"MultiHeadAttention(causal={self.causal}) conflicts "
+                    f"with attention_fn binding causal={bound['causal']}")
+            else:
+                o = fn(q, k, v)
         return self.out(o)
 
 
@@ -194,9 +233,11 @@ def TransformerBlock(d_model: int, num_heads: int, ff_dim: int,
                      key_dim: Optional[int] = None, causal: bool = False,
                      activation: str = "gelu",
                      attention_fn: Optional[Callable] = None,
-                     epsilon: float = 1e-5) -> Block:
+                     epsilon: float = 1e-5, moe=None) -> Block:
     """Pre-LN block: ``x + MHA(LN(x))``, then ``x + MLP(LN(x))``;
-    ``attention_fn`` is the attention layer's."""
+    ``attention_fn`` is the attention layer's. ``moe`` (a
+    ``parallel.MixtureOfExperts``) replaces the dense MLP with the
+    expert-parallel FFN, the Switch-transformer block."""
     if key_dim is None:
         if d_model % num_heads:
             raise ValueError(
@@ -208,10 +249,10 @@ def TransformerBlock(d_model: int, num_heads: int, ff_dim: int,
               MultiHeadAttention(num_heads=num_heads, key_dim=key_dim,
                                  causal=causal, attention_fn=attention_fn)),
         shortcut=(), activation=None)
-    mlp = Residual(
-        main=(LayerNormalization(epsilon=epsilon),
-              Dense(ff_dim, activation=activation), Dense(d_model)),
-        shortcut=(), activation=None)
+    ffn = ((moe,) if moe is not None
+           else (Dense(ff_dim, activation=activation), Dense(d_model)))
+    mlp = Residual(main=(LayerNormalization(epsilon=epsilon), *ffn),
+                   shortcut=(), activation=None)
     return Block(layers=(attn, mlp))
 
 
@@ -220,7 +261,12 @@ def build_transformer_lm(vocab_size: int, seq_len: int, *, d_model: int = 128,
                          ff_dim: Optional[int] = None,
                          attention_fn: Optional[Callable] = None,
                          pipeline_stages: Optional[int] = None,
+                         pipeline_microbatches: int = 4,
                          moe_experts: Optional[int] = None,
+                         moe_top_k: int = 2,
+                         moe_capacity_factor: float = 1.25,
+                         moe_groups: Optional[int] = None,
+                         moe_every: int = 1,
                          seed: int = 0) -> Sequential:
     """A causal (GPT-style) LM: token + position embeddings, ``depth``
     pre-LN blocks, final LN, vocab head. Int token ids ``[B, L]`` ->
@@ -228,17 +274,50 @@ def build_transformer_lm(vocab_size: int, seq_len: int, *, d_model: int = 128,
     function (e.g. ``parallel.RingAttention()``). Parameters are
     initialized from ``seed`` on the CPU; ``compile`` (or a
     ``ServeEngine``) moves the model to the CUDA device unless the caller
-    asks for the CPU."""
-    if pipeline_stages:
-        raise unported("build_transformer_lm(pipeline_stages=)", "17b")
-    if moe_experts:
-        raise unported("build_transformer_lm(moe_experts=)", "17b")
+    asks for the CPU.
+
+    ``pipeline_stages=S`` wraps the blocks in a ``parallel.PipelinedBlocks``
+    (``depth`` must divide by S): on a mesh with a ``pipe`` axis of size S
+    the stages pipeline with ``pipeline_microbatches`` microbatches;
+    elsewhere the same stacked weights run in sequence.
+    ``moe_experts=E`` makes every ``moe_every``-th block a Switch block
+    (``parallel.MixtureOfExperts`` in place of the dense MLP; ``ff_dim``
+    sizes each expert): on a mesh with an ``expert`` axis the experts shard
+    and tokens travel by ``all_to_all``; elsewhere the same stacked experts
+    run locally. The two are mutually exclusive (the aux loss is state a
+    pipeline cannot thread)."""
+    from tpu_dist_torch.parallel.expert import MixtureOfExperts
+    from tpu_dist_torch.parallel.pipeline_parallel import PipelinedBlocks
+
     ff_dim = ff_dim or 4 * d_model
+    if moe_experts and pipeline_stages:
+        raise ValueError("moe_experts and pipeline_stages are mutually "
+                         "exclusive (see docstring)")
     layers = [Embedding(vocab_size, d_model),
               PositionalEmbedding(max_len=seq_len)]
-    layers += [TransformerBlock(d_model, num_heads, ff_dim, causal=True,
-                                attention_fn=attention_fn)
-               for _ in range(depth)]
+
+    def mk_block(i: int = 0):
+        moe = (MixtureOfExperts(
+            num_experts=moe_experts, ff_dim=ff_dim, top_k=moe_top_k,
+            capacity_factor=moe_capacity_factor, groups=moe_groups)
+            if moe_experts and i % max(moe_every, 1) == 0 else None)
+        return TransformerBlock(d_model, num_heads, ff_dim, causal=True,
+                                attention_fn=attention_fn, moe=moe)
+
+    if pipeline_stages:
+        if depth % pipeline_stages:
+            raise ValueError(
+                f"depth {depth} not divisible by pipeline_stages "
+                f"{pipeline_stages}")
+        per_stage = depth // pipeline_stages
+        stage = (mk_block() if per_stage == 1
+                 else Block(layers=tuple(mk_block()
+                                         for _ in range(per_stage))))
+        layers.append(PipelinedBlocks(block=stage,
+                                      num_stages=pipeline_stages,
+                                      microbatches=pipeline_microbatches))
+    else:
+        layers += [mk_block(i) for i in range(depth)]
     layers += [LayerNormalization(), Dense(vocab_size)]
     return Sequential(layers, input_shape=(seq_len,), name="transformer_lm",
                       seed=seed)

@@ -1,5 +1,6 @@
 """Parallelism layer: axis names, meshes, collectives, distribution
-strategies, tensor parallelism and ring attention."""
+strategies, tensor parallelism, ring attention, the pipeline schedules and
+the mixture of experts."""
 
 from tpu_dist_torch.parallel.axes import (CANONICAL_AXES, DATA_AXIS,
                                           EXPERT_AXIS, MODEL_AXIS, PIPE_AXIS,
@@ -12,8 +13,13 @@ from tpu_dist_torch.parallel.collectives import (CollectiveCommunication,
                                                  host_all_reduce_sum,
                                                  partition_buckets,
                                                  set_collective_logging)
+from tpu_dist_torch.parallel.expert import MixtureOfExperts
 from tpu_dist_torch.parallel.mesh import (batch_sharded, make_mesh,
                                           replicate, replicated, shard_batch)
+from tpu_dist_torch.parallel.pipeline_1f1b import (make_1f1b_train_step,
+                                                   one_f_one_b)
+from tpu_dist_torch.parallel.pipeline_parallel import (PipelinedBlocks,
+                                                       gpipe_schedule)
 from tpu_dist_torch.parallel.sequence import (RingAttention, ring_attention,
                                               sequence_sharding)
 from tpu_dist_torch.parallel.strategy import (DefaultStrategy, InputContext,
@@ -35,4 +41,6 @@ __all__ = [
     "has_strategy",
     "RingAttention", "ring_attention", "sequence_sharding",
     "tensor_parallel_specs",
+    "PipelinedBlocks", "gpipe_schedule", "make_1f1b_train_step",
+    "one_f_one_b", "MixtureOfExperts",
 ]

@@ -4,9 +4,8 @@
 An axis name is part of the user-visible contract: ``axis_shapes={'data':
 2}`` on a strategy, ``batch_sharded(mesh, 'data')`` on a batch. The port
 runs one device per process, so an axis carries processes
-(``parallel/mesh.py``): the data, model and seq axes today; the pipe and
-expert names are declared so that code written against the JAX package
-reads the same here. Dependency-free.
+(``parallel/mesh.py``): the data, model, seq, pipe and expert axes.
+Dependency-free.
 """
 
 from __future__ import annotations
@@ -21,10 +20,10 @@ MODEL_AXIS = "model"
 #: Sequence-parallel axis: ring attention (``parallel/sequence.py``).
 SEQ_AXIS = "seq"
 
-#: Pipeline-parallel axis (ROADMAP queue 1, item 17b).
+#: Pipeline-parallel axis (``parallel/pipeline_parallel.py``).
 PIPE_AXIS = "pipe"
 
-#: Expert-parallel axis (item 17b).
+#: Expert-parallel axis (``parallel/expert.py``).
 EXPERT_AXIS = "expert"
 
 #: Every axis name the framework declares.

@@ -9,8 +9,8 @@ queries stay put, folding each block into a numerically stable online
 (flash-style) accumulator, so no process holds the ``[L, L]`` scores or
 the whole K/V:
 
-* :func:`ring_attention` takes this process's ``[B, H, L / P, D]``
-  blocks of q, k and v and returns its block of the output. Sources
+* :func:`ring_attention_blocks` takes this process's ``[B, H, L / P,
+  D]`` blocks of q, k and v and returns its block of the output. Sources
   strictly in a query block's future are skipped under ``causal`` (no
   matmuls); the shift runs on every process at every step but the last
   (the reference's last rotation is discarded there). A block longer than
@@ -19,29 +19,31 @@ the whole K/V:
   cotangent the other way; every fold is recomputed in the backward pass
   (``torch.utils.checkpoint``, as the reference's ``jax.checkpoint`` of a
   ring step), so backward memory stays O(L / P).
+* :func:`ring_attention` takes and returns the whole sequence, as the
+  reference's does: inside a model the axis's processes hold the same
+  rows and the whole sequence (the LM's activations are not
+  sequence-sharded), so it takes this process's block of q, k and v,
+  runs the ring and gathers the output along the axis. The gather's
+  backward takes this process's slice of the (replicated) gradient and
+  the slice's backward gathers the blocks' gradients, so every process of
+  the axis gets the dense run's gradients.
+  ``functools.partial(ring_attention, mesh=, axis_name="seq")`` is an
+  ``attention_fn``.
 * :class:`RingAttention` is the declarative form, an ``attention_fn``
   that resolves its mesh late, from the strategy scope, and serializes.
-  Inside a model its processes hold the same rows and the whole sequence
-  (the LM's activations are not sequence-sharded): it takes this
-  process's block of q, k and v, runs the ring and gathers the output
-  along the axis. The gather's backward takes this process's slice of the
-  (replicated) gradient and the slice's backward gathers the blocks'
-  gradients, so every process of the axis gets the dense run's
-  gradients.
 
 The reference's ring reaches no Pallas kernel (its folds are einsums):
 the port's folds are plain PyTorch, matmuls through ``torch.matmul``.
-Transport: ``batch_isend_irecv`` on the axis's process group. Gloo's
-send and receive abort the process on CUDA tensors (ROADMAP item 10b), so
-a CUDA block crosses through pinned host buffers, a named step whose
-calls, bytes and seconds :data:`staging` counts.
+Transport: ``parallel/p2p.py``, ``batch_isend_irecv`` on the axis's
+process group. Gloo's send and receive abort the process on CUDA tensors
+(ROADMAP item 10b), so a CUDA block crosses through pinned host buffers,
+a named step whose calls, bytes and seconds :data:`staging` counts.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-import time
 from typing import Optional
 
 import torch
@@ -49,6 +51,7 @@ import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from tpu_dist_torch.parallel import mesh as mesh_lib
+from tpu_dist_torch.parallel import p2p
 from tpu_dist_torch.parallel.axes import SEQ_AXIS
 
 #: Within-block K/V chunking: blocks longer than the threshold fold their
@@ -59,7 +62,7 @@ _KV_CHUNK_DEFAULT = 2048
 
 #: The host staging of CUDA blocks (``calls``, ``bytes``, ``seconds``)
 #: and the shifts (``shifts``), forward and backward.
-staging = {"calls": 0, "bytes": 0, "seconds": 0.0, "shifts": 0}
+staging = p2p.new_counter()
 
 
 def _online_merge(m, l, acc, scores, v):
@@ -88,55 +91,6 @@ def _fold(m, l, acc, qf, k_blk, v_blk, q_pos, kv_start, causal: bool):
     return _online_merge(m, l, acc, scores, v_blk)
 
 
-@dataclasses.dataclass(frozen=True)
-class _Ring:
-    """The axis's process group and this process's neighbours (global
-    ranks) on it."""
-
-    group: object
-    next: int
-    prev: int
-
-    @classmethod
-    def of(cls, mesh, axis_name: str) -> "_Ring":
-        group = mesh_lib.axis_group(mesh, axis_name)
-        size = mesh.shape[axis_name]
-        me = mesh_lib.coordinate(mesh, axis_name)
-
-        def rank(i):
-            return (dist.get_global_rank(group, i) if group is not None
-                    else i)
-
-        return cls(group, rank((me + 1) % size), rank((me - 1) % size))
-
-    def exchange(self, tensors, to: int, frm: int) -> list:
-        """Send ``tensors`` to ``to`` and receive as many from ``frm``
-        (one tag each); CUDA tensors cross through pinned host buffers."""
-        device = tensors[0].device
-        staged = device.type == "cuda"
-        t0 = time.perf_counter()
-        if staged:
-            tensors = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                       .copy_(t) for t in tensors]
-        else:
-            tensors = [t.contiguous() for t in tensors]
-        outs = [torch.empty_like(t) for t in tensors]
-        ops = [dist.P2POp(dist.isend, t, to, self.group, tag)
-               for tag, t in enumerate(tensors)]
-        ops += [dist.P2POp(dist.irecv, o, frm, self.group, tag)
-                for tag, o in enumerate(outs)]
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-        staging["shifts"] += 1
-        if staged:
-            outs = [o.to(device, non_blocking=True) for o in outs]
-            staging["calls"] += 1
-            staging["bytes"] += 2 * sum(o.numel() * o.element_size()
-                                        for o in outs)
-            staging["seconds"] += time.perf_counter() - t0
-        return outs
-
-
 class _RingShift(torch.autograd.Function):
     """K and V to the next process on the ring, the previous process's to
     this one; backward, the cotangents the other way."""
@@ -153,23 +107,6 @@ class _RingShift(torch.autograd.Function):
         return None, dk, dv
 
 
-class _Tie(torch.autograd.Function):
-    """``acc`` as it is, with a zero gradient for the last shifted K/V:
-    a process that skipped the folds of its last blocks (future sources
-    under ``causal``) still runs every shift's backward, so every process
-    makes the same sequence of exchanges."""
-
-    @staticmethod
-    def forward(ctx, acc, k, v):
-        ctx.like = [(t.shape, t.dtype, t.device) for t in (k, v)]
-        return acc.view_as(acc)
-
-    @staticmethod
-    def backward(ctx, g):
-        return (g, *(torch.zeros(shape, dtype=dtype, device=device)
-                     for shape, dtype, device in ctx.like))
-
-
 def _chunk(kv_chunk: Optional[int], lc: int) -> Optional[int]:
     """The chunk a block of ``lc`` positions folds in: an explicit one
     that divides it, else 2048 above 4096 positions when it divides, else
@@ -182,12 +119,13 @@ def _chunk(kv_chunk: Optional[int], lc: int) -> Optional[int]:
     return kv_chunk
 
 
-def ring_attention(q, k, v, *, mesh, axis_name: str = SEQ_AXIS,
-                   causal: bool = False, scale: Optional[float] = None,
-                   batch_axis: Optional[str] = None,
-                   kv_chunk: Optional[int] = None):
-    """Exact multi-head attention over a sequence split across the
-    processes of ``axis_name``.
+def ring_attention_blocks(q, k, v, *, mesh, axis_name: str = SEQ_AXIS,
+                          causal: bool = False,
+                          scale: Optional[float] = None,
+                          batch_axis: Optional[str] = None,
+                          kv_chunk: Optional[int] = None):
+    """The ring on input that is already split: exact multi-head attention
+    over a sequence whose blocks lie on the processes of ``axis_name``.
 
     Args:
       q, k, v: this process's ``[B, H, L / P, D]`` blocks, block ``i`` on
@@ -225,7 +163,7 @@ def ring_attention(q, k, v, *, mesh, axis_name: str = SEQ_AXIS,
     chunk = _chunk(kv_chunk, lc)
     qf = q.float() * scale
     q_pos = me * lc + torch.arange(lc, device=q.device)
-    ring = _Ring.of(mesh, axis_name) if size > 1 else None
+    ring = p2p._Ring.of(mesh, axis_name, staging) if size > 1 else None
     m = torch.full((b, h, lc), -math.inf, device=q.device)
     l = torch.zeros((b, h, lc), device=q.device)
     acc = torch.zeros((b, h, lc, d), device=q.device)
@@ -246,7 +184,7 @@ def ring_attention(q, k, v, *, mesh, axis_name: str = SEQ_AXIS,
         if t < size - 1:
             k_cur, v_cur = _RingShift.apply(ring, k_cur, v_cur)
     if ring is not None and torch.is_grad_enabled():
-        acc = _Tie.apply(acc, k_cur, v_cur)
+        acc = p2p._Tie.apply(acc, k_cur, v_cur)
     # A fully masked row (not possible for causal self-attention) would
     # have l = 0; the floor keeps padding schemes from making NaNs.
     out = acc / torch.clamp(l, min=1e-30)[..., None]
@@ -293,6 +231,49 @@ def _gather_seq(x, group, size):
     return torch.cat(parts, 2)
 
 
+def ring_attention(q, k, v, *, mesh, axis_name: str = SEQ_AXIS,
+                   causal: bool = False, scale: Optional[float] = None,
+                   batch_axis: Optional[str] = None,
+                   kv_chunk: Optional[int] = None):
+    """Exact multi-head attention over the whole sequence, split across
+    the processes of ``axis_name`` for the work: the reference's
+    ``ring_attention``, whose shard_map splits and joins the sequence.
+
+    ``q``, ``k``, ``v`` are ``[B, H, L, D]`` arrays the axis's processes
+    hold alike (a model's activations; the rows are this process's under a
+    ``batch_axis``). Each process takes its block of the sequence, runs
+    :func:`ring_attention_blocks` on it and the output's blocks are
+    gathered along the axis: every process returns the whole ``[B, H, L,
+    D]`` output. The gather's backward takes this process's block of the
+    (replicated) gradient and the slice's backward gathers the blocks'
+    gradients, so every process gets the dense run's gradients. So
+    ``functools.partial(ring_attention, mesh=mesh, axis_name="seq")`` is an
+    ``attention_fn``. Other arguments as :func:`ring_attention_blocks`'."""
+    if k.shape != v.shape or k.shape[2] != q.shape[2]:
+        raise ValueError(
+            f"ring_attention is self-attention: q/k/v sequence lengths must "
+            f"match and k.shape == v.shape; got q={tuple(q.shape)} "
+            f"k={tuple(k.shape)} v={tuple(v.shape)}")
+    if axis_name not in mesh.shape:
+        raise ValueError(f"mesh has axes {tuple(mesh.shape)}, no "
+                         f"{axis_name!r}")
+    size = mesh.shape[axis_name]
+    if q.shape[2] % size:
+        raise ValueError(
+            f"sequence length {q.shape[2]} not divisible by mesh axis "
+            f"{axis_name!r} size {size}")
+    group = mesh_lib.axis_group(mesh, axis_name)
+    index = mesh_lib.coordinate(mesh, axis_name)
+    if size > 1:
+        q, k, v = (_SliceSeq.apply(t, group, size, index) for t in (q, k, v))
+    out = ring_attention_blocks(q, k, v, mesh=mesh, axis_name=axis_name,
+                                causal=causal, scale=scale,
+                                batch_axis=batch_axis, kv_chunk=kv_chunk)
+    if size > 1:
+        out = _GatherSeq.apply(out, group, size, index)
+    return out
+
+
 @dataclasses.dataclass(frozen=True)
 class RingAttention:
     """:func:`ring_attention` as an ``attention_fn`` whose mesh is
@@ -301,11 +282,10 @@ class RingAttention:
     saves and loads whole (``models/serialize.py``) and binds to the
     restoring job's mesh.
 
-    A call takes the whole sequence, ``[B, H, L, D]`` q, k and v that the
-    axis's processes hold alike (a model's activations), runs the ring on
-    this process's block and returns the whole output, gathered along the
-    axis (module docstring). The spec's ``scale`` wins over the caller's;
-    without either, ``1 / sqrt(D)``."""
+    A call is :func:`ring_attention` on the whole sequence with the
+    spec's fields: ``RingAttention(mesh=m)(q, k, v)`` equals
+    ``ring_attention(q, k, v, mesh=m)`` bit for bit. Without a ``scale``,
+    ``1 / sqrt(D)``."""
 
     axis_name: str = SEQ_AXIS
     batch_axis: Optional[str] = None
@@ -329,26 +309,11 @@ class RingAttention:
                 f"explicitly.")
         return mesh
 
-    def __call__(self, q, k, v, *, causal: bool = False,
-                 scale: Optional[float] = None):
-        mesh = self.resolve_mesh()
-        size = mesh.shape[self.axis_name]
-        if q.shape[2] % size:
-            raise ValueError(
-                f"sequence length {q.shape[2]} not divisible by mesh axis "
-                f"{self.axis_name!r} size {size}")
-        group = mesh_lib.axis_group(mesh, self.axis_name)
-        index = mesh_lib.coordinate(mesh, self.axis_name)
-        if size > 1:
-            q, k, v = (_SliceSeq.apply(t, group, size, index)
-                       for t in (q, k, v))
-        out = ring_attention(
-            q, k, v, mesh=mesh, axis_name=self.axis_name, causal=causal,
-            scale=self.scale if self.scale is not None else scale,
-            batch_axis=self.batch_axis, kv_chunk=self.kv_chunk)
-        if size > 1:
-            out = _GatherSeq.apply(out, group, size, index)
-        return out
+    def __call__(self, q, k, v, *, causal: bool = False):
+        return ring_attention(
+            q, k, v, mesh=self.resolve_mesh(), axis_name=self.axis_name,
+            causal=causal, scale=self.scale, batch_axis=self.batch_axis,
+            kv_chunk=self.kv_chunk)
 
 
 def sequence_sharding(mesh, *, axis_name: str = SEQ_AXIS,
@@ -357,7 +322,7 @@ def sequence_sharding(mesh, *, axis_name: str = SEQ_AXIS,
     """The placement of an activation whose dimension ``seq_dim`` is split
     over ``axis_name`` (and the batch, dimension 0, over ``batch_axis``):
     ``sequence_sharding(mesh).place(x)`` is this process's block, the
-    input :func:`ring_attention` takes."""
+    input :func:`ring_attention_blocks` takes."""
     spec = [None] * ndim
     spec[seq_dim] = axis_name
     if batch_axis is not None:

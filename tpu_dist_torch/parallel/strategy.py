@@ -24,10 +24,12 @@ surface is the reference's: ``distribute_datasets_from_function`` with an
 ``reduce``. ``axis_shapes`` may name the data axis with a ``model`` axis
 (tensor parallelism: ``compile`` keeps on each process the slice of each
 parameter that ``parallel/tensor.py``'s rules name) and a ``seq`` axis
-(ring attention: ``parallel/sequence.py``); the data-parallel replicas
-are the data axis's processes. The ``pipe`` and ``expert`` axes are
-ROADMAP item 17b. ``ParameterServerStrategy`` and the liveness monitor
-come with later slices of the port.
+(ring attention: ``parallel/sequence.py``), a ``pipe`` axis (stages of a
+``PipelinedBlocks``: ``parallel/pipeline_parallel.py``) and an ``expert``
+axis (``parallel/expert.py``); the data-parallel replicas are the data
+axis's processes, and the processes beside one on another axis read the
+same batch. ``ParameterServerStrategy`` and the liveness monitor come
+with later slices of the port.
 """
 
 from __future__ import annotations
@@ -42,8 +44,7 @@ import torch
 from tpu_dist_torch.cluster import bootstrap
 from tpu_dist_torch.parallel import collectives
 from tpu_dist_torch.parallel import mesh as mesh_lib
-from tpu_dist_torch.parallel.axes import (DATA_AXIS, EXPERT_AXIS,
-                                          PIPE_AXIS)
+from tpu_dist_torch.parallel.axes import DATA_AXIS
 from tpu_dist_torch.parallel.collectives import (CollectiveCommunication,
                                                  ReduceOp)
 from tpu_dist_torch.utils.device import DeviceLike, resolve_device
@@ -87,19 +88,13 @@ class InputContext:
 
 
 def _check_axis_shapes(axis_shapes: Optional[dict]) -> None:
-    """The reference's rule (the data axis must be there), and the port's:
-    a ``pipe`` or ``expert`` axis of size > 1 is item 17b."""
+    """The reference's rule: the data axis must be there."""
     if axis_shapes is None:
         return
     if DATA_AXIS not in axis_shapes:
         raise ValueError(
             f"axis_shapes must include the {DATA_AXIS!r} axis (batches "
             f"shard over it), got {axis_shapes}")
-    later = sorted(k for k in (PIPE_AXIS, EXPERT_AXIS)
-                   if axis_shapes.get(k, 1) != 1)
-    if later:
-        raise unported(f"axis_shapes={dict(axis_shapes)} (the parallel "
-                       f"axes {later})", "17b")
 
 
 def _as_tensor(leaf, device) -> torch.Tensor:

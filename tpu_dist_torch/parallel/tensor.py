@@ -38,6 +38,11 @@ same gradient on every process of the model axis. Attention runs on this
 process's heads (``models/transformer.py``). A multi-head attention whose
 heads the axis does not divide, and any leaf of a layer that cannot run
 sharded (not a Dense or an attention layer), stays replicated.
+
+:func:`shard_model` also places the stacked leaves of the pipe and expert
+axes (``parallel/pipeline_parallel.py``, ``parallel/expert.py``): each
+process keeps its stage's or its experts' block along the leading
+dimension, and those layers run their own exchanges.
 """
 
 from __future__ import annotations
@@ -129,8 +134,8 @@ def spec_for_param(path, leaf, *, axis_name: str = MODEL_AXIS,
     its Dense siblings (:func:`_dense_ranks`): even ranks shard
     column-parallel, odd ranks row-parallel; when absent, the uniquing
     suffix stands in. Leaves of a pipelined stack take ``('pipe',)`` and
-    expert-stacked leaves ``('expert',)`` (ROADMAP item 17b; on a mesh
-    without those axes :func:`prune_indivisible` replicates them)."""
+    expert-stacked leaves ``('expert',)`` (on a mesh without those axes
+    :func:`prune_indivisible` replicates them)."""
     names = tuple(path)
     if len(names) < 2:
         return ()
@@ -360,30 +365,52 @@ class DenseShard:
 def shard_model(model, mesh, *, axis_name: str = MODEL_AXIS) -> dict:
     """Keep on this process its slice of every leaf
     :func:`tensor_parallel_specs` shards (after :func:`prune_indivisible`)
-    and wire each sharded layer's collectives (module docstring). The
-    parameters stay the same ``nn.Parameter`` objects, their data
-    replaced by the slice. Returns and records on ``model`` the layout,
-    ``{dotted name: (dim, axis size, coordinate)}``; a mesh whose axis has
-    size 1 changes nothing."""
-    from tpu_dist_torch.models.layers import Dense
+    and wire each sharded layer's collectives (module docstring); then
+    :func:`_shard_stacked` for the pipe and expert axes. The parameters
+    stay the same ``nn.Parameter`` objects, their data replaced by the
+    slice. Returns and records on ``model`` the layout, ``{dotted name:
+    (dim, axis size, coordinate)}``, as ``model._tensor_parallel = (the
+    model axis's ModelShard or None, layout, {name: the ModelShard of the
+    leaf's axis})``; a mesh whose axes beside the data axis have size 1
+    changes nothing."""
     from tpu_dist_torch.models.model import _flatten, _nest
-    from tpu_dist_torch.models.transformer import MultiHeadAttention
     from tpu_dist_torch.parallel import mesh as mesh_lib
 
-    size = mesh.shape.get(axis_name, 1)
-    if size == 1:
-        return {}
-    shard = ModelShard(mesh_lib.axis_group(mesh, axis_name), size,
-                       mesh_lib.coordinate(mesh, axis_name))
     named = dict(model.named_parameters())
-    tree = _nest(named.items())
-    specs = _flatten(prune_indivisible(
-        tensor_parallel_specs(tree, axis_name=axis_name), tree, mesh))
+    layout: dict = {}
+    owners: dict = {}
+    shard = None
+    size = mesh.shape.get(axis_name, 1)
+    if size > 1:
+        shard = ModelShard(mesh_lib.axis_group(mesh, axis_name), size,
+                           mesh_lib.coordinate(mesh, axis_name))
+        tree = _nest(named.items())
+        specs = _flatten(prune_indivisible(
+            tensor_parallel_specs(tree, axis_name=axis_name), tree, mesh))
+        _shard_model_axis(model, specs, shard, axis_name, layout)
+        owners.update((n, shard) for n in layout)
+    _shard_stacked(model, mesh, layout, owners)
+    with torch.no_grad():
+        for name, (dim, size, index) in layout.items():
+            p = named[name]
+            per = p.shape[dim] // size
+            p.data = p.data.narrow(dim, index * per, per).clone()
+    if layout:
+        model._tensor_parallel = (shard, layout, owners)
+    return layout
+
+
+def _shard_model_axis(model, specs, shard, axis_name, layout) -> None:
+    """The model axis's part of :func:`shard_model`: wire the sharded
+    Dense and attention layers and record their leaves in ``layout``."""
+    from tpu_dist_torch.models.layers import Dense
+    from tpu_dist_torch.models.transformer import MultiHeadAttention
+
+    size = shard.size
     owner = {}
     for prefix, m in model.named_modules():
         if isinstance(m, (Dense, MultiHeadAttention)):
             owner[m] = prefix + "." if prefix else ""
-    layout: dict = {}
 
     def take(name: str) -> None:
         spec = specs[name]
@@ -421,13 +448,43 @@ def shard_model(model, mesh, *, axis_name: str = MODEL_AXIS) -> dict:
                 continue
             for n, _ in m.named_parameters(recurse=False):
                 take(owner[m] + n)
-    with torch.no_grad():
-        for name, (dim, _, index) in layout.items():
-            p = named[name]
-            per = p.shape[dim] // size
-            p.data = p.data.narrow(dim, index * per, per).clone()
-    model._tensor_parallel = (shard, layout)
-    return layout
+
+
+def _shard_stacked(model, mesh, layout: dict, owners: dict) -> None:
+    """The pipe and expert axes' part of :func:`shard_model`: a
+    ``PipelinedBlocks`` whose stage count is the pipe axis's size keeps
+    its stage's ``[1, ...]`` block of every ``stages`` leaf, and a
+    ``MixtureOfExperts`` on an expert axis of P processes (P dividing its
+    experts) its ``[E / P, ...]`` block of every expert leaf (not the
+    router): spec ``('pipe',)`` / ``('expert',)``, the reference's. Each
+    such layer runs on ``mesh`` (its :attr:`mesh`)."""
+    from tpu_dist_torch.parallel import mesh as mesh_lib
+    from tpu_dist_torch.parallel.expert import MixtureOfExperts
+    from tpu_dist_torch.parallel.pipeline_parallel import PipelinedBlocks
+
+    groups: dict = {}
+    for prefix, m in model.named_modules():
+        if isinstance(m, PipelinedBlocks):
+            axis, on = m.axis_name, (
+                mesh.shape.get(m.axis_name, 0) == m.num_stages > 1)
+        elif isinstance(m, MixtureOfExperts):
+            p = mesh.shape.get(m.axis_name, 0)
+            axis, on = m.axis_name, p > 1 and m.num_experts % p == 0
+        else:
+            continue
+        if not on:
+            continue
+        if axis not in groups:
+            groups[axis] = ModelShard(mesh_lib.axis_group(mesh, axis),
+                                      mesh.shape[axis],
+                                      mesh_lib.coordinate(mesh, axis))
+        shard = groups[axis]
+        for n, _ in m.named_parameters():
+            if n != "router":
+                name = f"{prefix}.{n}" if prefix else n
+                layout[name] = (0, shard.size, shard.index)
+                owners[name] = shard
+        m.mesh = mesh
 
 
 def gather_leaf(t: torch.Tensor, dim: int, shard: ModelShard):
@@ -441,10 +498,10 @@ def gather_leaf(t: torch.Tensor, dim: int, shard: ModelShard):
 
 def gather_params(model) -> dict[str, torch.Tensor]:
     """``{dotted name: global tensor}`` of a model's parameters, its
-    sharded leaves gathered over the model axis (a collective: every
-    process of the axis calls it)."""
-    shard, layout = model._tensor_parallel or (None, {})
-    return {n: gather_leaf(p, layout[n][0], shard) if n in layout
+    sharded leaves gathered over their axes (a collective: every process
+    of the mesh calls it)."""
+    _, layout, owners = model._tensor_parallel or (None, {}, {})
+    return {n: gather_leaf(p, layout[n][0], owners[n]) if n in layout
             else p.detach() for n, p in model.named_parameters()}
 
 

@@ -111,15 +111,16 @@ def _live_tensors(model, trainer=None, *, gathered: bool = True) -> dict:
         return live
     from tpu_dist_torch.parallel.tensor import gather_leaf
 
-    shard = model._tensor_parallel[0]
-    return {k: gather_leaf(t, layout[k][0], shard) if k in layout else t
-            for k, t in live.items()}
+    owners = model._tensor_parallel[2]
+    names = bridge.checkpoint_names(model, trainer.variables["opt"])
+    return {k: gather_leaf(t, layout[k][0], owners[names[k]])
+            if k in layout else t for k, t in live.items()}
 
 
 def _shard_layout(model, trainer) -> dict:
     """``{checkpoint key: (dim, axis size, coordinate)}`` of the keys whose
-    tensors are blocks under a model axis (a parameter's and its optimizer
-    states'); empty without one."""
+    tensors are blocks under a model, pipe or expert axis (a parameter's
+    and its optimizer states'); empty without one."""
     tp = model._tensor_parallel
     if tp is None:
         return {}

@@ -120,8 +120,9 @@ from :attr:`Trainer.rng`, a generator on the model's device seeded by
 captured program's identity starts with the compute policy
 (``_train_variant``, ``_eval_variant``), so a ``fit`` or ``predict`` after
 ``set_policy`` captures anew, as the JAX package retraces. A functional
-model's state leaves keyed ``aux_loss`` join the training objective under
-autograd (the JAX package's ``_aux_loss_total``).
+model's state leaves keyed ``aux_loss``, and every mixture-of-experts
+layer's, join the training objective under autograd (the JAX package's
+``_aux_loss_total``).
 """
 
 from __future__ import annotations
@@ -240,8 +241,9 @@ def _epoch_seed(seed: int, epoch: int) -> int:
 
 def _aux_loss_total(models):
     """The summed ``aux_loss`` state leaves of the last forward of each
-    functional model in ``models`` (with their autograd graph), or None
-    when there are none; each model's record is taken."""
+    functional model or mixture-of-experts layer in ``models`` (with their
+    autograd graph), or None when there are none; each one's record is
+    taken."""
     total = None
     for m in models:
         aux, m._aux_loss = m._aux_loss, None
@@ -481,6 +483,7 @@ class Trainer:
         from :attr:`rng`. ``device_transform`` (a dataset's) runs on x once
         it is on the device."""
         from tpu_dist_torch.models.model import Model, _nest
+        from tpu_dist_torch.parallel.expert import MixtureOfExperts
 
         model, optimizer = self.model, self.model.optimizer
         metrics = tuple(model.metrics)
@@ -489,8 +492,11 @@ class Trainer:
         group = self.group
         bucket_bytes = self._bucket_bytes
         names = [n for n, _ in model.named_parameters()]
-        functional = [m for m in model.modules()
-                      if isinstance(m, Model) and m._apply_fn is not None]
+        # Functional models and mixture-of-experts layers record their
+        # ``aux_loss`` leaves with their autograd graph.
+        aux_sources = [m for m in model.modules()
+                       if (isinstance(m, Model) and m._apply_fn is not None)
+                       or isinstance(m, MixtureOfExperts)]
 
         def step(params, state, opt_state, metric_states, loss_acc, x, y,
                  rng=None):
@@ -502,7 +508,7 @@ class Trainer:
                 p.grad = None
             logits = model(x)
             loss = self._loss(logits, y, class_weight)
-            aux = _aux_loss_total(functional)
+            aux = _aux_loss_total(aux_sources)
             if aux is not None:
                 loss = loss + aux
             loss.backward()
