@@ -322,6 +322,31 @@ plain PyTorch version. Phases:
     one process without a pipe axis and continued; times: each rank's step
     beside its twin's, the stage handoffs' host staging, the all_to_all's
     host time.
+31. supervised training that survives its faults: ``python -m
+    tpu_dist_torch.resilience`` on the card (the demo CNN, 3 x 4 steps of
+    32; a baseline, then the supervised run, each run ``ok``): (a)
+    ``kill-worker@step5,kill-during-save@epoch2:attempt1``: restarts >= 2,
+    the first two exits ``EXIT_FAULT_KILL``, the last resume from step 1,
+    ``loss_delta`` <= 1e-5; (b) ``preempt@step6``: a ``preempted`` exit
+    and its drain seconds, parity; (c) ``nan_loss@step2,grad_spike@step6,
+    corrupt_batch@step10`` in one process: no restart, a rollback per
+    fault, parity; (d) ``--workers 2`` (gloo on the one card)
+    ``bitflip@step9:leaf1:replica1``: the SDC audit names
+    ``['conv2d']['kernel']`` on both ranks (a group of two has no
+    majority), no restart, a rollback, parity; (e) ``--workers 2
+    kill-worker@step5:rank1``: the gang restarts and reaches parity, the
+    survivor's exit logged. (f) in this process, the benchmark LM at batch
+    64 x 512 with ``Adam(fused=True)``, 2 epochs x 4 steps and a
+    checkpoint an epoch, at k = 1 eager and k = 2 on graphs: armed
+    (``TPU_DIST_INTEGRITY=1``) with the fused CE, bit for bit with the
+    unarmed fit, the same launches (rows 1-2, 5, 6-9); with the plain CE
+    (a token batch's poisoned labels give it a NaN, where the fused CE
+    reads their loss as the lse) and ``nan_loss@step6``: one rollback to
+    step 0, the final loss and every parameter bit for bit with the clean
+    fit, launches x 1.5 (the replayed epoch); the armed step's health
+    vector against its plain version (``HEALTH_RTOL``); the armed step
+    against the unarmed one in turns, and the SDC audit's ms over the
+    21,269,504 parameters.
 
 Prints one JSON line of kernel records, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
@@ -6232,6 +6257,334 @@ def pp_phase(card: str) -> dict:
             "moe_rank0": c0["counts"], "moe_rank1": c1["counts"]}
 
 
+# -- phase 31: supervised training that survives its faults ----------------------
+
+#: Phase 31 (f): 2 epochs x 4 steps of the benchmark LM at batch 64 x 512.
+GUARD_EPOCHS, GUARD_STEPS = 2, 4
+#: The chaos CLI's subprocess runs (a)-(e), together: the baselines, then
+#: every attempt.
+TRAIN_CHAOS_TIMEOUT_S = 400
+#: (f) the health vector against its plain version on the card: fp32 sums
+#: of squares in another order (the port reduces per-leaf norms).
+HEALTH_RTOL = 1e-5
+_GUARD_ENV = ("TPU_DIST_INTEGRITY", "TPU_DIST_FAULT_PLAN",
+              "TPU_DIST_EVENT_LOG")
+
+
+def _train_chaos(runs: dict, tmp: pathlib.Path) -> dict:
+    """``python -m tpu_dist_torch.resilience ARGS`` for each ``{label:
+    ARGS}`` (on the card: no ``--device``), all at once as subprocesses
+    (their workers share the card and the host), each to its end; their
+    reports, each of which must say ``ok``, with ``wall_s`` from the start
+    to the run's end."""
+    root = pathlib.Path(__file__).resolve().parent
+    env = {k: v for k, v in os.environ.items() if k not in _GUARD_ENV}
+    env["PYTHONPATH"] = os.pathsep.join(
+        filter(None, [str(root), os.environ.get("PYTHONPATH")]))
+    t0 = time.monotonic()
+    procs, ended = {}, {}
+    for label, args in runs.items():
+        with open(tmp / f"{label}.out", "wb") as out:
+            procs[label] = subprocess.Popen(
+                [sys.executable, "-m", "tpu_dist_torch.resilience", *args,
+                 "--workdir", str(tmp / label),
+                 "--report", str(tmp / f"{label}.json")],
+                cwd=root, env=env, stdout=out, stderr=subprocess.STDOUT)
+    try:
+        while len(ended) < len(procs):
+            if time.monotonic() - t0 > TRAIN_CHAOS_TIMEOUT_S:
+                raise AssertionError(f"(31) chaos runs {sorted(set(procs) - set(ended))} "
+                                     f"past {TRAIN_CHAOS_TIMEOUT_S} s")
+            for label, proc in procs.items():
+                if label not in ended and proc.poll() is not None:
+                    ended[label] = time.monotonic() - t0
+            time.sleep(0.2)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    reports = {}
+    for label, proc in procs.items():
+        path = tmp / f"{label}.json"
+        report = json.loads(path.read_text()) if path.exists() else {}
+        if proc.returncode != 0 or not report.get("ok"):
+            work = tmp / label
+            logs = "".join(p.read_text()[-1500:] for p in sorted(
+                (work / "logs").glob("*.log"))) \
+                if (work / "logs").is_dir() else ""
+            raise AssertionError(
+                f"(31 {label}) exit {proc.returncode}: "
+                f"{report.get('failure')}\n"
+                f"{(tmp / f'{label}.out').read_text()[-3000:]}\n{logs}")
+        report["wall_s"] = ended[label]
+        reports[label] = report
+    return reports
+
+
+def _guarded_lm(k: int, fused_ce: bool):
+    """The benchmark LM (seed 0) with ``Adam(fused=True)`` at k steps an
+    execution; the fused CE or the plain one."""
+    model = build_transformer_lm(LM["vocab_size"], LM["seq_len"],
+                                 d_model=LM["d_model"], depth=LM["depth"],
+                                 num_heads=LM["num_heads"], seed=0)
+    model.compile(optimizer=Adam(fused=True),
+                  loss=SparseCategoricalCrossentropy(from_logits=True,
+                                                     fused=fused_ce),
+                  steps_per_execution=k)
+    return model
+
+
+def _free_card() -> str:
+    """Collect the earlier models' reference cycles, whose captured graphs'
+    private pools hold the card's memory until their owners are collected,
+    and return the freed cache to the card; the allocator's state after."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    return (f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated, "
+            f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB reserved")
+
+
+def _guarded_fit(tmp: pathlib.Path, label: str, *, k: int, armed: bool,
+                 fused_ce: bool, plan: str | None = None) -> dict:
+    """One fit of :func:`_guarded_lm` on the bench tokens (one pass an
+    epoch) with a checkpoint per epoch, ``TPU_DIST_INTEGRITY`` set when
+    ``armed``, ``plan`` in ``TPU_DIST_FAULT_PLAN``: its losses, parameters,
+    kernel launches and events. The model (and its k-step graphs) is
+    freed before the next one."""
+    from tpu_dist_torch.resilience import read_events
+
+    _free_card()
+    work = tmp / label
+    work.mkdir(parents=True)
+    saved = {name: os.environ.pop(name, None) for name in _GUARD_ENV}
+    os.environ["TPU_DIST_EVENT_LOG"] = str(work / "events.jsonl")
+    if armed:
+        os.environ["TPU_DIST_INTEGRITY"] = "1"
+    if plan:
+        os.environ["TPU_DIST_FAULT_PLAN"] = plan
+    try:
+        x, y = (t.cpu().numpy()
+                for t in _bench_tokens(GUARD_STEPS * TRAIN_BATCH))
+        model = _guarded_lm(k, fused_ce)
+        _reset_counts()
+        clock = _EpochClock()
+        h = model.fit(
+            td_data.Dataset.from_tensor_slices((x, y)).batch(TRAIN_BATCH),
+            epochs=GUARD_EPOCHS, verbose=0, callbacks=[clock],
+            checkpoint_dir=str(work / "ckpt")).history
+        torch.cuda.synchronize()
+    finally:
+        for name, value in saved.items():
+            os.environ.pop(name, None)
+            if value is not None:
+                os.environ[name] = value
+    return {"loss": h["loss"], "params": _params(model), "counts": _counts(),
+            "epoch_s": clock.seconds,
+            "events": read_events(work / "events.jsonl")}
+
+
+def _same_bits(a: dict, b: dict) -> bool:
+    return (a["loss"] == b["loss"] and all(
+        torch.equal(p, q) for p, q in zip(a["params"], b["params"])))
+
+
+def _armed_step_times(card: str) -> dict:
+    """(f) the armed step (its health vector, and the guard's one-behind
+    read) against the unarmed step on the same trainer, in turns (plain,
+    armed, armed, plain) x 3, 5 steps each; the health vector against its
+    plain version; the SDC audit's seconds over the 21,269,504
+    parameters."""
+    from tpu_dist_torch.training import integrity
+
+    _free_card()
+    model = _guarded_lm(1, fused_ce=True)
+    tr = model._get_trainer("optimizer loss")
+    tr.ensure_variables()
+    v = tr.variables
+    acc = tr._init_loss_acc()
+    x, y = _bench_tokens(TRAIN_BATCH)
+    args = (v["params"], v["state"], v["opt"], v["metrics"], acc, x, y)
+    plain = tr._step()
+    armed = tr._step(None, None, integrity.StepHealth(v["params"]))
+    guard = integrity.IntegrityGuard(
+        integrity.IntegrityConfig(rollback_budget=10 ** 6))
+    # The vector against health_summary of the same step, on the card.
+    before = [p.detach().clone() for p in v["params"]]
+    loss, h = armed(*args)
+    want = integrity.health_summary(loss, [p.grad for p in v["params"]],
+                                    before, v["params"])
+    if float(h[0]) != float(want[0]) or not torch.allclose(
+            h[1:], want[1:], rtol=HEALTH_RTOL, atol=0.0):
+        raise AssertionError(f"(31 f) armed health {h.tolist()} against "
+                             f"its plain version {want.tolist()}")
+    step_no = itertools.count()
+
+    def run(armed_on: bool, n: int = 5) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            if armed_on:
+                _, health = armed(*args)
+                guard.on_execution(next(step_no), 1, health, None)
+            else:
+                plain(*args)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    run(False), run(True)  # warm-up
+    times = {"plain": [], "armed": []}
+    for _ in range(3):
+        for armed_on in (False, True, True, False):
+            times["armed" if armed_on else "plain"].append(run(armed_on))
+    guard.flush()
+    leaves = integrity.named_leaves(model)
+    audit_ms = []
+    for i in range(5):
+        guard.audit(leaves, gstep=i + 1)
+        audit_ms.append(guard.last_audit_s * 1e3)
+    out = {k: statistics.median(t) for k, t in times.items()}
+    log(f"[31 f] armed step {out['armed']:.3f} ms against unarmed "
+        f"{out['plain']:.3f} ms (medians of 6 runs of 5 steps, turns plain,"
+        f" armed, armed, plain: plain {[round(t, 3) for t in times['plain']]}"
+        f", armed {[round(t, 3) for t in times['armed']]}; "
+        f"{(out['armed'] / out['plain'] - 1) * 100:+.2f} %); health "
+        f"{[float(f'{t:.6g}') for t in h.tolist()]} (plain "
+        f"{[float(f'{t:.6g}') for t in want.tolist()]}); the SDC audit over "
+        f"{sum(t.numel() for t in leaves.values()):,} parameters in "
+        f"{len(leaves)} leaves {statistics.median(audit_ms):.3f} ms median "
+        f"({[round(t, 3) for t in audit_ms]}, host clock, D2H included); "
+        f"{card}")
+    return out
+
+
+def train_chaos_phase(card: str) -> dict:
+    """Phase 31: the training chaos CLI on the card (a)-(e), then the
+    integrity guard at full width in this process (f). Returns the
+    kernels' launches on (f)'s paths: (flash fwd, flash bwd, Adam, CE fwd,
+    CE bwd, SGD) a fit."""
+    t_phase = time.monotonic()
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip-smoke-31-"))
+    # (a)-(e) at once (the gates are the runs' own; their wall times are
+    # on a shared card and host).
+    reports = _train_chaos({
+        # The reference's acceptance demo: a kill, then a kill inside the
+        # epoch-2 write on the restarted attempt.
+        "a": ["--plan", "kill-worker@step5,kill-during-save@epoch2:attempt1"],
+        # Preemption: a SIGTERM drained at the step.
+        "b": ["--plan", "preempt@step6"],
+        # The three batch faults in one process, one rollback each.
+        "c": ["--plan", "nan_loss@step2,grad_spike@step6,"
+              "corrupt_batch@step10"],
+        # Silent data corruption on two gloo ranks of the card.
+        "d": ["--workers", "2", "--plan", "bitflip@step9:leaf1:replica1"],
+        # A dead peer: rank 1 killed; the gang restarts and recovers.
+        "e": ["--workers", "2", "--plan", "kill-worker@step5:rank1"],
+    }, tmp)
+    rep = reports["a"]
+    if not (rep["restarts"] >= 2 and rep["exit_codes"][:2] == [[43], [43]]
+            and rep["resumed_from"][-1:] == [1]
+            and rep["loss_delta"] <= 1e-5):
+        raise AssertionError(f"(31 a) {rep}")
+    log(f"[31 a] kill at step 5, kill during the epoch-2 save: restarts "
+        f"{rep['restarts']}, exit codes {rep['exit_codes']}, resumed from "
+        f"{rep['resumed_from']}, loss_delta {rep['loss_delta']!r} (final "
+        f"{rep['final_loss']!r}), recovery_wall_s {rep['recovery_wall_s']}, "
+        f"run {rep['wall_s']:.1f} s")
+    rep = reports["b"]
+    if not (any("preempted" in k for k in rep["exit_kinds"])
+            and any(d is not None for d in rep["drain_s"])
+            and rep["loss_delta"] <= 1e-5):
+        raise AssertionError(f"(31 b) {rep}")
+    log(f"[31 b] preempt at step 6: exit kinds {rep['exit_kinds']}, drain_s "
+        f"{rep['drain_s']}, loss_delta {rep['loss_delta']!r}, "
+        f"recovery_wall_s {rep['recovery_wall_s']}, run {rep['wall_s']:.1f} s")
+    rep = reports["c"]
+    rollbacks = rep["integrity"]["rollbacks"]
+    if not (rep["restarts"] == 0 and len(rep["faults_fired"]) == 3
+            and len(rollbacks) >= 3 and rep["loss_delta"] <= 1e-5):
+        raise AssertionError(f"(31 c) {rep}")
+    log(f"[31 c] nan_loss@2, grad_spike@6, corrupt_batch@10: restarts 0, "
+        f"rollbacks {[(r['kind'], r['step'], r['restored_step']) for r in rollbacks]}"
+        f", loss_delta {rep['loss_delta']!r}, run {rep['wall_s']:.1f} s")
+    rep = reports["d"]
+    sdc = rep["integrity"]["sdc_detections"]
+    flipped = {c["leaf"] for d in sdc for c in d["culprits"]}
+    ranks_named = {c["rank"] for d in sdc for c in d["culprits"]}
+    if not (sdc and flipped == {"['conv2d']['kernel']"}
+            and ranks_named == {0, 1} and rep["restarts"] == 0
+            and rep["integrity"]["rollbacks"]
+            and rep["loss_delta"] <= 1e-5):
+        raise AssertionError(f"(31 d) {rep}")
+    log(f"[31 d] bitflip on rank 1, leaf 1: culprits {sorted(flipped)} on "
+        f"ranks {sorted(ranks_named)} (a group of two has no majority), "
+        f"restarts 0, rollbacks {len(rep['integrity']['rollbacks'])} (one a "
+        f"rank), loss_delta {rep['loss_delta']!r}, run {rep['wall_s']:.1f} s")
+    rep = reports["e"]
+    if not (rep["restarts"] >= 1 and rep["loss_delta"] <= 1e-5):
+        raise AssertionError(f"(31 e) {rep}")
+    events = [json.loads(line) for line in
+              (tmp / "e" / "events.jsonl").read_text().splitlines()]
+    survivor = [e["event"] for e in events
+                if e["event"] in ("peer_unavailable", "worker_error")]
+    log(f"[31 e] rank 1 killed at step 5: exit kinds {rep['exit_kinds']}, "
+        f"the survivor's exit event {survivor}, loss_delta "
+        f"{rep['loss_delta']!r}, recovery_wall_s {rep['recovery_wall_s']}, "
+        f"run {rep['wall_s']:.1f} s")
+    t_cli = time.monotonic() - t_phase
+    # (f) The guard at full width, in this process.
+    log(f"[31 f] the card before (f): {_free_card()}")
+    out = {}
+    for k in (1, 2):
+        runs = {armed: _guarded_fit(tmp, f"f{k}_{'armed' if armed else 'off'}",
+                                    k=k, armed=armed, fused_ce=True)
+                for armed in (False, True)}
+        if not _same_bits(runs[True], runs[False]) or \
+                runs[True]["counts"] != runs[False]["counts"]:
+            raise AssertionError(
+                f"(31 f) k = {k}: the armed fit moved: losses "
+                f"{runs[True]['loss']} / {runs[False]['loss']}, launches "
+                f"{runs[True]['counts']} / {runs[False]['counts']}")
+        want = (LM["depth"] * GUARD_EPOCHS * GUARD_STEPS,) * 2 + (
+            GUARD_EPOCHS * GUARD_STEPS,) * 3 + (0,)
+        if runs[True]["counts"] != want:
+            raise AssertionError(f"(31 f) k = {k}: launches "
+                                 f"{runs[True]['counts']}; expected {want}")
+        out[f"lm_guarded_k{k}"] = runs[True]["counts"]
+        clean = _guarded_fit(tmp, f"f{k}_clean", k=k, armed=False,
+                             fused_ce=False)
+        chaos = _guarded_fit(tmp, f"f{k}_nan", k=k, armed=True,
+                             fused_ce=False, plan="nan_loss@step6")
+        rbs = [e for e in chaos["events"]
+               if e["event"] == "integrity_rollback"]
+        replayed = tuple(c * (GUARD_EPOCHS + 1) // GUARD_EPOCHS
+                         for c in clean["counts"])
+        if not (len(rbs) == 1 and rbs[0]["restored_step"] == 0
+                and _same_bits(chaos, clean) and chaos["counts"] == replayed):
+            raise AssertionError(
+                f"(31 f) k = {k} nan_loss: rollbacks {rbs}, losses "
+                f"{chaos['loss']} / {clean['loss']}, launches "
+                f"{chaos['counts']} (expected {replayed})")
+        out[f"lm_rollback_k{k}"] = chaos["counts"]
+        log(f"[31 f] k = {k}{' on graphs' if k > 1 else ' eager'}: armed "
+            f"fused-CE fit bit for bit with the unarmed one (losses "
+            f"{[float(f'{l:.7g}') for l in runs[True]['loss']]}), launches "
+            f"{runs[True]['counts']}, epoch s armed "
+            f"{[round(t, 3) for t in runs[True]['epoch_s']]} / unarmed "
+            f"{[round(t, 3) for t in runs[False]['epoch_s']]}; nan_loss@6 "
+            f"(plain CE): 1 rollback to step 0, final loss and every "
+            f"parameter bit for bit with the clean fit "
+            f"({clean['loss'][-1]!r}), launches {chaos['counts']} (the "
+            f"replayed epoch included)")
+    _armed_step_times(card)
+    log(f"[31] done in {time.monotonic() - t_phase:.1f} s ((a)-(e) at once "
+        f"{t_cli:.1f} s); {card}")
+    return out
+
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--dp-worker"]:
         return dp_worker(pathlib.Path(sys.argv[2]))
@@ -6348,6 +6701,16 @@ def main() -> int:
     # stage.
     for label, counts in pp_phase(card).items():
         for rec, count in zip(new_records[:3], (*counts[3:5], counts[5])):
+            rec["launches_by_path"][label] = count
+        adam_record["launches_by_path"][label] = counts[2]
+        record["launches_by_path"][label] = counts[0]
+        for rec in bwd_records:
+            rec["launches_by_path"][label] = counts[1]
+    # Phase 31's paths: (f)'s armed fused-CE fits launch rows 1-2, 5 and
+    # 6-9; its rolled-back plain-CE fits rows 5 and 6-9, the replayed epoch
+    # included.
+    for label, counts in train_chaos_phase(card).items():
+        for rec, count in zip(new_records[:2], counts[3:5]):
             rec["launches_by_path"][label] = count
         adam_record["launches_by_path"][label] = counts[2]
         record["launches_by_path"][label] = counts[0]

@@ -24,12 +24,9 @@ PACKAGES = ("", "ops", "serve", "training", "observe", "models", "data",
 NOT_YET_PORTED = {
     "OptaxWrapper": "not ported, by decision (optax has no PyTorch "
                     "counterpart)",
-    # item 18: resilience, liveness
-    "FaultInjector": "item 18", "maybe_injector_from_env": "item 18",
-    "GangReform": "item 18", "StepRejoinGate": "item 18",
-    "maybe_step_rejoin_gate": "item 18",
-    "LivenessMonitor": "item 18",
-    "PeerUnavailableError": "item 18", "check_peer_health": "item 18",
+    # item 18b: elasticity (the gang reform and the step rejoin)
+    "GangReform": "item 18b", "StepRejoinGate": "item 18b",
+    "maybe_step_rejoin_gate": "item 18b",
     # item 20: the parameter server
     "ParameterServerStrategy": "item 20",
 }

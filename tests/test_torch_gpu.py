@@ -1802,3 +1802,104 @@ def test_pipelined_and_moe_lms_launch_the_kernels_and_equal_the_cpu(
         assert launches == ((0,) * 5 if device == "cpu"
                             else (6, 6, 3, 3, 3)), launches
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], atol=1e-4)
+
+
+# -- the integrity guard on the card (training/integrity.py) --------------------
+
+def _guard_lm(k, fused_ce, device):
+    model = build_transformer_lm(64, 16, d_model=64, depth=2, num_heads=2,
+                                 seed=0)
+    model.compile(optimizer=Adam(fused=True),
+                  loss=SparseCategoricalCrossentropy(from_logits=True,
+                                                     fused=fused_ce),
+                  steps_per_execution=k, device=device)
+    return model
+
+
+def _guard_fit(model, tmp_path=None):
+    stream = (np.arange(32 * 16 + 1) * 2654435761) % 64
+    x = stream[:-1].reshape(32, 16).astype(np.int64)
+    y = stream[1:].reshape(32, 16).astype(np.int64)
+    h = model.fit(Dataset.from_tensor_slices((x, y)).batch(8), epochs=2,
+                  verbose=0, checkpoint_dir=None if tmp_path is None
+                  else str(tmp_path))
+    torch.cuda.synchronize()
+    return h.history["loss"], [p.detach().clone() for p in model.parameters()]
+
+
+@pytest.mark.gpu
+def test_armed_step_health_matches_its_plain_version_on_the_card(
+        cuda_device):
+    """The armed step's health vector (a copy before the fused Adam's
+    in-place update, then ``old − new`` and the gradients reduced on the
+    card) against ``health_summary`` of the same step's trees."""
+    from tpu_dist_torch.training import integrity
+
+    model = _guard_lm(1, True, cuda_device)
+    tr = model._get_trainer("optimizer loss")
+    tr.ensure_variables()
+    v = tr.variables
+    step = tr._step(None, None, integrity.StepHealth(v["params"]))
+    x = torch.randint(0, 64, (8, 16), device=cuda_device)
+    for _ in range(3):
+        before = [p.detach().clone() for p in v["params"]]
+        loss, h = step(v["params"], v["state"], v["opt"], v["metrics"],
+                       tr._init_loss_acc(), x, x)
+        want = integrity.health_summary(
+            loss, [p.grad for p in v["params"]], before, v["params"])
+        assert h.is_cuda and float(h[0]) == float(want[0]) == 0.0
+        torch.testing.assert_close(h[1:], want[1:], rtol=1e-5, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 2])
+def test_an_armed_fit_adds_no_synchronize_and_changes_nothing(
+        cuda_device, monkeypatch, k):
+    """The armed fit reads each health vector one execution behind through
+    an event, never a device or stream synchronize: it makes the unarmed
+    fit's synchronizes (a k-step program's capture) and no more, and
+    trains to the same bits with the same launches."""
+    syncs = []
+    plain_sync, plain_stream_sync = torch.cuda.synchronize, \
+        torch.cuda.Stream.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a: (syncs.append(1), plain_sync(*a))[1])
+    monkeypatch.setattr(torch.cuda.Stream, "synchronize",
+                        lambda self: (syncs.append(1),
+                                      plain_stream_sync(self))[1])
+    runs = {}
+    for armed in (False, True):
+        if armed:
+            monkeypatch.setenv("TPU_DIST_INTEGRITY", "1")
+        model = _guard_lm(k, True, cuda_device)
+        fa.flash_attention_fwd.launches = fused.fused_adam_apply.launches = 0
+        syncs.clear()
+        out = _guard_fit(model)
+        runs[armed] = (out, len(syncs) - 1,  # _guard_fit's own
+                       (fa.flash_attention_fwd.launches,
+                        fused.fused_adam_apply.launches))
+    (loss_off, params_off), syncs_off, counts_off = runs[False]
+    (loss_on, params_on), syncs_on, counts_on = runs[True]
+    assert syncs_on == syncs_off
+    assert loss_on == loss_off and counts_on == counts_off == (16, 8)
+    assert all(torch.equal(a, b) for a, b in zip(params_on, params_off))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 2])
+def test_a_rolled_back_fit_equals_the_clean_fit_bit_for_bit(
+        cuda_device, monkeypatch, tmp_path, k):
+    """``nan_loss`` at step 5 (a token batch's labels out of range: the
+    plain CE's NaN): one rollback to epoch 0's checkpoint, and the replayed
+    epoch, on graphs at k = 2, ends on the clean fit's bits."""
+    from tpu_dist_torch.resilience import read_events
+
+    clean = _guard_fit(_guard_lm(k, False, cuda_device), tmp_path / "clean")
+    monkeypatch.setenv("TPU_DIST_INTEGRITY", "1")
+    monkeypatch.setenv("TPU_DIST_FAULT_PLAN", "nan_loss@step5")
+    monkeypatch.setenv("TPU_DIST_EVENT_LOG", str(tmp_path / "events.jsonl"))
+    chaos = _guard_fit(_guard_lm(k, False, cuda_device), tmp_path / "chaos")
+    (rb,) = read_events(tmp_path / "events.jsonl", "integrity_rollback")
+    assert rb["restored_step"] == 0 and rb["next_epoch"] == 1
+    assert chaos[0] == clean[0]
+    assert all(torch.equal(a, b) for a, b in zip(chaos[1], clean[1]))

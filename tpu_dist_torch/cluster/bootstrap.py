@@ -141,7 +141,10 @@ def initialize(config: ClusterConfig | None = None, *,
 
 def _shutdown() -> None:
     """Leave the process group at exit: the servers shut down when training
-    ends."""
+    ends. The liveness threads stop first: they use the group's store."""
+    from tpu_dist_torch.cluster import liveness
+
+    liveness.stop_shared()
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
 

@@ -1,0 +1,333 @@
+"""Peer liveness on the process group's store.
+
+Counterpart of ``tpu_dist/cluster/liveness.py``. The reference's
+failure detection (TF's ``check_collective_ops_peer_health``: every peer
+probed every 30 s, 3 retries x 10 s) turns an unreachable peer into an
+error that restarts the job; the JAX package reads the coordination
+service's ``get_live_nodes``. ``torch.distributed`` has no such call, so
+the port keeps heartbeats in the store that ``init_process_group`` brings
+up (the ``TCPStore`` rank 0 hosts, ``bootstrap.initialize``):
+
+* each process's heartbeat thread writes its wall-clock time under
+  ``tpu_dist/liveness/<rank>`` every quarter of the probe timeout;
+* :func:`check_peer_health` reads every peer's stamp: a peer whose stamp
+  is older than the timeout is dead (a peer that has not stamped yet is
+  not). Each read runs on one persistent prober thread with a deadline
+  (:class:`_Prober`), retried ``retries`` times; a store that does not
+  answer (rank 0, its host, gone) raises :class:`PeerUnavailableError`;
+* :class:`LivenessMonitor` probes every ``interval_s`` on a thread; a dead
+  peer fails it, and :meth:`LivenessMonitor.raise_if_failed` (the fit
+  loop calls it at each epoch's start) raises
+  :class:`PeerUnavailableError`, which a supervised worker turns into
+  ``EXIT_PEER_UNAVAILABLE``.
+
+Stamps are wall-clock seconds, so the hosts' clocks must agree to well
+within the timeout (one host always does). Knobs, the JAX package's:
+``TPU_DIST_HEALTH_INTERVAL`` (default 30 s) and ``TPU_DIST_HEALTH_TIMEOUT``
+(10 s). The threads are daemons, one of each per process
+(:func:`shared_monitor`); they stop with :meth:`LivenessMonitor.stop`,
+which ``bootstrap``'s shutdown calls before it destroys the process group,
+and they end by themselves once the group they were started on is gone.
+``MultiWorkerMirroredStrategy`` starts the shared monitor after its
+startup barrier, where the reference starts its health checks.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import queue
+import threading
+import time
+from typing import Optional, Sequence
+
+import torch.distributed as dist
+
+logger = logging.getLogger("tpu_dist_torch.liveness")
+
+#: Reference knobs (tf:...collective_all_reduce_strategy.py:337-349):
+#: check every 30 s, 10 s per-probe timeout.
+DEFAULT_INTERVAL_S = float(os.environ.get("TPU_DIST_HEALTH_INTERVAL", "30"))
+DEFAULT_TIMEOUT_S = float(os.environ.get("TPU_DIST_HEALTH_TIMEOUT", "10"))
+
+_KEY = "tpu_dist/liveness/{}"
+
+
+class PeerUnavailableError(RuntimeError):
+    """A peer process is unreachable; the job must be restarted (TF's
+    ``UnavailableError`` from its health-check thread)."""
+
+
+class _Prober:
+    """One long-lived daemon thread that runs probes with a deadline.
+
+    A store read has no deadline of its own, so a store that accepts the
+    connection and never answers can hang a probe. A probe that times out
+    mid-call marks its worker wedged, and the next probe starts a fresh
+    worker (a fresh read), at most ``MAX_WEDGED_WORKERS`` times a process,
+    after which probes fail at once."""
+
+    MAX_WEDGED_WORKERS = 4
+
+    def __init__(self):
+        self._submit_lock = threading.Lock()
+        self._requests: "queue.Queue" = queue.Queue()
+        self._cv = threading.Condition()
+        self._results: dict = {}
+        self._abandoned: set = set()
+        self._seq = 0
+        self._thread: Optional[threading.Thread] = None
+        self._in_flight: Optional[int] = None
+        self._wedged_count = 0
+        self._gen = 0  # worker generation; a replaced worker stops counting
+
+    def _run(self, requests, gen: int) -> None:
+        while True:  # idle state of a daemon worker; callers time out
+            seq, fn = requests.get()
+            with self._cv:
+                if seq in self._abandoned:
+                    self._abandoned.discard(seq)
+                    continue
+                if self._gen == gen:
+                    self._in_flight = seq
+            try:
+                out = fn()
+            except Exception as e:  # handed to the caller as the result
+                out = e
+            with self._cv:
+                if self._gen == gen:
+                    self._in_flight = None
+                if seq in self._abandoned:
+                    self._abandoned.discard(seq)
+                else:
+                    self._results[seq] = out
+                    self._cv.notify_all()
+
+    def probe(self, fn, timeout_s: float):
+        """``fn()`` on the worker: its result or exception, or a
+        ``TimeoutError`` when it does not answer within ``timeout_s``."""
+        with self._submit_lock:
+            with self._cv:
+                wedged = (self._in_flight is not None
+                          and self._in_flight in self._abandoned)
+            if wedged:
+                if self._wedged_count >= self.MAX_WEDGED_WORKERS:
+                    return TimeoutError(
+                        f"store unresponsive: {self._wedged_count} probe "
+                        "workers wedged; not spawning more")
+                self._wedged_count += 1
+                self._thread = None
+                self._requests = queue.Queue()
+                with self._cv:
+                    self._gen += 1
+                    self._in_flight = None
+            if self._thread is None or not self._thread.is_alive():
+                self._thread = threading.Thread(
+                    target=self._run, args=(self._requests, self._gen),
+                    daemon=True, name="tpu_dist_torch_probe")
+                self._thread.start()
+            self._seq += 1
+            seq = self._seq
+            requests = self._requests
+        requests.put((seq, fn))
+        deadline = time.monotonic() + timeout_s
+        with self._cv:
+            while seq not in self._results:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    self._abandoned.add(seq)
+                    return TimeoutError(
+                        f"probe did not answer within {timeout_s}s")
+                self._cv.wait(remaining)
+            return self._results.pop(seq)
+
+
+_prober = _Prober()
+
+
+def _store():
+    """The default process group's store, or None without a group."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return None
+    from torch.distributed import distributed_c10d
+
+    return distributed_c10d._get_default_store()
+
+
+def _read_stamps(store, ranks: Sequence[int]) -> dict:
+    """``{rank: stamp}`` of the ranks that have stamped."""
+    out = {}
+    for r in ranks:
+        key = _KEY.format(r)
+        if store.check([key]):
+            out[r] = float(store.get(key).decode())
+    return out
+
+
+def check_peer_health(timeout_s: float = DEFAULT_TIMEOUT_S,
+                      retries: int = 3) -> Sequence[int]:
+    """Probe peer liveness; returns the dead process ids (module
+    docstring). A failed read is retried ``retries`` times, each with the
+    full ``timeout_s`` on the persistent prober thread (the reference's 3 x
+    10 s rule); when every attempt fails the store itself is unreachable
+    and this raises :class:`PeerUnavailableError`. One process reports no
+    dead peers."""
+    store = _store()
+    if store is None or dist.get_world_size() <= 1:
+        return []
+    n, me = dist.get_world_size(), dist.get_rank()
+    peers = [r for r in range(n) if r != me]
+    last_error: object = None
+    retries = max(retries, 1)
+    for attempt in range(retries):
+        out = _prober.probe(lambda: _read_stamps(store, peers), timeout_s)
+        if not isinstance(out, Exception):
+            now = time.time()
+            return sorted(r for r, t in out.items() if now - t > timeout_s)
+        last_error = out
+        logger.warning("liveness probe attempt %d/%d failed: %s",
+                       attempt + 1, retries, last_error)
+        if attempt + 1 < retries:
+            time.sleep(min(1.0, timeout_s / 10))
+    raise PeerUnavailableError(
+        f"process group store unreachable after {retries} probe attempts: "
+        f"{last_error}. Restart the job.")
+
+
+class LivenessMonitor:
+    """The background peer-health check: this process's heartbeat thread
+    and a probe every ``interval_s``; a dead peer (or an unreachable
+    store) fails the monitor for good, and :meth:`raise_if_failed`
+    surfaces it. The JAX package's rejoin window (suspect peers that may
+    come back) is elasticity, ROADMAP.md queue 1, item 18b: a window > 0
+    raises."""
+
+    def __init__(self, interval_s: float = DEFAULT_INTERVAL_S,
+                 timeout_s: float = DEFAULT_TIMEOUT_S,
+                 rejoin_window_s: float = 0.0):
+        if rejoin_window_s > 0:
+            from tpu_dist_torch.utils.errors import unported
+
+            raise unported("LivenessMonitor(rejoin_window_s > 0)", "18b")
+        self.interval_s = interval_s
+        self.timeout_s = timeout_s
+        self._stop = threading.Event()
+        self._threads: list = []
+        self._dead_peers: Sequence[int] = []
+        self._failed = threading.Event()
+
+    def start(self) -> "LivenessMonitor":
+        """Start the heartbeat and probe threads (no-op for one process,
+        when running, or once failed)."""
+        store = _store()
+        if store is None or dist.get_world_size() <= 1:
+            return self
+        if any(t.is_alive() for t in self._threads) or self.failed:
+            return self
+        self._stop.clear()
+        world = dist.group.WORLD
+        key = _KEY.format(dist.get_rank())
+        self._beat(store, key)  # stamped before any peer can probe it
+        self._threads = [
+            threading.Thread(target=self._heartbeat, args=(store, key, world),
+                             name="tpu_dist_torch_heartbeat", daemon=True),
+            threading.Thread(target=self._loop, args=(world,),
+                             name="tpu_dist_torch_health", daemon=True)]
+        for t in self._threads:
+            t.start()
+        logger.info("liveness monitor started (interval=%.1fs, "
+                    "timeout=%.1fs)", self.interval_s, self.timeout_s)
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=self.timeout_s)
+            if t.is_alive():
+                logger.warning("liveness thread %s did not stop within "
+                               "%.1fs; leaving it to finish", t.name,
+                               self.timeout_s)
+        self._threads = [t for t in self._threads if t.is_alive()]
+
+    @staticmethod
+    def _beat(store, key: str) -> None:
+        store.set(key, repr(time.time()))
+
+    @staticmethod
+    def _group_gone(world) -> bool:
+        return not dist.is_initialized() or dist.group.WORLD is not world
+
+    def _heartbeat(self, store, key: str, world) -> None:
+        period = max(0.05, self.timeout_s / 4)
+        while not self._stop.wait(period):
+            if self._group_gone(world):
+                return
+            try:
+                self._beat(store, key)
+            except Exception:  # noqa: BLE001 - the store is gone: peers see us stale
+                logger.debug("heartbeat write failed", exc_info=True)
+
+    def _loop(self, world) -> None:
+        while not self._stop.wait(self.interval_s):
+            if self._group_gone(world):
+                return
+            try:
+                dead = check_peer_health(self.timeout_s)
+            except PeerUnavailableError:
+                # The store is unreachable even after the retries: every
+                # peer is suspect; raise_if_failed surfaces it.
+                me, n = dist.get_rank(world), dist.get_world_size(world)
+                dead = [i for i in range(n) if i != me]
+            if self._observe(dead):
+                return
+
+    def _observe(self, dead: Sequence[int]) -> bool:
+        """Fold one probe's dead peers in; True once failed."""
+        if self._failed.is_set():
+            return True
+        if dead:
+            self._dead_peers = sorted(set(dead))
+            self._failed.set()
+            logger.error(
+                "peer process(es) %s unreachable; collectives will not "
+                "complete — restart the job", self._dead_peers)
+            return True
+        return False
+
+    @property
+    def failed(self) -> bool:
+        return self._failed.is_set()
+
+    @property
+    def dead_peers(self) -> Sequence[int]:
+        return list(self._dead_peers)
+
+    def raise_if_failed(self) -> None:
+        if self.failed:
+            raise PeerUnavailableError(
+                f"peer process(es) {list(self._dead_peers)} are unreachable; "
+                "synchronous training cannot continue. Restart the job "
+                "(resume from the latest checkpoint if one was written).")
+
+
+_shared_monitor: Optional[LivenessMonitor] = None
+_shared_lock = threading.Lock()
+
+
+def shared_monitor() -> LivenessMonitor:
+    """The per-process monitor: repeated strategy constructions reuse one
+    pair of threads."""
+    global _shared_monitor
+    with _shared_lock:
+        if _shared_monitor is None:
+            _shared_monitor = LivenessMonitor()
+        return _shared_monitor
+
+
+def stop_shared() -> None:
+    """Stop the shared monitor's threads, if any (before the process group
+    is destroyed)."""
+    with _shared_lock:
+        monitor = _shared_monitor
+    if monitor is not None:
+        monitor.stop()

@@ -206,6 +206,15 @@ class DeviceDataset:
             self._pos += take
         return out
 
+    def tell(self) -> tuple:
+        """Where the training order stands, for :meth:`seek`."""
+        return self._epoch, self._pos, self._perm
+
+    def seek(self, position: Optional[tuple]) -> None:
+        """Go back to a :meth:`tell` position (the trainer's rollback to an
+        epoch's start); None: the start of a fresh dataset's order."""
+        self._epoch, self._pos, self._perm = position or (0, 0, None)
+
     def next_indices(self, k: int) -> np.ndarray:
         """The next ``k`` batches' sample indices, ``[k, B]`` int32, for a
         caller that sends them and gathers itself (:meth:`gather`)."""

@@ -17,13 +17,21 @@ from tpu_dist_torch.ops.fused import fused_sparse_cross_entropy
 
 def sparse_categorical_crossentropy(logits, labels, *,
                                     from_logits: bool = True):
-    """Per-example CE from integer labels: [B, C] x [B] -> [B]."""
+    """Per-example CE from integer labels: [B, C] x [B] -> [B]. A label in
+    ``[-C, 0)`` counts from the end and one outside ``[-C, C)`` gives a NaN
+    loss, the JAX package's ``take_along_axis`` (its fill mode), where
+    PyTorch's gather would index out of bounds."""
     if from_logits:
         log_probs = torch.log_softmax(logits, dim=-1)
     else:
         log_probs = torch.log(torch.clamp(logits, 1e-7, 1.0))
-    return -torch.gather(log_probs, -1,
-                         labels.long().unsqueeze(-1)).squeeze(-1)
+    c = log_probs.shape[-1]
+    labels = labels.long()
+    labels = torch.where(labels < 0, labels + c, labels)
+    valid = (labels >= 0) & (labels < c)
+    picked = torch.gather(log_probs, -1, torch.where(
+        valid, labels, 0).unsqueeze(-1)).squeeze(-1)
+    return -torch.where(valid, picked, torch.nan)
 
 
 def categorical_crossentropy(logits, onehot, *, from_logits: bool = True):

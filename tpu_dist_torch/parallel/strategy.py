@@ -343,6 +343,12 @@ class MultiWorkerMirroredStrategy(Strategy):
                                  communication=self.communication.name),
             axis_shapes)
         bootstrap.barrier("MultiWorkerMirroredStrategy_init")
+        # Peer-health checks start after the startup barrier, so they
+        # cannot fire during bring-up (the reference's order); one pair of
+        # threads a process, none for one process.
+        from tpu_dist_torch.cluster.liveness import shared_monitor
+
+        self.liveness_monitor = shared_monitor().start()
         cfg = bootstrap.cluster_config()
         logger.info(
             "MultiWorkerMirroredStrategy up: num_workers = %d, "

@@ -1,13 +1,16 @@
-"""tpu_dist_torch.resilience — fault plans, the serve fault injector and
-supervised restart.
+"""tpu_dist_torch.resilience — fault plans, fault injection and supervised
+restart.
 
 Counterpart of ``tpu_dist/resilience``: the deterministic fault grammar
 (:mod:`~tpu_dist_torch.resilience.faults`), the shared event log
-(:mod:`~tpu_dist_torch.resilience.events`), the serve engine's injector
-(:mod:`~tpu_dist_torch.resilience.injector`) and the supervision loop
-(:mod:`~tpu_dist_torch.resilience.supervisor`). The training
-``FaultInjector``, the gang reform and the step rejoin gate are ROADMAP.md
-queue 1, item 18.
+(:mod:`~tpu_dist_torch.resilience.events`), the training and serve fault
+injectors and the preemption drain
+(:mod:`~tpu_dist_torch.resilience.injector`), the supervision loop
+(:mod:`~tpu_dist_torch.resilience.supervisor`), the supervised entry point
+(:mod:`~tpu_dist_torch.resilience.entrypoints`) and the chaos runner
+``python -m tpu_dist_torch.resilience`` (:mod:`~tpu_dist_torch.resilience.
+cli`). The gang reform and the step rejoin gate are ROADMAP.md queue 1,
+item 18b.
 """
 
 from tpu_dist_torch.resilience.events import (ATTEMPT_ENV, EVENT_LOG_ENV,
@@ -17,6 +20,8 @@ from tpu_dist_torch.resilience.faults import (EXIT_FAULT_KILL,
                                               EXIT_PEER_UNAVAILABLE,
                                               FAULT_PLAN_ENV, FaultPlan,
                                               FaultSpec, describe)
+from tpu_dist_torch.resilience.injector import (FaultInjector,
+                                                maybe_injector_from_env)
 from tpu_dist_torch.resilience.supervisor import (BackoffPolicy, Supervisor,
                                                   SupervisorReport)
 
@@ -25,5 +30,6 @@ __all__ = [
     "maybe_log", "read_events",
     "EXIT_FAULT_KILL", "EXIT_PEER_UNAVAILABLE", "FAULT_PLAN_ENV",
     "FaultPlan", "FaultSpec", "describe",
+    "FaultInjector", "maybe_injector_from_env",
     "BackoffPolicy", "Supervisor", "SupervisorReport",
 ]

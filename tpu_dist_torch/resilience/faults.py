@@ -4,10 +4,10 @@ Counterpart of ``tpu_dist/resilience/faults.py``, copied whole (the port
 imports nothing of ``tpu_dist``): the grammar, the kinds, the registered
 exit codes and the JSON form are the reference's, so a plan written for
 either package arms the other. The port's serve engine arms the serve
-kinds (:class:`~tpu_dist_torch.resilience.injector.ServeFaultInjector`);
-the training kinds and the job kinds parse here and are armed by the
-training injector and the jobs runtime, which come later (ROADMAP.md
-queue 1, items 18 and 20).
+kinds (:class:`~tpu_dist_torch.resilience.injector.ServeFaultInjector`),
+``fit`` the training kinds (:class:`~tpu_dist_torch.resilience.injector.
+FaultInjector`); the job kinds parse here and are armed by the jobs
+runtime, which comes later (ROADMAP.md queue 1, item 20).
 
 A plan is a list of :class:`FaultSpec` entries, each naming *what* breaks
 (``kind``), *where* (worker ``rank``), *when* (global optimizer ``step`` or

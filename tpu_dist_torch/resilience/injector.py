@@ -1,22 +1,427 @@
-"""ServeFaultInjector: executes the serve slice of a FaultPlan.
+"""Fault injectors: the training ``FaultInjector`` callback, the preemption
+drain, and the serve engine's injector.
 
-Counterpart of ``tpu_dist/resilience/injector.py``'s serve half
-(``ServeFaultInjector`` and ``maybe_serve_injector_from_env``). The
-training ``FaultInjector`` callback and the ``PreemptionDrain`` and
-``RejoinGate`` callbacks are not ported yet (ROADMAP.md queue 1, item 18).
+Counterpart of ``tpu_dist/resilience/injector.py``. The training injector
+is a :class:`~tpu_dist_torch.training.callbacks.Callback` plus seams it
+installs for what a callback cannot reach:
+
+* ``parallel/collectives.install_fault_hook`` for ``delay_collective`` /
+  ``hang_collective``: host-level collectives (barriers, broadcasts, host
+  reductions) stall as if the fabric did;
+* ``training/checkpoint.install_write_fault_hook`` for ``checkpoint_fail``
+  (a staged write raises, ``transient``, or is cut short in place,
+  ``truncate``) and ``kill_during_save`` (``os._exit`` with the step staged
+  and unpublished; on the async writer's thread under async saves);
+* ``training/integrity.install_batch_fault_hook`` for ``nan_loss``,
+  ``grad_spike`` and ``corrupt_batch``: the target step's batch is
+  poisoned right before it runs. ``bitflip`` rides ``on_batch_end``: it
+  flips one bit of one parameter in one process
+  (``integrity.flip_param_bit``), which only the SDC audit can see.
+
+Step accounting is the JAX package's: ``on_batch_end`` fires once per
+execution with its last in-epoch step, the injector tracks the global step
+``epoch * steps_per_epoch + step`` (stable across resume), and
+``FaultSpec.due_at_step`` uses ``>=``, so k > 1 cannot jump past a
+target. Kills are ``os._exit(exit_code)``: no cleanup, no atexit.
+
+Differences from the JAX package, each because a replica is a process
+here (one device each):
+
+* ``bitflip@stepN:leafK:replicaR`` arms in the process of rank R (the
+  fault's ``:rankN`` without ``:replicaR``), where the JAX package arms
+  it in every process of a one-process run and flips device R there. A
+  one-process run has no replica to compare, so the chaos CLI runs
+  bitflip over ``--workers >= 2``.
+* Token batches (integer ``x``): the labels are set to ``2**30``, far
+  outside any vocabulary, as in the JAX package, where the label gather's
+  fill turns them into a NaN loss; the port's plain cross-entropy does the
+  same (``ops/losses.py``), while the fused one (the TPU kernel's rule,
+  rows 1-2) reads such a row's loss as its log-sum-exp, so a fused-CE
+  model absorbs the fault in both packages. ``grad_spike`` and
+  ``corrupt_batch`` also garble x: the JAX package multiplies the ids by
+  -7 and its embedding gather clamps them into range, where PyTorch's
+  would index out of bounds; the port reverses each row's token order
+  instead, which stays in range.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import signal
 import time
 from typing import Optional, Sequence
 
+import torch
+
 from tpu_dist_torch.resilience import events
-from tpu_dist_torch.resilience.faults import FaultPlan, FaultSpec
+from tpu_dist_torch.resilience import faults as faults_mod
+from tpu_dist_torch.resilience.faults import FaultPlan, FaultSpec, HANG_SECONDS
+from tpu_dist_torch.training.callbacks import Callback, StopTraining
 
 logger = logging.getLogger("tpu_dist_torch.resilience")
+
+_COLLECTIVE_KINDS = ("delay_collective", "hang_collective")
+_WRITE_KINDS = ("checkpoint_fail", "kill_during_save")
+#: A poisoned token batch's labels: outside any vocabulary.
+_BAD_LABEL = 2 ** 30
+_SCALES = {"nan_loss": float("nan"), "grad_spike": 1e6,
+           "corrupt_batch": -1e7}
+
+
+def integrity_mod():
+    """Lazy import of ``training/integrity.py`` (it imports the trainer's
+    layer; plan parsing does not need it)."""
+    from tpu_dist_torch.training import integrity
+
+    return integrity
+
+
+def _poison(kind: str, step: int, first_gstep: int, k: int, x, y):
+    """The batch of a due semantic fault (module docstring): in a stacked
+    k-step window only the target step's slice. Numpy in, numpy out."""
+    numpy_in = not isinstance(x, torch.Tensor)
+    tx, ty = torch.as_tensor(x).clone(), torch.as_tensor(y).clone()
+    s = step - first_gstep
+    part = (lambda t: t[s]) if k > 1 and s < tx.shape[0] else (lambda t: t)
+    if tx.is_floating_point():
+        part(tx).mul_(_SCALES[kind])
+    else:
+        part(ty).fill_(_BAD_LABEL)
+        if kind != "nan_loss":
+            part(tx).copy_(part(tx).flip(-1))
+    if numpy_in:
+        return tx.numpy(), ty.numpy()
+    return tx, ty
+
+
+class FaultInjector(Callback):
+    """Arms a process's slice of a FaultPlan for one ``fit``."""
+
+    wants_batches = True  # global-step tracking needs per-execution hooks
+
+    def __init__(self, faults: Sequence[FaultSpec], *, steps_per_epoch: int,
+                 event_log: Optional[events.EventLog] = None):
+        self.faults = list(faults)
+        self.steps_per_epoch = int(steps_per_epoch)
+        self._events = event_log
+        #: Remaining firings per fault (specs are frozen; state lives here).
+        self._remaining = [f.count for f in self.faults]
+        self._epoch = 0
+        self._global_step = 0
+        self._prev_collective_hook = None
+        self._prev_write_hook = None
+        self._prev_batch_hook = None
+        self._installed = False
+
+    def _log(self, event: str, **fields) -> None:
+        try:
+            log = self._events or events.log_from_env()
+            if log is not None:
+                log.append(event, attempt=events.current_attempt(), **fields)
+        except OSError:  # observability must never fail the run
+            pass
+
+    def _has(self, kinds) -> bool:
+        return any(f.kind in kinds for f in self.faults)
+
+    # -- seam installation ---------------------------------------------------
+
+    def on_train_begin(self) -> None:
+        from tpu_dist_torch.parallel import collectives
+        from tpu_dist_torch.training import checkpoint
+
+        if self._has(_COLLECTIVE_KINDS):
+            self._prev_collective_hook = collectives.install_fault_hook(
+                self._collective_hook)
+        if self._has(_WRITE_KINDS):
+            self._prev_write_hook = checkpoint.install_write_fault_hook(
+                self._write_hook)
+        if self._has(integrity_mod().BATCH_FAULT_KINDS):
+            self._prev_batch_hook = integrity_mod().install_batch_fault_hook(
+                self._batch_hook)
+        self._installed = True
+        for f in self.faults:
+            self._log("fault_armed", kind=f.kind, step=f.step, epoch=f.epoch,
+                      rank=f.rank)
+        if events.current_attempt() > 0:
+            self._log("resumed")
+
+    def on_train_end(self) -> None:
+        if not self._installed:
+            return
+        self._installed = False
+        from tpu_dist_torch.parallel import collectives
+        from tpu_dist_torch.training import checkpoint
+
+        if self._has(_COLLECTIVE_KINDS):
+            collectives.install_fault_hook(self._prev_collective_hook)
+        if self._has(_WRITE_KINDS):
+            checkpoint.install_write_fault_hook(self._prev_write_hook)
+        if self._has(integrity_mod().BATCH_FAULT_KINDS):
+            integrity_mod().install_batch_fault_hook(self._prev_batch_hook)
+
+    # -- firing --------------------------------------------------------------
+
+    def on_epoch_begin(self, epoch: int) -> None:
+        self._epoch = epoch
+        self._global_step = epoch * self.steps_per_epoch
+        for i, f in enumerate(self.faults):
+            if (f.kind in ("kill", "preempt") and self._remaining[i] > 0
+                    and f.step is None and f.due_at_epoch(epoch)):
+                if f.kind == "kill":
+                    self._fire_kill(i, f, at=f"epoch {epoch}")
+                else:
+                    self._fire_preempt(i, f, at=f"epoch {epoch}")
+
+    def on_batch_end(self, step: int, logs: dict) -> None:
+        gstep = self._epoch * self.steps_per_epoch + step
+        self._global_step = gstep
+        for i, f in enumerate(self.faults):
+            if (self._remaining[i] <= 0 or f.step is None
+                    or not f.due_at_step(gstep)):
+                continue
+            if f.kind == "kill":
+                self._fire_kill(i, f, at=f"step {gstep}")
+            elif f.kind == "job_kill":
+                self._fire_kill(i, f, at=f"job {f.job} step {gstep}",
+                                kind="job_kill")
+            elif f.kind == "job_hang":
+                self._remaining[i] -= 1
+                self._log("fault_fired", kind="job_hang", job=f.job,
+                          step=gstep, seconds=f.seconds)
+                logger.warning("fault injection: hanging job %s worker "
+                               "%.1fs at step %d", f.job, f.seconds, gstep)
+                time.sleep(f.seconds)
+            elif f.kind == "preempt":
+                self._fire_preempt(i, f, at=f"step {gstep}")
+            elif f.kind == "slow_input":
+                self._remaining[i] -= 1
+                self._log("fault_fired", kind=f.kind, step=gstep,
+                          seconds=f.seconds)
+                time.sleep(f.seconds)
+            elif f.kind == "bitflip":
+                self._fire_bitflip(i, f, gstep)
+
+    def _fire_bitflip(self, i: int, f: FaultSpec, gstep: int) -> None:
+        """Silent data corruption: one bit of this process's copy of leaf
+        ``:leafK`` (default 0). Nothing in the step notices; the flipped
+        value is read by the next execution, and only the SDC audit's
+        shard-group compare can see it."""
+        self._remaining[i] -= 1
+        trainer = getattr(self.model, "_trainer", None)
+        if trainer is None or trainer.variables is None:
+            self._log("fault_skipped", kind="bitflip", step=gstep,
+                      reason="no live trainer variables")
+            return
+        info = integrity_mod().flip_param_bit(
+            self.model, replica=f.rank if f.replica is None else f.replica,
+            leaf=0 if f.leaf is None else f.leaf)
+        self._log("fault_fired", kind="bitflip", step=gstep, **info)
+        logger.warning("fault injection: flipped bit %d (effective %d) of %s "
+                       "on replica %d at step %d", info["bit"],
+                       info["effective_bit"], info["leaf"], info["replica"],
+                       gstep)
+
+    def _fire_kill(self, i: int, f: FaultSpec, *, at: str,
+                   kind: str = "kill") -> None:
+        self._remaining[i] -= 1
+        self._log("fault_fired", kind=kind, at=at, exit_code=f.exit_code)
+        logger.warning("fault injection: killing process at %s (exit %d)",
+                       at, f.exit_code)
+        os._exit(f.exit_code)
+
+    def _fire_preempt(self, i: int, f: FaultSpec, *, at: str) -> None:
+        """A real SIGTERM to this process: the SIGTERM seam
+        (``entrypoints.install_sigterm_handler``) records it and the
+        :class:`PreemptionDrain` callback stops training at this step
+        boundary. Without the seam SIGTERM's default action kills the
+        process (an ungraceful worker)."""
+        from tpu_dist_torch.resilience import entrypoints
+
+        self._remaining[i] -= 1
+        self._log("fault_fired", kind="preempt", at=at)
+        logger.warning("fault injection: delivering SIGTERM to self at %s",
+                       at)
+        os.kill(os.getpid(), signal.SIGTERM)
+        # The handler runs on this (main) thread at the next bytecode
+        # boundary; yield until it has, so the drain later in this same
+        # callback round sees the request.
+        if entrypoints.preemption_armed():
+            deadline = time.monotonic() + 5.0
+            while (not entrypoints.preemption_requested()
+                   and time.monotonic() < deadline):
+                time.sleep(0.001)
+
+    # -- seam hooks ----------------------------------------------------------
+
+    def _collective_hook(self, op: str) -> None:
+        for i, f in enumerate(self.faults):
+            if f.kind not in _COLLECTIVE_KINDS or self._remaining[i] <= 0:
+                continue
+            due = (f.due_at_step(self._global_step) if f.step is not None
+                   else f.due_at_epoch(self._epoch))
+            if not due:
+                continue
+            self._remaining[i] -= 1
+            seconds = (HANG_SECONDS if f.kind == "hang_collective"
+                       else f.seconds)
+            self._log("fault_fired", kind=f.kind, op=op, seconds=seconds)
+            logger.warning("fault injection: stalling collective %r for "
+                           "%.1fs", op, seconds)
+            time.sleep(seconds)
+        if self._prev_collective_hook is not None:
+            self._prev_collective_hook(op)
+
+    def _write_hook(self, stage_dir, step: int) -> None:
+        # ``step`` is the checkpoint's step (the epoch for ModelCheckpoint's
+        # saves), matched against the fault's epoch when it has one.
+        for i, f in enumerate(self.faults):
+            if f.kind not in _WRITE_KINDS or self._remaining[i] <= 0:
+                continue
+            due = (f.due_at_epoch(step) if f.epoch is not None
+                   else f.due_at_step(step))
+            if not due:
+                continue
+            self._remaining[i] -= 1
+            if f.kind == "kill_during_save":
+                self._log("fault_fired", kind="kill_during_save", step=step,
+                          exit_code=f.exit_code)
+                logger.warning(
+                    "fault injection: killing process during checkpoint "
+                    "save of step %d (stage %s unpublished, exit %d)",
+                    step, stage_dir, f.exit_code)
+                os._exit(f.exit_code)
+            self._log("fault_fired", kind="checkpoint_fail", mode=f.mode,
+                      step=step)
+            if f.mode == "transient":
+                raise OSError(f"injected transient checkpoint write failure "
+                              f"at step {step}")
+            _truncate_stage(stage_dir)
+        if self._prev_write_hook is not None:
+            self._prev_write_hook(stage_dir, step)
+
+    def _batch_hook(self, first_gstep: int, k: int, x, y):
+        """Poison the batch of a due semantic fault: when the window
+        ``[first_gstep, first_gstep + k)`` reaches the fault's step. The
+        count is consumed, so the replay after the rollback trains on the
+        clean batch: that is what makes exact loss parity possible."""
+        for i, f in enumerate(self.faults):
+            if (f.kind not in integrity_mod().BATCH_FAULT_KINDS
+                    or self._remaining[i] <= 0 or f.step is None
+                    or f.step >= first_gstep + k):
+                continue
+            self._remaining[i] -= 1
+            self._log("fault_fired", kind=f.kind, step=f.step,
+                      window_start=first_gstep, window=k)
+            logger.warning("fault injection: %s poisoning batch window "
+                           "[%d, %d)", f.kind, first_gstep, first_gstep + k)
+            x, y = _poison(f.kind, f.step, first_gstep, k, x, y)
+        if self._prev_batch_hook is not None:
+            return self._prev_batch_hook(first_gstep, k, x, y)
+        return x, y
+
+
+def _truncate_stage(stage_dir) -> None:
+    """Cut every staged .npz in half: the footprint of a writer that died
+    mid-write on a filesystem whose publish was not atomic. The zip's
+    central directory is at its end, so the file no longer opens and
+    validation rejects the step."""
+    import pathlib
+
+    for npz in sorted(pathlib.Path(stage_dir).glob("*.npz")):
+        size = npz.stat().st_size
+        with open(npz, "r+b") as fh:
+            fh.truncate(max(1, size // 2))
+        logger.warning("fault injection: truncated %s to %d bytes",
+                       npz, max(1, size // 2))
+
+
+def _bitflip_target(f: FaultSpec) -> int:
+    """The rank whose copy a bitflip corrupts: ``:replicaR``, else the
+    fault's rank."""
+    return f.rank if f.replica is None else f.replica
+
+
+def maybe_injector_from_env(*, steps_per_epoch: int,
+                            rank: Optional[int] = None,
+                            attempt: Optional[int] = None
+                            ) -> Optional[FaultInjector]:
+    """The injector of this process's slice of ``$TPU_DIST_FAULT_PLAN``,
+    or None when no plan is set or no fault targets (rank, attempt)."""
+    from tpu_dist_torch.cluster import bootstrap
+
+    plan = FaultPlan.from_env()
+    if not plan:
+        return None
+    if rank is None:
+        env_rank = os.environ.get("TPU_DIST_REJOIN_RANK")
+        if env_rank is not None and bootstrap.process_count() == 1:
+            # Supervised single-process workers all are process 0; their
+            # gang rank comes through the environment.
+            rank = int(env_rank)
+        else:
+            rank = bootstrap.process_index()
+    if attempt is None:
+        attempt = events.current_attempt()
+        # A worker relaunched into a live attempt folds its incarnation
+        # in, so an attempt-0 one-shot fault does not fire again in it.
+        try:
+            attempt += int(os.environ.get("TPU_DIST_GANG_REJOIN", "0") or 0)
+        except ValueError:
+            pass
+    mine = [f for f in plan.faults
+            if (f.attempt is None or attempt == f.attempt)
+            and (_bitflip_target(f) if f.kind == "bitflip" else f.rank)
+            == rank]
+    # Faults with a @jobN coordinate arm only in that packed job's gang.
+    job_index = faults_mod.current_job_index()
+    mine = [f for f in mine if f.matches_job(job_index)]
+    if not mine:
+        return None
+    logger.info("fault plan armed for rank %d attempt %d: %d fault(s)",
+                rank, attempt, len(mine))
+    return FaultInjector(mine, steps_per_epoch=steps_per_epoch)
+
+
+class PreemptionDrain(Callback):
+    """Stops training at the first step boundary after a SIGTERM.
+
+    The signal handler (``entrypoints.install_sigterm_handler``) only
+    records the notice; this callback raises :class:`StopTraining` at the
+    next step (or epoch) boundary, which ``fit`` catches; its ``finally``
+    closes ``ModelCheckpoint``, which joins and publishes any save in
+    flight, and the worker exits ``EXIT_PREEMPTED``. It writes no
+    checkpoint of the partial epoch: resume is epoch-granular, so the
+    interrupted epoch is replayed from its start instead, which keeps the
+    chaos gate's exact loss parity."""
+
+    wants_batches = True
+
+    def on_batch_end(self, step: int, logs: dict) -> None:
+        self._maybe_stop(f"step boundary (in-epoch step {step})")
+
+    def on_epoch_begin(self, epoch: int) -> None:
+        self._maybe_stop(f"epoch {epoch} boundary")
+
+    @staticmethod
+    def _maybe_stop(where: str) -> None:
+        from tpu_dist_torch.resilience import entrypoints
+
+        if entrypoints.preemption_requested():
+            logger.warning("preemption drain: stopping training at %s",
+                           where)
+            raise StopTraining(f"preempted (drained at {where})")
+
+
+def maybe_preemption_drain() -> Optional[PreemptionDrain]:
+    """A :class:`PreemptionDrain` when the SIGTERM seam is armed (the
+    process runs under ``run_entry``), else None."""
+    from tpu_dist_torch.resilience import entrypoints
+
+    if not entrypoints.preemption_armed():
+        return None
+    return PreemptionDrain()
 
 
 class ServeFaultInjector:

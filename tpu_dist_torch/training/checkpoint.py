@@ -34,8 +34,15 @@ array by the restoring model's own layout, so a checkpoint restores onto
 any other mesh (the reference's cross-topology restore). :class:`AsyncCheckpointer` moves serialization and the publish to
 a background thread.
 
-The sharded v2 layout (``sharded=True``) and the write-fault hook come with
-item 18 of ``ROADMAP.md``'s queue 1 and raise until then.
+A fault seam (:func:`install_write_fault_hook`) sees every staged step
+on the chief right before it is published, in :func:`save` and on the
+async writer's thread alike: a hook that raises ``OSError`` costs that
+step (nothing is published), one that corrupts the stage leaves a step
+that validation rejects, and one that exits the process leaves the stage
+unpublished (``kill_during_save``).
+
+The sharded v2 layout (``sharded=True``) comes with item 18 (its 18b half) of
+``ROADMAP.md``'s queue 1 and raises until then.
 """
 
 from __future__ import annotations
@@ -165,6 +172,27 @@ def _publish_stage(stage: pathlib.Path, target: pathlib.Path,
     _fsync(directory)
 
 
+#: The write fault hook, ``hook(stage_dir, step)`` (None in production: one
+#: pointer check a save).
+_WRITE_FAULT_HOOK = None
+
+
+def install_write_fault_hook(hook):
+    """Install (or, with None, remove) the checkpoint write fault hook;
+    returns the previous one. The hook runs on the chief with the fully
+    staged step directory right before :func:`_publish_stage` (on the
+    writer thread for an async save)."""
+    global _WRITE_FAULT_HOOK
+    prev = _WRITE_FAULT_HOOK
+    _WRITE_FAULT_HOOK = hook
+    return prev
+
+
+def _fire_write_fault(stage: pathlib.Path, step: int) -> None:
+    if _WRITE_FAULT_HOOK is not None:
+        _WRITE_FAULT_HOOK(stage, step)
+
+
 def _write_v1_checkpoint(directory: pathlib.Path, flat: dict, *, step: int,
                          max_to_keep: Optional[int]) -> str:
     """Serialize and durably publish one v1 step from host arrays (chief
@@ -184,6 +212,7 @@ def _write_v1_checkpoint(directory: pathlib.Path, flat: dict, *, step: int,
             "process_count": bootstrap.process_count(),
             "device_count": bootstrap.process_count(),
         }))
+        _fire_write_fault(stage, step)
         _publish_stage(stage, target, directory, step)
     logger.info("checkpoint step %d written to %s", step, target)
     if max_to_keep is not None:
@@ -457,7 +486,8 @@ def validate_step_dir(target: str | os.PathLike) -> Optional[str]:
                     f"(e.g. missing {missing})")
         return None
     if fmt == _FORMAT_V2:
-        return "a sharded (v2) checkpoint: not ported yet (ROADMAP.md, item 18)"
+        return ("a sharded (v2) checkpoint: not ported yet (ROADMAP.md, "
+                "item 18b)")
     return f"unknown checkpoint format {fmt!r}"
 
 

@@ -65,8 +65,24 @@ the synthetic MNIST, where the JAX package's scale detection declines its
 batch crosses to the device and its scale (the dataset's
 ``device_transform``) runs inside the step, and so inside a captured
 execution too. ``prefetch_to_device = d`` places the host pipeline's next
-``d`` batches on the card from a background thread. The integrity
-``health`` vector comes with item 18 of ``ROADMAP.md``'s queue 1.
+``d`` batches on the card from a background thread.
+
+Resilience (``resilience/``, ``training/integrity.py``), armed from the
+environment as in the JAX package: a fault plan in
+``$TPU_DIST_FAULT_PLAN`` adds a ``FaultInjector`` callback, a process run
+under ``run_entry`` a ``PreemptionDrain``, and each execution's batch
+passes ``integrity.fire_batch_hook`` before it runs. ``TPU_DIST_INTEGRITY=1``
+arms an ``IntegrityGuard``: the steps are built to also return the health
+vector (``integrity.StepHealth``; a captured k-step program returns the
+window's), the guard judges it one execution behind, and a
+``RollbackAndReplay`` restores the newest published checkpoint in place
+(``restore_model`` ``copy_``s into the live tensors, so captured programs
+and the fused optimizers' leaf tables stay valid), rewinds the data to the
+epoch's start and replays. Armed programs are keyed apart from unarmed
+ones (``_train_variant``), so an unarmed fit runs, launches and captures
+exactly what it did before the guard existed. Under a
+``MultiWorkerMirroredStrategy`` the liveness monitor is checked at each
+epoch's start.
 
 ``fit(profile_dir=D)`` records a ``torch.profiler`` trace of the epochs
 into ``D`` on the chief (``utils/profiler.py``), each execution marked
@@ -144,6 +160,7 @@ from tpu_dist_torch.data.pipeline import Dataset, DevicePrefetcher
 from tpu_dist_torch.models.layers import BatchNormalization, Dropout
 from tpu_dist_torch.models.policy import policy
 from tpu_dist_torch.parallel import collectives
+from tpu_dist_torch.training import integrity
 from tpu_dist_torch.training.callbacks import (CallbackList, History,
                                                LazyLogs, StopTraining)
 from tpu_dist_torch.utils import graphs, profiler
@@ -317,10 +334,12 @@ class _GraphedExecutions:
         make = lambda: graphs.CapturedProgram(
             fn, specs, device=self.device, pool=self.pool,
             generators=self.generators)
-        # A replay's loss is the graph's own output, rewritten by the next
-        # replay: the caller gets a copy.
-        return _run_program(self.programs, key, held_tensors, make,
-                            inputs).clone()
+        # A replay's loss (and health vector) is the graph's own output,
+        # rewritten by the next replay: the caller gets a copy.
+        out = _run_program(self.programs, key, held_tensors, make, inputs)
+        if isinstance(out, tuple):
+            return tuple(t.clone() for t in out)
+        return out.clone()
 
     def __call__(self, params, state, opt_state, metric_states, loss_acc,
                  xs, ys, rng=None):
@@ -372,6 +391,14 @@ class Trainer:
         #: The generator Dropout (and a functional model's ``rng``) draw
         #: from, on the model's device; seeded by ``fit(seed=)``.
         self.rng: Optional[torch.Generator] = None
+        #: The armed steps' health buffers (``integrity.StepHealth``), made
+        #: by the first integrity-armed fit.
+        self._step_health: Optional[integrity.StepHealth] = None
+        #: An armed fit's start: (epoch, variables), the rollback's target
+        #: when no checkpoint is published.
+        self._fit_start: Optional[tuple] = None
+        #: ``{epoch: DeviceDataset.tell()}`` at each epoch's start.
+        self._epoch_marks: dict = {}
 
     @property
     def device(self) -> torch.device:
@@ -470,9 +497,12 @@ class Trainer:
         return (per * w).mean()
 
     def _step(self, class_weight: Optional[dict] = None,
-              device_transform=None):
+              device_transform=None, health=None):
         """The train step: ``(params, state, opt, metrics, loss_acc, x, y,
-        rng=None) -> loss``. Forward in train mode (BatchNorm updates its
+        rng=None) -> loss``, or ``(loss, health vector)`` with ``health``
+        (an ``integrity.StepHealth``: the parameters are copied before the
+        update and the vector reduced after it, on the device). Forward in
+        train mode (BatchNorm updates its
         running statistics, the model's buffers, in place), loss, backward
         (the flash backward kernels on CUDA), optimizer update, metric
         update and the device-side loss accumulator, all in place on the
@@ -490,6 +520,7 @@ class Trainer:
         device = self.device
         distributed = self.distributed
         group = self.group
+        meshed = self.meshed
         bucket_bytes = self._bucket_bytes
         names = [n for n, _ in model.named_parameters()]
         # Functional models and mixture-of-experts layers record their
@@ -530,35 +561,50 @@ class Trainer:
                 collectives.all_reduce([*grads, loss],
                                        collectives.ReduceOp.MEAN,
                                        group=group)
+            if health is not None:
+                health.before(params)
             optimizer.update(grads, opt_state, params)
             with torch.no_grad():
                 for m, ms in zip(metrics, metric_states):
                     m.update(ms, logits, y)
                 loss_acc[0] += loss
                 loss_acc[1] += 1.0
-            return loss
+            if health is None:
+                return loss
+            h = health.after(loss, grads, params)
+            if meshed:
+                # Shards differ across the mesh's processes: sum their
+                # vectors, so every process reaches the same verdict.
+                collectives.all_reduce([h], collectives.ReduceOp.SUM)
+            return loss, h
 
         return step
 
     def _multi_step(self, class_weight: Optional[dict] = None,
-                    device_transform=None):
+                    device_transform=None, health=None):
         """The K-step execution, ``(params, state, opt, metrics, loss_acc,
         xs, ys, rng=None) -> loss``: the train step over ``xs[i], ys[i]``
         for each i of the leading axis in order, returning the mean of the
-        K losses (the JAX package's scanned step). On CUDA in a single
-        process each execution is a captured graph
+        K losses (the JAX package's scanned step); with ``health``, also
+        the window's health vector (``integrity.reduce_window_health``).
+        On CUDA in a single process each execution is a captured graph
         (:class:`_GraphedExecutions`)."""
-        step = self._step(class_weight, device_transform)
+        step = self._step(class_weight, device_transform, health)
 
         def multi(params, state, opt_state, metric_states, loss_acc, xs, ys,
                   rng=None):
-            losses = [step(params, state, opt_state, metric_states,
-                           loss_acc, xs[i], ys[i]) for i in range(len(xs))]
-            return torch.stack(losses).mean()
+            outs = [step(params, state, opt_state, metric_states,
+                         loss_acc, xs[i], ys[i]) for i in range(len(xs))]
+            if health is None:
+                return torch.stack(outs).mean()
+            losses, healths = zip(*outs)
+            return (torch.stack(losses).mean(),
+                    integrity.reduce_window_health(torch.stack(healths)))
 
         if self.device.type != "cuda" or self.distributed or self.meshed:
             return multi
-        key = self._train_variant(class_weight, device_transform)
+        key = self._train_variant(class_weight, device_transform,
+                                  armed=health is not None)
         if key not in self._graphed:
             self._graphed[key] = _GraphedExecutions(
                 multi, self.device, raw_x=device_transform is not None,
@@ -566,15 +612,18 @@ class Trainer:
         return self._graphed[key]
 
     @staticmethod
-    def _train_variant(class_weight, device_transform) -> tuple:
+    def _train_variant(class_weight, device_transform, *,
+                       armed: bool = False) -> tuple:
         """The identity of a captured training program, the JAX package's
         ``_train_variant``: the policy (a capture made under one compute
         dtype is never replayed under another), the class weights and the
-        device transform."""
-        return (policy(),
-                None if class_weight is None
-                else tuple(sorted(class_weight.items())),
-                _transform_key(device_transform))
+        device transform; an integrity-armed program (which also returns
+        the health vector) is another program."""
+        key = (policy(),
+               None if class_weight is None
+               else tuple(sorted(class_weight.items())),
+               _transform_key(device_transform))
+        return key + ("integrity",) if armed else key
 
     @staticmethod
     def _eval_variant(device_transform) -> tuple:
@@ -696,8 +745,17 @@ class Trainer:
             class_weight = class_weight or None  # {} means no weighting
         batches = self._distribute(x)
         transform = getattr(batches, "device_transform", None)
-        step = self._step(class_weight, transform)
-        multi = (self._multi_step(class_weight, transform)
+        # $TPU_DIST_INTEGRITY=1 (the chaos CLI's, or an operator's) arms
+        # the guard: the steps also return the health vector.
+        guard = integrity.maybe_guard_from_env()
+        health = None
+        if guard is not None:
+            if self._step_health is None:
+                self._step_health = integrity.StepHealth(
+                    self.variables["params"])
+            health = self._step_health
+        step = self._step(class_weight, transform, health)
+        multi = (self._multi_step(class_weight, transform, health)
                  if self.model.steps_per_execution > 1 else None)
         if steps_per_epoch is None:
             steps_per_epoch = batches.cardinality()
@@ -705,6 +763,17 @@ class Trainer:
                 raise ValueError("the dataset's cardinality is unknown; "
                                  "pass steps_per_epoch")
         callbacks = list(callbacks)
+        # A fault plan in $TPU_DIST_FAULT_PLAN (the chaos CLI's, a
+        # Supervisor's) rides the fit as one more callback; a process run
+        # under run_entry gets the preemption drain after it, so an
+        # injected preempt is drained in the same callback round.
+        from tpu_dist_torch.resilience.injector import (
+            maybe_injector_from_env, maybe_preemption_drain)
+
+        for cb in (maybe_injector_from_env(steps_per_epoch=steps_per_epoch),
+                   maybe_preemption_drain()):
+            if cb is not None:
+                callbacks.append(cb)
         # $TPU_DIST_OBSERVE_DIR (a Supervisor's, or a shell's) attaches a
         # Telemetry callback, unless the caller passed one.
         from tpu_dist_torch.observe.telemetry import (
@@ -721,6 +790,13 @@ class Trainer:
         if validation_data is not None:
             val_batches = self._distribute(validation_data)
             val_steps = validation_steps
+        self._epoch_marks = {}
+        if guard is not None:
+            guard.bind(self.strategy, checkpoint_dir=checkpoint_dir,
+                       shard_keys=integrity.shard_keys(self.model))
+            # A rollback with no published checkpoint returns here.
+            self._fit_start = (initial_epoch, {
+                k: t.detach().clone() for k, t in self._live().items()})
 
         history = History()
         cbs = CallbackList([history, *callbacks], model=self.model)
@@ -729,15 +805,87 @@ class Trainer:
                  else contextlib.nullcontext())
         try:
             with trace, _mode(self.model, True):
-                self._run_epochs(step, multi, batches, cbs, initial_epoch,
-                                 epochs, steps_per_epoch, bool(verbose),
-                                 val_batches, val_steps, seed)
+                start = initial_epoch
+                while True:
+                    try:
+                        self._run_epochs(step, multi, batches, cbs, start,
+                                         epochs, steps_per_epoch,
+                                         bool(verbose), val_batches,
+                                         val_steps, seed, guard)
+                        break
+                    except integrity.RollbackAndReplay as rb:
+                        # Restore the newest published checkpoint and
+                        # replay from its epoch; the guard enforces the
+                        # budget (IntegrityAbort escapes fit).
+                        start = self._integrity_rollback(
+                            rb, guard, cbs, checkpoint_dir, batches)
         except StopTraining as e:
             logger.info("training stopped early: %s", e)
         finally:
             self._close_prefetcher()
+            self._fit_start = None
             cbs.on_train_end()
         return history
+
+    def _live(self) -> dict:
+        """The live training variables (parameters, buffers, optimizer
+        state), keyed as a checkpoint keys them."""
+        from tpu_dist_torch.models import bridge
+
+        return bridge.checkpoint_tensors(self.model, self.variables["opt"])
+
+    def _integrity_rollback(self, rb, guard, cbs, checkpoint_dir,
+                            batches) -> int:
+        """Rollback-and-replay: commit any save in flight, restore the
+        newest published step (strictly older than the last restore when
+        the replay hit the same anomaly again) in place, or the variables
+        the fit started with when none is published; rewind the data to
+        that epoch's start. Returns the epoch to replay from."""
+        from tpu_dist_torch.observe import metrics as metrics_lib
+        from tpu_dist_torch.resilience import events
+        from tpu_dist_torch.training import checkpoint
+        from tpu_dist_torch.training.callbacks import ModelCheckpoint
+
+        for cb in cbs.callbacks:
+            if isinstance(cb, ModelCheckpoint) and cb._ckpt is not None:
+                try:
+                    cb._ckpt.wait()
+                except OSError as exc:  # that step is lost, not the run
+                    logger.warning("checkpoint write failed before a "
+                                   "rollback: %s", exc)
+        restored = None
+        if checkpoint_dir is not None:
+            step = checkpoint.latest_complete_step(
+                checkpoint_dir, before=guard.rollback_plan(rb))
+            # The chief's directory decides, on every process.
+            step = checkpoint._chief_choice(-1 if step is None else step)
+            if step >= 0:
+                restored = checkpoint.restore_model(
+                    checkpoint_dir, self.model, step=step, trainer=self)
+        if restored is None:
+            next_epoch, values = self._fit_start
+            with torch.no_grad():
+                for key, t in self._live().items():
+                    t.copy_(values[key])
+        else:
+            next_epoch = restored + 1
+        # Replay re-reads the epoch's batches from its start: a host
+        # pipeline's iterator anew (what a restarted attempt would read), a
+        # device-resident dataset's cursor where that epoch found it.
+        self._close_prefetcher()
+        self._iterator = self._iterator_source = None
+        if isinstance(batches, DeviceDataset):
+            batches.seek(self._epoch_marks.get(next_epoch))
+        guard.note_rollback(rb, restored)
+        metrics_lib.inc("integrity.rollbacks")
+        events.maybe_log("integrity_rollback", kind=rb.kind, step=rb.gstep,
+                         restored_step=restored, next_epoch=next_epoch,
+                         attempt=events.current_attempt())
+        logger.warning(
+            "integrity rollback: anomaly %r at global step %d; restored "
+            "checkpoint step %s, replaying from epoch %d",
+            rb.kind, rb.gstep, restored, next_epoch)
+        return next_epoch
 
     def _resume(self, checkpoint_dir, initial_epoch: int) -> int:
         """Restore the newest complete checkpoint of ``checkpoint_dir`` in
@@ -758,6 +906,10 @@ class Trainer:
         start = max(initial_epoch, restored + 1)
         logger.info("resumed from checkpoint step %d; starting at epoch %d",
                     restored, start)
+        from tpu_dist_torch.resilience import events
+
+        events.maybe_log("checkpoint_resume", step=restored,
+                         initial_epoch=start)
         return start
 
     @staticmethod
@@ -788,51 +940,70 @@ class Trainer:
             self._fit_loss_acc = self._init_loss_acc()
         return self._fit_loss_acc.zero_()
 
-    def _execute(self, step, multi, batches, k: int, clock=None):
+    def _execute(self, step, multi, batches, k: int, gstep0: int,
+                 clock=None):
         """One execution of ``k`` steps over the next ``k`` batches;
-        returns its loss (the k-mean) and the time ``clock()`` read once the
-        batches were fetched (0.0 without a clock: the step timer's
-        data-wait ends there). A window whose batches do not all have one
-        shape (a ``drop_remainder=False`` tail) runs step by step and
-        returns the last step's loss, as the JAX package does. A
-        DeviceDataset gathers the batches on the device: one at k = 1, k
-        stacked for an execution, whose captured program gathers them
-        itself from the index vector (module docstring)."""
+        returns its output (the loss, the k-mean; with the guard armed,
+        ``(loss, health)``) and the time ``clock()`` read once the batches
+        were fetched (0.0 without a clock: the step timer's data-wait ends
+        there). Every batch passes ``integrity.fire_batch_hook`` first
+        (``gstep0``: the window's first global step). A window whose
+        batches do not all have one shape (a ``drop_remainder=False``
+        tail) runs step by step and returns the last step's output, as the
+        JAX package does. A DeviceDataset gathers the batches on the
+        device: one at k = 1, k stacked for an execution, whose captured
+        program gathers them itself from the index vector (module
+        docstring) unless a batch hook must see the batches."""
         fetched = clock or float
+        fire = integrity.fire_batch_hook
         v = self.variables
         variables = (v["params"], v["state"], v["opt"], v["metrics"],
                      self._fit_loss_acc)
         if isinstance(batches, DeviceDataset):
             if k == 1:
-                xb, yb = batches.next_batch()
+                xb, yb = fire(gstep0, 1, *batches.next_batch())
                 t = fetched()
                 return step(*variables, xb, yb), t
-            if isinstance(multi, _GraphedExecutions):
+            if (isinstance(multi, _GraphedExecutions)
+                    and not integrity.batch_hook_installed()):
                 idx = batches.next_indices(k)
                 t = fetched()
                 return multi.indexed(variables, batches, idx), t
-            xs, ys = batches.next_stack(k)
+            xs, ys = fire(gstep0, k, *batches.next_stack(k))
             t = fetched()
             return multi(*variables, xs, ys), t
         if k == 1:
-            xb, yb = self._next_batch(batches)
+            xb, yb = fire(gstep0, 1, *self._next_batch(batches))
             t = fetched()
             return step(*variables, xb, yb), t
         window = [self._next_batch(batches) for _ in range(k)]
         t = fetched()
         if len({(np.shape(x), np.shape(y)) for x, y in window}) > 1:
-            for xb, yb in window:
-                loss = step(*variables, xb, yb)
-            return loss, t
-        return multi(*variables, np.stack([x for x, _ in window]),
-                     np.stack([y for _, y in window])), t
+            for j, (xb, yb) in enumerate(window):
+                out = step(*variables, *fire(gstep0 + j, 1, xb, yb))
+            return out, t
+        xs, ys = fire(gstep0, k, np.stack([x for x, _ in window]),
+                      np.stack([y for _, y in window]))
+        return multi(*variables, xs, ys), t
+
+    def _skip(self, batches, k: int) -> None:
+        """Draw an execution's batches without training on them (a
+        quarantined window): the data stays aligned."""
+        if isinstance(batches, DeviceDataset):
+            batches.next_indices(k)
+        else:
+            for _ in range(k):
+                self._next_batch(batches)
 
     def _run_epochs(self, step, multi, batches, cbs, initial_epoch, epochs,
-                    steps_per_epoch, show, val_batches, val_steps, seed):
+                    steps_per_epoch, show, val_batches, val_steps, seed,
+                    guard=None):
         from tpu_dist_torch.observe.telemetry import active_step_timer
+        from tpu_dist_torch.resilience import events
 
         v = self.variables
         k = self.model.steps_per_execution
+        monitor = getattr(self.strategy, "liveness_monitor", None)
         # A Telemetry callback's on_train_begin has installed it; without
         # one the loop pays one is-None check per execution.
         timer = active_step_timer()
@@ -842,7 +1013,16 @@ class Trainer:
         stream = (torch.cuda.current_stream(self.device)
                   if timer is not None and self.device.type == "cuda"
                   else None)
+        leaves = (integrity.named_leaves(self.model) if guard is not None
+                  else None)
         for epoch in range(initial_epoch, epochs):
+            if monitor is not None:
+                # A dead peer surfaces as a restartable error here instead
+                # of hanging the next collective.
+                monitor.raise_if_failed()
+            if isinstance(batches, DeviceDataset):
+                # Where a rollback to this epoch rewinds the data to.
+                self._epoch_marks[epoch] = batches.tell()
             # A replay of a captured program reads the registered
             # generator's seed and offset as they stand.
             self.rng.manual_seed(_epoch_seed(seed, epoch))
@@ -860,16 +1040,32 @@ class Trainer:
             step_i = executions = 0
             while step_i < steps_per_epoch:
                 kk = min(k, steps_per_epoch - step_i)
+                gstep0 = epoch * steps_per_epoch + step_i
+                if guard is not None and guard.should_skip(gstep0, kk):
+                    # Quarantined window (opt-in): replaying data that
+                    # poisoned the run would poison it again.
+                    self._skip(batches, kk)
+                    events.maybe_log("integrity_quarantine_skip",
+                                     step=gstep0, window=kk)
+                    step_i += kk
+                    executions += 1
+                    continue
                 # Step-phase timing: data-wait ends once the batches are
                 # fetched, dispatch when the step (or the replay) returns,
                 # device time is the blocking wait on the card.
                 t_exec0 = time.perf_counter() if timer is not None else 0.0
-                with profiler.step_annotation(epoch * steps_per_epoch
-                                              + step_i):
-                    loss, t_fetch = self._execute(step, multi, batches, kk,
-                                                  clock)
+                with profiler.step_annotation(gstep0):
+                    out, t_fetch = self._execute(step, multi, batches, kk,
+                                                 gstep0, clock)
                 step_i += kk
                 executions += 1
+                if guard is not None:
+                    # One-behind judgement: this vector's host copy starts
+                    # now, the previous one's is judged; the audit when due.
+                    loss, health = out
+                    guard.on_execution(gstep0, kk, health, leaves)
+                else:
+                    loss = out
                 if timer is not None:
                     t_disp = time.perf_counter()
                     if stream is not None:
@@ -885,6 +1081,10 @@ class Trainer:
                     loss_running += loss_val
                     bar.update(step_i, loss=loss_running / executions)
                     cbs.on_batch_end(step_i - 1, {"loss": loss_val})
+            if guard is not None:
+                # The last execution's vector, before the epoch's callbacks:
+                # a poisoned final step never reaches ModelCheckpoint.
+                guard.flush()
             # No host read at the epoch's end: the results are copied to
             # the host without blocking and read when someone reads them
             # (LazyLogs) — the bar when verbose, a callback, History.
