@@ -347,6 +347,29 @@ plain PyTorch version. Phases:
     vector against its plain version (``HEALTH_RTOL``); the armed step
     against the unarmed one in turns, and the SDC audit's ms over the
     21,269,504 parameters.
+32. elasticity: (a) ``python -m tpu_dist_torch.resilience --step-rejoin
+    --plan kill-worker@step6:rank1`` (the demo CNN on two single-process
+    workers, a file gang): the control leg restarts the gang, the reform
+    leg reforms it mid-epoch; the CLI's gates (a fault in both legs, no
+    restart in the reform leg, a ``gang_reform`` and a ``worker_rejoin``,
+    its ``recovery_wall_s`` strictly below the control's, ``loss_delta``
+    exactly 0.0), printed with both legs' recovery, the speedup and the
+    breakdown; (b) ``--reshape 2,1 --plan preempt@step5``: two gloo
+    processes on the card with v2 checkpoints, both drained at step 5
+    (``preempted`` exits), the restart on one process restoring their
+    step (a ``reshape_restore`` 2 -> 1), ``loss_delta`` <= 1e-5; (c) two
+    workers (``chip_smoke.py --elastic-worker DIR``) fit the benchmark LM
+    under ``{data: 1, model: 2}``, 2 epochs x 2 steps of 8 x 512 with
+    ``Adam(fused=True)`` and the fused CE, with ``ModelCheckpoint(sharded=
+    True)`` synchronous and asynchronous and a v1 one beside them: every
+    stitched v2 leaf bit for bit with the v1 step's, one process resuming
+    the v2 step (2 -> 1) for an epoch bit for bit with the same resume from
+    v1, a one-process v2 step restored onto the two ranks (1 -> 2) and
+    trained on; each rank's bytes written and save seconds (v2, and v1's
+    gather and write), the restore seconds; launches (16, 16, 4, 4, 4, 0) a
+    rank; (d) on the same two ranks, ``bootstrap.reinitialize`` of their
+    gloo group of CUDA tensors: an all-reduce at generation 0, the re-dial
+    on base + 1, the all-reduce again; teardown and bring-up seconds.
 
 Prints one JSON line of kernel records, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
@@ -6271,18 +6294,23 @@ _GUARD_ENV = ("TPU_DIST_INTEGRITY", "TPU_DIST_FAULT_PLAN",
               "TPU_DIST_EVENT_LOG")
 
 
-def _train_chaos(runs: dict, tmp: pathlib.Path) -> dict:
+def _train_chaos(runs: dict, tmp: pathlib.Path, phase: str = "31") -> dict:
     """``python -m tpu_dist_torch.resilience ARGS`` for each ``{label:
     ARGS}`` (on the card: no ``--device``), all at once as subprocesses
     (their workers share the card and the host), each to its end; their
     reports, each of which must say ``ok``, with ``wall_s`` from the start
     to the run's end."""
+    return _finish_chaos(_start_chaos(runs, tmp), tmp, phase)
+
+
+def _start_chaos(runs: dict, tmp: pathlib.Path) -> tuple:
+    """Start :func:`_train_chaos`'s subprocesses; ``(procs, t0)``."""
     root = pathlib.Path(__file__).resolve().parent
     env = {k: v for k, v in os.environ.items() if k not in _GUARD_ENV}
     env["PYTHONPATH"] = os.pathsep.join(
         filter(None, [str(root), os.environ.get("PYTHONPATH")]))
     t0 = time.monotonic()
-    procs, ended = {}, {}
+    procs = {}
     for label, args in runs.items():
         with open(tmp / f"{label}.out", "wb") as out:
             procs[label] = subprocess.Popen(
@@ -6290,10 +6318,17 @@ def _train_chaos(runs: dict, tmp: pathlib.Path) -> dict:
                  "--workdir", str(tmp / label),
                  "--report", str(tmp / f"{label}.json")],
                 cwd=root, env=env, stdout=out, stderr=subprocess.STDOUT)
+    return procs, t0
+
+
+def _finish_chaos(started: tuple, tmp: pathlib.Path, phase: str) -> dict:
+    """Wait for :func:`_start_chaos`'s runs; their reports."""
+    procs, t0 = started
+    ended = {}
     try:
         while len(ended) < len(procs):
             if time.monotonic() - t0 > TRAIN_CHAOS_TIMEOUT_S:
-                raise AssertionError(f"(31) chaos runs {sorted(set(procs) - set(ended))} "
+                raise AssertionError(f"({phase}) chaos runs {sorted(set(procs) - set(ended))} "
                                      f"past {TRAIN_CHAOS_TIMEOUT_S} s")
             for label, proc in procs.items():
                 if label not in ended and proc.poll() is not None:
@@ -6311,10 +6346,9 @@ def _train_chaos(runs: dict, tmp: pathlib.Path) -> dict:
         if proc.returncode != 0 or not report.get("ok"):
             work = tmp / label
             logs = "".join(p.read_text()[-1500:] for p in sorted(
-                (work / "logs").glob("*.log"))) \
-                if (work / "logs").is_dir() else ""
+                work.glob("**/logs/*.log")))
             raise AssertionError(
-                f"(31 {label}) exit {proc.returncode}: "
+                f"({phase} {label}) exit {proc.returncode}: "
                 f"{report.get('failure')}\n"
                 f"{(tmp / f'{label}.out').read_text()[-3000:]}\n{logs}")
         report["wall_s"] = ended[label]
@@ -6585,6 +6619,239 @@ def train_chaos_phase(card: str) -> dict:
 
 
 
+# -- phase 32: elasticity --------------------------------------------------------
+
+#: (c): 2 epochs x 2 steps of the benchmark LM at 8 x 512 under TP_AXES.
+ELASTIC_EPOCHS, ELASTIC_STEPS, ELASTIC_BATCH = 2, 2, 8
+
+
+def _elastic_data():
+    """(c)'s two batches of bench.py's token stream, 8 x 512 each, host
+    side (a process group's fit feeds them from the host)."""
+    x, y = _bench_tokens(ELASTIC_BATCH * ELASTIC_STEPS)
+    return td_data.Dataset.from_tensor_slices(
+        (x.cpu().numpy(), y.cpu().numpy())).batch(ELASTIC_BATCH)
+
+
+def _elastic_lm():
+    return _compiled_lm(Adam(ADAM_LR, fused=True), fused_ce=True)
+
+
+def _step_bytes(target: pathlib.Path, rank: int, chief: bool) -> int:
+    """The bytes ``rank`` wrote into the published step ``target``: its
+    shard files (v2), and the chief's arrays and manifest."""
+    names = [f"arrays-shard-{rank}.npz", f"shards-{rank}.json"]
+    if chief:
+        names += ["arrays.npz", "manifest.json"]
+    return sum((target / n).stat().st_size for n in names
+               if (target / n).exists())
+
+
+def elastic_worker(outdir: pathlib.Path) -> int:
+    """Phase 32's worker (``chip_smoke.py --elastic-worker DIR``, TF_CONFIG
+    in the environment): (c) the LM under {data: 1, model: 2} with v2
+    checkpoints (sync and async) and a v1 one, timed saves, DIR/one's
+    one-process v2 step restored and trained on; (d) the group's
+    reinitialize. Writes ``worker<rank>.pt`` into DIR."""
+    from tpu_dist_torch.training.callbacks import ModelCheckpoint
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for source in SOURCES:
+        _build.load(source)
+    strategy = MultiWorkerMirroredStrategy(communication="ring",
+                                          axis_shapes=TP_AXES)
+    rank, chief = bootstrap.process_index(), bootstrap.is_chief()
+    with strategy.scope():
+        model = _elastic_lm()
+    cbs = [ModelCheckpoint(str(outdir / "v2_sync"), sharded=True,
+                           async_save=False),
+           ModelCheckpoint(str(outdir / "v2_async"), sharded=True),
+           ModelCheckpoint(str(outdir / "v1"), async_save=False)]
+    _reset_counts()
+    loss = model.fit(_elastic_data(), epochs=ELASTIC_EPOCHS,
+                     steps_per_epoch=ELASTIC_STEPS, verbose=0,
+                     callbacks=cbs).history["loss"]
+    torch.cuda.synchronize()
+    out = {"counts": _counts(), "loss": loss, "save_s": {}, "bytes": {}}
+    for label, kw in (("v2", {"sharded": True}), ("v1", {})):
+        torch.distributed.barrier()
+        t0 = time.perf_counter()
+        checkpoint.save(outdir / f"timed_{label}", model, step=0, **kw)
+        out["save_s"][label] = time.perf_counter() - t0
+        out["bytes"][label] = _step_bytes(
+            outdir / f"timed_{label}" / "ckpt-0", rank, chief)
+    del model
+    torch.cuda.empty_cache()
+    # 1 -> 2: the one-process v2 step onto both ranks, then an epoch.
+    with strategy.scope():
+        reader = _elastic_lm()
+    torch.distributed.barrier()
+    t0 = time.perf_counter()
+    out["one_step"] = checkpoint.restore_model(outdir / "one", reader)
+    torch.cuda.synchronize()
+    out["restore_s"] = time.perf_counter() - t0
+    out["one_loss"] = reader.fit(_elastic_data(), epochs=1,
+                                 steps_per_epoch=ELASTIC_STEPS,
+                                 verbose=0).history["loss"]
+    del reader
+    torch.cuda.empty_cache()
+    # (d) the group re-dialled under generation 1.
+    dev = bootstrap.group_device()
+    x = torch.full((4,), float(rank + 1), device=dev)
+    torch.distributed.all_reduce(x)
+    params = bootstrap._live_group_params()
+    old_port = params["base_port"] + bootstrap.current_generation()
+    generation = bootstrap.reinitialize()
+    y = torch.full((4,), float(rank + 1), device=dev)
+    torch.distributed.all_reduce(y)
+    out["reinit"] = {**bootstrap.last_reinit, "old_port": old_port,
+                     "generation_returned": generation,
+                     "before": x.tolist(), "after": y.tolist(),
+                     "backend": torch.distributed.get_backend()}
+    torch.save(_cpu(out), outdir / f"worker{rank}.pt")
+    return 0
+
+
+def _resume_epoch(directory: pathlib.Path) -> dict:
+    """(c)'s one-process resume: restore ``directory``'s step 1 (end of
+    epoch 1) into the LM and fit epoch 2; restore seconds, losses and the
+    parameters and Adam states after."""
+    model = _elastic_lm()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step = checkpoint.restore_model(directory, model, step=1)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    loss = model.fit(_elastic_data(), epochs=ELASTIC_EPOCHS + 1,
+                     initial_epoch=ELASTIC_EPOCHS,
+                     steps_per_epoch=ELASTIC_STEPS,
+                     verbose=0).history["loss"]
+    state = {k: t.detach().cpu() for k, t in
+             checkpoint._live_tensors(model, gathered=False).items()}
+    del model
+    torch.cuda.empty_cache()
+    return {"step": step, "restore_s": restore_s, "loss": loss,
+            "state": state}
+
+
+def elastic_phase(card: str) -> dict:
+    """Phase 32: elasticity, (a)-(d). Returns each rank's launches on
+    (c)'s fit."""
+    t_phase = time.monotonic()
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip-smoke-32-"))
+    # (b) in the background while (c) and (d) run (its gates are parity
+    # and events, not times).
+    reshape = _start_chaos({"b": ["--reshape", "2,1", "--plan",
+                                  "preempt@step5"]}, tmp)
+    c = tmp / "c"
+    c.mkdir()
+    one = _elastic_lm()
+    one.fit(_elastic_data(), epochs=1, steps_per_epoch=ELASTIC_STEPS,
+            verbose=0)
+    checkpoint.save(c / "one", one, step=0, sharded=True)
+    del one
+    torch.cuda.empty_cache()
+    t_workers = time.monotonic()
+    workers = _spawn_dp_workers(c, "--elastic-worker")
+    t_workers = time.monotonic() - t_workers
+    # (c) every stitched v2 leaf against the v1 step's, bit for bit.
+    with np.load(c / "v1" / "ckpt-1" / "arrays.npz") as z:
+        v1 = {k: z[k] for k in z.files}
+    sharded = 0
+    for label in ("v2_sync", "v2_async"):
+        target = c / label / "ckpt-1"
+        manifest = json.loads((target / "manifest.json").read_text())
+        if (manifest["format"] != "tpu_dist.checkpoint.v2-sharded"
+                or manifest["process_count"] != 2):
+            raise AssertionError(f"(32 c) {label}: manifest {manifest}")
+        leaves = dict(checkpoint._iter_sharded_leaves(target))
+        if set(leaves) != set(v1):
+            raise AssertionError(f"(32 c) {label}: keys differ from v1's")
+        for key, assemble in leaves.items():
+            a = assemble()
+            if a.dtype != v1[key].dtype or a.tobytes() != v1[key].tobytes():
+                raise AssertionError(f"(32 c) {label}: {key} differs from "
+                                     f"the v1 step's")
+        sharded = sum(m["sharded"] for m in manifest["leaves"].values())
+    # 2 -> 1: one process resumes the v2 step for an epoch, bit for bit
+    # with the same resume from the v1 step.
+    r2, r1 = _resume_epoch(c / "v2_sync"), _resume_epoch(c / "v1")
+    if not (r2["step"] == r1["step"] == 1 and r2["loss"] == r1["loss"]
+            and all(torch.equal(r2["state"][k], r1["state"][k])
+                    for k in r1["state"])):
+        raise AssertionError(f"(32 c) 2 -> 1 resume: v2 losses "
+                             f"{r2['loss']} against v1's {r1['loss']}")
+    want = (LM["depth"] * ELASTIC_EPOCHS * ELASTIC_STEPS,) * 2 + (
+        ELASTIC_EPOCHS * ELASTIC_STEPS,) * 3 + (0,)
+    for rank, w in enumerate(workers):
+        if tuple(w["counts"]) != want:
+            raise AssertionError(f"(32 c) rank {rank} launches "
+                                 f"{w['counts']}; expected {want}")
+        if not (w["one_step"] == 0
+                and all(np.isfinite(l) for l in w["one_loss"])):
+            raise AssertionError(f"(32 c) rank {rank}: 1 -> 2 restore "
+                                 f"{w['one_step']}, losses {w['one_loss']}")
+    if workers[0]["loss"] != workers[1]["loss"]:
+        raise AssertionError(f"(32 c) the ranks' losses differ: "
+                             f"{[w['loss'] for w in workers]}")
+    log(f"[32 c] {{data: 1, model: 2}} LM, {ELASTIC_EPOCHS} x "
+        f"{ELASTIC_STEPS} steps of {ELASTIC_BATCH} x {LM['seq_len']}, losses "
+        f"{[float(f'{l:.7g}') for l in workers[0]['loss']]}: v2 (sync and "
+        f"async, {sharded} of {len(v1)} leaves in blocks) stitched bit for "
+        f"bit with v1; 2 -> 1 resume of epoch 2 bit for bit with v1's "
+        f"(loss {r1['loss']}); 1 -> 2 restore + an epoch (losses "
+        f"{[float(f'{l:.7g}') for l in workers[0]['one_loss']]}); workers "
+        f"{t_workers:.1f} s")
+    for rank, w in enumerate(workers):
+        log(f"[32 c] rank {rank}: bytes written v2 {w['bytes']['v2']} / v1 "
+            f"{w['bytes']['v1']}; save s v2 {w['save_s']['v2']:.4f} / v1 "
+            f"(gather and write) {w['save_s']['v1']:.4f}; restore s (1 -> "
+            f"2) {w['restore_s']:.4f}; launches {tuple(w['counts'])}")
+    log(f"[32 c] one process: restore s v2 (2 -> 1, stitched) "
+        f"{r2['restore_s']:.4f} / v1 {r1['restore_s']:.4f}; {card}")
+    # (d) the gloo group of CUDA tensors re-dialled on base + 1.
+    for rank, w in enumerate(workers):
+        r = w["reinit"]
+        if not (r["generation"] == r["generation_returned"] == 1
+                and r["before"] == r["after"] == [3.0] * 4
+                and r["port"] == r["old_port"] + 1):
+            raise AssertionError(f"(32 d) rank {rank}: {r}")
+        log(f"[32 d] rank {rank} ({r['backend']}): all-reduce {r['before']}"
+            f" at generation 0 on port {r['old_port']}, {r['after']} at "
+            f"generation 1 on port {r['port']}; teardown "
+            f"{r['teardown_s'] * 1e3:.2f} ms, bring-up "
+            f"{r['init_s'] * 1e3:.2f} ms")
+    # (b)'s report.
+    rep = _finish_chaos(reshape, tmp, "32")["b"]
+    restores = [(r["saved_process_count"], r["process_count"])
+                for r in rep["reshape_restores"]]
+    if not (rep["exit_kinds"][0] == ["preempted", "preempted"]
+            and restores == [(2, 1)] and rep["loss_delta"] <= 1e-5):
+        raise AssertionError(f"(32 b) {rep}")
+    log(f"[32 b] --reshape 2,1 preempt@step5: exit kinds "
+        f"{rep['exit_kinds']}, reshape_restores {rep['reshape_restores']}, "
+        f"loss_delta {rep['loss_delta']!r} (final {rep['final_loss']!r}), "
+        f"recovery_wall_s {rep['recovery_wall_s']}, run "
+        f"{rep['wall_s']:.1f} s")
+    # (a) alone: its gate compares two legs' wall times.
+    rep = _train_chaos({"a": ["--step-rejoin", "--plan",
+                              "kill-worker@step6:rank1"]}, tmp, "32")["a"]
+    legs = rep["step_rejoin"]
+    if not (legs["reform"]["restarts"] == 0 and rep["loss_delta"] == 0.0
+            and legs["reform"]["gang_reforms"] == [1]):
+        raise AssertionError(f"(32 a) {rep}")
+    log(f"[32 a] --step-rejoin kill-worker@step6:rank1: recovery_wall_s "
+        f"control (gang restart) {legs['control']['recovery_wall_s']} / "
+        f"reform {legs['reform']['recovery_wall_s']}, speedup "
+        f"{legs['speedup']}, breakdown {rep['recovery_breakdown']}, "
+        f"loss_delta {rep['loss_delta']!r}, run {rep['wall_s']:.1f} s; "
+        f"{card}")
+    log(f"[32] done in {time.monotonic() - t_phase:.1f} s")
+    return {f"elastic_rank{rank}": tuple(w["counts"])
+            for rank, w in enumerate(workers)}
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--dp-worker"]:
         return dp_worker(pathlib.Path(sys.argv[2]))
@@ -6596,6 +6863,8 @@ def main() -> int:
         return tp_worker(pathlib.Path(sys.argv[2]))
     if sys.argv[1:2] == ["--pp-worker"]:
         return pp_worker(pathlib.Path(sys.argv[2]))
+    if sys.argv[1:2] == ["--elastic-worker"]:
+        return elastic_worker(pathlib.Path(sys.argv[2]))
     t0 = time.monotonic()
     card = device_phase()
     build_phase()
@@ -6710,6 +6979,15 @@ def main() -> int:
     # 6-9; its rolled-back plain-CE fits rows 5 and 6-9, the replayed epoch
     # included.
     for label, counts in train_chaos_phase(card).items():
+        for rec, count in zip(new_records[:2], counts[3:5]):
+            rec["launches_by_path"][label] = count
+        adam_record["launches_by_path"][label] = counts[2]
+        record["launches_by_path"][label] = counts[0]
+        for rec in bwd_records:
+            rec["launches_by_path"][label] = counts[1]
+    # Phase 32's paths: each rank's sharded-checkpointed LM fit under
+    # {data: 1, model: 2} launches rows 1-2, 5 and 6-9.
+    for label, counts in elastic_phase(card).items():
         for rec, count in zip(new_records[:2], counts[3:5]):
             rec["launches_by_path"][label] = count
         adam_record["launches_by_path"][label] = counts[2]

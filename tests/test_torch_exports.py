@@ -24,9 +24,6 @@ PACKAGES = ("", "ops", "serve", "training", "observe", "models", "data",
 NOT_YET_PORTED = {
     "OptaxWrapper": "not ported, by decision (optax has no PyTorch "
                     "counterpart)",
-    # item 18b: elasticity (the gang reform and the step rejoin)
-    "GangReform": "item 18b", "StepRejoinGate": "item 18b",
-    "maybe_step_rejoin_gate": "item 18b",
     # item 20: the parameter server
     "ParameterServerStrategy": "item 20",
 }

@@ -44,7 +44,6 @@ from tpu_dist_torch.models.bridge import variables_from_jax
 from tpu_dist_torch.ops import losses, optimizers
 from tpu_dist_torch.parallel import MirroredStrategy
 from tpu_dist_torch.serve import fleet
-from tpu_dist_torch.training import checkpoint
 from tpu_dist_torch.utils.errors import unported
 from test_torch_multiworker import _run_workers
 
@@ -340,13 +339,11 @@ def test_sync_bn_variance_is_centred_on_off_centre_data(tmp_path):
 
 @pytest.mark.parametrize("call, item", [
     # Items 12, 17a and 17b ported the data, model, seq, pipe and expert
-    # axes; several devices in one process, the sharded checkpoint layout
-    # and the fleet's leased submeshes stay unported.
+    # axes, and 18b the sharded checkpoint layout; several devices in one
+    # process and the fleet's leased submeshes stay unported.
     (lambda: MirroredStrategy(devices=["cpu", "cpu"]), "12b"),
-    (lambda: checkpoint.save("unused", {"params": {}}, step=0,
-                             sharded=True), "18"),
     (lambda: fleet.ServeFleet(lambda: None, devices_per_replica=2), "20"),
-], ids=["run", "sharded_checkpoint", "devices_per_replica"])
+], ids=["run", "devices_per_replica"])
 def test_unported_names_the_roadmap_item(call, item):
     with pytest.raises(NotImplementedError,
                        match=rf"item {item} of queue 1 in ROADMAP\.md"):

@@ -1903,3 +1903,113 @@ def test_a_rolled_back_fit_equals_the_clean_fit_bit_for_bit(
     assert rb["restored_step"] == 0 and rb["next_epoch"] == 1
     assert chaos[0] == clean[0]
     assert all(torch.equal(a, b) for a, b in zip(chaos[1], clean[1]))
+
+
+# -- elasticity on the card (item 18b) ------------------------------------------------
+
+_ELASTIC_WORKER = '''
+import json, os, sys
+import numpy as np
+import torch
+import tpu_dist_torch as td
+from tpu_dist_torch.cluster import bootstrap
+from tpu_dist_torch.models.transformer import build_transformer_lm
+from tpu_dist_torch.ops import fused
+from tpu_dist_torch.ops.losses import SparseCategoricalCrossentropy
+from tpu_dist_torch.ops.optimizers import Adam
+from tpu_dist_torch.training import checkpoint
+from tpu_dist_torch.training.callbacks import ModelCheckpoint
+
+strategy = td.MultiWorkerMirroredStrategy(
+    communication="ring", axis_shapes={"data": 1, "model": 2})
+rank = bootstrap.process_index()
+with strategy.scope():
+    model = build_transformer_lm(64, 16, d_model=64, depth=2, num_heads=2,
+                                 seed=0)
+    model.compile(optimizer=Adam(fused=True), loss=
+                  SparseCategoricalCrossentropy(from_logits=True,
+                                                fused=True))
+stream = (np.arange(16 * 16 + 1) * 2654435761) % 64
+x = stream[:-1].reshape(16, 16).astype(np.int64)
+y = stream[1:].reshape(16, 16).astype(np.int64)
+fused.fused_adam_apply.launches = 0
+model.fit(td.data.Dataset.from_tensor_slices((x, y)).batch(8), epochs=2,
+          verbose=0, callbacks=[ModelCheckpoint("v2", sharded=True),
+                                ModelCheckpoint("v1", async_save=False)])
+out = {"adam": fused.fused_adam_apply.launches}
+dev = bootstrap.group_device()
+a = torch.full((3,), float(rank + 1), device=dev)
+torch.distributed.all_reduce(a)
+out["generation"] = bootstrap.reinitialize()
+b = torch.full((3,), float(rank + 1), device=dev)
+torch.distributed.all_reduce(b)
+out.update(before=a.tolist(), after=b.tolist(), reinit=bootstrap.last_reinit)
+print(json.dumps(out))
+'''
+
+
+def _two_card_workers(tmp_path, script):
+    import json
+    import os
+    import pathlib
+    import socket
+    import subprocess
+    import sys
+
+    from tpu_dist_torch.cluster import make_local_cluster
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    (tmp_path / "worker.py").write_text(script)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, "worker.py"], cwd=tmp_path, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        env=dict(os.environ, TF_CONFIG=json.dumps(cfg), PYTHONPATH=str(root)))
+        for cfg in make_local_cluster(2, base_port=port)]
+    outs = []
+    for p in procs:
+        out, err = p.communicate(timeout=300)
+        assert p.returncode == 0, err[-3000:]
+        outs.append(json.loads(out.strip().splitlines()[-1]))
+    return outs
+
+
+@pytest.mark.gpu
+def test_sharded_checkpoint_and_reinitialize_on_two_gloo_ranks_of_the_card(
+        cuda_device, tmp_path):
+    # Two ranks under {model: 2} on one card (gloo on CUDA tensors): the
+    # v2 step's stitched leaves equal the gathered v1 step's bit for bit,
+    # one process resumes either to the same bytes, and the group
+    # re-dials on the next port with an all-reduce before and after.
+    from tpu_dist_torch.models import bridge
+    from tpu_dist_torch.training import checkpoint
+
+    outs = _two_card_workers(tmp_path, _ELASTIC_WORKER)
+    for out in outs:
+        assert out["adam"] == 4 and out["generation"] == 1
+        assert out["before"] == out["after"] == [3.0] * 3
+        assert out["reinit"]["teardown_s"] < 5.0
+    assert len({out["reinit"]["port"] for out in outs}) == 1
+    with np.load(tmp_path / "v1" / "ckpt-1" / "arrays.npz") as z:
+        v1 = {k: z[k] for k in z.files}
+    leaves = dict(checkpoint._iter_sharded_leaves(tmp_path / "v2" / "ckpt-1"))
+    assert set(leaves) == set(v1)
+    for key, assemble in leaves.items():
+        assert assemble().tobytes() == v1[key].tobytes(), key
+    got = []
+    for d in ("v2", "v1"):
+        model = build_transformer_lm(64, 16, d_model=64, depth=2,
+                                     num_heads=2, seed=5)
+        model.compile(optimizer=Adam(fused=True), loss=
+                      SparseCategoricalCrossentropy(from_logits=True,
+                                                    fused=True),
+                      device=cuda_device)
+        assert checkpoint.restore_model(tmp_path / d, model) == 1
+        got.append({k: t.detach().cpu().numpy() for k, t in
+                    bridge.checkpoint_tensors(
+                        model, model._trainer.variables["opt"]).items()})
+    for key in v1:
+        assert got[0][key].tobytes() == got[1][key].tobytes() \
+            == v1[key].tobytes(), key

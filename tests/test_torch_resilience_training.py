@@ -323,10 +323,8 @@ def test_an_unreachable_store_raises_peer_unavailable(ranks):
 # -- the chaos CLI -------------------------------------------------------------------
 
 @pytest.mark.parametrize("argv, item", [
-    (["--step-rejoin", "--plan", "kill@step5"], "18b"),
-    (["--reshape", "2,1", "--plan", "kill@step5"], "18b"),
     (["--ps-chaos"], "20"),
-], ids=["step_rejoin", "reshape", "ps_chaos"])
+], ids=["ps_chaos"])
 def test_unported_cli_modes_name_their_item(argv, item):
     with pytest.raises(NotImplementedError,
                        match=rf"item {item} of queue 1 in ROADMAP\.md"):
@@ -338,14 +336,6 @@ def test_cli_usage_errors(tmp_path):
     # bitflip needs replicas, and a replica is a worker process here.
     assert cli.main(["--plan", "bitflip@step9:leaf1:replica1",
                      "--workdir", str(tmp_path)]) == 2
-
-
-def test_demo_sharded_checkpoints_are_unported(monkeypatch):
-    from tpu_dist_torch.resilience import entrypoints
-
-    monkeypatch.setenv("TPU_DIST_DEMO_SHARDED", "1")
-    with pytest.raises(NotImplementedError, match="item 18b"):
-        entrypoints.demo_train(device="cpu")
 
 
 def test_kill_worker_chaos_run_end_to_end(tmp_path):

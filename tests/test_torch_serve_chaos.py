@@ -127,13 +127,11 @@ def test_serve_supervisor_matches_reference(tmp_path, name):
 
 
 def test_unported_supervisor_arguments_raise(tmp_path):
-    for kw, item in ((dict(worker_schedule=[2, 1]), 18),
-                     (dict(device_schedule=[1]), 18),
-                     (dict(rejoin_window_s=5.0), 18),
-                     (dict(step_rejoin_dir=tmp_path), 18)):
-        with pytest.raises(NotImplementedError,
-                           match=f"item {item} of queue 1"):
-            supervisor.Supervisor(_cmd("clean"), **kw)
+    # Item 18b ported the elastic arguments; several devices a process
+    # (a device count above 1) is item 12b.
+    with pytest.raises(NotImplementedError, match="item 12b of queue 1"):
+        supervisor.Supervisor(_cmd("clean"), device_schedule=[2])
+    supervisor.Supervisor(_cmd("clean"), device_schedule=[1, 1])
     with pytest.raises(NotImplementedError, match="item 20"):
         cli.main(["--fleet", "--devices-per-replica", "2"])
 

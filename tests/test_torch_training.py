@@ -32,8 +32,7 @@ from tpu_dist_torch.ops import fused
 from tpu_dist_torch.ops import losses, metrics
 from tpu_dist_torch.ops import optimizers as opt
 from tpu_dist_torch.parallel import MirroredStrategy
-from tpu_dist_torch.training.callbacks import (Callback, ModelCheckpoint,
-                                               StopTraining)
+from tpu_dist_torch.training.callbacks import Callback, StopTraining
 
 VOCAB, SEQ = 64, 16
 TOL = dict(atol=2e-5, rtol=2e-5)
@@ -165,20 +164,6 @@ def test_callbacks_see_batches_and_can_stop_training(capsys):
     assert all(np.isfinite(v) for _, v in seen)
     out = capsys.readouterr().out
     assert "Epoch 1/5" in out and "2/2" in out
-
-
-@pytest.mark.parametrize("knob,call,item", [
-    # fit(checkpoint_dir=) is ported (test_torch_checkpoint.py); the
-    # sharded layout its ModelCheckpoint could take is not.
-    ("checkpoint_dir", lambda m: m.fit(
-        _tokens(32, 0), checkpoint_dir="c",
-        callbacks=[ModelCheckpoint("c", sharded=True)]), "item 18"),
-])
-def test_unported_knobs_raise_naming_the_roadmap(knob, call, item):
-    _, model = _compiled_pair(OPTIMIZERS["sgd"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md") as err:
-        call(model)
-    assert item in str(err.value)
 
 
 def test_gradient_bucket_bytes_fit_matches_the_references_bucketed_fit():

@@ -29,7 +29,10 @@ within the timeout (one host always does). Knobs, the JAX package's:
 which ``bootstrap``'s shutdown calls before it destroys the process group,
 and they end by themselves once the group they were started on is gone.
 ``MultiWorkerMirroredStrategy`` starts the shared monitor after its
-startup barrier, where the reference starts its health checks.
+startup barrier, where the reference starts its health checks;
+``bootstrap.reinitialize`` stops it before a reform and restarts it on the
+new group. ``rejoin_window_s > 0`` is the reference's rejoin window
+(:class:`LivenessMonitor`).
 """
 
 from __future__ import annotations
@@ -198,23 +201,36 @@ class LivenessMonitor:
     """The background peer-health check: this process's heartbeat thread
     and a probe every ``interval_s``; a dead peer (or an unreachable
     store) fails the monitor for good, and :meth:`raise_if_failed`
-    surfaces it. The JAX package's rejoin window (suspect peers that may
-    come back) is elasticity, ROADMAP.md queue 1, item 18b: a window > 0
-    raises."""
+    surfaces it.
+
+    With ``rejoin_window_s > 0`` (the JAX package's elastic extension) a
+    dead peer is first a suspect until ``rejoin_window_s`` after it was
+    detected: one that answers again inside its window recovers
+    (``peer_rejoined``), one still dead past it fails the monitor
+    (``peer_rejoin_expired``); each suspect has its own deadline. A new
+    suspect's ``detect_s`` (``elastic.detect_s``, the ``peer_suspect``
+    event) is measured from the last round it answered in, else from the
+    last healthy round."""
 
     def __init__(self, interval_s: float = DEFAULT_INTERVAL_S,
                  timeout_s: float = DEFAULT_TIMEOUT_S,
                  rejoin_window_s: float = 0.0):
-        if rejoin_window_s > 0:
-            from tpu_dist_torch.utils.errors import unported
-
-            raise unported("LivenessMonitor(rejoin_window_s > 0)", "18b")
         self.interval_s = interval_s
         self.timeout_s = timeout_s
+        self.rejoin_window_s = float(rejoin_window_s)
         self._stop = threading.Event()
         self._threads: list = []
         self._dead_peers: Sequence[int] = []
         self._failed = threading.Event()
+        #: peer -> monotonic deadline by which it must answer again.
+        self._suspects: dict = {}
+        #: peer -> monotonic time it last answered (``detect_s``'s base).
+        self._last_seen: dict = {}
+        #: Detection latency of the newest suspect, seconds.
+        self.last_detect_s: Optional[float] = None
+        #: Monotonic time of the previous round: the base of a peer never
+        #: seen on its own.
+        self._prev_round_t: Optional[float] = None
 
     def start(self) -> "LivenessMonitor":
         """Start the heartbeat and probe threads (no-op for one process,
@@ -281,18 +297,66 @@ class LivenessMonitor:
             if self._observe(dead):
                 return
 
-    def _observe(self, dead: Sequence[int]) -> bool:
-        """Fold one probe's dead peers in; True once failed."""
+    def _observe(self, dead: Sequence[int],
+                 now: Optional[float] = None) -> bool:
+        """Fold one probe's dead peers in; True once failed (terminal:
+        a late answer clears nothing). ``now`` is for tests."""
+        from tpu_dist_torch.resilience import events
+
+        now = time.monotonic() if now is None else now
         if self._failed.is_set():
             return True
-        if dead:
-            self._dead_peers = sorted(set(dead))
+        dead_set = set(dead)
+        if self.rejoin_window_s <= 0 and dead_set:
+            self._dead_peers = sorted(dead_set)
             self._failed.set()
             logger.error(
                 "peer process(es) %s unreachable; collectives will not "
                 "complete — restart the job", self._dead_peers)
             return True
+        for peer in dead_set - set(self._suspects):
+            base = self._last_seen.get(peer, self._prev_round_t)
+            detect_s = None if base is None else max(0.0, now - base)
+            self.last_detect_s = detect_s
+            if detect_s is not None:
+                from tpu_dist_torch.observe import metrics as metrics_lib
+
+                metrics_lib.observe_value("elastic.detect_s", detect_s)
+            self._suspects[peer] = now + self.rejoin_window_s
+            logger.warning("peer %d unreachable; suspect for %.0fs pending "
+                           "rejoin", peer, self.rejoin_window_s)
+            events.maybe_log(
+                "peer_suspect", peer=peer,
+                rejoin_window_s=self.rejoin_window_s,
+                detect_s=None if detect_s is None else round(detect_s, 6))
+        for peer in sorted(set(self._suspects) - dead_set):
+            del self._suspects[peer]
+            self._last_seen[peer] = now
+            logger.info("peer %d answered again; rejoin complete", peer)
+            events.maybe_log("peer_rejoined", peer=peer)
+        expired = sorted(p for p, t in self._suspects.items() if now > t)
+        if expired:
+            self._dead_peers = expired
+            self._failed.set()
+            logger.error("peer process(es) %s did not rejoin within %.0fs; "
+                         "restart the job", expired, self.rejoin_window_s)
+            events.maybe_log("peer_rejoin_expired", peers=expired)
+            return True
+        self._prev_round_t = now
         return False
+
+    @property
+    def suspect_peers(self) -> Sequence[int]:
+        """Peers inside their rejoin window (not yet condemned)."""
+        return sorted(self._suspects)
+
+    def reset(self) -> None:
+        """Forget every verdict (a reformed group starts healthy)."""
+        self._failed.clear()
+        self._dead_peers = []
+        self._suspects.clear()
+        self._last_seen.clear()
+        self._prev_round_t = None
 
     @property
     def failed(self) -> bool:
@@ -324,10 +388,21 @@ def shared_monitor() -> LivenessMonitor:
         return _shared_monitor
 
 
-def stop_shared() -> None:
+def stop_shared() -> bool:
     """Stop the shared monitor's threads, if any (before the process group
-    is destroyed)."""
+    is destroyed); True when they were running."""
     with _shared_lock:
         monitor = _shared_monitor
-    if monitor is not None:
-        monitor.stop()
+    if monitor is None:
+        return False
+    ran = any(t.is_alive() for t in monitor._threads)
+    monitor.stop()
+    return ran
+
+
+def restart_shared() -> None:
+    """Start the shared monitor afresh on the current process group (after
+    ``bootstrap.reinitialize``): verdicts on the old group are dropped."""
+    monitor = shared_monitor()
+    monitor.reset()
+    monitor.start()

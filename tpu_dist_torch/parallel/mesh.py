@@ -22,7 +22,8 @@ The processes fill the mesh in row-major order of its axes. A mesh over
 several processes with more than one axis of size > 1 gets one process
 subgroup per slice of each axis (:func:`axis_group`), made once, by every
 process in the same order (``torch.distributed.new_group``'s rule); an
-axis spanning every process is the whole group. No process group is
+axis spanning every process is the whole group. A reform
+(``bootstrap.reinitialize``) makes them again under the new group. No process group is
 started here: the mesh reads the one ``cluster/bootstrap.py`` brought up,
 or none (one process).
 """
@@ -181,6 +182,31 @@ def _make_groups(mesh: Mesh) -> None:
                 if me in ranks:
                     groups[axis] = group
     _GROUPS[key] = groups
+    if (mesh.axis_names, mesh.sizes) not in _MADE:
+        _MADE.append((mesh.axis_names, mesh.sizes))
+
+
+#: The ``(axis names, sizes)`` of every multi-process mesh, in the order
+#: their groups were made: the order every process remakes them in after
+#: a reform (:func:`_remake_groups`).
+_MADE: list = []
+
+
+def _remake_groups() -> None:
+    """After ``bootstrap.reinitialize`` brought a new process group up:
+    the subgroups died with the old one, so every process makes them anew
+    under the new group, in the order they were first made (the
+    ``ModelShard``s that hold them are re-pointed by
+    ``parallel/tensor.py``'s hook, which runs after this one)."""
+    made = list(_MADE)
+    _GROUPS.clear()
+    _MADE.clear()
+    for names, sizes in made:
+        if math.prod(sizes) == bootstrap.process_count():
+            _make_groups(Mesh(names, sizes, torch.device("cpu")))
+
+
+bootstrap.on_reinitialize(_remake_groups)
 
 
 def axis_group(mesh: Mesh, axis: str):

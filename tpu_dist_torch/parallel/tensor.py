@@ -50,11 +50,13 @@ from __future__ import annotations
 import collections
 import dataclasses
 import time
+import weakref
 from typing import Any, Optional
 
 import torch
 import torch.distributed as dist
 
+from tpu_dist_torch.cluster import bootstrap
 from tpu_dist_torch.parallel.axes import EXPERT_AXIS, MODEL_AXIS, PIPE_AXIS
 
 #: Column-parallel attention projections (output dim = heads * key_dim).
@@ -218,6 +220,24 @@ def prune_indivisible(specs, tree, mesh):
 
 # -- the collectives of a sharded layer ----------------------------------------------
 
+#: Every live :class:`ModelShard`, for :func:`_regroup_shards`.
+_SHARDS: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def _regroup_shards() -> None:
+    """After a reform brought a new process group up: point every live
+    shard at its axis's new group (the old one died with the old
+    clique)."""
+    from tpu_dist_torch.parallel import mesh as mesh_lib
+
+    for shard in list(_SHARDS):
+        if shard.mesh is not None and shard.axis is not None:
+            shard.group = mesh_lib.axis_group(shard.mesh, shard.axis)
+
+
+bootstrap.on_reinitialize(_regroup_shards)
+
+
 @dataclasses.dataclass(eq=False)
 class ModelShard:
     """This process's place on the model axis: its process group, the
@@ -233,6 +253,13 @@ class ModelShard:
     calls: collections.Counter = dataclasses.field(
         default_factory=collections.Counter)
     seconds: float = 0.0
+    #: The mesh and axis the group is of: a reform rebuilds ``group`` from
+    #: them (``bootstrap.reinitialize``, :func:`_regroup_shards`).
+    mesh: Any = None
+    axis: Optional[str] = None
+
+    def __post_init__(self):
+        _SHARDS.add(self)
 
     def __deepcopy__(self, memo):
         return self
@@ -383,7 +410,8 @@ def shard_model(model, mesh, *, axis_name: str = MODEL_AXIS) -> dict:
     size = mesh.shape.get(axis_name, 1)
     if size > 1:
         shard = ModelShard(mesh_lib.axis_group(mesh, axis_name), size,
-                           mesh_lib.coordinate(mesh, axis_name))
+                           mesh_lib.coordinate(mesh, axis_name), mesh=mesh,
+                           axis=axis_name)
         tree = _nest(named.items())
         specs = _flatten(prune_indivisible(
             tensor_parallel_specs(tree, axis_name=axis_name), tree, mesh))
@@ -477,7 +505,8 @@ def _shard_stacked(model, mesh, layout: dict, owners: dict) -> None:
         if axis not in groups:
             groups[axis] = ModelShard(mesh_lib.axis_group(mesh, axis),
                                       mesh.shape[axis],
-                                      mesh_lib.coordinate(mesh, axis))
+                                      mesh_lib.coordinate(mesh, axis),
+                                      mesh=mesh, axis=axis)
         shard = groups[axis]
         for n, _ in m.named_parameters():
             if n != "router":

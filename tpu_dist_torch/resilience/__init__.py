@@ -5,12 +5,12 @@ Counterpart of ``tpu_dist/resilience``: the deterministic fault grammar
 (:mod:`~tpu_dist_torch.resilience.faults`), the shared event log
 (:mod:`~tpu_dist_torch.resilience.events`), the training and serve fault
 injectors and the preemption drain
-(:mod:`~tpu_dist_torch.resilience.injector`), the supervision loop
+(:mod:`~tpu_dist_torch.resilience.injector`), the mid-epoch gang reform
+(:mod:`~tpu_dist_torch.resilience.rejoin`), the elastic supervision loop
 (:mod:`~tpu_dist_torch.resilience.supervisor`), the supervised entry point
 (:mod:`~tpu_dist_torch.resilience.entrypoints`) and the chaos runner
 ``python -m tpu_dist_torch.resilience`` (:mod:`~tpu_dist_torch.resilience.
-cli`). The gang reform and the step rejoin gate are ROADMAP.md queue 1,
-item 18b.
+cli`).
 """
 
 from tpu_dist_torch.resilience.events import (ATTEMPT_ENV, EVENT_LOG_ENV,
@@ -22,6 +22,8 @@ from tpu_dist_torch.resilience.faults import (EXIT_FAULT_KILL,
                                               FaultSpec, describe)
 from tpu_dist_torch.resilience.injector import (FaultInjector,
                                                 maybe_injector_from_env)
+from tpu_dist_torch.resilience.rejoin import (GangReform, StepRejoinGate,
+                                              maybe_step_rejoin_gate)
 from tpu_dist_torch.resilience.supervisor import (BackoffPolicy, Supervisor,
                                                   SupervisorReport)
 
@@ -32,4 +34,5 @@ __all__ = [
     "FaultPlan", "FaultSpec", "describe",
     "FaultInjector", "maybe_injector_from_env",
     "BackoffPolicy", "Supervisor", "SupervisorReport",
+    "GangReform", "StepRejoinGate", "maybe_step_rejoin_gate",
 ]

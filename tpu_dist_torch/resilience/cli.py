@@ -33,9 +33,28 @@ the gang (``TPU_DIST_DEMO_STRATEGY=mirrored``: gloo, one replica a
 process). The JAX package runs a ``bitflip`` plan over 8 virtual devices in
 one process; the port has one device a process, so it runs bitflip over
 ``--workers >= 2`` ranks (a replica is a rank) and refuses ``--workers 1``
-with a usage error. ``--step-rejoin`` and ``--reshape`` are elasticity
-(ROADMAP.md item 18b) and ``--ps-chaos`` the parameter server (item 20):
-each raises ``unported``.
+with a usage error. ``--ps-chaos``, the parameter server (ROADMAP.md item
+20), raises ``unported``.
+
+Elasticity, the reference's two modes:
+
+* ``--step-rejoin`` runs the same kill plan through two supervised legs of
+  a >= 2-worker file gang (single-process workers, rank-scoped checkpoint
+  directories, meeting only in the shared directory): the control
+  recovers by a gang restart, the reform leg by the mid-epoch gang reform
+  (``Supervisor(step_rejoin_dir=)``). Gates: a fault fired in both legs;
+  the reform leg has no restart, a ``gang_reform`` and a
+  ``worker_rejoin``; its ``recovery_wall_s`` is strictly below the
+  control's; its final loss equals the baseline's exactly. The report
+  carries ``recovery_breakdown`` (``detect_s``, ``drain_s``,
+  ``reform_s``, ``restore_s``).
+* ``--reshape N,M[,...]`` gives attempt k the k-th count. The reference's
+  counts are devices in one process; here they are process counts (one
+  device each, ROADMAP item 12b), handed to ``Supervisor(
+  worker_schedule=)`` with the demo data-parallel over the gang and
+  checkpointing the v2 layout, so the restart restores a step written by
+  N processes onto M. It needs a ``reshape_restore`` event; ``--workers``
+  beside it is a usage error. The baseline runs in one process.
 """
 
 from __future__ import annotations
@@ -89,14 +108,17 @@ def _clean_env(extra: dict) -> dict:
     """os.environ minus any resilience or observe wiring of OUR caller,
     plus ``extra``: each run (baseline, chaos) gets exactly its own
     knobs."""
+    from tpu_dist_torch.cluster import bootstrap
     from tpu_dist_torch.observe.telemetry import OBSERVE_DIR_ENV
 
     env = {k: v for k, v in os.environ.items()
            if k not in (FAULT_PLAN_ENV, events.EVENT_LOG_ENV,
                         events.ATTEMPT_ENV, CHECKPOINT_DIR_ENV,
                         OBSERVE_DIR_ENV, "TF_CONFIG",
-                        "TPU_DIST_GANG_REJOIN", "TPU_DIST_RESTORE_STEP",
-                        "TPU_DIST_REJOIN_RANK", "TPU_DIST_REJOIN_WORLD")
+                        bootstrap.REJOIN_DIR_ENV, bootstrap.GANG_DIR_ENV,
+                        bootstrap.GENERATION_ENV, "TPU_DIST_GANG_REJOIN",
+                        "TPU_DIST_RESTORE_STEP", "TPU_DIST_REJOIN_RANK",
+                        "TPU_DIST_REJOIN_WORLD")
            and not k.startswith("TPU_DIST_INTEGRITY")}
     env.update(extra)
     return env
@@ -157,10 +179,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--timeout", type=float, default=600.0,
                    help="overall per-run timeout for the baseline")
     p.add_argument("--step-rejoin", action="store_true",
-                   help="mid-epoch gang reform (ROADMAP.md item 18b: not "
-                        "ported)")
+                   help="mid-epoch gang-reform scenario: the same kill plan "
+                        "twice on a >= 2-worker gang, once recovering by a "
+                        "gang restart (the control), once by the mid-epoch "
+                        "reform; gates on the reform's recovery_wall_s "
+                        "strictly below the control's, no restart, >= 1 "
+                        "gang_reform, and exact loss parity with the "
+                        "baseline")
     p.add_argument("--reshape", default=None, metavar="N,M[,...]",
-                   help="elastic reshape schedule (item 18b: not ported)")
+                   help="elastic reshape schedule: attempt k runs on the "
+                        "k-th PROCESS count (last repeats), e.g. 2,1 = die "
+                        "on 2 processes, restart reshaped onto 1; the demo "
+                        "trains data-parallel with v2 sharded checkpoints "
+                        "and a reshape_restore must happen. The baseline "
+                        "runs in one process")
     p.add_argument("--ps-chaos", action="store_true",
                    help="parameter-server chaos legs (item 20: not ported)")
     return p
@@ -183,10 +215,6 @@ def main(argv: Optional[list] = None) -> int:
     args = build_parser().parse_args(argv)
     if args.ps_chaos:
         raise unported("--ps-chaos (the parameter server's chaos legs)", 20)
-    if args.step_rejoin:
-        raise unported("--step-rejoin (mid-epoch gang reform)", "18b")
-    if args.reshape:
-        raise unported("--reshape (elastic reshape-on-restore)", "18b")
     if not args.plan:
         print("error: --plan is required", file=sys.stderr)
         return 2
@@ -199,13 +227,26 @@ def main(argv: Optional[list] = None) -> int:
               "compares replicas, and a replica is a worker process here "
               "(one device each)", file=sys.stderr)
         return 2
+    if args.step_rejoin and args.reshape:
+        print("error: --step-rejoin and --reshape are mutually exclusive",
+              file=sys.stderr)
+        return 2
+    reshape = _parse_reshape(args.reshape)
+    if reshape and args.workers != 1:
+        print("error: --reshape gives every attempt's process count; "
+              "--workers does not go with it", file=sys.stderr)
+        return 2
     workdir = pathlib.Path(args.workdir or tempfile.mkdtemp(
         prefix="tpu-dist-chaos-"))
     workdir.mkdir(parents=True, exist_ok=True)
     print(f"chaos workdir: {workdir}", file=sys.stderr)
     for line in describe(plan):
         print(f"fault: {line}", file=sys.stderr)
-    demo_env = _demo_env(plan, args.workers)
+    if args.step_rejoin:
+        return _run_step_rejoin(args, plan, workdir)
+    demo_env = _demo_env(plan, max(reshape or [args.workers]))
+    if reshape:
+        demo_env["TPU_DIST_DEMO_SHARDED"] = "1"
     integrity_faults = [f for f in plan.faults if f.kind in INTEGRITY_KINDS]
 
     baseline = None
@@ -234,7 +275,7 @@ def main(argv: Optional[list] = None) -> int:
         backoff=BackoffPolicy(initial_s=args.backoff),
         env=_clean_env(extra_env), log_dir=workdir / "logs",
         event_log=events.EventLog(event_path, role="supervisor"),
-        observe_dir=workdir / "observe")
+        observe_dir=workdir / "observe", worker_schedule=reshape)
     sup_report = sup.run()
 
     final = None
@@ -243,6 +284,10 @@ def main(argv: Optional[list] = None) -> int:
             sup_report.attempts - 1, 0).read_text(errors="replace"))
     report = _report(plan, workdir, event_path, sup_report, final)
     ok = report.pop("_ok")
+    if reshape and not report["reshape_restores"]:
+        ok = False
+        report["failure"] = ("--reshape given but no reshape_restore "
+                             "happened — vacuous reshape run")
     if integrity_faults:
         ok = _integrity_gate(report, event_path, sup_report) and ok
     if baseline is not None:
@@ -265,6 +310,163 @@ def main(argv: Optional[list] = None) -> int:
     return 0 if ok else 1
 
 
+def _parse_reshape(arg: Optional[str]) -> Optional[list]:
+    if not arg:
+        return None
+    try:
+        counts = [int(tok) for tok in arg.split(",") if tok.strip()]
+    except ValueError:
+        counts = []
+    if len(counts) < 2 or any(n < 1 for n in counts):
+        raise SystemExit(
+            f"error: --reshape wants >= 2 comma-separated positive process "
+            f"counts (e.g. 2,1), got {arg!r}")
+    return counts
+
+
+def _supervised_leg(args, plan, leg_dir: pathlib.Path, *, workers: int,
+                    step_rejoin: bool):
+    """One supervised chaos run in ``leg_dir``; returns (sup, report,
+    event log path). Both legs of ``--step-rejoin`` run through here with
+    the same knobs but ``step_rejoin``, so their recovery_wall_s differ by
+    the mechanism alone. The workers are single-process (no process group:
+    the demo brings one up only under ``TPU_DIST_DEMO_STRATEGY``), each
+    the chief of its own rank-scoped checkpoint directory."""
+    leg_dir.mkdir(parents=True, exist_ok=True)
+    event_path = leg_dir / "events.jsonl"
+    extra_env = {
+        FAULT_PLAN_ENV: plan.dumps(),
+        events.EVENT_LOG_ENV: str(event_path),
+        CHECKPOINT_DIR_ENV: str(leg_dir / "ckpt"),
+    }
+    if args.entry:
+        extra_env[ENTRY_ENV] = args.entry
+    sup = Supervisor(
+        _worker_cmd(args.device), num_workers=workers,
+        max_restarts=args.max_restarts, attempt_deadline_s=args.deadline,
+        backoff=BackoffPolicy(initial_s=args.backoff),
+        env=_clean_env(extra_env), log_dir=leg_dir / "logs",
+        event_log=events.EventLog(event_path, role="supervisor"),
+        observe_dir=leg_dir / "observe",
+        step_rejoin_dir=(leg_dir / "gang") if step_rejoin else None,
+        rank_scoped_env_keys=(CHECKPOINT_DIR_ENV,))
+    return sup, sup.run(), event_path
+
+
+def _worst(records, key):
+    """The largest ``key`` among ``records`` (the gang moves at its
+    slowest rank's pace), or None."""
+    vals = [r.get(key) for r in records
+            if isinstance(r.get(key), (int, float))]
+    return round(max(vals), 6) if vals else None
+
+
+def _run_step_rejoin(args, plan, workdir: pathlib.Path) -> int:
+    """The mid-epoch rejoin experiment: baseline, control (gang restart),
+    reform (gang-generation rejoin), and their gates (module docstring)."""
+    workers = max(2, args.workers)
+    baseline = None
+    if not args.no_baseline:
+        print("running baseline (no faults)...", file=sys.stderr)
+        baseline = run_baseline(
+            workdir, timeout=args.timeout, device=args.device,
+            extra_env={ENTRY_ENV: args.entry} if args.entry else None)
+    print(f"running control leg (gang restart, {workers} workers)...",
+          file=sys.stderr)
+    _, control, control_events = _supervised_leg(
+        args, plan, workdir / "control", workers=workers, step_rejoin=False)
+    print("running reform leg (mid-epoch rejoin)...", file=sys.stderr)
+    reform_sup, reform, reform_events = _supervised_leg(
+        args, plan, workdir / "reform", workers=workers, step_rejoin=True)
+
+    final = None
+    if reform.success:
+        final = parse_result_line(reform_sup.worker_log(
+            reform.attempts - 1, 0).read_text(errors="replace"))
+    control_json = control.to_json()
+    reform_json = reform.to_json()
+    reforms = events.read_events(reform_events, "gang_reform")
+    requests = events.read_events(reform_events, "gang_reform_requested")
+    rejoins = events.read_events(reform_events, "worker_rejoin")
+    fired_control = events.read_events(control_events, "fault_fired")
+    fired_reform = events.read_events(reform_events, "fault_fired")
+    # Detection is the supervisor's (it watches the gang); drain, reform
+    # and restore are the survivors' gang_reform events.
+    breakdown = {"detect_s": _worst(requests, "detect_s"),
+                 "drain_s": _worst(reforms, "drain_s"),
+                 "reform_s": _worst(reforms, "reform_s"),
+                 "restore_s": _worst(reforms, "restore_s")}
+
+    def leg(rep, js):
+        return {"recovery_wall_s": js["recovery_wall_s"],
+                "wall_time_s": js["wall_time_s"],
+                "restarts": rep.restarts, "attempts": rep.attempts,
+                "exit_codes": js["exit_codes"],
+                "exit_kinds": js["exit_kinds"]}
+
+    report = {
+        "plan": plan.to_json(),
+        "mode": "step_rejoin",
+        "workdir": str(workdir),
+        "success": control.success and reform.success,
+        "step_rejoin": {
+            "control": leg(control, control_json),
+            "reform": {**leg(reform, reform_json),
+                       "rejoins": reform_json["rejoins"],
+                       "gang_reforms": reform_json["gang_reforms"]},
+        },
+        "recovery_wall_s": reform_json["recovery_wall_s"],
+        "recovery_breakdown": breakdown,
+        "gang_reform_events": len(reforms),
+        "final_loss": (final or {}).get("final_loss"),
+    }
+    failures = []
+    if not fired_control or not fired_reform:
+        failures.append("no fault fired — vacuous chaos run")
+    if reform.restarts != 0:
+        failures.append(
+            f"reform leg leaned on a gang restart (restarts="
+            f"{reform.restarts}) instead of a mid-epoch rejoin")
+    if not reforms:
+        failures.append("no gang_reform event — vacuous rejoin run")
+    if not rejoins:
+        failures.append("no worker_rejoin — the lost rank never relaunched")
+    ctrl_rec = control_json["recovery_wall_s"]
+    ref_rec = reform_json["recovery_wall_s"]
+    if ctrl_rec is None or ref_rec is None:
+        failures.append("missing recovery_wall_s in a leg")
+    elif not ref_rec < ctrl_rec:
+        failures.append(
+            f"rejoin recovery ({ref_rec:.3f}s) not strictly below "
+            f"gang-restart recovery ({ctrl_rec:.3f}s)")
+    else:
+        report["step_rejoin"]["speedup"] = round(ctrl_rec / ref_rec, 3)
+    if baseline is not None:
+        report["baseline_final_loss"] = baseline.get("final_loss")
+        if (report["final_loss"] is None
+                or report["baseline_final_loss"] is None):
+            failures.append("missing final loss for the parity check")
+            report["parity_ok"] = False
+        else:
+            delta = abs(report["final_loss"]
+                        - report["baseline_final_loss"])
+            report["loss_delta"] = delta
+            # Exact: the reform replays from the consensus checkpoint with
+            # the per-epoch seeds, so no tolerance.
+            report["parity_ok"] = delta == 0.0
+            if delta != 0.0:
+                failures.append(f"loss parity not exact (delta={delta})")
+    ok = control.success and reform.success and not failures
+    if failures:
+        report["failure"] = "; ".join(failures)
+    report["ok"] = ok
+    out = json.dumps(report, indent=2)
+    print(out)
+    if args.report:
+        pathlib.Path(args.report).write_text(out + "\n")
+    return 0 if ok else 1
+
+
 def _report(plan: FaultPlan, workdir: pathlib.Path, event_path, sup_report,
             final: Optional[dict]) -> dict:
     """The report's supervision part, with ``_ok``: success, a fault
@@ -272,6 +474,7 @@ def _report(plan: FaultPlan, workdir: pathlib.Path, event_path, sup_report,
     fired = events.read_events(event_path, "fault_fired")
     sup_json = sup_report.to_json()
     drained = events.read_events(event_path, "preempt_drained")
+    reshape_events = events.read_events(event_path, "reshape_restore")
     report = {
         "plan": plan.to_json(),
         "workdir": str(workdir),
@@ -284,6 +487,11 @@ def _report(plan: FaultPlan, workdir: pathlib.Path, event_path, sup_report,
         "exit_kinds": sup_json["exit_kinds"],
         "gang_shapes": sup_json["gang_shapes"],
         "drain_s": sup_json["drain_s"],
+        "reshape_restores": [
+            {k: r.get(k) for k in ("step", "saved_device_count",
+                                   "device_count", "saved_process_count",
+                                   "process_count")}
+            for r in reshape_events],
         "faults_fired": [
             {k: r.get(k) for k in ("kind", "at", "step", "op", "mode")
              if r.get(k) is not None} for r in fired],

@@ -35,7 +35,8 @@ the same argv for every worker of every attempt:
                                       replica a process); default: one
                                       process, no strategy
 ``TPU_DIST_DEMO_SHARDED``             ``1`` = the v2 sharded checkpoint
-                                      layout (item 18b: raises)
+                                      layout (``ModelCheckpoint(dir,
+                                      sharded=True)``)
 ``TPU_DIST_PREEMPT_DEADLINE_S``       graceful-drain watchdog deadline
                                       (default 60)
 ``TPU_DIST_ENTRY``                    ``module:callable`` to run instead of
@@ -99,39 +100,46 @@ def _drain_deadline_s() -> float:
         return 60.0
 
 
+def request_preemption(why: str) -> None:
+    """Record a preemption notice (once): count it
+    (``elastic.preemptions``), log ``preempt_requested``, and start the
+    drain watchdog, a daemon timer that exits the process hard (code 1,
+    not ``EXIT_PREEMPTED``: the checkpoint may be torn) if the drain
+    outlives its deadline. The SIGTERM handler calls it, and the drain of
+    a rank whose peer was preempted (``PreemptionDrain``)."""
+    global _PREEMPT_REQUESTED_AT
+    with _PREEMPT_LOCK:
+        if _PREEMPT_REQUESTED_AT is not None:
+            return  # a duplicate notice; the drain is underway
+        _PREEMPT_REQUESTED_AT = time.monotonic()
+    deadline = _drain_deadline_s()
+    from tpu_dist_torch.observe import metrics as metrics_lib
+
+    metrics_lib.inc("elastic.preemptions")
+    events.maybe_log("preempt_requested", deadline_s=deadline,
+                     attempt=events.current_attempt())
+    print(f"tpu_dist_torch.resilience: {why} — draining at the next step "
+          f"boundary (deadline {deadline:.0f}s)", file=sys.stderr,
+          flush=True)
+
+    def _watchdog():
+        time.sleep(deadline)
+        events.maybe_log("preempt_drain_timeout", deadline_s=deadline,
+                         attempt=events.current_attempt())
+        os._exit(1)
+
+    threading.Thread(target=_watchdog, daemon=True,
+                     name="tpu-dist-preempt-watchdog").start()
+
+
 def install_sigterm_handler() -> None:
-    """Arm the graceful-preemption seam (idempotent, main thread only). On
-    SIGTERM: record the request, count it (``elastic.preemptions``), and
-    start the drain watchdog, a daemon timer that exits the process hard
-    (code 1, not ``EXIT_PREEMPTED``: the checkpoint may be torn) if the
-    drain outlives its deadline."""
+    """Arm the graceful-preemption seam (idempotent, main thread only): on
+    SIGTERM, :func:`request_preemption`."""
     global _PREEMPT_ARMED
     import signal
 
     def _on_sigterm(signum, frame):
-        global _PREEMPT_REQUESTED_AT
-        with _PREEMPT_LOCK:
-            if _PREEMPT_REQUESTED_AT is not None:
-                return  # a duplicate notice; the drain is underway
-            _PREEMPT_REQUESTED_AT = time.monotonic()
-        deadline = _drain_deadline_s()
-        from tpu_dist_torch.observe import metrics as metrics_lib
-
-        metrics_lib.inc("elastic.preemptions")
-        events.maybe_log("preempt_requested", deadline_s=deadline,
-                         attempt=events.current_attempt())
-        print(f"tpu_dist_torch.resilience: SIGTERM received — draining at "
-              f"the next step boundary (deadline {deadline:.0f}s)",
-              file=sys.stderr, flush=True)
-
-        def _watchdog():
-            time.sleep(deadline)
-            events.maybe_log("preempt_drain_timeout", deadline_s=deadline,
-                             attempt=events.current_attempt())
-            os._exit(1)
-
-        threading.Thread(target=_watchdog, daemon=True,
-                         name="tpu-dist-preempt-watchdog").start()
+        request_preemption("SIGTERM received")
 
     signal.signal(signal.SIGTERM, _on_sigterm)
     _PREEMPT_ARMED = True
@@ -167,11 +175,6 @@ def demo_train(device: Optional[str] = None) -> dict:
 
     from tpu_dist_torch.models.cnn import build_and_compile_cnn_model
 
-    if os.environ.get("TPU_DIST_DEMO_SHARDED") == "1":
-        from tpu_dist_torch.utils.errors import unported
-
-        raise unported("TPU_DIST_DEMO_SHARDED=1 (the v2 sharded checkpoint "
-                       "layout)", "18b")
     epochs = _env_int("TPU_DIST_DEMO_EPOCHS", 3)
     steps_per_epoch = _env_int("TPU_DIST_DEMO_STEPS_PER_EPOCH", 4)
     batch = _env_int("TPU_DIST_DEMO_BATCH", 32)
@@ -190,9 +193,16 @@ def demo_train(device: Optional[str] = None) -> dict:
     with scope:
         model = build_and_compile_cnn_model(learning_rate=0.01,
                                             device=device)
+        callbacks = []
+        ckpt_dir = os.environ.get(CHECKPOINT_DIR_ENV)
+        if ckpt_dir and os.environ.get("TPU_DIST_DEMO_SHARDED") == "1":
+            from tpu_dist_torch.training.callbacks import ModelCheckpoint
+
+            # One for the same directory replaces fit's own v1 one.
+            callbacks.append(ModelCheckpoint(ckpt_dir, sharded=True))
         history = model.fit(
             ds, epochs=epochs, steps_per_epoch=steps_per_epoch, verbose=0,
-            checkpoint_dir=os.environ.get(CHECKPOINT_DIR_ENV))
+            callbacks=callbacks, checkpoint_dir=ckpt_dir)
     losses = [round(float(l), 10) for l in history.history.get("loss", [])]
     return {
         "final_loss": losses[-1] if losses else None,

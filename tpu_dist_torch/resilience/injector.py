@@ -1,5 +1,5 @@
 """Fault injectors: the training ``FaultInjector`` callback, the preemption
-drain, and the serve engine's injector.
+drain, the epoch rejoin gate, and the serve engine's injector.
 
 Counterpart of ``tpu_dist/resilience/injector.py``. The training injector
 is a :class:`~tpu_dist_torch.training.callbacks.Callback` plus seams it
@@ -385,7 +385,8 @@ def maybe_injector_from_env(*, steps_per_epoch: int,
 
 
 class PreemptionDrain(Callback):
-    """Stops training at the first step boundary after a SIGTERM.
+    """Stops training at the first step boundary after a SIGTERM (in a
+    process group, after a SIGTERM to any rank: :func:`_gang_agrees`).
 
     The signal handler (``entrypoints.install_sigterm_handler``) only
     records the notice; this callback raises :class:`StopTraining` at the
@@ -408,10 +409,30 @@ class PreemptionDrain(Callback):
     def _maybe_stop(where: str) -> None:
         from tpu_dist_torch.resilience import entrypoints
 
-        if entrypoints.preemption_requested():
+        mine = entrypoints.preemption_requested()
+        if _gang_agrees(mine):
+            if not mine:
+                entrypoints.request_preemption("a peer was preempted")
             logger.warning("preemption drain: stopping training at %s",
                            where)
             raise StopTraining(f"preempted (drained at {where})")
+
+
+def _gang_agrees(flag: bool) -> bool:
+    """``flag`` on any process of the process group (the flag itself with
+    none): every rank of a gang stops at the same step boundary, so the
+    collectives of the drain that follows (the commit of a save in
+    flight) meet, where a lone rank's would meet its peers' next step."""
+    from tpu_dist_torch.cluster import bootstrap
+
+    if bootstrap.process_count() == 1:
+        return flag
+    import torch.distributed as dist
+
+    t = torch.tensor([int(flag)], dtype=torch.int32,
+                     device=bootstrap.device_of_group())
+    dist.all_reduce(t)
+    return bool(t.item())
 
 
 def maybe_preemption_drain() -> Optional[PreemptionDrain]:
@@ -422,6 +443,55 @@ def maybe_preemption_drain() -> Optional[PreemptionDrain]:
     if not entrypoints.preemption_armed():
         return None
     return PreemptionDrain()
+
+
+class RejoinGate(Callback):
+    """Epoch-boundary rendezvous: holds every worker at ``on_epoch_begin``
+    until the whole gang has arrived, so a recovered worker re-enters at
+    the next epoch boundary instead of forcing a gang restart. The barrier
+    is ``bootstrap.epoch_rendezvous`` on a shared directory, not a
+    collective: the rejoining worker is a fresh process outside any group.
+    Records ``elastic.rejoin_wait_s`` and a ``rejoin_rendezvous`` event."""
+
+    def __init__(self, directory: str, *, world: Optional[int] = None,
+                 rank: Optional[int] = None, timeout_s: float = 120.0):
+        self.directory = directory
+        self.world = world
+        self.rank = rank
+        self.timeout_s = float(timeout_s)
+
+    def on_epoch_begin(self, epoch: int) -> None:
+        from tpu_dist_torch.cluster import bootstrap
+        from tpu_dist_torch.observe import metrics as metrics_lib
+
+        t0 = time.monotonic()
+        ranks = bootstrap.epoch_rendezvous(
+            self.directory, epoch=epoch, rank=self.rank, world=self.world,
+            timeout_s=self.timeout_s)
+        wait_s = time.monotonic() - t0
+        metrics_lib.observe_value("elastic.rejoin_wait_s", wait_s)
+        log = events.log_from_env()
+        if log is not None:
+            log.append("rejoin_rendezvous", attempt=events.current_attempt(),
+                       epoch=epoch, ranks=ranks, wait_s=round(wait_s, 6))
+
+
+def maybe_rejoin_gate() -> Optional[RejoinGate]:
+    """A :class:`RejoinGate` when ``$TPU_DIST_REJOIN_DIR`` names the
+    rendezvous directory, else None. ``$TPU_DIST_REJOIN_WORLD`` /
+    ``$TPU_DIST_REJOIN_RANK`` override the gang coordinates (supervised
+    single-process workers each are process 0 of their own);
+    ``$TPU_DIST_REJOIN_TIMEOUT_S`` bounds the wait (default 120)."""
+    from tpu_dist_torch.cluster import bootstrap
+
+    directory = os.environ.get(bootstrap.REJOIN_DIR_ENV)
+    if not directory:
+        return None
+    world = os.environ.get("TPU_DIST_REJOIN_WORLD")
+    rank = os.environ.get("TPU_DIST_REJOIN_RANK")
+    timeout_s = float(os.environ.get("TPU_DIST_REJOIN_TIMEOUT_S", "120"))
+    return RejoinGate(directory, world=int(world) if world else None,
+                      rank=int(rank) if rank else None, timeout_s=timeout_s)
 
 
 class ServeFaultInjector:

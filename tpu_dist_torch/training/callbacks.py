@@ -197,16 +197,14 @@ class ModelCheckpoint(Callback):
     epoch's end pays the snapshot, the write overlaps the next epoch, and
     a write error surfaces at the next save or at the end of training,
     where it is absorbed: one lost checkpoint, logged, never a dead run.
-    ``on_train_end`` drains the writer. ``sharded=True`` raises: the
-    sharded layout comes with item 18 of ``ROADMAP.md``'s queue 1."""
+    ``on_train_end`` drains the writer. ``sharded=True`` writes the v2
+    layout: each process its own blocks, no gather
+    (``training/checkpoint.py``)."""
 
     def __init__(self, directory: str, *, save_best_only: bool = False,
                  monitor: str = "loss", mode: str = "min",
                  max_to_keep: Optional[int] = None, async_save: bool = True,
                  sharded: bool = False):
-        from tpu_dist_torch.training.checkpoint import _no_sharded
-
-        _no_sharded(sharded)
         self.directory = directory
         self.save_best_only = save_best_only
         self.monitor = monitor
@@ -222,7 +220,8 @@ class ModelCheckpoint(Callback):
             from tpu_dist_torch.training import checkpoint
 
             self._ckpt = checkpoint.AsyncCheckpointer(
-                self.directory, max_to_keep=self.max_to_keep)
+                self.directory, max_to_keep=self.max_to_keep,
+                sharded=self.sharded)
 
     def on_epoch_end(self, epoch, logs):
         from tpu_dist_torch.training import checkpoint
@@ -244,9 +243,21 @@ class ModelCheckpoint(Callback):
                 self._ckpt.save_async(self.model, step=epoch)
             else:
                 checkpoint.save(self.directory, self.model, step=epoch,
-                                max_to_keep=self.max_to_keep)
+                                max_to_keep=self.max_to_keep,
+                                sharded=self.sharded)
         except OSError as exc:
             self._write_failed(getattr(exc, "checkpoint_step", epoch), exc)
+
+    def publish_in_flight(self) -> None:
+        """Commit the async save in flight now, without closing the writer:
+        a gang reform's drain, before the survivor acks (a failed write is
+        absorbed, one lost interval, as anywhere)."""
+        if self._ckpt is None:
+            return
+        try:
+            self._ckpt.wait()
+        except OSError as exc:
+            self._write_failed(getattr(exc, "checkpoint_step", None), exc)
 
     def on_train_end(self):
         if self._ckpt is None:

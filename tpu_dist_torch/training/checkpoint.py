@@ -41,8 +41,33 @@ step (nothing is published), one that corrupts the stage leaves a step
 that validation rejects, and one that exits the process leaves the stage
 unpublished (``kill_during_save``).
 
-The sharded v2 layout (``sharded=True``) comes with item 18 (its 18b half) of
-``ROADMAP.md``'s queue 1 and raises until then.
+``sharded=True`` writes the reference's v2 layout instead:
+
+    <directory>/ckpt-<step>/arrays-shard-<p>.npz   process p's blocks
+    <directory>/ckpt-<step>/shards-<p>.json        {key: [{name, slices}]}
+    <directory>/ckpt-<step>/arrays.npz             the replicated leaves
+    <directory>/ckpt-<step>/manifest.json
+        {"step", "format": "tpu_dist.checkpoint.v2-sharded",
+         "process_count", "device_count", "leaves": {key: {shape, dtype,
+         sharded}}}
+
+Each process writes only its own block of every leaf placed across
+processes (:func:`_shard_layout`: a model, pipe or expert axis), as the
+slices of the global array; of the processes that hold the same block (its
+data-axis replicas) the one at coordinate 0 of every other axis writes it.
+The chief writes the replicated leaves and the manifest. There is no
+gather: three barriers (``checkpoint_stage_``, ``checkpoint_written_``,
+``checkpoint_save_``) bracket a stage directory the chief makes and
+publishes, so every process needs the directory on a shared filesystem.
+Asynchronously each process writes its part on its writer thread and the
+commit (:meth:`AsyncCheckpointer._commit_sharded`) sums a failure flag
+over the processes before the chief publishes. A restore stitches each
+leaf's global array from the indices (:func:`_iter_sharded_leaves`) on
+every process and copies each process's block under the restoring model's
+own layout, so a v2 step restores onto any process count
+(reshape-on-restore, which :func:`_note_reshape` records); a leaf stored
+sharded whose dimension the restoring mesh's axis does not divide raises
+(:func:`_check_divisible_placement`).
 """
 
 from __future__ import annotations
@@ -64,7 +89,6 @@ import torch
 from tpu_dist_torch.cluster import bootstrap
 from tpu_dist_torch.models import bridge
 from tpu_dist_torch.observe import metrics as metrics_lib
-from tpu_dist_torch.utils.errors import unported
 
 logger = logging.getLogger("tpu_dist_torch.checkpoint")
 
@@ -75,9 +99,12 @@ _FORMAT_V1 = "tpu_dist.checkpoint.v1"
 _FORMAT_V2 = "tpu_dist.checkpoint.v2-sharded"
 
 
-def _no_sharded(sharded: bool) -> None:
-    if sharded:
-        raise unported("sharded checkpoints (the v2 layout)", 18)
+def _shard_arrays(process: int) -> str:
+    return f"arrays-shard-{process}.npz"
+
+
+def _shard_index(process: int) -> str:
+    return f"shards-{process}.json"
 
 
 def _step_dir(directory: pathlib.Path, step: int) -> pathlib.Path:
@@ -224,15 +251,19 @@ def save(directory: str | os.PathLike, model_or_variables, *, step: int,
          max_to_keep: Optional[int] = None,
          sharded: bool = False) -> Optional[str]:
     """Write checkpoint ``step`` synchronously; returns its path on the
-    chief, None elsewhere. Takes a model (its live training variables) or
-    a variables dict. Only the chief writes; every process meets at a
-    barrier after the write, and a write error is raised after it, so no
-    peer is left waiting. ``max_to_keep`` keeps that many newest steps."""
-    _no_sharded(sharded)
+    chief, None elsewhere (v2: on every process). Takes a model (its live
+    training variables) or a variables dict. v1: only the chief writes;
+    every process meets at a barrier after the write, and a write error is
+    raised after it, so no peer is left waiting. ``sharded=True``: the v2
+    layout (module docstring). ``max_to_keep`` keeps that many newest
+    steps."""
     t0 = time.perf_counter()
-    saveable = _saveable(model_or_variables)
     directory = pathlib.Path(directory)
     try:
+        if sharded:
+            return _save_sharded(directory, _v2_parts(model_or_variables),
+                                 step=step, max_to_keep=max_to_keep)
+        saveable = _saveable(model_or_variables)
         path = None
         write_error: Optional[OSError] = None
         if bootstrap.is_chief():
@@ -250,6 +281,139 @@ def save(directory: str | os.PathLike, model_or_variables, *, step: int,
         metrics_lib.inc("checkpoint.sync_saves")
         metrics_lib.observe_value("checkpoint.stall_s",
                                   time.perf_counter() - t0)
+
+
+# -- the sharded v2 layout ---------------------------------------------------------
+
+class _V2Parts:
+    """What one process writes of a v2 step: ``local``, its blocks keyed
+    ``{key}//0``, with their ``index`` entries; ``chief``, the replicated
+    leaves (on the chief only); ``meta``, the manifest's leaves."""
+
+    def __init__(self):
+        self.local: dict = {}
+        self.index: dict = {}
+        self.chief: dict = {}
+        self.meta: dict = {}
+
+    def tensors(self) -> dict:
+        return {**self.local, **self.chief}
+
+
+def _owns_block(shard) -> bool:
+    """True when this process writes its block of a leaf placed along
+    ``shard``'s axis: of the processes holding the same block, the one at
+    coordinate 0 of every other axis of the mesh."""
+    from tpu_dist_torch.parallel import mesh as mesh_lib
+
+    mesh = shard.mesh
+    return all(mesh_lib.coordinate(mesh, a) == 0 for a in mesh.axis_names
+               if a != shard.axis)
+
+
+def _v2_parts(model_or_variables) -> _V2Parts:
+    """This process's part of a v2 step, its blocks as they live (no
+    gather); a variables dict's leaves are all replicated."""
+    from tpu_dist_torch.models.model import Model
+
+    parts = _V2Parts()
+    chief = bootstrap.is_chief()
+    layout: dict = {}
+    if isinstance(model_or_variables, Model):
+        model = model_or_variables
+        live = _live_tensors(model, gathered=False)
+        trainer = model._trainer
+        layout = _shard_layout(model, trainer)
+        names = bridge.checkpoint_names(model, trainer.variables["opt"])
+        owners = model._tensor_parallel[2] if layout else {}
+    else:
+        live = _saveable(model_or_variables)
+    for key, t in live.items():
+        placed = layout.get(key)
+        parts.meta[key] = {"shape": list(_global_shape(t, placed)),
+                           "dtype": str(_np_dtype(t)),
+                           "sharded": placed is not None}
+        if placed is None:
+            if chief:
+                parts.chief[key] = t
+            continue
+        if not _owns_block(owners[names[key]]):
+            continue
+        dim, _, index = placed
+        name = f"{key}//0"
+        parts.local[name] = t
+        parts.index[key] = [{"name": name, "slices": [
+            [index * n, (index + 1) * n] if d == dim else [0, n]
+            for d, n in enumerate(t.shape)]}]
+    return parts
+
+
+def _write_sharded_stage(stage: pathlib.Path, parts: _V2Parts,
+                         arrays: dict, *, step: int) -> None:
+    """This process's files of a v2 stage from host ``arrays`` (keyed as
+    ``parts.tensors()``): its shard npz and index, and on the chief the
+    replicated leaves and the manifest. No collective, no barrier, no
+    fsync (the publish fsyncs the stage): the sync path calls it between
+    its barriers, the async writer on its thread."""
+    proc = bootstrap.process_index()
+    np.savez(stage / _shard_arrays(proc),
+             **{n: arrays[n] for n in parts.local})
+    (stage / _shard_index(proc)).write_text(json.dumps(parts.index))
+    if bootstrap.is_chief():
+        np.savez(stage / _ARRAYS, **{k: arrays[k] for k in parts.chief})
+        (stage / _MANIFEST).write_text(json.dumps({
+            "step": step,
+            "format": _FORMAT_V2,
+            "process_count": bootstrap.process_count(),
+            "device_count": bootstrap.process_count(),
+            "leaves": parts.meta,
+        }))
+
+
+def _make_stage(directory: pathlib.Path, step: int) -> pathlib.Path:
+    """The chief clears and makes the step's stage (a crashed attempt may
+    have left one); every process meets at ``checkpoint_stage_`` after."""
+    stage = directory / f".stage-{step}"
+    if bootstrap.is_chief():
+        directory.mkdir(parents=True, exist_ok=True)
+        if stage.exists():
+            shutil.rmtree(stage)
+        stage.mkdir()
+    bootstrap.barrier(f"checkpoint_stage_{step}")
+    return stage
+
+
+def _publish_sharded(directory: pathlib.Path, stage: pathlib.Path, step: int,
+                     max_to_keep: Optional[int]) -> Optional[OSError]:
+    """The chief's publish of a fully written v2 stage, behind the write
+    fault hook; returns (not raises) a write error, the stage discarded."""
+    try:
+        _fire_write_fault(stage, step)
+        _publish_stage(stage, _step_dir(directory, step), directory, step)
+        logger.info("sharded checkpoint step %d written to %s (%d writers)",
+                    step, _step_dir(directory, step),
+                    bootstrap.process_count())
+        if max_to_keep is not None:
+            _gc(directory, max_to_keep)
+    except OSError as exc:
+        shutil.rmtree(stage, ignore_errors=True)
+        return exc
+    return None
+
+
+def _save_sharded(directory: pathlib.Path, parts: _V2Parts, *, step: int,
+                  max_to_keep: Optional[int]) -> str:
+    stage = _make_stage(directory, step)
+    _write_sharded_stage(stage, parts, {k: _host(v) for k, v in
+                                        parts.tensors().items()}, step=step)
+    bootstrap.barrier(f"checkpoint_written_{step}")
+    write_error = None
+    if bootstrap.is_chief():
+        write_error = _publish_sharded(directory, stage, step, max_to_keep)
+    bootstrap.barrier(f"checkpoint_save_{step}")
+    if write_error is not None:
+        raise write_error
+    return str(_step_dir(directory, step))
 
 
 # -- the async pipeline: snapshot now, write on a thread ----------------------------
@@ -298,8 +462,8 @@ class _Snapshot:
 
 class AsyncCheckpointer:
     """Checkpoints whose serialization, fsync and publish run on a
-    background thread while training goes on (the v1 half of the
-    reference's ``AsyncCheckpointer``).
+    background thread while training goes on (the reference's
+    ``AsyncCheckpointer``).
 
     ``save_async(model, step=N)`` first commits the previous save (joins
     its writer, meets the other processes at a barrier) and then takes a
@@ -310,12 +474,15 @@ class AsyncCheckpointer:
     :meth:`close` are the other commit points. A write error surfaces at
     the next commit point, tagged with ``exc.checkpoint_step``, after the
     barrier (from ``save_async`` after the new snapshot is in flight), so
-    one failed write costs one checkpoint, not the run. Only the chief has
-    a writer; the writer joins no collective and no barrier."""
+    one failed write costs one checkpoint, not the run. v1: only the chief
+    has a writer. v2 (``sharded=True``): every process writes its part on
+    its own writer, after the ``checkpoint_stage_`` barrier, and the
+    chief publishes on the main thread at the commit, once a sum of
+    failure flags over the processes says every part landed. A writer
+    joins no collective and no barrier."""
 
     def __init__(self, directory: str | os.PathLike, *,
                  max_to_keep: Optional[int] = None, sharded: bool = False):
-        _no_sharded(sharded)
         self.directory = pathlib.Path(directory)
         self.max_to_keep = max_to_keep
         self.sharded = sharded
@@ -344,14 +511,19 @@ class AsyncCheckpointer:
         the new snapshot is in flight."""
         t0 = time.perf_counter()
         prev_error = self._drain()
-        saveable = _saveable(model_or_variables)
-        t_snap = time.perf_counter()
-        self._pending_step = step
-        if bootstrap.is_chief():
-            self._thread = threading.Thread(
-                target=self._write, args=(_Snapshot(saveable), step),
-                daemon=True, name=f"tpu-dist-ckpt-writer-{step}")
-            self._thread.start()
+        if self.sharded:
+            parts = _v2_parts(model_or_variables)
+            stage = _make_stage(self.directory, step)
+            t_snap = time.perf_counter()
+            self._pending_step = step
+            self._spawn(self._write_sharded,
+                        _Snapshot(parts.tensors()), parts, stage, step)
+        else:
+            saveable = _saveable(model_or_variables)
+            t_snap = time.perf_counter()
+            self._pending_step = step
+            if bootstrap.is_chief():
+                self._spawn(self._write, _Snapshot(saveable), step)
         now = time.perf_counter()
         metrics_lib.inc("checkpoint.async_saves")
         metrics_lib.observe_value("checkpoint.snapshot_s", now - t_snap)
@@ -370,6 +542,43 @@ class AsyncCheckpointer:
     def close(self) -> Optional[str]:
         """Drain and commit (the checkpointer stays usable)."""
         return self.wait()
+
+    def _spawn(self, fn, *args) -> None:
+        self._thread = threading.Thread(
+            target=fn, args=args, daemon=True,
+            name=f"tpu-dist-ckpt-writer-{args[-1]}")
+        self._thread.start()
+
+    def _write_sharded(self, snapshot: _Snapshot, parts: _V2Parts,
+                       stage: pathlib.Path, step: int) -> None:
+        t0 = time.perf_counter()
+        try:
+            _write_sharded_stage(stage, parts, snapshot.arrays(), step=step)
+        except Exception as exc:  # delivered at the next commit point
+            self._error = exc
+        finally:
+            metrics_lib.observe_value("checkpoint.write_s",
+                                      time.perf_counter() - t0)
+
+    def _commit_sharded(self, step: int, error: Optional[BaseException]
+                        ) -> Optional[BaseException]:
+        """Publish a v2 step only when every process staged its part: the
+        sum of the failure flags over the processes, then the chief's
+        publish (behind the write fault hook). A failing process raises
+        its own error; the chief withholds the publish."""
+        from tpu_dist_torch.parallel.collectives import host_all_reduce_sum
+
+        stage = self.directory / f".stage-{step}"
+        bad = int(host_all_reduce_sum(np.int64(0 if error is None else 1)))
+        if bootstrap.is_chief():
+            if bad:
+                shutil.rmtree(stage, ignore_errors=True)
+            else:
+                error = _publish_sharded(self.directory, stage, step,
+                                         self.max_to_keep) or error
+                if error is None:
+                    self._last_path = str(_step_dir(self.directory, step))
+        return error
 
     def _write(self, snapshot: _Snapshot, step: int) -> None:
         # _last_path and _error are handed over: _drain joins this thread
@@ -395,6 +604,8 @@ class AsyncCheckpointer:
             self._thread.join()
             self._thread = None
         error, self._error = self._error, None
+        if self.sharded:
+            error = self._commit_sharded(step, error)
         bootstrap.barrier(f"checkpoint_commit_{step}")
         if error is not None:
             metrics_lib.inc("checkpoint.write_errors")
@@ -486,9 +697,79 @@ def validate_step_dir(target: str | os.PathLike) -> Optional[str]:
                     f"(e.g. missing {missing})")
         return None
     if fmt == _FORMAT_V2:
-        return ("a sharded (v2) checkpoint: not ported yet (ROADMAP.md, "
-                "item 18b)")
+        if _npz_names(target / _ARRAYS) is None:
+            return f"chief {_ARRAYS} is unreadable (truncated write?)"
+        for idx_file in sorted(target.glob("shards-*.json")):
+            try:
+                json.loads(idx_file.read_text())
+            except ValueError:
+                return f"{idx_file.name} does not parse"
+            arr = target / idx_file.name.replace(
+                "shards-", "arrays-shard-").replace(".json", ".npz")
+            if _npz_names(arr) is None:
+                return f"{arr.name} is unreadable (truncated write?)"
+        return None
     return f"unknown checkpoint format {fmt!r}"
+
+
+def _iter_sharded_leaves(target: pathlib.Path):
+    """``(key, assemble)`` for every leaf of the v2 step ``target``;
+    ``assemble()`` stitches that one leaf's global array from the shard
+    indices (the chief's npz for a replicated leaf). Raises on a leaf with
+    no shards, on a shard whose data disagrees with its index's slices,
+    and on shards that do not cover the array (a missing process's
+    file)."""
+    manifest = _manifest(target)
+    indices: dict = {}
+    files: dict = {}
+    for idx_file in sorted(target.glob("shards-*.json")):
+        arr_file = target / idx_file.name.replace(
+            "shards-", "arrays-shard-").replace(".json", ".npz")
+        for key, entries in json.loads(idx_file.read_text()).items():
+            for e in entries:
+                e["file"] = str(arr_file)
+            indices.setdefault(key, []).extend(entries)
+
+    def load(fname, name):
+        z = files.get(fname)
+        if z is None:
+            z = files[fname] = np.load(fname)
+        return z[name]
+
+    for key, meta in manifest["leaves"].items():
+        if not meta["sharded"]:
+            yield key, (lambda k=key: load(str(target / _ARRAYS), k))
+            continue
+
+        def assemble(k=key, m=meta):
+            entries = indices.get(k)
+            if not entries:
+                raise FileNotFoundError(
+                    f"sharded checkpoint {target} has no shards for {k!r} "
+                    "— were all processes' shard files on this "
+                    "filesystem? (v2 checkpoints require a shared FS)")
+            out = np.zeros(tuple(m["shape"]), np.dtype(m["dtype"]))
+            filled = 0
+            for e in entries:
+                data = load(e["file"], e["name"])
+                want = tuple(b - a for a, b in e["slices"])
+                if tuple(data.shape) != want:
+                    raise ValueError(
+                        f"sharded checkpoint {target}: shard {e['name']!r} "
+                        f"of {k!r} has shape {tuple(data.shape)} but its "
+                        f"index claims slices {e['slices']} ({want}); "
+                        "refusing to assemble a torn state")
+                out[tuple(slice(a, b) for a, b in e["slices"])] = data
+                filled += data.size
+            if filled != out.size:
+                raise ValueError(
+                    f"sharded checkpoint {target}: shards for {k!r} cover "
+                    f"{filled} of {out.size} elements — missing shard "
+                    "files (v2 checkpoints require a shared FS)")
+            return out
+
+        yield key, assemble
+
 
 
 def is_complete(directory: str | os.PathLike, step: int) -> bool:
@@ -538,9 +819,11 @@ def restore(directory: str | os.PathLike, template: dict, *,
     """The arrays of checkpoint ``step`` (default: the latest complete one)
     for the keys of ``template`` (``{key: tensor or array}``, whose shapes
     they must have; keys the checkpoint holds beyond them are left out).
-    Returns ``({key: numpy array}, step)``. The chief chooses the step,
-    validates it and reads it; its bytes are broadcast to every process,
-    which need not see the files."""
+    Returns ``({key: numpy array}, step)``. The chief chooses the step
+    and validates it. v1: the chief reads it and its bytes are broadcast
+    to every process, which need not see the files. v2: every process
+    stitches the global arrays from the shard files itself (a shared
+    filesystem, by the layout's contract)."""
     directory = pathlib.Path(directory)
     many = bootstrap.process_count() > 1
     chief = bootstrap.process_index() == 0
@@ -554,8 +837,11 @@ def restore(directory: str | os.PathLike, template: dict, *,
             raise FileNotFoundError(
                 f"no complete checkpoints under {directory}")
     target = _step_dir(directory, step)
+    # Verdict: -1 invalid, 0 v1, 1 v2; the chief's, on every process, so
+    # no process takes the v1 broadcast alone.
     reason = validate_step_dir(target) if chief else None
-    verdict = 0 if reason is None else -1
+    verdict = -1 if reason is not None else (
+        int(_manifest(target).get("format") == _FORMAT_V2) if chief else 0)
     if many:
         verdict = _chief_choice(verdict)
     if verdict < 0:
@@ -565,6 +851,22 @@ def restore(directory: str | os.PathLike, template: dict, *,
             + "; refusing to restore from an incomplete checkpoint")
     shapes = {k: (tuple(np.shape(v)), _np_dtype(v))
               for k, v in template.items()}
+    if verdict == 1:
+        leaves = dict(_iter_sharded_leaves(target))
+        arrays = {}
+        for key, (shape, _) in shapes.items():
+            if key not in leaves:
+                raise KeyError(f"checkpoint missing array {key!r}; "
+                               "checkpoint/model mismatch")
+            arr = leaves[key]()
+            if tuple(arr.shape) != shape:
+                raise ValueError(
+                    f"checkpoint array {key!r} has shape {arr.shape}, "
+                    f"model expects {shape}")
+            arrays[key] = arr
+        logger.info("restored sharded checkpoint step %d from %s", step,
+                    target)
+        return arrays, step
     if chief:
         with np.load(target / _ARRAYS) as z:
             arrays = {}
@@ -601,14 +903,20 @@ def restore_model(directory: str | os.PathLike, model, *,
     parameters, its state buffers and the optimizer state of ``trainer``
     (default: the model's own, made if it has none), each ``copy_``-ed on
     its device from the checkpoint (module docstring); under a model axis
-    each process copies its block of each sharded leaf. Returns the
-    step."""
+    each process copies its block of each sharded leaf, whatever the
+    topology that wrote it. Returns the step."""
     live = _live_tensors(model, trainer, gathered=False)
-    layout = _shard_layout(model, trainer or model._trainer)
+    trainer = trainer or model._trainer
+    layout = _shard_layout(model, trainer)
     template = {k: torch.empty(_global_shape(t, layout.get(k)),
                                dtype=t.dtype, device="meta")
                 for k, t in live.items()}
     arrays, step = restore(directory, template, step=step)
+    target = _step_dir(pathlib.Path(directory), step)
+    sharded_keys = {k for k, m in _manifest(target).get("leaves", {}).items()
+                    if m.get("sharded")}
+    _check_divisible_placement(model, trainer, sharded_keys, layout, live)
+    _note_reshape(pathlib.Path(directory), step)
     with torch.no_grad():
         for key, t in live.items():
             value = torch.from_numpy(arrays[key])
@@ -627,3 +935,82 @@ def _global_shape(t: torch.Tensor, placed) -> tuple:
     if placed is not None:
         shape[placed[0]] *= placed[1]
     return tuple(shape)
+
+
+def _unpruned_specs(model, mesh) -> dict:
+    """``{parameter name: spec}`` the rules give each parameter on
+    ``mesh`` before an indivisible dimension is left replicated: the model
+    axis's Megatron specs, a pipelined stack's ``(pipe,)``, an expert
+    layer's ``(expert,)``."""
+    from tpu_dist_torch.models.model import _flatten, _nest
+    from tpu_dist_torch.parallel.axes import MODEL_AXIS
+    from tpu_dist_torch.parallel.expert import MixtureOfExperts
+    from tpu_dist_torch.parallel.pipeline_parallel import PipelinedBlocks
+    from tpu_dist_torch.parallel.tensor import tensor_parallel_specs
+
+    specs: dict = {}
+    if mesh.shape.get(MODEL_AXIS, 1) > 1:
+        specs.update(_flatten(tensor_parallel_specs(
+            _nest(model.named_parameters()), axis_name=MODEL_AXIS)))
+    for prefix, m in model.named_modules():
+        if isinstance(m, (PipelinedBlocks, MixtureOfExperts)):
+            for n, _ in m.named_parameters():
+                if n != "router":
+                    specs[f"{prefix}.{n}" if prefix else n] = (m.axis_name,)
+    return specs
+
+
+def _check_divisible_placement(model, trainer, sharded_keys: set,
+                               layout: dict, live: dict) -> None:
+    """Refuse a reshape-restore that would silently degrade placement: a
+    leaf the checkpoint stored sharded, which the restoring mesh's rules
+    would shard along an axis it has, but whose dimension that axis does
+    not divide (so the restoring model holds it replicated). A leaf the
+    saving job already replicated, an axis the mesh lacks, and v1 steps
+    (no per-leaf record) pass."""
+    mesh = trainer.strategy.parallel_mesh
+    if mesh is None or not sharded_keys:
+        return
+    specs = _unpruned_specs(model, mesh)
+    names = bridge.checkpoint_names(model, trainer.variables["opt"])
+    for key in sorted(sharded_keys):
+        if key in layout or key not in live:
+            continue  # placed as a block: divides by construction
+        shape = tuple(live[key].shape)
+        for dim, axis in enumerate(specs.get(names.get(key)) or ()):
+            if axis is None or axis not in mesh.shape:
+                continue
+            div = mesh.shape[axis]
+            if dim < len(shape) and shape[dim] % div:
+                raise ValueError(
+                    f"cannot reshape-restore {key}: dimension {dim} of "
+                    f"shape {shape} does not divide mesh axis {axis!r} "
+                    f"(size {div}) — relaunch with a worker/device count "
+                    "whose axis sizes divide every sharded dimension, or "
+                    "restore on the original topology")
+
+
+def _note_reshape(directory: pathlib.Path, step: int) -> None:
+    """Count and record a topology-changing restore from the manifest's
+    stamp (``elastic.reshape_restores``, a ``reshape_restore`` event);
+    never fails the restore."""
+    try:
+        manifest = _manifest(_step_dir(directory, step))
+        saved_procs = manifest.get("process_count")
+        saved_devs = manifest.get("device_count")
+        now = bootstrap.process_count()
+        if not ((saved_procs is not None and saved_procs != now)
+                or (saved_devs is not None and saved_devs != now)):
+            return
+        metrics_lib.inc("elastic.reshape_restores")
+        logger.info("reshape-restore of step %d: saved on %s process(es) / "
+                    "%s device(s), restoring on %d / %d", step, saved_procs,
+                    saved_devs, now, now)
+        from tpu_dist_torch.resilience import events
+
+        events.maybe_log("reshape_restore", step=step,
+                         saved_process_count=saved_procs,
+                         saved_device_count=saved_devs,
+                         process_count=now, device_count=now)
+    except OSError:
+        pass

@@ -82,7 +82,11 @@ epoch's start and replays. Armed programs are keyed apart from unarmed
 ones (``_train_variant``), so an unarmed fit runs, launches and captures
 exactly what it did before the guard existed. Under a
 ``MultiWorkerMirroredStrategy`` the liveness monitor is checked at each
-epoch's start.
+epoch's start. Elasticity: ``$TPU_DIST_REJOIN_DIR`` adds the epoch
+``RejoinGate`` and ``$TPU_DIST_GANG_DIR`` the ``StepRejoinGate``, whose
+``GangReform`` the loop catches beside ``RollbackAndReplay``
+(:meth:`Trainer._gang_reform`: the same in-place restore and rewind, after
+the clique is reformed); with neither set, nothing changes.
 
 ``fit(profile_dir=D)`` records a ``torch.profiler`` trace of the epochs
 into ``D`` on the chief (``utils/profiler.py``), each execution marked
@@ -767,11 +771,18 @@ class Trainer:
         # Supervisor's) rides the fit as one more callback; a process run
         # under run_entry gets the preemption drain after it, so an
         # injected preempt is drained in the same callback round.
+        # After them, the elastic gates: $TPU_DIST_REJOIN_DIR holds every
+        # epoch's start until the whole gang is there; $TPU_DIST_GANG_DIR
+        # (a step-rejoin Supervisor's) arms the mid-epoch reform.
         from tpu_dist_torch.resilience.injector import (
-            maybe_injector_from_env, maybe_preemption_drain)
+            maybe_injector_from_env, maybe_preemption_drain,
+            maybe_rejoin_gate)
+        from tpu_dist_torch.resilience.rejoin import (GangReform,
+                                                      maybe_step_rejoin_gate)
 
+        gang_gate = maybe_step_rejoin_gate(steps_per_epoch=steps_per_epoch)
         for cb in (maybe_injector_from_env(steps_per_epoch=steps_per_epoch),
-                   maybe_preemption_drain()):
+                   maybe_preemption_drain(), maybe_rejoin_gate(), gang_gate):
             if cb is not None:
                 callbacks.append(cb)
         # $TPU_DIST_OBSERVE_DIR (a Supervisor's, or a shell's) attaches a
@@ -794,7 +805,8 @@ class Trainer:
         if guard is not None:
             guard.bind(self.strategy, checkpoint_dir=checkpoint_dir,
                        shard_keys=integrity.shard_keys(self.model))
-            # A rollback with no published checkpoint returns here.
+        if guard is not None or gang_gate is not None:
+            # A rollback or a reform with no checkpoint returns here.
             self._fit_start = (initial_epoch, {
                 k: t.detach().clone() for k, t in self._live().items()})
 
@@ -819,6 +831,13 @@ class Trainer:
                         # budget (IntegrityAbort escapes fit).
                         start = self._integrity_rollback(
                             rb, guard, cbs, checkpoint_dir, batches)
+                    except GangReform as gr:
+                        # A peer died mid-epoch: the survivor's side of
+                        # the reform, then the loop again from the
+                        # consensus epoch (the same per-epoch seeds).
+                        start = self._gang_reform(
+                            gr, gang_gate, cbs, checkpoint_dir, batches,
+                            steps_per_epoch)
         except StopTraining as e:
             logger.info("training stopped early: %s", e)
         finally:
@@ -860,22 +879,8 @@ class Trainer:
             # The chief's directory decides, on every process.
             step = checkpoint._chief_choice(-1 if step is None else step)
             if step >= 0:
-                restored = checkpoint.restore_model(
-                    checkpoint_dir, self.model, step=step, trainer=self)
-        if restored is None:
-            next_epoch, values = self._fit_start
-            with torch.no_grad():
-                for key, t in self._live().items():
-                    t.copy_(values[key])
-        else:
-            next_epoch = restored + 1
-        # Replay re-reads the epoch's batches from its start: a host
-        # pipeline's iterator anew (what a restarted attempt would read), a
-        # device-resident dataset's cursor where that epoch found it.
-        self._close_prefetcher()
-        self._iterator = self._iterator_source = None
-        if isinstance(batches, DeviceDataset):
-            batches.seek(self._epoch_marks.get(next_epoch))
+                restored = step
+        next_epoch = self._restore_to(restored, checkpoint_dir, batches)
         guard.note_rollback(rb, restored)
         metrics_lib.inc("integrity.rollbacks")
         events.maybe_log("integrity_rollback", kind=rb.kind, step=rb.gstep,
@@ -885,6 +890,107 @@ class Trainer:
             "integrity rollback: anomaly %r at global step %d; restored "
             "checkpoint step %s, replaying from epoch %d",
             rb.kind, rb.gstep, restored, next_epoch)
+        return next_epoch
+
+    def _restore_to(self, step: Optional[int], checkpoint_dir,
+                    batches) -> int:
+        """Restore checkpoint ``step`` in place, or the variables the fit
+        started with when ``step`` is None; rewind the data to the start
+        of the epoch after it. Returns that epoch."""
+        from tpu_dist_torch.training import checkpoint
+
+        if step is None:
+            next_epoch, values = self._fit_start
+            with torch.no_grad():
+                for key, t in self._live().items():
+                    t.copy_(values[key])
+        else:
+            next_epoch = checkpoint.restore_model(
+                checkpoint_dir, self.model, step=step, trainer=self) + 1
+        # Replay re-reads the epoch's batches from its start: a host
+        # pipeline's iterator anew (what a restarted attempt would read), a
+        # device-resident dataset's cursor where that epoch found it.
+        self._close_prefetcher()
+        self._iterator = self._iterator_source = None
+        if isinstance(batches, DeviceDataset):
+            batches.seek(self._epoch_marks.get(next_epoch))
+        return next_epoch
+
+    def _gang_reform(self, gr, gate, cbs, checkpoint_dir, batches,
+                     steps_per_epoch: int) -> int:
+        """The survivor's side of a mid-epoch gang reform, in the JAX
+        package's order: quiesce the prefetcher; publish every
+        ``ModelCheckpoint``'s save in flight and ack with the newest
+        complete step (the Supervisor relaunches the lost rank only after
+        every ack, so the replacement sees the published state); reform
+        the clique under the new generation (``bootstrap.reinitialize``:
+        a new process group when one is up, whose mesh subgroups are
+        rebuilt; the trainer's data group and BatchNorm groups are read
+        anew); wait for the consensus restore step and restore it in place
+        (None: the fit's starting variables); meet the relaunched rank at
+        the gate's rendezvous. Records ``elastic.gang_reforms``,
+        ``drain_s``, ``reform_s``, ``restore_s`` and a ``gang_reform``
+        event. Returns the epoch to replay from."""
+        from tpu_dist_torch.cluster import bootstrap
+        from tpu_dist_torch.observe import metrics as metrics_lib
+        from tpu_dist_torch.resilience import events
+        from tpu_dist_torch.training import checkpoint
+        from tpu_dist_torch.training.callbacks import ModelCheckpoint
+
+        self._close_prefetcher()
+        self._iterator = self._iterator_source = None
+        for cb in cbs.callbacks:
+            if isinstance(cb, ModelCheckpoint):
+                cb.publish_in_flight()
+        available = (checkpoint.latest_complete_step(checkpoint_dir)
+                     if checkpoint_dir is not None else None)
+        drain_s = time.monotonic() - gr.seen_at
+        bootstrap.ack_reform(gate.directory, generation=gr.generation,
+                             rank=gate.rank, available_step=available)
+
+        t_reform = time.monotonic()
+        bootstrap.reinitialize(generation=gr.generation)
+        gate.generation = gr.generation
+        if bootstrap.is_initialized():
+            self.group = self.strategy.data_group
+            self._sync_step_knobs()
+
+        t_restore = time.monotonic()
+        deadline = t_restore + gate.timeout_s
+        while True:
+            published, step = bootstrap.read_restore_step(
+                gate.directory, generation=gr.generation)
+            if published:
+                break
+            if time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"gang reform: no consensus restore step for generation "
+                    f"{gr.generation} within {gate.timeout_s:.1f}s")
+            time.sleep(0.05)
+        if checkpoint_dir is None:
+            step = None
+        next_epoch = self._restore_to(step, checkpoint_dir, batches)
+        restore_s = time.monotonic() - t_restore
+
+        gate.rendezvous(step=next_epoch * steps_per_epoch, epoch=next_epoch)
+        reform_s = time.monotonic() - t_reform
+
+        metrics_lib.inc("elastic.gang_reforms")
+        metrics_lib.observe_value("elastic.drain_s", drain_s)
+        metrics_lib.observe_value("elastic.reform_s", reform_s)
+        metrics_lib.observe_value("elastic.restore_s", restore_s)
+        events.maybe_log(
+            "gang_reform", generation=gr.generation,
+            lost_ranks=gr.lost_ranks, rank=gate.rank,
+            detect_s=gr.request.get("detect_s"),
+            drain_s=round(drain_s, 6), reform_s=round(reform_s, 6),
+            restore_s=round(restore_s, 6), restored_step=step,
+            next_epoch=next_epoch, attempt=events.current_attempt())
+        logger.warning(
+            "gang reform: lost rank(s) %s; reformed at generation %d, "
+            "restored checkpoint step %s, replaying from epoch %d "
+            "(drain %.3fs reform %.3fs restore %.3fs)", gr.lost_ranks,
+            gr.generation, step, next_epoch, drain_s, reform_s, restore_s)
         return next_epoch
 
     def _resume(self, checkpoint_dir, initial_epoch: int) -> int:
