@@ -182,15 +182,15 @@ plain PyTorch version. Phases:
 22. bench.py's ResNets at full width and batch (``bench.py:59-60, 71-111,
     1045-1047``): ResNet-18 on Fashion-MNIST 28x28x1 and ResNet-50 on
     CIFAR-10 32x32x3 (the synthetic splits), global batch 256, SGD(0.001),
-    random weights from seed 0; (a) ``fit`` 2 epochs x 8 steps on the
+    random weights from seed 0; (a) ``fit`` 2 epochs x 4 steps on the
     reference chain without its shuffle (promoted to a ``DeviceDataset``),
     fused CE + SGD against an unfused twin from the same weights (cuDNN
     deterministic): losses, parameters and BatchNorm state within
-    ``RESNET_*`` after the first step, and after 16 within
+    ``RESNET_*`` after the first step, and after 8 within
     ``RESNET_DRIFT`` times the drift of an unfused twin started one ulp
-    off; 16 launches each of CE fwd, CE bwd and SGD; (b) the same
+    off; 8 launches each of CE fwd, CE bwd and SGD; (b) the same
     at ``steps_per_execution`` 8 / 4 on a captured graph against (a); (c)
-    ``evaluate`` and ``predict`` over 10,000 test images (a ragged last
+    ``evaluate`` and ``predict`` over 2,576 test images (a ragged last
     batch of 16): one captured eval program, equal to the eval forward
     batch by batch (the ragged one padded), and within ``PREDICT_RTOL`` of
     the forward of its 16 rows alone; then ``predict`` over the test chain
@@ -247,7 +247,7 @@ plain PyTorch version. Phases:
     ten device kernels and the kernel families with their share of the
     step; the CNN at k = 4 fit on its captured program inside a trace and
     outside, bit for bit; (d) ``examples/custom_training_loop.py`` on the
-    two workers, 100 steps: ``strategy.run``'s per-replica losses the
+    two workers, 40 steps: ``strategy.run``'s per-replica losses the
     same on both, ``reduce("mean")`` their mean, the parameters bit for
     bit and within ``CNN_LOSS_ATOL`` of a single-process twin on the
     global batch, the loss falling; (e) ms a step on each schedule, the
@@ -324,7 +324,9 @@ plain PyTorch version. Phases:
     host time.
 31. supervised training that survives its faults: ``python -m
     tpu_dist_torch.resilience`` on the card (the demo CNN, 3 x 4 steps of
-    32; a baseline, then the supervised run, each run ``ok``): (a)
+    32; a baseline, then the supervised run, each run ``ok``; all five
+    runs at once, beside (f), phase 32 (b) and phase 33's ``jobs
+    --chaos``): (a)
     ``kill-worker@step5,kill-during-save@epoch2:attempt1``: restarts >= 2,
     the first two exits ``EXIT_FAULT_KILL``, the last resume from step 1,
     ``loss_delta`` <= 1e-5; (b) ``preempt@step6``: a ``preempted`` exit
@@ -336,12 +338,13 @@ plain PyTorch version. Phases:
     majority), no restart, a rollback, parity; (e) ``--workers 2
     kill-worker@step5:rank1``: the gang restarts and reaches parity, the
     survivor's exit logged. (f) in this process, the benchmark LM at batch
-    64 x 512 with ``Adam(fused=True)``, 2 epochs x 4 steps and a
+    64 x 512 with ``Adam(fused=True)``, 2 epochs x 2 steps and a
     checkpoint an epoch, at k = 1 eager and k = 2 on graphs: armed
     (``TPU_DIST_INTEGRITY=1``) with the fused CE, bit for bit with the
     unarmed fit, the same launches (rows 1-2, 5, 6-9); with the plain CE
     (a token batch's poisoned labels give it a NaN, where the fused CE
-    reads their loss as the lse) and ``nan_loss@step6``: one rollback to
+    reads their loss as the lse) and ``nan_loss@step3`` (epoch 1's last
+    step): one rollback to
     step 0, the final loss and every parameter bit for bit with the clean
     fit, launches x 1.5 (the replayed epoch); the armed step's health
     vector against its plain version (``HEALTH_RTOL``); the armed step
@@ -370,6 +373,31 @@ plain PyTorch version. Phases:
     rank; (d) on the same two ranks, ``bootstrap.reinitialize`` of their
     gloo group of CUDA tensors: an all-reduce at generation 0, the re-dial
     on base + 1, the all-reduce again; teardown and bring-up seconds.
+33. jobs and the parameter server: (a) the benchmark LM at full width as
+    a parameter server: a ``PSServer`` in this process with
+    ``Adam(fused=True)`` and two worker processes (``chip_smoke.py
+    --ps-worker DIR RANK``) of 8 x 512 with the fused CE, staleness 4, a
+    budget of 16 applies over the file transport: the server's launches
+    (0, 0, 16, 0, 0, 0), each worker's (4n, 4n, 0, n, n, 0) for its n
+    pushes; each worker's first gradients against a one-process twin's at
+    the packet's base version (``PS_GRAD_RTOL``); ``replay_apply_log`` from
+    seed 0 reproducing the server's final checksums bit for bit; push MB
+    and seconds, pull seconds, the server's apply ms, applies/s; (b)
+    ``python -m tpu_dist_torch.resilience --ps-chaos`` with 4 workers and
+    96 applies a leg (the demo CNN, its six legs and gates: the calibrated
+    straggler against the synchronous control's collapse, a killed worker
+    with no restart, a killed server restoring and finishing its budget),
+    the straggler pair alone, the other legs beside phases 22-25; (c)
+    ``python -m tpu_dist_torch.jobs --bench`` (beside phases 29-30: packed
+    makespan against serial, the gate ratio; each serve job's flash
+    launches one a prefill) and ``--chaos`` (beside phase 31: solo
+    baselines, the kill and abort phases, blast radius zero); (d) phase 27's fleet of
+    two replicas with ``devices_per_replica=1`` (each leasing a
+    ``MeshRuntime`` slot under a job scope, its captured programs in the
+    runtime's cache) against the same fleet without it: the same tokens or
+    certified ties, flash launches depth x requests.
+
+Every phase's seconds are logged (``[time]``) and listed at the end.
 
 Prints one JSON line of kernel records, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
@@ -378,6 +406,7 @@ last line.
 
 from __future__ import annotations
 
+import atexit
 import collections
 import contextlib
 import io
@@ -3260,9 +3289,9 @@ def data_phase(card: str) -> None:
 #: compiled as ``bench.py:71-111`` builds them.
 RESNETS = (("resnet18", "fashion_mnist", (28, 28, 1), 8, ResNet18),
            ("resnet50", "cifar10", (32, 32, 3), 4, ResNet50))
-RESNET_BATCH, RESNET_EPOCHS, RESNET_STEPS = 256, 2, 8
-#: The test split: 10,000 = 39 x 256 + 16, so the last batch is ragged.
-RESNET_TEST = 10_000
+RESNET_BATCH, RESNET_EPOCHS, RESNET_STEPS = 256, 2, 4
+#: The test split: 2,576 = 10 x 256 + 16, so the last batch is ragged.
+RESNET_TEST = 2_576
 #: Fused against unfused, after the first step: the same forward (so the
 #: same loss and BatchNorm statistics, to rounding) and one update whose
 #: gradients differ by the CE kernel's ~1e-7 relative rounding, which moves
@@ -3270,7 +3299,7 @@ RESNET_TEST = 10_000
 RESNET_LOSS_ATOL = 1e-5
 RESNET_PARAM_ATOL = 1e-6
 RESNET_STATE_TOL = 1e-5
-#: After 16 steps a BatchNorm net carries any rounding difference far (on
+#: After 8 steps a BatchNorm net carries any rounding difference far (on
 #: the card, a twin whose weights start one ulp off drifts by as much as
 #: the fused run does): the fused run must stay within RESNET_DRIFT times
 #: that one-ulp twin's distance from the unfused one, measured in the same
@@ -3960,17 +3989,17 @@ def resume_phase(card: str, contiguous_streams: list) -> dict:
 #: Phase 24: ResNet-18 (phase 22's) at global batch 256 over two workers
 #: (128 rows each), 2 epochs x 4 steps, bucketed at
 #: benchmarks/step_bench.py:140's default and on the default schedule; the
-#: custom loop's 100 steps. Each worker has its own timeout.
+#: custom loop's 40 steps. Each worker has its own timeout.
 DP_WORKERS, DP_EPOCHS, DP_STEPS = 2, 2, 4
 DP_BUCKET_BYTES = 262144
-DP_LOOP_STEPS = 100
+DP_LOOP_STEPS = 40
 DP_TIMEOUT_S = 420
 #: (d): at lr 0.01 a batch of 16 carries rounding far: on the CPU the
 #: workers' loss (the mean of two 8-row means) and a single process's
 #: (one 16-row mean) agree to 7e-7 for the first 33 steps and then part
 #: by up to 1e-3 by step 100. The first LOOP_CLOSE_STEPS steps are held to
-#: CNN_LOSS_ATOL; all 100 and the parameters to RESNET_DRIFT times a
-#: one-ulp-nudged twin's drift, phase 22's rule.
+#: CNN_LOSS_ATOL; all DP_LOOP_STEPS and the parameters to RESNET_DRIFT
+#: times a one-ulp-nudged twin's drift, phase 22's rule.
 LOOP_CLOSE_STEPS = 20
 DP_TIMED = 10
 #: Phase 24 (c): the profiled LM fit's steps.
@@ -5066,7 +5095,8 @@ def _pool_bytes(engine) -> int | None:
 
 
 def _fleet_run(model, work: list, replicas: int, *, passes: int = 2,
-               autoscale=None, waves: int = 1, **engine_kw) -> tuple:
+               autoscale=None, waves: int = 1,
+               devices_per_replica=None, **engine_kw) -> tuple:
     """``work`` through a ServeFleet of ``replicas`` engines sharing
     ``model``, ``passes`` times (the first warms up: captures); returns
     (the fleet, the last pass's FleetRequests, its wall s, its route
@@ -5082,7 +5112,8 @@ def _fleet_run(model, work: list, replicas: int, *, passes: int = 2,
 
     tmp = tempfile.mkdtemp(prefix="fleet-")
     fleet = ServeFleet(factory, replicas=replicas, page_size=16,
-                       journal_root=tmp, autoscale=None)
+                       journal_root=tmp, autoscale=None,
+                       devices_per_replica=devices_per_replica)
     fleet.start()
     for k in range(passes):
         last = k == passes - 1
@@ -5229,6 +5260,9 @@ def fleet_phase(card: str) -> dict:
 
 #: (c): rank 1's input pipeline sleeps this long a sample (32 ms a batch).
 OBSERVE_SLEEP_S = 0.0005
+#: (a): `observe bench`'s rounds (the CLI's default is 400: 80 s on the
+#: card at PR 19, reading 1.638 % against the 5 % gate).
+OBSERVE_BENCH_ROUNDS = 200
 #: Epoch 0 carries rank 0's warm-up (its first steps build and load), so
 #: only the later epochs must flag rank 1.
 OBSERVE_EPOCHS, OBSERVE_STEPS = 3, 10
@@ -5334,6 +5368,7 @@ def observe_phase(card: str) -> dict:
         root = pathlib.Path(__file__).resolve().parent
         proc = subprocess.run(
             [sys.executable, "-m", "tpu_dist_torch.observe", "bench",
+             "--rounds", str(OBSERVE_BENCH_ROUNDS),
              "--workdir", str(tmp / "bench")], cwd=root,
             env=dict(os.environ, PYTHONPATH=os.pathsep.join(filter(
                 None, [str(root), os.environ.get("PYTHONPATH")]))),
@@ -6282,8 +6317,11 @@ def pp_phase(card: str) -> dict:
 
 # -- phase 31: supervised training that survives its faults ----------------------
 
-#: Phase 31 (f): 2 epochs x 4 steps of the benchmark LM at batch 64 x 512.
-GUARD_EPOCHS, GUARD_STEPS = 2, 4
+#: Phase 31 (f): 2 epochs x 2 steps of the benchmark LM at batch 64 x 512.
+GUARD_EPOCHS, GUARD_STEPS = 2, 2
+#: (f)'s nan_loss: epoch 1's last step, so the rollback restores epoch 0's
+#: step and replays epoch 1.
+GUARD_NAN_STEP = GUARD_EPOCHS * GUARD_STEPS - 1
 #: The chaos CLI's subprocess runs (a)-(e), together: the baselines, then
 #: every attempt.
 TRAIN_CHAOS_TIMEOUT_S = 400
@@ -6494,6 +6532,59 @@ def _armed_step_times(card: str) -> dict:
     return out
 
 
+def _guard_fits(card: str, tmp: pathlib.Path) -> dict:
+    """Phase 31 (f): the integrity guard at full width in this process.
+    Returns the launches on its paths: (flash fwd, flash bwd, Adam, CE fwd,
+    CE bwd, SGD) a fit."""
+    log(f"[31 f] the card before (f): {_free_card()}")
+    out = {}
+    for k in (1, 2):
+        runs = {armed: _guarded_fit(tmp, f"f{k}_{'armed' if armed else 'off'}",
+                                    k=k, armed=armed, fused_ce=True)
+                for armed in (False, True)}
+        if not _same_bits(runs[True], runs[False]) or \
+                runs[True]["counts"] != runs[False]["counts"]:
+            raise AssertionError(
+                f"(31 f) k = {k}: the armed fit moved: losses "
+                f"{runs[True]['loss']} / {runs[False]['loss']}, launches "
+                f"{runs[True]['counts']} / {runs[False]['counts']}")
+        want = (LM["depth"] * GUARD_EPOCHS * GUARD_STEPS,) * 2 + (
+            GUARD_EPOCHS * GUARD_STEPS,) * 3 + (0,)
+        if runs[True]["counts"] != want:
+            raise AssertionError(f"(31 f) k = {k}: launches "
+                                 f"{runs[True]['counts']}; expected {want}")
+        out[f"lm_guarded_k{k}"] = runs[True]["counts"]
+        clean = _guarded_fit(tmp, f"f{k}_clean", k=k, armed=False,
+                             fused_ce=False)
+        chaos = _guarded_fit(tmp, f"f{k}_nan", k=k, armed=True,
+                             fused_ce=False,
+                             plan=f"nan_loss@step{GUARD_NAN_STEP}")
+        rbs = [e for e in chaos["events"]
+               if e["event"] == "integrity_rollback"]
+        replayed = tuple(c * (GUARD_EPOCHS + 1) // GUARD_EPOCHS
+                         for c in clean["counts"])
+        if not (len(rbs) == 1 and rbs[0]["restored_step"] == 0
+                and _same_bits(chaos, clean) and chaos["counts"] == replayed):
+            raise AssertionError(
+                f"(31 f) k = {k} nan_loss: rollbacks {rbs}, losses "
+                f"{chaos['loss']} / {clean['loss']}, launches "
+                f"{chaos['counts']} (expected {replayed})")
+        out[f"lm_rollback_k{k}"] = chaos["counts"]
+        log(f"[31 f] k = {k}{' on graphs' if k > 1 else ' eager'}: armed "
+            f"fused-CE fit bit for bit with the unarmed one (losses "
+            f"{[float(f'{l:.7g}') for l in runs[True]['loss']]}), launches "
+            f"{runs[True]['counts']}, epoch s armed "
+            f"{[round(t, 3) for t in runs[True]['epoch_s']]} / unarmed "
+            f"{[round(t, 3) for t in runs[False]['epoch_s']]}; nan_loss@"
+            f"{GUARD_NAN_STEP} "
+            f"(plain CE): 1 rollback to step 0, final loss and every "
+            f"parameter bit for bit with the clean fit "
+            f"({clean['loss'][-1]!r}), launches {chaos['counts']} (the "
+            f"replayed epoch included)")
+    _armed_step_times(card)
+    return out
+
+
 def train_chaos_phase(card: str) -> dict:
     """Phase 31: the training chaos CLI on the card (a)-(e), then the
     integrity guard at full width in this process (f). Returns the
@@ -6501,9 +6592,18 @@ def train_chaos_phase(card: str) -> dict:
     CE bwd, SGD) a fit."""
     t_phase = time.monotonic()
     tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip-smoke-31-"))
-    # (a)-(e) at once (the gates are the runs' own; their wall times are
-    # on a shared card and host).
-    reports = _train_chaos({
+    # Phase 33 (c)'s `jobs --chaos` runs beside (a)-(e): no gate of either
+    # reads a time, and their process starts overlap.
+    _BACKGROUND["jobs_chaos"] = _start_cli(
+        "tpu_dist_torch.jobs", JOBS_CHAOS_ARGS,
+        pathlib.Path(tempfile.mkdtemp(prefix="chip-smoke-33-")), "jobs_chaos")
+    # Phase 32 (b)'s reshape run too: its gates are parity and events.
+    tmp32 = pathlib.Path(tempfile.mkdtemp(prefix="chip-smoke-32-"))
+    _BACKGROUND["reshape"] = (_start_chaos(RESHAPE_RUN, tmp32), tmp32)
+    # (a)-(e) at once, beside (f) in this process (the gates are the
+    # runs' own and (f)'s are bit for bit: none reads a time; the wall
+    # times are on a shared card and host).
+    started = _start_chaos({
         # The reference's acceptance demo: a kill, then a kill inside the
         # epoch-2 write on the restarted attempt.
         "a": ["--plan", "kill-worker@step5,kill-during-save@epoch2:attempt1"],
@@ -6517,6 +6617,9 @@ def train_chaos_phase(card: str) -> dict:
         # A dead peer: rank 1 killed; the gang restarts and recovers.
         "e": ["--workers", "2", "--plan", "kill-worker@step5:rank1"],
     }, tmp)
+    out = _guard_fits(card, tmp)
+    reports = _finish_chaos(started, tmp, "31")
+    t_cli = time.monotonic() - t_phase
     rep = reports["a"]
     if not (rep["restarts"] >= 2 and rep["exit_codes"][:2] == [[43], [43]]
             and rep["resumed_from"][-1:] == [1]
@@ -6567,60 +6670,16 @@ def train_chaos_phase(card: str) -> dict:
         f"the survivor's exit event {survivor}, loss_delta "
         f"{rep['loss_delta']!r}, recovery_wall_s {rep['recovery_wall_s']}, "
         f"run {rep['wall_s']:.1f} s")
-    t_cli = time.monotonic() - t_phase
-    # (f) The guard at full width, in this process.
-    log(f"[31 f] the card before (f): {_free_card()}")
-    out = {}
-    for k in (1, 2):
-        runs = {armed: _guarded_fit(tmp, f"f{k}_{'armed' if armed else 'off'}",
-                                    k=k, armed=armed, fused_ce=True)
-                for armed in (False, True)}
-        if not _same_bits(runs[True], runs[False]) or \
-                runs[True]["counts"] != runs[False]["counts"]:
-            raise AssertionError(
-                f"(31 f) k = {k}: the armed fit moved: losses "
-                f"{runs[True]['loss']} / {runs[False]['loss']}, launches "
-                f"{runs[True]['counts']} / {runs[False]['counts']}")
-        want = (LM["depth"] * GUARD_EPOCHS * GUARD_STEPS,) * 2 + (
-            GUARD_EPOCHS * GUARD_STEPS,) * 3 + (0,)
-        if runs[True]["counts"] != want:
-            raise AssertionError(f"(31 f) k = {k}: launches "
-                                 f"{runs[True]['counts']}; expected {want}")
-        out[f"lm_guarded_k{k}"] = runs[True]["counts"]
-        clean = _guarded_fit(tmp, f"f{k}_clean", k=k, armed=False,
-                             fused_ce=False)
-        chaos = _guarded_fit(tmp, f"f{k}_nan", k=k, armed=True,
-                             fused_ce=False, plan="nan_loss@step6")
-        rbs = [e for e in chaos["events"]
-               if e["event"] == "integrity_rollback"]
-        replayed = tuple(c * (GUARD_EPOCHS + 1) // GUARD_EPOCHS
-                         for c in clean["counts"])
-        if not (len(rbs) == 1 and rbs[0]["restored_step"] == 0
-                and _same_bits(chaos, clean) and chaos["counts"] == replayed):
-            raise AssertionError(
-                f"(31 f) k = {k} nan_loss: rollbacks {rbs}, losses "
-                f"{chaos['loss']} / {clean['loss']}, launches "
-                f"{chaos['counts']} (expected {replayed})")
-        out[f"lm_rollback_k{k}"] = chaos["counts"]
-        log(f"[31 f] k = {k}{' on graphs' if k > 1 else ' eager'}: armed "
-            f"fused-CE fit bit for bit with the unarmed one (losses "
-            f"{[float(f'{l:.7g}') for l in runs[True]['loss']]}), launches "
-            f"{runs[True]['counts']}, epoch s armed "
-            f"{[round(t, 3) for t in runs[True]['epoch_s']]} / unarmed "
-            f"{[round(t, 3) for t in runs[False]['epoch_s']]}; nan_loss@6 "
-            f"(plain CE): 1 rollback to step 0, final loss and every "
-            f"parameter bit for bit with the clean fit "
-            f"({clean['loss'][-1]!r}), launches {chaos['counts']} (the "
-            f"replayed epoch included)")
-    _armed_step_times(card)
-    log(f"[31] done in {time.monotonic() - t_phase:.1f} s ((a)-(e) at once "
-        f"{t_cli:.1f} s); {card}")
+    log(f"[31] done in {time.monotonic() - t_phase:.1f} s ((a)-(e) beside "
+        f"(f), ended {t_cli:.1f} s in); {card}")
     return out
 
 
 
 # -- phase 32: elasticity --------------------------------------------------------
 
+#: (b): the reshape run of the chaos CLI.
+RESHAPE_RUN = {"b": ["--reshape", "2,1", "--plan", "preempt@step5"]}
 #: (c): 2 epochs x 2 steps of the benchmark LM at 8 x 512 under TP_AXES.
 ELASTIC_EPOCHS, ELASTIC_STEPS, ELASTIC_BATCH = 2, 2, 8
 
@@ -6741,9 +6800,10 @@ def elastic_phase(card: str) -> dict:
     t_phase = time.monotonic()
     tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip-smoke-32-"))
     # (b) in the background while (c) and (d) run (its gates are parity
-    # and events, not times).
-    reshape = _start_chaos({"b": ["--reshape", "2,1", "--plan",
-                                  "preempt@step5"]}, tmp)
+    # and events, not times), started by phase 31 unless this phase runs
+    # alone.
+    reshape, tmp_b = _BACKGROUND.pop("reshape", None) or (
+        _start_chaos(RESHAPE_RUN, tmp), tmp)
     c = tmp / "c"
     c.mkdir()
     one = _elastic_lm()
@@ -6823,7 +6883,7 @@ def elastic_phase(card: str) -> dict:
             f"{r['teardown_s'] * 1e3:.2f} ms, bring-up "
             f"{r['init_s'] * 1e3:.2f} ms")
     # (b)'s report.
-    rep = _finish_chaos(reshape, tmp, "32")["b"]
+    rep = _finish_chaos(reshape, tmp_b, "32")["b"]
     restores = [(r["saved_process_count"], r["process_count"])
                 for r in rep["reshape_restores"]]
     if not (rep["exit_kinds"][0] == ["preempted", "preempted"]
@@ -6835,6 +6895,8 @@ def elastic_phase(card: str) -> dict:
         f"recovery_wall_s {rep['recovery_wall_s']}, run "
         f"{rep['wall_s']:.1f} s")
     # (a) alone: its gate compares two legs' wall times.
+    for label in ("jobs_bench", "jobs_chaos"):
+        _join_background(label)
     rep = _train_chaos({"a": ["--step-rejoin", "--plan",
                               "kill-worker@step6:rank1"]}, tmp, "32")["a"]
     legs = rep["step_rejoin"]
@@ -6852,6 +6914,458 @@ def elastic_phase(card: str) -> dict:
             for rank, w in enumerate(workers)}
 
 
+
+# -- phase 33: jobs and the parameter server ---------------------------------------
+
+#: (a): the benchmark LM as a parameter server: two workers of 8 x 512 each,
+#: a budget of PS_BUDGET applies through Adam(fused=True), staleness 4.
+PS_WORKERS, PS_BATCH, PS_BUDGET, PS_STALENESS = 2, 8, 16, 4
+#: (a): the batches a worker cycles through (an "epoch"), and the epochs of
+#: its local cap (the server's STOP ends it first).
+PS_STEPS, PS_EPOCHS = 4, 2
+#: (a): a worker's first gradients against the one-process twin's at the
+#: packet's base version: the same kernels on the same card, held within
+#: this fraction of the largest gradient (fp32 rounding).
+PS_GRAD_RTOL = 1e-6
+PS_TIMEOUT_S = 300
+#: (b): workers a leg, and steps an epoch a worker (the budget is 2 x steps
+#: x workers applies). The CLI's defaults (2 workers, 4 steps: 16 applies)
+#: are applied on the card in ~0.3 s, too short a window for its
+#: throughput ratios; and the straggler gate's premise is that the fast
+#: workers keep the server busy. On the card's host the server's apply
+#: rate moves by up to ±30 % from one leg to the next, and at 2-3 workers
+#: the straggler pair's ratio fell either side of the gate (0.66-1.24 over
+#: the builder's runs of the CLI), at 4 it stayed above it (1.20-1.94,
+#: PERF.md §6): a clean leg's four workers load the host more than the
+#: straggler leg's three.
+PS_CHAOS_WORLD, PS_CHAOS_STEPS = 4, 12
+PS_CHAOS_ARGS = ["--ps-chaos", "--device", "cuda", "--ps-world",
+                 str(PS_CHAOS_WORLD), "--ps-steps", str(PS_CHAOS_STEPS)]
+PS_OTHERS_ARGS = [*PS_CHAOS_ARGS, "--ps-legs", "sync,kill,server"]
+#: (b)-(c): each CLI run's timeout.
+JOBS_TIMEOUT_S = 400
+JOBS_CHAOS_ARGS = ["--chaos", "--device", "cuda"]
+JOBS_BENCH_ARGS = ["--bench", "--device", "cuda"]
+
+
+def _ps_lm():
+    """(a)'s model: the benchmark LM from seed 0 with ``Adam(fused=True)``
+    and the fused CE: the server applies through the Adam kernel, a
+    worker's step launches the flash and CE kernels."""
+    return _compiled_lm(Adam(learning_rate=ADAM_LR, fused=True),
+                        fused_ce=True)
+
+
+def _ps_batches(rank: int):
+    """Worker ``rank``'s PS_STEPS batches of 8 x 512 on the host:
+    bench.py's token stream, started 7919 tokens further for each rank (the
+    stream repeats every 16 rows, so its consecutive rows would give every
+    worker the same batches)."""
+    ln, vocab = LM["seq_len"], LM["vocab_size"]
+    n = PS_STEPS * PS_BATCH
+    stream = ((np.arange(n * ln + 1) + rank * 7919) * 2654435761) % vocab
+    return (stream[:-1].reshape(n, ln).astype(np.int64),
+            stream[1:].reshape(n, ln).astype(np.int64))
+
+
+def ps_worker(outdir: pathlib.Path, rank: int) -> int:
+    """A PS worker of (a) (``chip_smoke.py --ps-worker DIR RANK``): the LM
+    fit under ``ParameterServerStrategy`` until the server's STOP; writes
+    its launches, pushes, and the pull and push seconds."""
+    from tpu_dist_torch.parallel.ps_strategy import ParameterServerStrategy
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    metrics.get_registry().reset()
+    metrics.enable()
+    strategy = ParameterServerStrategy(
+        str(outdir / "ps"), role="worker", rank=rank, num_workers=PS_WORKERS,
+        staleness=PS_STALENESS, pull_timeout_s=PS_TIMEOUT_S)
+    with strategy.scope():
+        model = _ps_lm()
+    x, y = _ps_batches(rank)
+    ds = td_data.Dataset.from_tensor_slices((x, y)).batch(PS_BATCH)
+    _reset_counts()
+    t0 = time.perf_counter()
+    history = model.fit(ds, epochs=PS_EPOCHS, steps_per_epoch=PS_STEPS,
+                        verbose=0)
+    seconds = time.perf_counter() - t0
+    snap = metrics.get_registry().snapshot()["distributions"]
+    (outdir / f"worker{rank}.json").write_text(json.dumps({
+        "counts": list(_counts()), "pushes": strategy.pushed,
+        "loss": [float(v) for v in history.history["loss"]],
+        "push_s": snap.get("ps.push_s"), "pull_s": snap.get("ps.pull_s"),
+        "seconds": seconds}))
+    return 0
+
+
+def _spawn_ps_workers(root: pathlib.Path) -> list:
+    """(a)'s worker processes, ``chip_smoke.py --ps-worker DIR RANK``,
+    logging to one file."""
+    env = dict(os.environ)
+    here = pathlib.Path(__file__).resolve()
+    env["PYTHONPATH"] = os.pathsep.join(
+        filter(None, [str(here.parent), os.environ.get("PYTHONPATH")]))
+    with open(root / "worker.log", "wb") as log_file:
+        return [subprocess.Popen(
+            [sys.executable, str(here), "--ps-worker", str(root), str(r)],
+            env=env, stdout=log_file, stderr=subprocess.STDOUT)
+            for r in range(PS_WORKERS)]
+
+
+def _tail(path: pathlib.Path, n: int = 3000) -> str:
+    try:
+        return path.read_text(errors="replace")[-n:]
+    except OSError:
+        return "<no log>"
+
+
+def _at_version(psdir, version: int):
+    """A fresh (a) LM at the server's parameters of ``version``: seed 0,
+    then the apply log's first ``version`` packets through its fused Adam
+    (the replay's arithmetic)."""
+    from tpu_dist_torch.cluster.ps_transport import PSDir
+    from tpu_dist_torch.models.bridge import keypath
+
+    model = _ps_lm()
+    named = list(model.named_parameters())
+    params = [p for _, p in named]
+    opt = model.optimizer.init(params)
+    records = [r for r in psdir.read_apply_log() if "rank" in r]
+    for rec in records[:version]:
+        _, arrays = PSDir.load_grad(
+            psdir.grads / f"g-r{rec['rank']}-{rec['seq']:08d}.npz")
+        grads = [torch.from_numpy(arrays[keypath(n)]).to(p.device)
+                 for n, p in named]
+        with torch.no_grad():
+            model.optimizer.update(grads, opt, params)
+    return model
+
+
+def _first_grad_gap(psdir, rank: int) -> tuple:
+    """Worker ``rank``'s first packet against the one-process twin's
+    gradients on its first batch, at the packet's base version: (base
+    version, the largest gap over the largest gradient, bit for bit)."""
+    from tpu_dist_torch.cluster.ps_transport import PSDir
+    from tpu_dist_torch.models.bridge import keypath
+
+    meta, arrays = PSDir.load_grad(psdir.grads / f"g-r{rank}-00000000.npz")
+    model = _at_version(psdir, int(meta["base_version"]))
+    dev = next(model.parameters()).device
+    x, y = _ps_batches(rank)
+    model.train()
+    loss = model.loss(model(torch.from_numpy(x[:PS_BATCH]).to(dev)),
+                      torch.from_numpy(y[:PS_BATCH]).to(dev))
+    loss.backward()
+    gap = top = 0.0
+    same = True
+    for name, p in model.named_parameters():
+        got = torch.from_numpy(arrays[keypath(name)]).to(dev)
+        gap = max(gap, float((got - p.grad).abs().max()))
+        top = max(top, float(p.grad.abs().max()))
+        same = same and torch.equal(got, p.grad)
+    return int(meta["base_version"]), gap / top, same
+
+
+def _ps_full_width(card: str, tmp: pathlib.Path) -> dict:
+    """(a): a PSServer in this process and PS_WORKERS worker processes on
+    the card, the gates, and the transport's times. Returns the launches
+    a path: (flash fwd, flash bwd, Adam, CE fwd, CE bwd, SGD)."""
+    from tpu_dist_torch.cluster.ps_transport import PSDir
+    from tpu_dist_torch.parallel import ps_strategy
+    from tpu_dist_torch.training import integrity
+
+    root = tmp / "ps_lm"
+    root.mkdir()
+    psdir = PSDir(root / "ps")
+    t0 = time.monotonic()
+    procs = _spawn_ps_workers(root)
+    try:
+        model = _ps_lm()
+        server = ps_strategy.PSServer(
+            model, psdir, num_workers=PS_WORKERS, budget=PS_BUDGET, seed=0,
+            retain_grads=True, idle_timeout_s=PS_TIMEOUT_S)
+        _reset_counts()
+        stats = server.run()
+        server_counts = _counts()
+        final = integrity.host_leaf_checksums(
+            ps_strategy.tree_to_arrays(ps_strategy.params_tree(model)))
+        for p in procs:
+            if p.wait(timeout=PS_TIMEOUT_S) != 0:
+                raise AssertionError(
+                    f"(33 a) a PS worker exited {p.returncode}: "
+                    f"{_tail(root / 'worker.log')}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    wall = time.monotonic() - t0
+    apply_ms = [t * 1e3 for t in server.apply_s]
+    del server, model
+    torch.cuda.empty_cache()
+    workers = [json.loads((root / f"worker{r}.json").read_text())
+               for r in range(PS_WORKERS)]
+    if stats["applies"] != PS_BUDGET or stats["stop_reason"] != "budget":
+        raise AssertionError(f"(33 a) server {stats}")
+    # The server's Adam once an apply; a worker's step the flash pair
+    # depth times and the CE pair once, nothing else.
+    if server_counts != (0, 0, PS_BUDGET, 0, 0, 0):
+        raise AssertionError(f"(33 a) server launches {server_counts}")
+    for r, w in enumerate(workers):
+        n = w["pushes"]
+        want = [LM["depth"] * n, LM["depth"] * n, 0, n, n, 0]
+        if n < 1 or w["counts"] != want:
+            raise AssertionError(f"(33 a) worker {r}: launches "
+                                 f"{w['counts']} for {n} pushes, expected "
+                                 f"{want}")
+    # The log replayed on a fresh model from seed 0: the server's final
+    # checksums, bit for bit.
+    _reset_counts()
+    replayed = ps_strategy.replay_apply_log(psdir, _ps_lm(), seed=0)
+    replay_counts = _counts()
+    if replayed["applies"] != PS_BUDGET or replayed["checksums"] != final:
+        bad = [k for k in final if final[k] != replayed["checksums"].get(k)]
+        raise AssertionError(f"(33 a) the replay of {replayed['applies']} "
+                             f"applies differs on {len(bad)} of "
+                             f"{len(final)} leaves: {bad[:3]}")
+    gaps = [_first_grad_gap(psdir, r) for r in range(PS_WORKERS)]
+    for r, (version, rel, _) in enumerate(gaps):
+        if rel > PS_GRAD_RTOL:
+            raise AssertionError(f"(33 a) worker {r}'s first gradients "
+                                 f"(base version {version}) are {rel:.2e} "
+                                 "of the largest from the twin's")
+    torch.cuda.empty_cache()
+    push_mb = statistics.median(
+        p.stat().st_size for p in psdir.grads.glob("g-r*.npz")) / 1e6
+    log(f"[33 a] PS on the benchmark LM (21,269,504 parameters): a server "
+        f"here and {PS_WORKERS} worker processes of {PS_BATCH} x "
+        f"{LM['seq_len']}, staleness {PS_STALENESS}: {stats['applies']} "
+        f"applies (by rank {stats['applied_by_rank']}), pushes "
+        f"{[w['pushes'] for w in workers]}, losses "
+        f"{[[round(v, 5) for v in w['loss']] for w in workers]}; launches "
+        f"server {server_counts}, workers {[w['counts'] for w in workers]} "
+        f"(flash fwd, flash bwd, Adam, CE fwd, CE bwd, SGD), replay "
+        f"{replay_counts}; the replay's {len(final)} checksums equal the "
+        f"server's; first gradients at base versions "
+        f"{[g[0] for g in gaps]}: gap {[f'{g[1]:.2e}' for g in gaps]} of "
+        f"the largest, bit for bit {[g[2] for g in gaps]}")
+    log(f"[33 a] a push {push_mb:.2f} MB (npz + fsync): push s p50 "
+        f"{[round(w['push_s']['p50'], 4) for w in workers]}, pull s p50 "
+        f"{[round(w['pull_s']['p50'], 4) for w in workers]} (the wait for "
+        f"the staleness window included); server apply (H2D and the Adam "
+        f"kernel) {statistics.median(apply_ms):.3f} ms median "
+        f"({min(apply_ms):.3f}-{max(apply_ms):.3f}); "
+        f"{stats['throughput_sps']} applies/s over the apply span "
+        f"{stats['apply_span_s']:.3f} s; wall {wall:.1f} s with the "
+        f"workers' starts; {card}")
+    return {f"ps_worker{r}": tuple(w["counts"])
+            for r, w in enumerate(workers)} | {"ps_server": server_counts}
+
+
+#: CLI runs started by an earlier phase than the one that reads them
+#: (their process starts overlap that phase's), by label; stopped at exit
+#: if still running.
+_BACKGROUND: dict = {}
+
+
+def _stop_background() -> None:
+    for entry in _BACKGROUND.values():
+        procs = entry[0]
+        if isinstance(procs, tuple):  # _start_chaos's (processes, start)
+            procs = procs[0]
+        for proc in (procs.values() if isinstance(procs, dict)
+                     else [procs]):
+            if proc.poll() is None:
+                proc.kill()
+
+
+atexit.register(_stop_background)
+
+
+def _start_cli(module: str, args: list, tmp: pathlib.Path,
+               label: str) -> tuple:
+    """Start ``python -m MODULE ARGS --workdir --report`` on the card as a
+    subprocess; ``(process, start, tmp, label)``."""
+    root = pathlib.Path(__file__).resolve().parent
+    env = {k: v for k, v in os.environ.items() if k not in _GUARD_ENV}
+    env["PYTHONPATH"] = os.pathsep.join(
+        filter(None, [str(root), os.environ.get("PYTHONPATH")]))
+    with open(tmp / f"{label}.out", "wb") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", module, *args, "--workdir",
+             str(tmp / label), "--report", str(tmp / f"{label}.json")],
+            cwd=root, env=env, stdout=out, stderr=subprocess.STDOUT)
+    return proc, time.monotonic(), tmp, label
+
+
+def _join_background(label: str) -> None:
+    """Wait for a background CLI run (if one was started) to end, leaving
+    its report for the phase that reads it: the next phase's gate times
+    the host."""
+    if label not in _BACKGROUND:
+        return
+    proc = _BACKGROUND[label][0]
+    try:
+        proc.wait(timeout=JOBS_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+
+
+def _finish_cli(started: tuple) -> tuple:
+    """Wait for a :func:`_start_cli` run: (its report, its seconds from
+    its start); a non-zero exit or a missing report raises."""
+    proc, t0, tmp, label = started
+    try:
+        code = proc.wait(timeout=JOBS_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        raise AssertionError(f"(33) {label} timed out: "
+                             f"{_tail(tmp / f'{label}.out')}") from None
+    seconds = time.monotonic() - t0
+    report = tmp / f"{label}.json"
+    if code != 0 or not report.exists():
+        raise AssertionError(f"(33) {label} exited {code}: "
+                             f"{_tail(tmp / f'{label}.out')}; report: "
+                             f"{_tail(report, 8000)}")
+    return json.loads(report.read_text()), seconds
+
+
+def _cli_json(module: str, args: list, tmp: pathlib.Path,
+              label: str) -> tuple:
+    """:func:`_start_cli` and :func:`_finish_cli` back to back."""
+    return _finish_cli(_start_cli(module, args, tmp, label))
+
+
+def _ps_chaos(card: str, tmp: pathlib.Path) -> None:
+    """(b): the chaos CLI's PS legs on the card (the demo CNN), in two
+    runs: the straggler pair, whose gate compares two legs' throughput,
+    alone; the synchronous control, kill-worker and server-kill legs
+    (``PS_OTHERS_ARGS``, no gate of which reads a time closer than 2x)
+    started before phase 22, ended before phase 26."""
+    strag, s_s = _cli_json("tpu_dist_torch.resilience",
+                           [*PS_CHAOS_ARGS, "--ps-legs", "straggler"], tmp,
+                           "ps_chaos_straggler")
+    started = _BACKGROUND.pop("ps_chaos_others", None) or _start_cli(
+        "tpu_dist_torch.resilience", PS_OTHERS_ARGS, tmp, "ps_chaos_others")
+    others, _ = _finish_cli(started)
+    s, cfg = strag["straggler"], strag["config"]
+    legs = {**others["legs"], **strag["legs"]}
+    log(f"[33 b] --ps-chaos ({cfg['world']} workers, budget {cfg['budget']} "
+        f"applies a leg): ok; straggler delay {s['delay_s']} s (9x the "
+        f"clean step {s['clean_step_s']} s): async throughput ratio "
+        f"{s['async_throughput_ratio']} (gate >= 0.9), alone in "
+        f"{s_s:.1f} s; sync {others['straggler']['sync_throughput_ratio']} "
+        f"(gate < 0.5), convergence {others['convergence']}; kill-worker: "
+        f"restarts {legs['kill_worker']['server_restarts']}, exits "
+        f"{legs['kill_worker']['worker_exit_codes']}, applies "
+        f"{legs['kill_worker']['applies']}; server-kill: restarts "
+        f"{legs['server_kill']['server_restarts']}, restored from "
+        f"{legs['server_kill']['server_restores']}, applies "
+        f"{legs['server_kill']['applies']} (these beside phases 22-25); "
+        f"legs' applies/s "
+        f"{ {k: v['throughput_sps'] for k, v in legs.items()} }, wall s "
+        f"{ {k: v['wall_s'] for k, v in legs.items()} }; {card}")
+
+
+def _jobs(card: str, tmp: pathlib.Path) -> dict:
+    """(c): the jobs CLI's bench and chaos on the card. Returns the serve
+    jobs' flash forward launches a path."""
+    # Phase 29 starts it (its gate compares the packed and the serial
+    # makespans, both inside the run), unless this phase runs alone.
+    started = _BACKGROUND.pop("jobs_bench", None) or _start_cli(
+        "tpu_dist_torch.jobs", JOBS_BENCH_ARGS, tmp, "jobs_bench")
+    bench, b_s = _finish_cli(started)
+    out = {}
+    for side, jobs in (("serial", bench["serial"]["jobs"].values()),
+                       ("packed", bench["packed"]["jobs"])):
+        for j in jobs:
+            res = j["result"]
+            if j["kind"] == "serve":
+                spec = next(s for s in bench["config"]["jobs"]
+                            if s["name"] == j["name"])
+                # One prefill a request, one block.
+                if res["flash_fwd_launches"] != spec["requests"]:
+                    raise AssertionError(f"(33 c) {side} {j['name']}: "
+                                         f"flash launches {res}")
+                out[f"jobs_{side}_{j['name']}"] = res["flash_fwd_launches"]
+    log(f"[33 c] jobs --bench: packed makespan {bench['packed']['makespan_s']}"
+        f" s against serial {bench['serial']['makespan_s']} s (ratio "
+        f"{bench['packed_over_serial']}, gate <= "
+        f"{bench['config']['gate_ratio']}); jobs "
+        f"{[(j['name'], j['state'], j['duration_s']) for j in bench['packed']['jobs']]}"
+        f"; serve jobs' flash launches {out}; run {b_s:.1f} s; {card}")
+    # Phase 31 starts it (it has no timing gate; its process starts
+    # overlap that phase's), unless this phase runs alone.
+    started = _BACKGROUND.pop("jobs_chaos", None) or _start_cli(
+        "tpu_dist_torch.jobs", JOBS_CHAOS_ARGS, tmp, "jobs_chaos")
+    chaos, c_s = _finish_cli(started)
+    for phase in ("kill", "abort"):
+        p = chaos[phase]
+        log(f"[33 c] jobs --chaos {phase}: faults fired by job "
+            f"{p['faults_fired_by_job']}; jobs "
+            f"{[(j['name'], j['state'], j['restarts'], j['classification']) for j in p['pool']['jobs']]}"
+            f" (survivors at zero restarts and bit for bit with solo); "
+            f"makespan {p['pool']['makespan_s']} s")
+    log(f"[33 c] jobs --chaos: ok (solo baselines, kill, abort); run "
+        f"{c_s:.1f} s; {card}")
+    return out
+
+
+def _leased_fleet(card: str) -> int:
+    """(d): phase 27's fleet of two replicas with ``devices_per_replica=1``
+    (each leases a slot of a MeshRuntime and runs under a job scope) against
+    the same fleet without it: the same tokens (or certified ties).
+    Returns the leased run's flash forward launches."""
+    # On the card before the replicas' threads build their engines: two
+    # threads moving one CPU model at once race.
+    model = _serve_lm().cuda()
+    work = _fleet_workload(16)
+    _, plain, _, _ = _fleet_run(model, work, 2, passes=1)
+    _reset_counts()
+    fleet, leased, wall, _ = _fleet_run(model, work, 2, passes=1,
+                                        devices_per_replica=1)
+    launches = _counts()[0]
+    keys = fleet._runtime.program_keys()
+    if not keys or {k[0] for k in keys} != {"fleet-r0", "fleet-r1"}:
+        raise AssertionError(f"(33 d) the runtime's programs: {keys}")
+    ties = _ties(model, _as_reqs(leased), [fr.tokens for fr in plain],
+                 "(33 d)")
+    if launches != LM["depth"] * len(work):
+        raise AssertionError(f"(33 d) flash launches {launches}")
+    log(f"[33 d] a fleet of 2 replicas each leasing a MeshRuntime slot: "
+        f"{len(work)} requests, tokens equal to the fleet without leases "
+        f"({ties} certified ties), {len(keys)} captured programs in the "
+        f"runtime's cache ({sorted({k[3] for k in keys})}), flash launches "
+        f"{launches}, {wall:.2f} s; {card}")
+    return launches
+
+
+def jobs_phase(card: str) -> dict:
+    """Phase 33: the parameter server at full width (a), its chaos legs
+    (b), the jobs runtime's bench and chaos (c) and the leased fleet (d).
+    Returns the launches a path."""
+    t0 = time.monotonic()
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip-smoke-33-"))
+    out = _ps_full_width(card, tmp)
+    _ps_chaos(card, tmp)
+    out.update(_jobs(card, tmp))
+    out["fleet_leased"] = _leased_fleet(card)
+    log(f"[33] done in {time.monotonic() - t0:.1f} s; {card}")
+    return out
+
+
+_PHASE_S: dict = {}
+
+
+def _timed(name: str, fn, *args):
+    """``fn(*args)``, its seconds logged and kept under ``name``."""
+    t0 = time.monotonic()
+    out = fn(*args)
+    _PHASE_S[name] = round(time.monotonic() - t0, 1)
+    log(f"[time] phase {name}: {_PHASE_S[name]} s")
+    return out
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--dp-worker"]:
         return dp_worker(pathlib.Path(sys.argv[2]))
@@ -6865,41 +7379,53 @@ def main() -> int:
         return pp_worker(pathlib.Path(sys.argv[2]))
     if sys.argv[1:2] == ["--elastic-worker"]:
         return elastic_worker(pathlib.Path(sys.argv[2]))
+    if sys.argv[1:2] == ["--ps-worker"]:
+        return ps_worker(pathlib.Path(sys.argv[2]), int(sys.argv[3]))
     t0 = time.monotonic()
     card = device_phase()
     build_phase()
-    max_abs_err = kernel_check_phase()
-    launches, contiguous_streams = serve_phase()
-    cli_phase()
-    record = timing_phase(launches, max_abs_err)
-    bwd_err = bwd_check_phase()
-    adam_err, _ = adam_check_phase()
-    train_launches = train_phase()
+    max_abs_err = _timed("3", kernel_check_phase)
+    launches, contiguous_streams = _timed("4", serve_phase)
+    _timed("5", cli_phase)
+    record = _timed("6", timing_phase, launches, max_abs_err)
+    bwd_err = _timed("7", bwd_check_phase)
+    adam_err, _ = _timed("8", adam_check_phase)
+    train_launches = _timed("9", train_phase)
     record["launches_by_path"] = {"serve": launches,
                                   "train": train_launches["fwd"]}
-    fit_phase()
-    bwd_records, fwd_train_err, fwd_train = bwd_timing_phase(
-        train_launches["bwd"], bwd_err)
+    _timed("10", fit_phase)
+    bwd_records, fwd_train_err, fwd_train = _timed(
+        "11-12", bwd_timing_phase, train_launches["bwd"], bwd_err)
     record["train_shape"] = {"shape": [TRAIN_BATCH * LM["num_heads"],
                                        LM["seq_len"], 64], **fwd_train}
     # The forward runs at the serving shapes (phase 3) and the training
     # shape: its error is the larger of the two.
     record["max_abs_err"] = max(record["max_abs_err"], fwd_train_err)
-    adam_record = adam_timing_phase(train_launches["adam"], adam_err)
-    sgd_step_ms = step_timing_phase()
-    ce_errs = ce_check_phase()
-    sgd_errs = sgd_check_phase()
-    program_phase()
-    slice3 = {"cnn": cnn_fused_phase(), "lm": lm_fused_phase()}
-    new_records = slice3_timing_phase(slice3, ce_errs, sgd_errs,
-                                      sgd_step_ms)
-    paged = paged_phase(card, contiguous_streams)
-    paged_cli_phase()
-    graph_serve_phase(card, paged)
-    graph_train_phase(card, slice3["cnn"]["k1"])
-    data_phase(card)
-    resnets = resnet_phase(card)
-    resumed = resume_phase(card, contiguous_streams)
+    adam_record = _timed("11 adam", adam_timing_phase,
+                         train_launches["adam"], adam_err)
+    sgd_step_ms = _timed("11 step", step_timing_phase)
+    ce_errs = _timed("12 ce", ce_check_phase)
+    sgd_errs = _timed("13", sgd_check_phase)
+    _timed("14", program_phase)
+    slice3 = {"cnn": _timed("15 cnn", cnn_fused_phase),
+              "lm": _timed("16", lm_fused_phase)}
+    new_records = _timed("17", slice3_timing_phase, slice3, ce_errs,
+                         sgd_errs, sgd_step_ms)
+    paged = _timed("18", paged_phase, card, contiguous_streams)
+    _timed("18 cli", paged_cli_phase)
+    _timed("19", graph_serve_phase, card, paged)
+    _timed("20", graph_train_phase, card, slice3["cnn"]["k1"])
+    _timed("21", data_phase, card)
+    # Phase 33 (b)'s synchronous control, kill-worker and server-kill legs
+    # run beside phases 22-25: no gate of theirs reads a time closer than
+    # 2x, and none of those phases gates on one. Phase 26 sizes a stall
+    # timeout from a worker's steps: it waits for them.
+    _BACKGROUND["ps_chaos_others"] = _start_cli(
+        "tpu_dist_torch.resilience", PS_OTHERS_ARGS,
+        pathlib.Path(tempfile.mkdtemp(prefix="chip-smoke-33-")),
+        "ps_chaos_others")
+    resnets = _timed("22", resnet_phase, card)
+    resumed = _timed("23", resume_phase, card, contiguous_streams)
     # Rows 1-3 launch on the ResNets' fit too (the counts of phase 22 (a)),
     # and row 3 runs at their leaf tables.
     for rec, index in zip(new_records[:3], (3, 4, 5)):
@@ -6924,8 +7450,8 @@ def main() -> int:
         rec.setdefault("launches_by_path", {})["lm_resumed"] = lm[1]
     # Phase 24's paths: each worker's bucketed and default ResNet-18 fits
     # launch rows 1-3; the profiled LM fit rows 6-9.
-    dp = dp_phase(card)
-    profiled = profile_phase(card, sgd_step_ms)
+    dp = _timed("24", dp_phase, card)
+    profiled = _timed("24 c", profile_phase, card, sgd_step_ms)
     for rec, index in zip(new_records[:3], (3, 4, 5)):
         for label, counts in dp.items():
             rec["launches_by_path"][f"resnet18_two_workers_{label}"] = \
@@ -6935,18 +7461,19 @@ def main() -> int:
         rec["launches_by_path"]["lm_profiled"] = profiled["bwd"]
     # Phase 25's path: each worker's FILE-sharded fit launches rows 1-3;
     # phase 26's resilient serving row 6.
-    files = file_phase(card)
+    files = _timed("25", file_phase, card)
     for i, rec in enumerate(new_records[:3]):
         for rank, counts in enumerate(files):
             rec["launches_by_path"][f"mnist_file_sharded_worker{rank}"] = \
                 counts[i]
-    record["launches_by_path"].update(resilience_phase(
-        card, contiguous_streams))
+    _join_background("ps_chaos_others")
+    record["launches_by_path"].update(_timed(
+        "26", resilience_phase, card, contiguous_streams))
     # Phase 27's paths launch row 6 (the contiguous replicas' prefills);
     # phase 28's rows 1-3 (the fused CNN fits, each rank's fit) and 5-9
     # (the LM fit), each beside the same fit without Telemetry.
-    record["launches_by_path"].update(fleet_phase(card))
-    observed = observe_phase(card)
+    record["launches_by_path"].update(_timed("27", fleet_phase, card))
+    observed = _timed("28", observe_phase, card)
     for label in ("cnn_fit_telemetry_k1", "cnn_fit_telemetry_k20",
                   "observe_rank0", "observe_rank1"):
         for rec, count in zip(new_records[:3], observed[label][3:]):
@@ -6958,7 +7485,13 @@ def main() -> int:
         rec["launches_by_path"]["lm_fit_telemetry"] = lm_counts[1]
     # Phase 29's paths: each rank's tensor-parallel LM (fp32 and bf16)
     # launches rows 1-2, 5 and 6-9; the ring LM rows 1-2 and 5.
-    for label, counts in tp_phase(card).items():
+    # Phase 33 (c)'s `jobs --bench` runs beside phases 29-30: no gate of
+    # theirs reads a time, and the bench's compares the packed and serial
+    # makespans, both inside its own run.
+    _BACKGROUND["jobs_bench"] = _start_cli(
+        "tpu_dist_torch.jobs", JOBS_BENCH_ARGS,
+        pathlib.Path(tempfile.mkdtemp(prefix="chip-smoke-33-")), "jobs_bench")
+    for label, counts in _timed("29", tp_phase, card).items():
         for rec, count in zip(new_records[:2], counts[3:5]):
             rec["launches_by_path"][label] = count
         adam_record["launches_by_path"][label] = counts[2]
@@ -6968,7 +7501,7 @@ def main() -> int:
     # Phase 30's paths: each rank's GPipe and MoE fits launch rows 1-2, 5
     # and 6-9; the 1F1B loop rows 3 and 6-9, and rows 1-2 on the last
     # stage.
-    for label, counts in pp_phase(card).items():
+    for label, counts in _timed("30", pp_phase, card).items():
         for rec, count in zip(new_records[:3], (*counts[3:5], counts[5])):
             rec["launches_by_path"][label] = count
         adam_record["launches_by_path"][label] = counts[2]
@@ -6978,7 +7511,7 @@ def main() -> int:
     # Phase 31's paths: (f)'s armed fused-CE fits launch rows 1-2, 5 and
     # 6-9; its rolled-back plain-CE fits rows 5 and 6-9, the replayed epoch
     # included.
-    for label, counts in train_chaos_phase(card).items():
+    for label, counts in _timed("31", train_chaos_phase, card).items():
         for rec, count in zip(new_records[:2], counts[3:5]):
             rec["launches_by_path"][label] = count
         adam_record["launches_by_path"][label] = counts[2]
@@ -6987,7 +7520,19 @@ def main() -> int:
             rec["launches_by_path"][label] = counts[1]
     # Phase 32's paths: each rank's sharded-checkpointed LM fit under
     # {data: 1, model: 2} launches rows 1-2, 5 and 6-9.
-    for label, counts in elastic_phase(card).items():
+    for label, counts in _timed("32", elastic_phase, card).items():
+        for rec, count in zip(new_records[:2], counts[3:5]):
+            rec["launches_by_path"][label] = count
+        adam_record["launches_by_path"][label] = counts[2]
+        record["launches_by_path"][label] = counts[0]
+        for rec in bwd_records:
+            rec["launches_by_path"][label] = counts[1]
+    # Phase 33's paths: each PS worker's step launches rows 1-2 and 6-9,
+    # the PS server row 5; the serve jobs and the leased fleet row 6.
+    for label, counts in _timed("33", jobs_phase, card).items():
+        if isinstance(counts, int):
+            record["launches_by_path"][label] = counts
+            continue
         for rec, count in zip(new_records[:2], counts[3:5]):
             rec["launches_by_path"][label] = count
         adam_record["launches_by_path"][label] = counts[2]
@@ -6996,6 +7541,7 @@ def main() -> int:
             rec["launches_by_path"][label] = counts[1]
     # In the order of the TPU kernel table (PERF.md): rows 1-9.
     records = [*new_records, adam_record, record, *bwd_records]
+    log(f"[time] phases (s): {json.dumps(_PHASE_S)}")
     log(f"done in {time.monotonic() - t0:.1f} s")
     print(json.dumps({"kernels": records}))
     print(card)

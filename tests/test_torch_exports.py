@@ -17,15 +17,13 @@ jpolicy = importlib.import_module("tpu_dist.models.policy")
 tpolicy = importlib.import_module("tpu_dist_torch.models.policy")
 
 PACKAGES = ("", "ops", "serve", "training", "observe", "models", "data",
-            "parallel", "cluster", "resilience")
+            "parallel", "cluster", "resilience", "jobs")
 
 #: Reference names the port does not have yet -> the ROADMAP.md queue-1
 #: item (or decision) that covers them.
 NOT_YET_PORTED = {
     "OptaxWrapper": "not ported, by decision (optax has no PyTorch "
                     "counterpart)",
-    # item 20: the parameter server
-    "ParameterServerStrategy": "item 20",
 }
 
 

@@ -339,10 +339,11 @@ def test_sync_bn_variance_is_centred_on_off_centre_data(tmp_path):
 
 @pytest.mark.parametrize("call, item", [
     # Items 12, 17a and 17b ported the data, model, seq, pipe and expert
-    # axes, and 18b the sharded checkpoint layout; several devices in one
-    # process and the fleet's leased submeshes stay unported.
+    # axes, 18b the sharded checkpoint layout and 20 the fleet's leased
+    # slots; several devices in one process, a strategy's or a fleet
+    # replica's, stay unported.
     (lambda: MirroredStrategy(devices=["cpu", "cpu"]), "12b"),
-    (lambda: fleet.ServeFleet(lambda: None, devices_per_replica=2), "20"),
+    (lambda: fleet.ServeFleet(lambda: None, devices_per_replica=2), "12b"),
 ], ids=["run", "devices_per_replica"])
 def test_unported_names_the_roadmap_item(call, item):
     with pytest.raises(NotImplementedError,

@@ -2013,3 +2013,83 @@ def test_sharded_checkpoint_and_reinitialize_on_two_gloo_ranks_of_the_card(
     for key in v1:
         assert got[0][key].tobytes() == got[1][key].tobytes() \
             == v1[key].tobytes(), key
+
+
+def _small_lm(optimizer, device):
+    model = build_transformer_lm(64, 64, d_model=64, depth=1, num_heads=2,
+                                 seed=0)
+    model.compile(optimizer=optimizer,
+                  loss=SparseCategoricalCrossentropy(from_logits=True),
+                  device=device)
+    return model
+
+
+@pytest.mark.gpu
+def test_ps_server_applies_through_fused_adam_as_its_plain_version(
+        cuda_device, tmp_path):
+    """A PSServer on the card applies pushed packets through the fused
+    Adam kernel (one launch an apply), and ends where Adam(fused=False)
+    applying the same gradients does (the same arithmetic in the same
+    order: rtol 1e-6, as chip_smoke.py's phase 8)."""
+    from tpu_dist_torch.cluster.ps_transport import PSDir
+    from tpu_dist_torch.models.bridge import keypath
+    from tpu_dist_torch.parallel.ps_strategy import PSServer
+
+    model = _small_lm(Adam(learning_rate=1e-2, fused=True), cuda_device)
+    twin = _small_lm(Adam(learning_rate=1e-2, fused=False), cuda_device)
+    psdir = PSDir(tmp_path / "ps").ensure()
+    rng = np.random.default_rng(0)
+    packets = []
+    for seq in range(3):
+        grads = {keypath(n): rng.standard_normal(tuple(p.shape)).astype(
+            np.float32) for n, p in model.named_parameters()}
+        psdir.push_grad(grads, rank=0, seq=seq, meta={"base_version": 0})
+        packets.append(grads)
+    before = fused.fused_adam_apply.launches
+    stats = PSServer(model, psdir, num_workers=1, budget=3, seed=0).run()
+    assert stats["applies"] == 3
+    assert fused.fused_adam_apply.launches - before == 3
+    params = list(twin.parameters())
+    opt = twin.optimizer.init(params)
+    with torch.no_grad():
+        for grads in packets:
+            twin.optimizer.update(
+                [torch.from_numpy(grads[keypath(n)]).to(cuda_device)
+                 for n, _ in twin.named_parameters()], opt, params)
+    for (name, p), q in zip(model.named_parameters(), params):
+        torch.testing.assert_close(p, q, rtol=1e-6, atol=1e-7, msg=name)
+
+
+@pytest.mark.gpu
+def test_a_job_scoped_engine_keeps_its_captured_programs_in_the_runtime(
+        cuda_device):
+    """Under a job scope the engine serves on the job's slot and its
+    captured programs live in the MeshRuntime's cache, keyed by the job;
+    its streams are a solo engine's, which leaves the runtime alone."""
+    from tpu_dist_torch.jobs import JobSpec, MeshRuntime, job_scope
+
+    model = build_transformer_lm(64, 64, d_model=64, depth=1, num_heads=2,
+                                 seed=0)
+    prompts = [[1, 2, 3, 4, 5], [7, 8, 9]]
+
+    def serve(engine):
+        outs = []
+        for _ in range(2):   # the second pass replays the captures
+            reqs = [engine.submit(p, max_new_tokens=6) for p in prompts]
+            engine.run_until_idle()
+            outs.append([r.generated for r in reqs])
+        engine.close()
+        return outs
+
+    runtime = MeshRuntime([cuda_device])
+    with job_scope(runtime, JobSpec(name="serve-a", kind="serve")) as ctx:
+        engine = ServeEngine(model, max_batch=2, max_len=64)
+        assert engine.device == ctx.strategy.device
+        scoped = serve(engine)
+    keys = runtime.program_keys()
+    assert keys and {k[0] for k in keys} == {"serve-a"}
+    assert {(k[3], k[4]) for k in keys} == set(engine.programs)
+    assert sum(p.graph is not None for p in engine.programs.values()) > 0
+    solo = serve(ServeEngine(model, max_batch=2, max_len=64))
+    assert runtime.program_keys() == keys
+    assert scoped == solo

@@ -289,9 +289,20 @@ def _arm(monkeypatch, tmp_path, plan, budget="3", quarantine=False):
 def _fit(tmp_path, monkeypatch, *, plan=None, budget="3", k=1, epochs=3,
          quarantine=False, jax_side=False):
     """The reference test's model and data (cardinality == steps per
-    epoch), seed-0 weights bridged into the port's model."""
+    epoch), seed-0 weights bridged into the port's model.
+
+    The reference's rollback reads the newest published checkpoint without
+    committing a save in flight, so with ``fit``'s own asynchronous
+    checkpoint its first rollback finds epoch 0's step only if the writer
+    thread has published it by then: on a loaded host it has not, and the
+    rollback restarts from the fit's start. The reference side therefore
+    saves synchronously (``ModelCheckpoint(async_save=False)`` for the same
+    directory replaces ``fit``'s own), so epoch 0's step is published
+    before epoch 1 runs. The port keeps ``fit``'s asynchronous checkpoint:
+    its rollback commits the save in flight first."""
     _arm(monkeypatch, tmp_path, plan, budget, quarantine)
     x, y = _data()
+    callbacks = []
     jm = td.Sequential([td.models.Dense(8, activation="relu"),
                         td.models.Dense(4)], input_shape=(4,))
     if jax_side:
@@ -300,6 +311,8 @@ def _fit(tmp_path, monkeypatch, *, plan=None, budget="3", k=1, epochs=3,
             optimizer=td.ops.SGD(learning_rate=0.1), steps_per_execution=k)
         ds = td.data.Dataset.from_tensor_slices((x, y)).batch(16)
         model = jm
+        callbacks.append(td.training.callbacks.ModelCheckpoint(
+            str(tmp_path / "ckpt"), async_save=False))
     else:
         from tpu_dist_torch.data import Dataset
 
@@ -313,7 +326,7 @@ def _fit(tmp_path, monkeypatch, *, plan=None, budget="3", k=1, epochs=3,
             steps_per_execution=k, device="cpu")
         ds = Dataset.from_tensor_slices((x, y)).batch(16)
     h = model.fit(ds, epochs=epochs, steps_per_epoch=4, verbose=0,
-                  checkpoint_dir=str(tmp_path / "ckpt"))
+                  callbacks=callbacks, checkpoint_dir=str(tmp_path / "ckpt"))
     return [float(v) for v in h.history["loss"]]
 
 
@@ -380,6 +393,9 @@ def test_quarantine_skips_the_window_as_the_reference_does(tmp_path,
         tmp_path / side / "events.jsonl", "integrity_quarantine_skip")]
         for side in ("port", "ref")]
     assert skips[0] == skips[1] and skips[0][0] == (5, 1)
+    # Each hit restores epoch 0's published step and replays epoch 1, the
+    # quarantine growing by the hit step each time.
+    assert _rollbacks(tmp_path / "port") == [(0, 1), (0, 1), (0, 1)]
     assert _rollbacks(tmp_path / "port") == _rollbacks(tmp_path / "ref")
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, want, rtol=1e-5)

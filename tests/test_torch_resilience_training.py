@@ -325,10 +325,18 @@ def test_an_unreachable_store_raises_peer_unavailable(ranks):
 @pytest.mark.parametrize("argv, item", [
     (["--ps-chaos"], "20"),
 ], ids=["ps_chaos"])
-def test_unported_cli_modes_name_their_item(argv, item):
-    with pytest.raises(NotImplementedError,
-                       match=rf"item {item} of queue 1 in ROADMAP\.md"):
-        cli.main(argv)
+def test_unported_cli_modes_name_their_item(argv, item, monkeypatch,
+                                            tmp_path):
+    # Item 20 ported the last of them: --ps-chaos runs the parameter
+    # server's legs (resilience/ps_chaos.py; tests/test_torch_ps.py and
+    # chip_smoke.py phase 33 run them).
+    from tpu_dist_torch.resilience import ps_chaos
+
+    seen = []
+    monkeypatch.setattr(ps_chaos, "run_ps_chaos",
+                        lambda args, workdir: seen.append(workdir) or 0)
+    assert cli.main(argv + ["--workdir", str(tmp_path)]) == 0
+    assert seen == [tmp_path]
 
 
 def test_cli_usage_errors(tmp_path):

@@ -132,7 +132,9 @@ def test_unported_supervisor_arguments_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="item 12b of queue 1"):
         supervisor.Supervisor(_cmd("clean"), device_schedule=[2])
     supervisor.Supervisor(_cmd("clean"), device_schedule=[1, 1])
-    with pytest.raises(NotImplementedError, match="item 20"):
+    # Item 20 leased each fleet replica a slot; a replica of several
+    # devices in one process is item 12b.
+    with pytest.raises(NotImplementedError, match="item 12b of queue 1"):
         cli.main(["--fleet", "--devices-per-replica", "2"])
 
 

@@ -247,10 +247,12 @@ class TestFleetFaultGrammar:
         with pytest.raises(ValueError, match="--chaos"):
             fleet.ServeFleet(_gated("torch", pair[1]),
                              plan=FaultPlan.parse("engine_crash@req0"))
-        with pytest.raises(NotImplementedError, match="item 20"):
-            fleet.ServeFleet(_gated("torch", pair[1]), devices_per_replica=1)
-        with pytest.raises(NotImplementedError, match="item 20"):
-            main(["--fleet", "--devices-per-replica", "1", "--device",
+        # A replica leases one slot (item 20); several devices in one
+        # process are item 12b.
+        with pytest.raises(NotImplementedError, match="item 12b"):
+            fleet.ServeFleet(_gated("torch", pair[1]), devices_per_replica=2)
+        with pytest.raises(NotImplementedError, match="item 12b"):
+            main(["--fleet", "--devices-per-replica", "2", "--device",
                   "cpu"])
 
 

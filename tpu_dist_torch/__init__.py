@@ -35,7 +35,8 @@ from tpu_dist_torch.models import (Model, Sequential,
                                    build_and_compile_cnn_model)
 from tpu_dist_torch.parallel import (CollectiveCommunication, InputContext,
                                      MirroredStrategy,
-                                     MultiWorkerMirroredStrategy, ReduceOp,
+                                     MultiWorkerMirroredStrategy,
+                                     ParameterServerStrategy, ReduceOp,
                                      Strategy, get_strategy)
 from tpu_dist_torch.training import (Callback, EarlyStopping, History,
                                      JSONLogger, LambdaCallback,
@@ -51,7 +52,8 @@ __all__ = [
     "AutoShardPolicy", "Dataset", "Options",
     "Model", "Sequential", "build_and_compile_cnn_model",
     "CollectiveCommunication", "InputContext", "MirroredStrategy",
-    "MultiWorkerMirroredStrategy", "ReduceOp", "Strategy", "get_strategy",
+    "MultiWorkerMirroredStrategy", "ParameterServerStrategy", "ReduceOp",
+    "Strategy", "get_strategy",
     "Callback", "EarlyStopping", "History", "JSONLogger", "LambdaCallback",
     "ModelCheckpoint", "TensorBoard", "checkpoint",
     "__version__",

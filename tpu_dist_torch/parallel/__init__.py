@@ -1,6 +1,6 @@
 """Parallelism layer: axis names, meshes, collectives, distribution
-strategies, tensor parallelism, ring attention, the pipeline schedules and
-the mixture of experts."""
+strategies (the parameter server's among them), tensor parallelism, ring
+attention, the pipeline schedules and the mixture of experts."""
 
 from tpu_dist_torch.parallel.axes import (CANONICAL_AXES, DATA_AXIS,
                                           EXPERT_AXIS, MODEL_AXIS, PIPE_AXIS,
@@ -20,6 +20,7 @@ from tpu_dist_torch.parallel.pipeline_1f1b import (make_1f1b_train_step,
                                                    one_f_one_b)
 from tpu_dist_torch.parallel.pipeline_parallel import (PipelinedBlocks,
                                                        gpipe_schedule)
+from tpu_dist_torch.parallel.ps_strategy import ParameterServerStrategy
 from tpu_dist_torch.parallel.sequence import (RingAttention, ring_attention,
                                               sequence_sharding)
 from tpu_dist_torch.parallel.strategy import (DefaultStrategy, InputContext,
@@ -37,8 +38,8 @@ __all__ = [
     "broadcast_from_chief", "bucketed_all_reduce", "host_all_reduce_sum",
     "partition_buckets", "set_collective_logging",
     "DefaultStrategy", "InputContext", "MirroredStrategy",
-    "MultiWorkerMirroredStrategy", "Strategy", "get_strategy",
-    "has_strategy",
+    "MultiWorkerMirroredStrategy", "ParameterServerStrategy", "Strategy",
+    "get_strategy", "has_strategy",
     "RingAttention", "ring_attention", "sequence_sharding",
     "tensor_parallel_specs",
     "PipelinedBlocks", "gpipe_schedule", "make_1f1b_train_step",

@@ -33,8 +33,9 @@ the gang (``TPU_DIST_DEMO_STRATEGY=mirrored``: gloo, one replica a
 process). The JAX package runs a ``bitflip`` plan over 8 virtual devices in
 one process; the port has one device a process, so it runs bitflip over
 ``--workers >= 2`` ranks (a replica is a rank) and refuses ``--workers 1``
-with a usage error. ``--ps-chaos``, the parameter server (ROADMAP.md item
-20), raises ``unported``.
+with a usage error. ``--ps-chaos`` runs the parameter server's legs
+(``resilience/ps_chaos.py``): straggler against the synchronous control,
+kill-worker and server-kill, each process on ``--device``.
 
 Elasticity, the reference's two modes:
 
@@ -74,7 +75,6 @@ from tpu_dist_torch.resilience.entrypoints import (CHECKPOINT_DIR_ENV,
 from tpu_dist_torch.resilience.faults import (FAULT_PLAN_ENV, FaultPlan,
                                               describe)
 from tpu_dist_torch.resilience.supervisor import BackoffPolicy, Supervisor
-from tpu_dist_torch.utils.errors import unported
 
 _RESULT_PREFIX = "RESULT:"
 
@@ -194,7 +194,29 @@ def build_parser() -> argparse.ArgumentParser:
                         "and a reshape_restore must happen. The baseline "
                         "runs in one process")
     p.add_argument("--ps-chaos", action="store_true",
-                   help="parameter-server chaos legs (item 20: not ported)")
+                   help="parameter-server chaos legs instead of a --plan "
+                        "run: calibrated 10x straggler (async vs a "
+                        "measured sync collapse), kill-worker (zero "
+                        "restarts), server-kill (checkpoint restore). "
+                        "Fault plans are derived per leg; --plan is "
+                        "ignored")
+    p.add_argument("--ps-world", type=int, default=2,
+                   help="PS worker ranks per leg (default 2)")
+    p.add_argument("--ps-epochs", type=int, default=2)
+    p.add_argument("--ps-steps", type=int, default=4,
+                   help="steps per epoch per worker (budget = "
+                        "epochs*steps*world)")
+    p.add_argument("--ps-batch", type=int, default=8)
+    p.add_argument("--ps-staleness", type=int, default=4,
+                   help="bounded-staleness window for the async legs")
+    p.add_argument("--ps-tol", type=float, default=0.1,
+                   help="max |final_loss| delta for the PS convergence "
+                        "gates (bounded staleness reorders applies, so "
+                        "this is a convergence tolerance, not parity)")
+    p.add_argument("--ps-legs", default="all",
+                   help="comma subset of straggler,kill,server,sync (or "
+                        "'all'); the clean async reference leg always "
+                        "runs")
     return p
 
 
@@ -214,9 +236,16 @@ def _demo_env(plan: FaultPlan, workers: int) -> dict:
 def main(argv: Optional[list] = None) -> int:
     args = build_parser().parse_args(argv)
     if args.ps_chaos:
-        raise unported("--ps-chaos (the parameter server's chaos legs)", 20)
+        workdir = pathlib.Path(args.workdir or tempfile.mkdtemp(
+            prefix="tpu-dist-chaos-"))
+        workdir.mkdir(parents=True, exist_ok=True)
+        print(f"chaos workdir: {workdir}", file=sys.stderr)
+        from tpu_dist_torch.resilience.ps_chaos import run_ps_chaos
+
+        return run_ps_chaos(args, workdir)
     if not args.plan:
-        print("error: --plan is required", file=sys.stderr)
+        print("error: --plan is required (or use --ps-chaos)",
+              file=sys.stderr)
         return 2
     plan = FaultPlan.parse(args.plan)
     if not plan:

@@ -19,7 +19,9 @@ is a training script that
 built-in deterministic workload, the reference CNN on synthetic MNIST,
 whose restarted run reproduces the uninterrupted run's final loss (the
 generator is seeded per epoch, and the dataset's cardinality equals
-``steps_per_epoch``).
+``steps_per_epoch``). :func:`demo_ps_worker` and :func:`demo_ps_server` are
+the same workload as the parameter server's two roles
+(``resilience/ps_chaos.py`` names them in ``TPU_DIST_ENTRY``).
 
 Configuration comes through the environment, so the supervisor launches
 the same argv for every worker of every attempt:
@@ -211,6 +213,84 @@ def demo_train(device: Optional[str] = None) -> dict:
     }
 
 
+def demo_ps_worker(device: Optional[str] = None) -> dict:
+    """The PS chaos legs' worker: :func:`demo_train`'s CNN and data, fit
+    under a :class:`~tpu_dist_torch.parallel.ps_strategy.
+    ParameterServerStrategy` scope on ``device`` (pull, local step, push,
+    no collective; ended by the server's STOP). Every worker reads the same
+    dataset (seed 0), so the asynchronous and synchronous legs' losses are
+    comparable. Configured by ``TPU_DIST_PS_DIR`` / ``_RANK`` / ``_WORLD``
+    / ``_STALENESS`` and the ``TPU_DIST_DEMO_*`` knobs."""
+    from tpu_dist_torch.models.cnn import build_and_compile_cnn_model
+    from tpu_dist_torch.parallel.ps_strategy import ParameterServerStrategy
+
+    epochs = _env_int("TPU_DIST_DEMO_EPOCHS", 3)
+    steps_per_epoch = _env_int("TPU_DIST_DEMO_STEPS_PER_EPOCH", 4)
+    batch = _env_int("TPU_DIST_DEMO_BATCH", 32)
+    ds = demo_dataset(n=batch * steps_per_epoch, batch=batch)
+    strategy = ParameterServerStrategy(device=device)
+    with strategy.scope():
+        model = build_and_compile_cnn_model(learning_rate=0.01)
+        history = model.fit(ds, epochs=epochs,
+                            steps_per_epoch=steps_per_epoch, verbose=0)
+    losses = [round(float(l), 10) for l in history.history.get("loss", [])]
+    return {
+        "role": "worker",
+        "rank": strategy.rank,
+        "pushes": strategy.pushed,
+        "final_loss": losses[-1] if losses else None,
+        "losses": losses,
+    }
+
+
+def demo_ps_server(device: Optional[str] = None) -> dict:
+    """The PS chaos legs' server on ``device``: owns the parameters and
+    the optimizer state, applies pushed gradients until the apply budget
+    (``TPU_DIST_PS_BUDGET``, default epochs x steps x world) is spent,
+    then evaluates the final parameters on the demo dataset: the
+    ``final_loss`` the convergence gates compare."""
+    import numpy as np
+    import torch
+
+    from tpu_dist_torch.cluster import ps_transport
+    from tpu_dist_torch.cluster.ps_transport import PSDir
+    from tpu_dist_torch.models.cnn import build_and_compile_cnn_model
+    from tpu_dist_torch.parallel.ps_strategy import PSServer
+
+    epochs = _env_int("TPU_DIST_DEMO_EPOCHS", 3)
+    steps_per_epoch = _env_int("TPU_DIST_DEMO_STEPS_PER_EPOCH", 4)
+    batch = _env_int("TPU_DIST_DEMO_BATCH", 32)
+    world = ps_transport.world_from_env()
+    budget = _env_int("TPU_DIST_PS_BUDGET", epochs * steps_per_epoch * world)
+    ps_dir = os.environ.get(ps_transport.PS_DIR_ENV)
+    if not ps_dir:
+        raise ValueError(f"demo_ps_server needs ${ps_transport.PS_DIR_ENV}")
+    model = build_and_compile_cnn_model(learning_rate=0.01, device=device)
+    server = PSServer(
+        model, PSDir(ps_dir), num_workers=world, budget=budget,
+        sync=ps_transport.sync_from_env(),
+        checkpoint_dir=os.environ.get(CHECKPOINT_DIR_ENV),
+        ckpt_every=_env_int("TPU_DIST_PS_CKPT_EVERY", 8),
+        retain_grads=os.environ.get("TPU_DIST_PS_RETAIN_GRADS") == "1")
+    stats = server.run()
+    # The final parameters' loss on the demo dataset: the PS counterpart
+    # of the synchronous demo's last-epoch loss.
+    losses = []
+    dev = next(model.parameters()).device
+    model.eval()
+    with torch.no_grad():
+        for xb, yb in demo_dataset(n=batch * steps_per_epoch,
+                                   batch=batch).as_numpy_iterator():
+            logits = model(torch.from_numpy(np.asarray(xb)).to(dev))
+            losses.append(float(model.loss(
+                logits, torch.from_numpy(np.asarray(yb)).to(dev))))
+    return {
+        "role": "server",
+        "final_loss": round(float(np.mean(losses)), 10) if losses else None,
+        **stats,
+    }
+
+
 def run_entry(fn: Callable[[], Optional[dict]]) -> int:
     """Run ``fn`` under the resilience protocol; returns the exit code:
     0 with a ``RESULT:`` line; ``EXIT_PEER_UNAVAILABLE`` (logged
@@ -262,8 +342,9 @@ def run_entry(fn: Callable[[], Optional[dict]]) -> int:
 
 def resolve_entry(device: Optional[str] = None
                   ) -> Callable[[], Optional[dict]]:
-    """The callable ``$TPU_DIST_ENTRY`` names (``module:callable``), else
-    :func:`demo_train` on ``device``."""
+    """The callable ``$TPU_DIST_ENTRY`` names (``module:callable``), given
+    ``device`` when it takes one (the PS demos do), else :func:`demo_train`
+    on ``device``."""
     spec = os.environ.get(ENTRY_ENV)
     if not spec:
         return functools.partial(demo_train, device=device)
@@ -272,10 +353,13 @@ def resolve_entry(device: Optional[str] = None
         raise ValueError(
             f"${ENTRY_ENV} must be 'module:callable', got {spec!r}")
     import importlib
+    import inspect
 
     fn = getattr(importlib.import_module(mod_name), fn_name)
     if not callable(fn):
         raise TypeError(f"{spec} is not callable")
+    if device is not None and "device" in inspect.signature(fn).parameters:
+        return functools.partial(fn, device=device)
     return fn
 
 

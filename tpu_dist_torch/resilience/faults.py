@@ -6,8 +6,8 @@ exit codes and the JSON form are the reference's, so a plan written for
 either package arms the other. The port's serve engine arms the serve
 kinds (:class:`~tpu_dist_torch.resilience.injector.ServeFaultInjector`),
 ``fit`` the training kinds (:class:`~tpu_dist_torch.resilience.injector.
-FaultInjector`); the job kinds parse here and are armed by the jobs
-runtime, which comes later (ROADMAP.md queue 1, item 20).
+FaultInjector`), the job kinds too, in the ``fit`` of a packed job's
+worker (``jobs/``), whose ``$TPU_DIST_JOB_INDEX`` selects them.
 
 A plan is a list of :class:`FaultSpec` entries, each naming *what* breaks
 (``kind``), *where* (worker ``rank``), *when* (global optimizer ``step`` or

@@ -22,8 +22,8 @@ Counterpart of ``tpu_dist/serve/cli.py``:
   stream against a solo baseline, gated routing, failover
   (``replica_kill@reqN:replicaR``) and storm (``router_storm@reqN:xM``)
   invariants; exits 0 iff every gate holds, 2 with a solo fault kind.
-  ``--devices-per-replica`` (a leased submesh each) is item 20 of
-  ROADMAP.md's queue 1 and raises ``unported``.
+  ``--devices-per-replica 1`` leases each replica a slot of the jobs
+  runtime (``jobs/runtime.py``); more than 1 is ROADMAP item 12b.
 
 Set ``$TPU_DIST_OBSERVE_DIR`` to also export the metrics snapshot of a
 ``--bench`` or demo run as a schema-versioned JSONL series and a
@@ -315,8 +315,8 @@ def main(argv=None) -> int:
                    help="distinct shared-prefix sessions in the --fleet "
                         "workload (affinity anti-vacuity needs >= 1)")
     p.add_argument("--devices-per-replica", type=int, default=None,
-                   help="lease a submesh of this many devices per replica "
-                        "(not ported yet: item 20)")
+                   help="lease each replica a slot of this many devices "
+                        "through the jobs runtime (1; more is item 12b)")
     args = p.parse_args(argv)
 
     if args.fleet:

@@ -1,7 +1,6 @@
 """ServeEngine: the continuous-batching inference loop on one device.
 
-Counterpart of ``tpu_dist/serve/engine.py`` (without its jobs runtime,
-ROADMAP.md queue 1, item 20). Scheduling stays
+Counterpart of ``tpu_dist/serve/engine.py``. Scheduling stays
 host-side in ``scheduler.py`` (and ``paging.py`` for the paged pool), math
 in ``kv_cache.py``; the engine owns the model on its device, the KV cache
 or page pool and the host mirrors of per-slot decode state:
@@ -29,7 +28,11 @@ through one :class:`~tpu_dist_torch.utils.graphs.CapturedProgram`: the
 first call runs eagerly, the second captures a CUDA graph, every later one
 replays it from static input buffers that pinned staging fills. The host
 mirrors and page tables cross to the card by that staging; on the CPU the
-functions run eagerly on copies of them. :meth:`compiled_programs` reports
+functions run eagerly on copies of them. Under a job scope
+(``jobs/runtime.py``) the engine serves on the job's slot unless given a
+device, and its captured programs live in the job's ``MeshRuntime`` cache
+(:meth:`ServeEngine._acquire_program`); outside one nothing changes.
+:meth:`compiled_programs` reports
 the keys used, the reference's program families, and
 :attr:`ServeEngine.capture_seconds` the time spent capturing, which is
 no request's. Every step emits host-side metrics (``observe/metrics.py``)
@@ -50,8 +53,10 @@ from __future__ import annotations
 
 import collections
 import functools
+import itertools
 import logging
 import os
+import sys
 import threading
 import time
 from typing import Optional, Sequence
@@ -70,6 +75,18 @@ from tpu_dist_torch.utils import graphs
 from tpu_dist_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
+
+
+def _current_job():
+    """The active job scope, read through ``sys.modules`` so a solo engine
+    never imports the jobs runtime (its solo no-op)."""
+    mod = sys.modules.get("tpu_dist_torch.jobs.runtime")
+    return mod.current_job() if mod is not None else None
+
+
+#: Engine serials: the cache-key part that keeps two engines of one model
+#: from sharing job-cached programs.
+_ENGINE_SERIALS = itertools.count()
 
 _MIN_PROMPT_PAD = 8
 
@@ -208,6 +225,10 @@ class ServeEngine:
                  prefix_caching: bool = True, prefill_chunk: int = 0,
                  prefill_interleave: int = 1, kv_dtype=None,
                  ragged: bool = False, device=None):
+        self._job = _current_job()
+        self._serial = next(_ENGINE_SERIALS)
+        if device is None and self._job is not None:
+            device = self._job.strategy.device
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.plan = kv_cache.build_plan(model)
@@ -605,14 +626,25 @@ class ServeEngine:
                          else v for n, v in inputs.items()})
         prog = self.programs.get((family, key))
         if prog is None:
-            prog = self.programs[(family, key)] = graphs.CapturedProgram(
-                fn, {n: graphs.spec_of(v) for n, v in inputs.items()},
-                device=self.device, pool=self._graph_pool)
+            prog = self.programs[(family, key)] = self._acquire_program(
+                family, key, lambda: graphs.CapturedProgram(
+                    fn, {n: graphs.spec_of(v) for n, v in inputs.items()},
+                    device=self.device, pool=self._graph_pool))
         captured = prog.graph is not None
         out = prog(**inputs)
         if not captured and prog.graph is not None:
             self.capture_seconds += prog.capture_s
         return out
+
+    def _acquire_program(self, family: str, key, builder):
+        """``builder()``'s program: made here outside a job scope; under
+        one, taken from the job's ``MeshRuntime`` cache under a key of the
+        job, the model, this engine and ``(family, key)``."""
+        if self._job is None:
+            return builder()
+        return self._job.runtime.cached(
+            self._job.program_key(self.model.name, self._serial, family,
+                                  key), builder)
 
     def _copy_pages(self, copies) -> None:
         """Run the copy-on-write ``(src, dst)`` page copies in order."""

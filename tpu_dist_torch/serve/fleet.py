@@ -46,8 +46,12 @@ and ``router_storm@reqN:xM`` injects an M-request chaff burst through
 the router at submission index N.  Both are armed only here; the solo
 chaos driver rejects them.
 
-Leasing a submesh per replica (``devices_per_replica``) is item 20 of
-ROADMAP.md's queue 1 and raises ``unported``.
+``devices_per_replica`` leases each replica a slot of a
+:class:`~tpu_dist_torch.jobs.runtime.MeshRuntime` (one slot a replica on
+the fleet's ``device``: replicas of one process share its card) and runs
+it under :func:`~tpu_dist_torch.jobs.runtime.job_scope`, so its engine's
+captured programs live in the runtime's cache; a replica of several
+devices is ROADMAP item 12b and raises ``unported``.
 
 Threading contract: each engine is constructed
 AND stepped only on its worker thread (thread-confined); the router
@@ -195,8 +199,11 @@ class ReplicaWorker:
     def __init__(self, index: int, factory: Callable, *,
                  events_q: "queue.Queue", poll_s: float = 0.005,
                  faults: Sequence[FaultSpec] = (),
-                 journal_dir: Optional[str] = None):
+                 journal_dir: Optional[str] = None,
+                 runtime=None, spec=None):
         self.index = index
+        self._runtime = runtime          # MeshRuntime, or None (no lease)
+        self._spec = spec                # JobSpec for the lease, or None
         self._factory = factory
         self._events = events_q
         self._poll_s = float(poll_s)
@@ -252,7 +259,13 @@ class ReplicaWorker:
 
     def _run(self) -> None:
         try:
-            self._serve()
+            if self._runtime is not None and self._spec is not None:
+                from tpu_dist_torch.jobs.runtime import job_scope
+
+                with job_scope(self._runtime, self._spec):
+                    self._serve()
+            else:
+                self._serve()
         except ReplicaKilled as exc:
             self._die(str(exc), killed=True)
         except BaseException as exc:  # replica death is data, not a crash
@@ -433,8 +446,10 @@ class ServeFleet:
 
     ``factory(replica_index, *, journal, fault_injector)`` must build a
     fresh ServeEngine; it runs on the worker thread.
-    ``devices_per_replica`` (a leased submesh each) and ``runtime`` come
-    with item 20 of ROADMAP.md's queue 1 and raise ``unported``.
+    ``devices_per_replica=1`` leases each replica a slot of ``runtime``
+    (default: one slot a possible replica, each ``device``, the CUDA
+    device unless ``"cpu"``) under a job scope; more than 1 is ROADMAP
+    item 12b.
     """
 
     def __init__(self, factory: Callable, *, replicas: int = 2,
@@ -445,12 +460,17 @@ class ServeFleet:
                  devices_per_replica: Optional[int] = None,
                  runtime=None, storm_vocab: int = 128,
                  storm_seed: int = 0, poll_s: float = 0.005,
-                 affinity_load_slack: Optional[int] = 8):
-        if devices_per_replica is not None or runtime is not None:
-            raise unported("ServeFleet(devices_per_replica=...)", 20)
+                 affinity_load_slack: Optional[int] = 8,
+                 device=None):
+        if devices_per_replica is not None and int(devices_per_replica) > 1:
+            raise unported("a fleet replica of several devices in one "
+                           "process", "12b")
         if replicas < 1:
             raise ValueError(f"fleet needs >= 1 replica, got {replicas}")
         self._factory = factory
+        self._devices_per_replica = devices_per_replica
+        self._runtime = runtime
+        self._device = device
         self._page_size = int(page_size)
         self._poll_s = float(poll_s)
         self._autoscale = autoscale
@@ -503,9 +523,16 @@ class ServeFleet:
     def _spawn(self, index: int) -> ReplicaWorker:
         jdir = self._journal_root / f"replica-{index}"
         jdir.mkdir(parents=True, exist_ok=True)
+        runtime = spec = None
+        if self._devices_per_replica:
+            from tpu_dist_torch.jobs.spec import JobSpec
+
+            runtime = self._ensure_runtime()
+            spec = JobSpec(name=f"fleet-r{index}", kind="serve",
+                           devices=int(self._devices_per_replica))
         w = ReplicaWorker(index, self._factory, events_q=self._events,
                           poll_s=self._poll_s, faults=self._kill_faults,
-                          journal_dir=str(jdir))
+                          journal_dir=str(jdir), runtime=runtime, spec=spec)
         self._workers[index] = w
         self._outstanding[index] = 0
         self._inflight[index] = {}
@@ -513,6 +540,21 @@ class ServeFleet:
         w.start()
         metrics.set_gauge("fleet.replicas", float(len(self.alive_indices())))
         return w
+
+    def _ensure_runtime(self):
+        """The replicas' pool: one slot a replica the fleet may hold (its
+        initial count, or the autoscaler's bound), each the fleet's
+        device."""
+        if self._runtime is None:
+            from tpu_dist_torch.jobs.runtime import MeshRuntime
+            from tpu_dist_torch.utils.device import resolve_device
+
+            most = max(self._initial, self._autoscale.max_replicas
+                       if self._autoscale is not None else 0)
+            device = resolve_device(self._device)
+            self._runtime = MeshRuntime(
+                [device] * (most * int(self._devices_per_replica)))
+        return self._runtime
 
     def close(self, *, timeout_s: float = 30.0) -> None:
         """Gracefully retire every replica: drain accepted work, flush
@@ -904,8 +946,9 @@ def run_fleet(args) -> int:
     from tpu_dist_torch.serve.cli import _build_engine
     from tpu_dist_torch.utils.device import device_name
 
-    if args.devices_per_replica is not None:
-        raise unported("--devices-per-replica", 20)
+    if args.devices_per_replica is not None and args.devices_per_replica > 1:
+        raise unported("a fleet replica of several devices in one process",
+                       "12b")
     metrics.get_registry().reset()
     metrics.enable()
     plan = (FaultPlan.parse(args.plan)
@@ -944,8 +987,10 @@ def run_fleet(args) -> int:
     journal_root = os.path.join(workdir, "fleet-journals") if workdir else None
     fleet = ServeFleet(factory, replicas=args.fleet_replicas,
                        page_size=page_size, journal_root=journal_root,
-                       plan=plan, storm_vocab=args.vocab,
-                       storm_seed=args.seed)
+                       plan=plan,
+                       devices_per_replica=args.devices_per_replica,
+                       storm_vocab=args.vocab, storm_seed=args.seed,
+                       device=args.device)
     print(f"fleet: {args.fleet_replicas} replica(s), {sessions} session(s), "
           f"plan={'; '.join(describe_faults(plan)) if plan.faults else 'none'}")
     fleet.start()

@@ -88,6 +88,14 @@ epoch's start. Elasticity: ``$TPU_DIST_REJOIN_DIR`` adds the epoch
 (:meth:`Trainer._gang_reform`: the same in-place restore and rewind, after
 the clique is reformed); with neither set, nothing changes.
 
+Under a ``ParameterServerStrategy`` (``parallel/ps_strategy.py``) ``fit``
+is the asynchronous worker's loop (:meth:`Trainer._fit_ps`): pull the
+published parameters, one forward and backward, push the gradients, until
+the server's STOP. Under a job scope (``jobs/runtime.py``) the strategy is
+the job's slot and the steps and captured programs are taken from the
+job's ``MeshRuntime`` cache (:meth:`Trainer._acquire_program`); outside
+one the trainer never imports the runtime.
+
 ``fit(profile_dir=D)`` records a ``torch.profiler`` trace of the epochs
 into ``D`` on the chief (``utils/profiler.py``), each execution marked
 with a step annotation, as the JAX package traces its fit. Captured
@@ -151,6 +159,7 @@ import contextlib
 import itertools
 import logging
 import os
+import sys
 import time
 from typing import Optional, Sequence
 
@@ -282,6 +291,20 @@ def _mean_floats(tensors, group=None) -> None:
                                collectives.ReduceOp.MEAN, group=group)
 
 
+def _current_job():
+    """The active job scope (``jobs/runtime.py``), read through
+    ``sys.modules``: a run that never imports the jobs runtime pays
+    nothing, not even the import, and builds and keeps its programs as
+    before (the runtime's solo no-op)."""
+    mod = sys.modules.get("tpu_dist_torch.jobs.runtime")
+    return mod.current_job() if mod is not None else None
+
+
+#: Trainer serials: the cache-key part that keeps one model's successive
+#: trainers from sharing each other's job-cached programs.
+_TRAINER_SERIALS = itertools.count()
+
+
 def _tensors(tree) -> list:
     """The tensors of a nest of lists, tuples and dicts, in order."""
     if isinstance(tree, torch.Tensor):
@@ -372,7 +395,12 @@ class Trainer:
         from tpu_dist_torch.parallel.strategy import get_strategy
 
         self.model = model
-        self.strategy = model.strategy or get_strategy()
+        # Under a job scope the strategy is the job's leased slot, and the
+        # programs land in the pool's cache (_acquire_program).
+        self._job = _current_job()
+        self._serial = next(_TRAINER_SERIALS)
+        self.strategy = model.strategy or (
+            self._job.strategy if self._job is not None else get_strategy())
         #: The replicas' group (the data axis's beside a model or sequence
         #: axis; None: every process).
         self.group = self.strategy.data_group
@@ -469,6 +497,18 @@ class Trainer:
         draws = (getattr(self.model, "_apply_fn", None) is not None
                  or any(isinstance(m, Dropout) for m in self.model.modules()))
         return (self.rng,) if draws else ()
+
+    def _acquire_program(self, kind: str, builder, *variant):
+        """``builder()``'s program: outside a job scope made here and kept
+        where the caller keeps it, as before; under one, taken from the
+        job's ``MeshRuntime`` cache (``runtime.cached``) under a key of the
+        job, the model, this trainer and ``kind`` and ``variant``, so the
+        pool's program population is inspectable."""
+        if self._job is None:
+            return builder()
+        key = self._job.program_key(self.model.name, self._serial, kind,
+                                    *variant)
+        return self._job.runtime.cached(key, builder)
 
     def _init_metric_states(self) -> tuple:
         return tuple(m.init(self.device) for m in self.model.metrics)
@@ -742,6 +782,25 @@ class Trainer:
             checkpoint_dir: Optional[str] = None,
             class_weight: Optional[dict] = None) -> History:
         self.ensure_variables(seed)
+        from tpu_dist_torch.parallel.ps_strategy import \
+            ParameterServerStrategy
+
+        if isinstance(self.strategy, ParameterServerStrategy):
+            # The asynchronous execution model: pull, local step, push
+            # against the PS transport, instead of the epoch loop below.
+            if not self.strategy.is_worker:
+                raise ValueError(
+                    "fit() under ParameterServerStrategy runs on worker "
+                    "ranks; the server rank runs PSServer.run() "
+                    "(tpu_dist_torch.parallel.ps_strategy)")
+            if class_weight:
+                raise ValueError(
+                    "class_weight is not supported under "
+                    "ParameterServerStrategy")
+            return self._fit_ps(x, epochs=epochs,
+                                steps_per_epoch=steps_per_epoch,
+                                verbose=verbose, callbacks=callbacks,
+                                initial_epoch=initial_epoch, seed=seed)
         if class_weight is not None:
             class_weight = {int(c): float(w) for c, w in class_weight.items()}
             if any(c < 0 for c in class_weight):
@@ -758,9 +817,15 @@ class Trainer:
                 self._step_health = integrity.StepHealth(
                     self.variables["params"])
             health = self._step_health
-        step = self._step(class_weight, transform, health)
-        multi = (self._multi_step(class_weight, transform, health)
-                 if self.model.steps_per_execution > 1 else None)
+        variant = self._train_variant(class_weight, transform,
+                                      armed=health is not None)
+        step = self._acquire_program(
+            "train_step", lambda: self._step(class_weight, transform, health),
+            variant)
+        multi = (self._acquire_program(
+            "multi_step",
+            lambda: self._multi_step(class_weight, transform, health),
+            variant) if self.model.steps_per_execution > 1 else None)
         if steps_per_epoch is None:
             steps_per_epoch = batches.cardinality()
             if steps_per_epoch is None:
@@ -844,6 +909,151 @@ class Trainer:
             self._close_prefetcher()
             self._fit_start = None
             cbs.on_train_end()
+        return history
+
+    # -- the parameter-server worker -------------------------------------------
+
+    def _build_ps_worker_step(self, device_transform=None):
+        """The PS worker's local step, ``(x, y) -> (loss, grads)``: forward
+        and backward only (the JAX package's ``ps_worker_step``). No
+        update, as the server owns the optimizer state, and no collective,
+        as the strategy is one device. On CUDA the LM's step launches the
+        flash forward and backward kernels and, with a fused loss, the
+        fused CE pair."""
+        from tpu_dist_torch.models.model import Model
+        from tpu_dist_torch.parallel.expert import MixtureOfExperts
+
+        model, device = self.model, self.device
+        params = self.variables["params"]
+        aux_sources = [m for m in model.modules()
+                       if (isinstance(m, Model) and m._apply_fn is not None)
+                       or isinstance(m, MixtureOfExperts)]
+
+        def step(x, y):
+            x = _place(x, device, device_transform)
+            y = _to_device(y, device)
+            for p in params:
+                p.grad = None
+            logits = model(x)
+            loss = model.loss(logits, y)
+            aux = _aux_loss_total(aux_sources)
+            if aux is not None:
+                loss = loss + aux
+            loss.backward()
+            return loss.detach(), [p.grad for p in params]
+
+        return step
+
+    def _fit_ps(self, x, *, epochs: int, steps_per_epoch: Optional[int],
+                verbose: int, callbacks: Sequence, initial_epoch: int,
+                seed: int) -> History:
+        """The worker side of asynchronous PS training: pull the
+        parameters (bounded staleness is enforced there), run one local
+        step, push the gradients, until the server orders STOP or the
+        local cap is reached. "Epochs" are local-step bookkeeping, so
+        History and callbacks keep their shape. Dropout draws from the
+        trainer's generator reseeded per (rank, local step)
+        (``worker_step_key``). Checkpoints and validation stay with the
+        server."""
+        from tpu_dist_torch.observe.telemetry import (
+            Telemetry, maybe_telemetry_from_env)
+        from tpu_dist_torch.parallel import ps_strategy
+        from tpu_dist_torch.resilience.injector import (
+            maybe_injector_from_env, maybe_preemption_drain)
+
+        strategy = self.strategy
+        batches = self._distribute(x)
+        transform = getattr(batches, "device_transform", None)
+        if steps_per_epoch is None:
+            steps_per_epoch = batches.cardinality()
+            if steps_per_epoch is None:
+                raise ValueError("the dataset's cardinality is unknown; "
+                                 "pass steps_per_epoch")
+        ps_step = self._acquire_program(
+            "ps_worker_step", lambda: self._build_ps_worker_step(transform),
+            _transform_key(transform))
+        callbacks = list(callbacks)
+        for cb in (maybe_injector_from_env(steps_per_epoch=steps_per_epoch),
+                   maybe_preemption_drain()):
+            if cb is not None:
+                callbacks.append(cb)
+        if not any(isinstance(cb, Telemetry) for cb in callbacks):
+            telemetry = maybe_telemetry_from_env()
+            if telemetry is not None:
+                callbacks.append(telemetry)
+        history = History()
+        cbs = CallbackList([history, *callbacks], model=self.model)
+        show = bool(verbose)
+        root_key = seed ^ 0x5EED
+        template = ps_strategy.params_tree(self.model)
+        names = [n for n, _ in self.model.named_parameters()]
+        rank = strategy.rank
+        world = max(1, strategy.num_workers)
+        # The cap is the global budget, not this worker's share: under a
+        # straggler the fast workers cover its applies, and the server's
+        # STOP is the real end.
+        max_local = (epochs - initial_epoch) * steps_per_epoch * world
+        local_step = 0
+        stopped = False
+        logger.info("PS worker %d: staleness=%d, steps_per_epoch=%d, "
+                    "local cap=%d", rank, strategy.staleness,
+                    steps_per_epoch, max_local)
+        cbs.on_train_begin()
+        try:
+            with _mode(self.model, True):
+                for epoch in range(initial_epoch, epochs * world):
+                    cbs.on_epoch_begin(epoch)
+                    if show:
+                        print(f"Epoch {epoch + 1}/{epochs} (PS worker "
+                              f"{rank})")
+                    bar = ProgressBar(steps_per_epoch, enabled=show)
+                    loss_sum = 0.0
+                    steps_this_epoch = 0
+                    t_epoch = time.perf_counter()
+                    for si in range(steps_per_epoch):
+                        pulled = strategy.pull(template)
+                        if pulled is None:  # the server ordered STOP
+                            stopped = True
+                            break
+                        ps_strategy.load_params(self.model, pulled[0])
+                        xb, yb = (batches.next_batch()
+                                  if isinstance(batches, DeviceDataset)
+                                  else self._next_batch(batches))
+                        ps_strategy.worker_step_key(
+                            root_key, rank=rank, local_step=local_step,
+                            generator=self.rng)
+                        loss, grads = ps_step(xb, yb)
+                        # The straggler seam, between compute and push:
+                        # the sync stack's collective fault hook, so one
+                        # fault grammar serves both execution models.
+                        collectives.fire_fault_hook("ps_step")
+                        loss_val = float(loss)
+                        strategy.push(ps_strategy.named_tree(
+                            zip(names, grads)), loss=loss_val)
+                        strategy.heartbeat(step=local_step)
+                        local_step += 1
+                        steps_this_epoch += 1
+                        loss_sum += loss_val
+                        bar.update(si + 1, loss=loss_sum / steps_this_epoch)
+                        cbs.on_batch_end(si, {"loss": loss_val})
+                        if local_step >= max_local:
+                            stopped = True
+                            break
+                    if steps_this_epoch:
+                        logs = {"loss": loss_sum / steps_this_epoch,
+                                "epoch_time": time.perf_counter() - t_epoch}
+                        bar.finish(logs)
+                        cbs.on_epoch_end(epoch, logs)
+                    if stopped:
+                        break
+        except StopTraining as e:
+            logger.info("PS worker %d stopped early: %s", rank, e)
+        finally:
+            self._close_prefetcher()
+            strategy.mark_done(steps=local_step)
+            cbs.on_train_end()
+        logger.info("PS worker %d done: %d local steps, %d pushes",
+                    rank, local_step, strategy.pushed)
         return history
 
     def _live(self) -> dict:
@@ -1304,9 +1514,11 @@ class Trainer:
             self._predict_pool = torch.cuda.graph_pool_handle()
         fn = ((lambda xb: model(transform(xb))) if transform is not None
               else (lambda xb: model(xb)))
-        make = lambda: graphs.CapturedProgram(
-            fn, {"xb": spec}, device=device, pool=self._predict_pool)
         key = (*self._eval_variant(transform), spec)
         held = (list(model.parameters()), list(model.buffers()))
+        make = lambda: self._acquire_program(
+            "predict", lambda: graphs.CapturedProgram(
+                fn, {"xb": spec}, device=device, pool=self._predict_pool),
+            key, tuple((id(t), t.data_ptr()) for t in _tensors(held)))
         return _run_program(self._predict_programs, key, held, make,
                             {"xb": xb})
