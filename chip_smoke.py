@@ -372,7 +372,9 @@ plain PyTorch version. Phases:
     gather and write), the restore seconds; launches (16, 16, 4, 4, 4, 0) a
     rank; (d) on the same two ranks, ``bootstrap.reinitialize`` of their
     gloo group of CUDA tensors: an all-reduce at generation 0, the re-dial
-    on base + 1, the all-reduce again; teardown and bring-up seconds.
+    on base + 1, the all-reduce again; teardown and bring-up seconds. The
+    one-process fit whose v2 step (c) restores runs while the workers
+    start (they wait for its pointer).
 33. jobs and the parameter server: (a) the benchmark LM at full width as
     a parameter server: a ``PSServer`` in this process with
     ``Adam(fused=True)`` and two worker processes (``chip_smoke.py
@@ -396,6 +398,24 @@ plain PyTorch version. Phases:
     ``MeshRuntime`` slot under a job scope, its captured programs in the
     runtime's cache) against the same fleet without it: the same tokens or
     certified ties, flash launches depth x requests.
+34. analysis on the card's machine (no JAX there): (a) the four modes of
+    ``python -m tpu_dist_torch.analysis`` over ``tpu_dist_torch/`` (the
+    check mode at ``--fail-on error``, ``--concurrency --strict``,
+    ``--determinism --strict``, ``cost --baseline`` the committed
+    baseline) as subprocesses beside (b) and (c), each exit 0, with their
+    seconds; (b) the benchmark LM's train step (64 x 512, fp32,
+    ``Adam(fused=True)``, the fused CE) recorded on the card by
+    ``CollectiveRecorder(device="cuda")`` after one warm step: the same
+    loss, parameters and launch counts, bit for bit, as a twin's
+    unrecorded step; the recorded peak of live tensor bytes (plus what was
+    allocated before the step) against ``torch.cuda.max_memory_allocated``
+    over the same step, which it may fall below by at most
+    ``PEAK_TOL_BYTES`` + ``PEAK_TOL_FRAC`` of the card's peak; (c) phase
+    29's tensor-parallel step (``TP_AXES``, 8 x 512) recorded on a
+    two-rank fake process group on the card, no process started: its
+    collectives a step, ``{(op, shape, dtype): count}``, equal to what
+    phase 29 (a)'s gloo rank 0 counted, both ranks' sequences clean of
+    SC201/SC203, and the modeled comm bytes a step.
 
 Every phase's seconds are logged (``[time]``) and listed at the end.
 
@@ -4104,6 +4124,13 @@ def _spawn_dp_workers(tmp: pathlib.Path, flag: str = "--dp-worker",
     """Both workers (``chip_smoke.py <flag> DIR``) to their end, each within
     DP_TIMEOUT_S; a failure or a hang raises with the tail of its log.
     Returns their records."""
+    return _finish_dp_workers(tmp, *_start_dp_workers(tmp, flag, env))
+
+
+def _start_dp_workers(tmp: pathlib.Path, flag: str = "--dp-worker",
+                      env: dict | None = None) -> tuple:
+    """Start :func:`_spawn_dp_workers`'s workers; ``(processes, logs,
+    flag)`` for :func:`_finish_dp_workers`."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
@@ -4122,6 +4149,25 @@ def _spawn_dp_workers(tmp: pathlib.Path, flag: str = "--dp-worker",
                 [sys.executable, str(root / "chip_smoke.py"), flag,
                  str(tmp)], cwd=root, env=worker_env, stdout=logs[-1],
                 stderr=subprocess.STDOUT))
+    except BaseException:
+        _stop_workers(procs, logs)
+        raise
+    return procs, logs, flag
+
+
+def _stop_workers(procs: list, logs: list) -> None:
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    for f in logs:
+        f.close()
+
+
+def _finish_dp_workers(tmp: pathlib.Path, procs: list, logs: list,
+                       flag: str) -> list:
+    """Wait for started workers (see :func:`_spawn_dp_workers`)."""
+    try:
         deadline = time.monotonic() + DP_TIMEOUT_S
         for rank, p in enumerate(procs):
             try:
@@ -4137,12 +4183,7 @@ def _spawn_dp_workers(tmp: pathlib.Path, flag: str = "--dp-worker",
                     f"({flag}) worker {rank} exit {p.returncode} (timeout "
                     f"{DP_TIMEOUT_S} s):\n{tail}")
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        for f in logs:
-            f.close()
+        _stop_workers(procs, logs)
     return [torch.load(tmp / f"worker{r}.pt", weights_only=False)
             for r in range(DP_WORKERS)]
 
@@ -5807,6 +5848,8 @@ def tp_phase(card: str) -> dict:
     want_counts = (depth * steps, depth * steps, steps, steps, steps, 0)
     # (a) fp32.
     a0, a1 = r0["fp32"], r1["fp32"]
+    _TP_RANK0_CALLS.update(
+        {k: v[0] for k, v in a0["collectives"].items()})
     if (a0["loss"] != a1["loss"] or r0["replicas"] != 1
             or r0["backend"] != "gloo"
             or any(not torch.equal(a0["replicated"][n], a1["replicated"][n])
@@ -6682,6 +6725,8 @@ def train_chaos_phase(card: str) -> dict:
 RESHAPE_RUN = {"b": ["--reshape", "2,1", "--plan", "preempt@step5"]}
 #: (c): 2 epochs x 2 steps of the benchmark LM at 8 x 512 under TP_AXES.
 ELASTIC_EPOCHS, ELASTIC_STEPS, ELASTIC_BATCH = 2, 2, 8
+#: (c): how long a worker waits for the parent's one-process step.
+ELASTIC_ONE_WAIT_S = 300
 
 
 def _elastic_data():
@@ -6742,7 +6787,14 @@ def elastic_worker(outdir: pathlib.Path) -> int:
             outdir / f"timed_{label}" / "ckpt-0", rank, chief)
     del model
     torch.cuda.empty_cache()
-    # 1 -> 2: the one-process v2 step onto both ranks, then an epoch.
+    # 1 -> 2: the one-process v2 step onto both ranks, then an epoch. The
+    # parent fits and saves it while the workers start and fit.
+    deadline = time.monotonic() + ELASTIC_ONE_WAIT_S
+    while checkpoint.latest_step(outdir / "one") is None:
+        if time.monotonic() > deadline:
+            raise AssertionError(f"(32 c) no one-process step in "
+                                 f"{ELASTIC_ONE_WAIT_S} s")
+        time.sleep(0.1)
     with strategy.scope():
         reader = _elastic_lm()
     torch.distributed.barrier()
@@ -6804,16 +6856,23 @@ def elastic_phase(card: str) -> dict:
     # alone.
     reshape, tmp_b = _BACKGROUND.pop("reshape", None) or (
         _start_chaos(RESHAPE_RUN, tmp), tmp)
+    # The workers start (~8 s each to reach the card) while this process
+    # fits and saves the one-process step they restore after their fit.
     c = tmp / "c"
     c.mkdir()
-    one = _elastic_lm()
-    one.fit(_elastic_data(), epochs=1, steps_per_epoch=ELASTIC_STEPS,
-            verbose=0)
-    checkpoint.save(c / "one", one, step=0, sharded=True)
-    del one
-    torch.cuda.empty_cache()
     t_workers = time.monotonic()
-    workers = _spawn_dp_workers(c, "--elastic-worker")
+    spawned = _start_dp_workers(c, "--elastic-worker")
+    try:
+        one = _elastic_lm()
+        one.fit(_elastic_data(), epochs=1, steps_per_epoch=ELASTIC_STEPS,
+                verbose=0)
+        checkpoint.save(c / "one", one, step=0, sharded=True)
+        del one
+        torch.cuda.empty_cache()
+    except BaseException:
+        _stop_workers(*spawned[:2])
+        raise
+    workers = _finish_dp_workers(c, *spawned)
     t_workers = time.monotonic() - t_workers
     # (c) every stitched v2 leaf against the v1 step's, bit for bit.
     with np.load(c / "v1" / "ckpt-1" / "arrays.npz") as z:
@@ -7357,6 +7416,188 @@ def jobs_phase(card: str) -> dict:
 _PHASE_S: dict = {}
 
 
+# -- phase 34: analysis on the card's machine --------------------------------------
+
+#: (a): the four modes of the port's shardcheck over its own tree.
+ANALYSIS_MODES = {
+    "check": ["tpu_dist_torch/", "--fail-on", "error"],
+    "concurrency": ["--concurrency", "--strict", "tpu_dist_torch/"],
+    "determinism": ["--determinism", "--strict", "tpu_dist_torch/"],
+    "cost": ["cost", "--baseline",
+             "tpu_dist_torch/analysis/ANALYSIS_BASELINE.json"],
+}
+ANALYSIS_TIMEOUT_S = 300
+#: (b): how far the recorded peak (plus what was allocated before the
+#: step) may fall below ``max_memory_allocated``. The recorder sees every
+#: tensor an op returns, not what an op allocates and frees inside itself
+#: (cuBLAS/cuDNN workspaces, a reduction's scratch), and the allocator
+#: rounds each block up to 512 bytes: a few MiB of workspace and ~512 B a
+#: live tensor, well inside 8 MiB plus 1 % of the step's peak.
+PEAK_TOL_BYTES, PEAK_TOL_FRAC = 8 << 20, 0.01
+#: (c): phase 29 (a)'s rank-0 model-axis collectives a step, ``{(op,
+#: shape, dtype): calls a step}`` (filled by :func:`tp_phase`).
+_TP_RANK0_CALLS: dict = {}
+#: (c): the recorder's c10d ops under ModelShard's names for them.
+_C10D_AS_SHARD_OP = {"allreduce_": "all_reduce", "allgather_": "all_gather"}
+
+
+def _start_analysis(tmp: pathlib.Path) -> dict:
+    """(a): each mode as a subprocess (on the host's CPU, as the CLI
+    records); ``{mode: (process, start, log path)}``."""
+    root = pathlib.Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, [str(root), os.environ.get("PYTHONPATH")])))
+    started = {}
+    for mode, args in ANALYSIS_MODES.items():
+        path = tmp / f"analysis_{mode}.out"
+        with open(path, "wb") as out:
+            started[mode] = (subprocess.Popen(
+                [sys.executable, "-m", "tpu_dist_torch.analysis", *args],
+                cwd=root, env=env, stdout=out, stderr=subprocess.STDOUT),
+                time.monotonic(), path)
+    _BACKGROUND["analysis"] = ({m: v[0] for m, v in started.items()},)
+    return started
+
+
+def _finish_analysis(started: dict, card: str) -> None:
+    """(a): each mode's exit and its seconds from its start to its end."""
+    ended: dict = {}
+    while len(ended) < len(started):
+        for mode, (proc, t0, _) in started.items():
+            if mode not in ended and proc.poll() is not None:
+                ended[mode] = (proc.returncode, time.monotonic() - t0)
+            elif (mode not in ended
+                  and time.monotonic() - t0 > ANALYSIS_TIMEOUT_S):
+                proc.kill()
+                ended[mode] = ("timeout", time.monotonic() - t0)
+        time.sleep(0.05)
+    for mode, (proc, t0, path) in started.items():
+        code, seconds = ended[mode]
+        tail = path.read_text(errors="replace").strip().splitlines()
+        if code != 0:
+            raise AssertionError(f"(34 a) {mode} exited {code}: "
+                                 f"{tail[-20:]}")
+        log(f"[34 a] python -m tpu_dist_torch.analysis "
+            f"{' '.join(ANALYSIS_MODES[mode])}: exit 0 in {seconds:.1f} s "
+            f"({tail[-1] if tail else ''}); {card}")
+    _BACKGROUND.pop("analysis", None)
+
+
+def _recorded_lm_step(card: str) -> None:
+    """(b): the full-width LM's step recorded on the card against a
+    twin's unrecorded step."""
+    from tpu_dist_torch.analysis import costmodel
+    from tpu_dist_torch.analysis.trace_checks import CollectiveRecorder
+
+    x, y = _bench_tokens(TRAIN_BATCH)
+    runs = {}
+    for label in ("plain", "recorded"):
+        model = _compiled_lm(Adam(fused=True), fused_ce=True)
+        fn, st = model.make_train_function(), model.train_state()
+        fn(*st, x, y)  # the warm step: leaf tables, cuBLAS handles
+        torch.cuda.synchronize()
+        _reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        if label == "recorded":
+            with CollectiveRecorder("cuda") as rec:
+                loss = fn(*st, x, y)
+                torch.cuda.synchronize()
+        else:
+            loss = fn(*st, x, y)
+            torch.cuda.synchronize()
+        runs[label] = {
+            "loss": loss.clone(), "counts": _counts(),
+            "peak": torch.cuda.max_memory_allocated(), "before": before,
+            "params": [p.detach().clone() for p in model.parameters()]}
+        if label == "recorded":
+            runs[label]["rec"] = rec.recording
+        del model, fn, st, loss
+        torch.cuda.empty_cache()
+    plain, got = runs["plain"], runs["recorded"]
+    if not (torch.equal(plain["loss"], got["loss"])
+            and all(torch.equal(a, b) for a, b in zip(plain["params"],
+                                                      got["params"]))):
+        raise AssertionError("(34 b) the recorded step's loss or parameters "
+                             "differ from the unrecorded twin's")
+    want = (LM["depth"], LM["depth"], 1, 1, 1, 0)
+    if plain["counts"] != got["counts"] or got["counts"] != want:
+        raise AssertionError(f"(34 b) launches recorded {got['counts']}, "
+                             f"unrecorded {plain['counts']}, want {want}")
+    rec = got["rec"]
+    modeled = got["before"] + costmodel.peak_live_bytes(rec)
+    card_peak = got["peak"]
+    tol = PEAK_TOL_BYTES + PEAK_TOL_FRAC * card_peak
+    if modeled < card_peak - tol:
+        raise AssertionError(
+            f"(34 b) recorded peak {modeled} B falls {card_peak - modeled} "
+            f"B below max_memory_allocated {card_peak} B (tolerance "
+            f"{tol:.0f} B)")
+    log(f"[34 b] the LM step ({TRAIN_BATCH} x {LM['seq_len']}, fp32, "
+        f"Adam(fused=True), fused CE) recorded on the card: loss "
+        f"{float(got['loss']):.6f} and {len(got['params'])} parameters bit "
+        f"for bit with the unrecorded twin's, launches {got['counts']} both; "
+        f"recorded peak of live tensors {costmodel.peak_live_bytes(rec)} B "
+        f"+ allocated before the step {got['before']} B = {modeled} B "
+        f"against max_memory_allocated {card_peak} B ({modeled / card_peak:.4f}"
+        f"x; unrecorded twin's {plain['peak']} B); {len(rec.events)} events "
+        f"({len(rec.comm_events())} collective), random ops "
+        f"{rec.random_ops()}, {rec.flops / 1e12:.3f} TFLOP modeled; {card}")
+
+
+def _recorded_tp_step(card: str) -> None:
+    """(c): phase 29's tensor-parallel step on a two-rank fake group on
+    the card."""
+    from tpu_dist_torch.analysis import costmodel, trace_checks
+
+    x, y = _bench_tokens(TP_BATCH)
+    recs = {}
+    for rank in range(2):
+        with trace_checks.fake_group(rank, 2, device=torch.device(
+                "cuda", torch.cuda.current_device())):
+            strategy = MultiWorkerMirroredStrategy(communication="ring",
+                                                   axis_shapes=TP_AXES)
+            with strategy.scope():
+                model = _compiled_lm(Adam(ADAM_LR, fused=True),
+                                     fused_ce=True)
+            fn, st = model.make_train_function(), model.train_state()
+            recs[rank] = trace_checks.record(
+                lambda: fn(*st, x, y), device="cuda",
+                axis_of=trace_checks.axis_map(TP_AXES), rank=rank, world=2)
+            torch.cuda.synchronize()
+            del model, fn, st, strategy
+        torch.cuda.empty_cache()
+    findings = trace_checks.check_trace({0: recs},
+                                        label="phase 29's TP step")
+    if findings:
+        raise AssertionError(f"(34 c) {[f.render() for f in findings]}")
+    got = {}
+    for (op, shape, dtype), n in recs[0].collective_counts().items():
+        key = (_C10D_AS_SHARD_OP.get(op, op), shape, f"torch.{dtype}")
+        got[key] = got.get(key, 0) + n
+    if not _TP_RANK0_CALLS or got != _TP_RANK0_CALLS:
+        raise AssertionError(f"(34 c) recorded collectives a step {got}; "
+                             f"phase 29 (a)'s rank 0 {_TP_RANK0_CALLS}")
+    report = costmodel.analyze_trace(recs[0], entry="tp_step")
+    log(f"[34 c] phase 29's step ({TP_AXES}, {TP_BATCH} x {LM['seq_len']}) "
+        f"recorded on a two-rank fake group on the card: collectives a "
+        f"step {sorted(got.items())} equal phase 29 (a)'s rank 0's; modeled "
+        f"comm {report.total_comm_bytes} B a step "
+        f"({report.total_comm_bytes / 2**20:.3f} MiB), recorded peak "
+        f"{report.peak_hbm_bytes} B; {card}")
+
+
+def analysis_phase(card: str) -> None:
+    """Phase 34: (a) the CLI's four modes beside (b) and (c)."""
+    t0 = time.monotonic()
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip-smoke-34-"))
+    started = _start_analysis(tmp)
+    _recorded_lm_step(card)
+    _recorded_tp_step(card)
+    _finish_analysis(started, card)
+    log(f"[34] done in {time.monotonic() - t0:.1f} s")
+
+
 def _timed(name: str, fn, *args):
     """``fn(*args)``, its seconds logged and kept under ``name``."""
     t0 = time.monotonic()
@@ -7539,6 +7780,7 @@ def main() -> int:
         record["launches_by_path"][label] = counts[0]
         for rec in bwd_records:
             rec["launches_by_path"][label] = counts[1]
+    _timed("34", analysis_phase, card)
     # In the order of the TPU kernel table (PERF.md): rows 1-9.
     records = [*new_records, adam_record, record, *bwd_records]
     log(f"[time] phases (s): {json.dumps(_PHASE_S)}")

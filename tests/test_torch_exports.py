@@ -17,13 +17,17 @@ jpolicy = importlib.import_module("tpu_dist.models.policy")
 tpolicy = importlib.import_module("tpu_dist_torch.models.policy")
 
 PACKAGES = ("", "ops", "serve", "training", "observe", "models", "data",
-            "parallel", "cluster", "resilience", "jobs")
+            "parallel", "cluster", "resilience", "jobs", "analysis")
 
 #: Reference names the port does not have yet -> the ROADMAP.md queue-1
 #: item (or decision) that covers them.
 NOT_YET_PORTED = {
     "OptaxWrapper": "not ported, by decision (optax has no PyTorch "
                     "counterpart)",
+    "check_jaxpr": "not ported, by decision (PyTorch has no jaxpr): "
+                   "check_trace checks a recorded entry point",
+    "analyze_jaxpr": "not ported, by decision (PyTorch has no jaxpr): "
+                     "analyze_trace prices a recorded entry point",
 }
 
 

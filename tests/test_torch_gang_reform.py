@@ -60,7 +60,10 @@ TOL = dict(atol=1e-5, rtol=1e-5)
 def fresh_generation(monkeypatch):
     """Both packages' generation caches and their env mirror reset, so a
     test that bumps the generation leaks into no other."""
-    monkeypatch.delenv(bootstrap.GENERATION_ENV, raising=False)
+    # setenv first, so that monkeypatch records the caller's value (or its
+    # absence) and restores it after ``reinitialize`` wrote os.environ.
+    monkeypatch.setenv(bootstrap.GENERATION_ENV, "0")
+    monkeypatch.delenv(bootstrap.GENERATION_ENV)
     saved = bootstrap._GENERATION, jboot._GENERATION
     bootstrap._GENERATION = jboot._GENERATION = None
     yield

@@ -202,7 +202,18 @@ def test_submit_validates_early_and_the_state_machine():
     assert lease.released and sched.settled()
 
 
+#: The gang wiring the port's ``_pool_env`` drops and the reference's keeps:
+#: a pool inside a reformed gang must not hand its jobs the caller's
+#: generation or gang directories (a port note).
+_PORT_ONLY_DROPS = ("TPU_DIST_REJOIN_DIR", "TPU_DIST_GANG_DIR",
+                    "TPU_DIST_GANG_GENERATION", "TPU_DIST_REJOIN_WORLD")
+
+
 def test_pool_env_strips_job_and_gang_wiring(monkeypatch):
+    # The caller's gang wiring is cleared first: an in-process reform run
+    # earlier in the same worker may have left a generation behind.
+    for var in _PORT_ONLY_DROPS:
+        monkeypatch.delenv(var, raising=False)
     for var in (FAULT_PLAN_ENV, events.EVENT_LOG_ENV, JOB_SPEC_ENV,
                 JOB_ROOT_ENV, JOB_INDEX_ENV, "TF_CONFIG",
                 "TPU_DIST_REJOIN_RANK"):
@@ -214,6 +225,18 @@ def test_pool_env_strips_job_and_gang_wiring(monkeypatch):
         assert var not in env
     ref = jscheduler._pool_env({})
     assert set(ref) - set(env) <= {"TF_CONFIG", "TPU_DIST_REJOIN_RANK"}
+
+
+def test_pool_env_holds_with_the_gang_wiring_inherited(monkeypatch):
+    """The test above, run where a reform left the gang variables set."""
+    for var in _PORT_ONLY_DROPS:
+        monkeypatch.setenv(var, "3")
+    test_pool_env_strips_job_and_gang_wiring(monkeypatch)
+    env = _pool_env({})
+    assert not set(_PORT_ONLY_DROPS) & set(env)
+    for var in _PORT_ONLY_DROPS:
+        monkeypatch.setenv(var, "3")
+    assert set(_PORT_ONLY_DROPS) <= set(jscheduler._pool_env({}))
 
 
 def test_the_cli_takes_the_references_arguments_and_mixes():

